@@ -1,0 +1,1 @@
+"""evaluation layer of the PyTorch port (counterpart of deeppicarditeration_tpu/evaluation)."""

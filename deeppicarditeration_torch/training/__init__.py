@@ -1,0 +1,1 @@
+"""training layer of the PyTorch port (counterpart of deeppicarditeration_tpu/training)."""
