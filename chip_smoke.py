@@ -1,29 +1,50 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA card and check it.
+"""Drive the PyTorch port's generation paths on one NVIDIA card and check them.
 
-    python3 chip_smoke.py                   # the main path for 3 iterations
-    python3 chip_smoke.py --iterations 100  # the recipe's full Picard budget
+    python3 chip_smoke.py                   # every path for 3 iterations
+    python3 chip_smoke.py --iterations 100  # the recipes' full Picard budget
+
+Paths (the Burgers 100-d w1.0 recipe through ``PicardRunner`` at full
+width: nx=100, 4x128 ELU net, B=4096 points from the path's sampler):
+  A  the merged estimator kernel (``csrc/generate.cu``), M=4096;
+  B  DATA.TPU.PALLAS_GENERATE false, PALLAS_TERMINAL and PALLAS_INTEGRAL
+     true: the standalone terminal and integral kernels (``terminal.cu``,
+     ``integral.cu``);
+  C  PALLAS_GENERATE false, PRNG true: the chunk estimators (64 chunks of
+     64 samples each, Kahan over chunks), normals from ``normals.cu``;
+  D  configs/burgers/base_100d_T1.0_w1.0_best.yaml: M=8192 with antithetic
+     pairing, through the merged kernel.
+Each path's kernel launch counts are read around its run (every count set
+to 0 just before) and checked against its generation calls.
 
 Phases (each failure exits non-zero; the result line is printed last, and
 only when every phase passed):
-  1. build the path's CUDA kernel from ``deeppicarditeration_torch/csrc``;
-  2. the merged estimator kernel against its plain PyTorch version on the
-     same external noise, at full width (nx=100, 4x128 ELU, B=256,
-     M=4096), for the zero iterate and for a random net;
-  3. the kernel's in-kernel Philox normals against the plain version's
+  1. build the four CUDA kernels from ``deeppicarditeration_torch/csrc``
+     (one nvcc each, all started together);
+  2. the merged kernel against its plain PyTorch version on the same
+     external noise (B=256, M=4096; zero iterate and a random net);
+  3. the merged kernel's Philox normals against the plain version's
      torch.Generator normals (B=64): within 5 CLT standard errors per
      output, and a mean squared z-score near 1;
-  4. the main path: the Burgers 100-d w1.0 recipe (the dict below equals
-     configs/burgers/base_100d_T1.0_w1.0.yaml with its BASE chain; a CPU
-     test holds it to the YAML) through ``PicardRunner`` at full width
-     for PICARD.N = 3 iterations (``--iterations``), with the kernel
-     launch count read around the run;
-  5. at the main path's shapes (B=4096 points from its sampler, M=4096)
-     and with its zero and trained iterates: the kernel against the plain
-     version on the same external noise, and its Philox draws against
-     torch.Generator draws (a Bonferroni CLT bound over all outputs);
-     then kernel and plain-version times and the kernel's bound, printed
-     as one ``{"kernels": [...]}`` JSON line.
+  4. path A, 3 iterations (``--iterations``);
+  5. at path A's shapes (B=4096, M=4096) with its zero and trained
+     iterates: the merged kernel against the plain version on the same
+     noise and its Philox draws against torch.Generator draws (a
+     Bonferroni CLT bound over all outputs); the merged kernel with
+     antithetic pairing on the same half noise at M=8192;
+  6. at the same shapes: the terminal and integral kernels against their
+     plain versions on the same noise, with and without antithetic
+     pairing (the integral with the zero and the trained iterate); the
+     in-kernel draws of the merged, terminal and integral kernels against
+     the host Philox of ``ops/philox.py``, value for value (each kernel
+     with its own draws equals its plain version fed the host's draws, at
+     the first and last 8 points); the normals kernel's values against the
+     host Philox at the head and the end of a 2^28 buffer, its moments over
+     2^30 draws, its lag 1-8 correlations, and its independence from the
+     buffer's shape;
+  7. paths B, C and D, 3 iterations each;
+  8. kernel, plain-version and library times at the paths' shapes, and
+     each kernel's bound, printed as one ``{"kernels": [...]}`` JSON line.
 Needs one NVIDIA H100 SXM card; imports nothing of JAX.
 """
 
@@ -64,27 +85,78 @@ BURGERS_W1_RECIPE = {
     "EVAL": {"L2_N_POINTS": 10000, "FREQ": 8, "TEST_GRAD": True},
 }
 
+# configs/burgers/base_100d_T1.0_w1.0_best.yaml on top of the w1.0 recipe
+BURGERS_W1_BEST = {
+    "NAME": BURGERS_W1_RECIPE["NAME"] + "_w1.0_best",
+    "DATA": {"kwargs": {"n_estimate_terminal": 8192,
+                        "n_estimate_integral": 8192},
+             "TPU": {"ANTITHETIC": True}},
+}
+
+# path -> (recipe layers, CLI-style overrides)
+PATHS = {
+    "A": ((BURGERS_W1_RECIPE,), []),
+    "B": ((BURGERS_W1_RECIPE,),
+          ["DATA.TPU.PALLAS_GENERATE", "false",
+           "DATA.TPU.PALLAS_TERMINAL", "true",
+           "DATA.TPU.PALLAS_INTEGRAL", "true"]),
+    "C": ((BURGERS_W1_RECIPE,),
+          ["DATA.TPU.PALLAS_GENERATE", "false", "DATA.TPU.PRNG", "true"]),
+    "D": ((BURGERS_W1_RECIPE, BURGERS_W1_BEST), []),
+}
+
 TOL = 5e-5  # kernel vs plain on the same noise: rtol = atol
 CLT_SIGMAS = 5.0  # per output, phase 3
-CLT_FAMILY_P = 1e-3  # chance of a false failure over all outputs, phase 5
+CLT_FAMILY_P = 1e-3  # chance of a false failure over all outputs
 Z2_BAND = (0.8, 1.25)  # mean (|diff|/SE)^2, 1 expected
+EXACT_SEED = (7 << 32) | 5  # in-kernel vs host draws: both seed words used
+EDGE = 8  # points checked at each end of the launch
+DRAW_TOL = 1e-5  # normals kernel vs host Philox: rtol = atol
+NORMALS_CHECK = 2 ** 16  # values checked at each end of the buffer
 RRMSE_MAX = 0.35
+NORMALS_CHUNK = (4096, 64, 100)  # path C's per-chunk draw
 
 # NVIDIA's data sheet for the H100 SXM (dense, at 700 W): FP32 FLOP/s
 # outside the tensor cores, and HBM3 bytes/s
 H100_SXM = "H100 80GB HBM3"
+SMS = 132
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
+# Per-SM issue rates per clock for compute capability 9.0 (CUDA C++
+# Programming Guide, arithmetic instruction throughput): 128 FP32
+# add/multiply/FMA, 64 32-bit integer add/logical/shift/multiply, 16
+# special functions (log2, exp2, sin, cos, rsqrt, rcp). The clock is the
+# one at which 128 FMA/SM give the data sheet's FP32 peak (~1.98 GHz).
+CLOCK_HZ = PEAK_FP32_FLOPS / (SMS * 128 * 2)
+PEAK_INT32_OPS = SMS * 64 * CLOCK_HZ
+PEAK_SFU_OPS = SMS * 16 * CLOCK_HZ
+# Work per N(0,1) draw, as the kernels need it (Box-Muller on Philox bits):
+# a quarter of a Philox4x32-10 call -- 10 rounds of 2 32x32 products, each
+# a high and a low half (4 integer multiplies), and 2 three-input XORs (one
+# LOP3 each on sm_90); the key schedule depends on the key alone, fixed for
+# a launch (normals.cu) or a block (the estimators), so it is hoisted --
+# plus a shift and an OR to make the uniform; half a Box-Muller: log, sqrt,
+# sin, cos per pair (2 special functions), and 3 FP32 ops.
+PHILOX_INT_OPS = 10 * (4 + 2)
+INT_PER_NORMAL = PHILOX_INT_OPS // 4 + 2
+SFU_PER_NORMAL, FP32_PER_NORMAL = 2, 3
 
 
-def burgers_w1_cfg(n_iter: int, device: str = "cuda"):
+def path_cfg(path: str, n_iter: int, device: str = "cuda"):
     from deeppicarditeration_torch.config import default_cfg
 
+    layers, overrides = PATHS[path]
     cfg = default_cfg()
-    cfg.merge(BURGERS_W1_RECIPE, allow_new=False)
+    for layer in layers:
+        cfg.merge(layer, allow_new=False)
+    cfg.merge_from_list(list(overrides))
     cfg.PICARD.N = n_iter
     cfg.DEVICE = device
     return cfg.freeze()
+
+
+def burgers_w1_cfg(n_iter: int, device: str = "cuda"):
+    return path_cfg("A", n_iter, device)
 
 
 def _fail(msg: str) -> None:
@@ -105,21 +177,15 @@ def _time_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def _same_noise(label, eq, sol, tx, m, u01, nt, ni) -> float:
-    """Kernel vs plain version on the same external noise; fails on a
-    mismatch, else returns the max |diff|."""
+def _same(label: str, out, ref) -> float:
+    """Kernel vs plain version on the same noise; fails on a mismatch, else
+    returns the max |diff|."""
     import torch
 
-    from deeppicarditeration_torch.ops import kernels
-
-    out = kernels.generate_with_gradients_cuda(0, eq, sol, tx, m, u01, nt, ni)
-    ref = kernels.generate_with_gradients_plain(0, eq, sol, tx, m, u01, nt,
-                                                ni)
     torch.cuda.synchronize()
     err = (out - ref).abs()
     ok = bool((err <= TOL + TOL * ref.abs()).all())
-    print(f"kernel vs plain ({label}, B={tx.shape[0]} M={m} "
-          f"nx={tx.shape[1] - 1}): max |diff| {float(err.max()):.3e}, "
+    print(f"kernel vs plain ({label}): max |diff| {float(err.max()):.3e}, "
           f"within rtol=atol={TOL}: {ok}")
     if not ok or not torch.isfinite(out).all():
         _fail(f"kernel disagrees with its plain version ({label})")
@@ -142,6 +208,27 @@ def _clt(label, out, ref, var, m, bound) -> None:
               f"({label})")
 
 
+def _bonferroni(n_out: int) -> float:
+    return statistics.NormalDist().inv_cdf(1 - CLT_FAMILY_P / (2 * n_out))
+
+
+def _host_draws(seed, points, rows, nx, device):
+    """The estimator kernels' own draws at ``points`` (rows of tx in the
+    launch), from the host Philox: (u01, terminal dW, integral dW)."""
+    import torch
+
+    from deeppicarditeration_torch.ops import philox
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+
+    return (dev(philox.estimator_times(seed, points, rows)),
+            dev(philox.estimator_normals(seed, points, rows, nx,
+                                         philox.STREAM_TERMINAL)),
+            dev(philox.estimator_normals(seed, points, rows, nx,
+                                         philox.STREAM_INTEGRAL)))
+
+
 def _problem(b, m, nx, net, seed, device):
     import torch
 
@@ -160,10 +247,142 @@ def _problem(b, m, nx, net, seed, device):
     return eq, sol, torch.cat([t, x], 1).to(device)
 
 
+# ---- work and bound models (per call, from the call's shapes) -------------
+
+def _terminal_work(b, m, nx, anti):
+    """(FP32 ops, INT32 ops, special functions, bytes) of one terminal
+    estimator call: the normals, X_T and the sums (5 FP32 per sample and
+    dimension), the sigmoid per sample; t, x, g0 in, (B, 1 + nx) out."""
+    n = b * (m // 2 if anti else m) * nx
+    return (FP32_PER_NORMAL * n + 5 * b * m * nx + 4 * b * m,
+            INT_PER_NORMAL * n, SFU_PER_NORMAL * n + 2 * b * m,
+            4 * (b * (2 + nx) + b * (1 + nx)))
+
+
+def _integral_work(b, m, nx, anti, neurons, n_weights):
+    """The same for one integral estimator call: normals and the time
+    uniforms, X_s and the sums (4 FP32 per sample and dimension), the net's
+    forward and backward pass (``generate_flops_per_sample``), an exp per
+    hidden unit (ELU), ~10 FP32 and 2 special functions per sample; t, x,
+    f0 and the weights in, (B, 1 + nx) out."""
+    from deeppicarditeration_torch.ops.kernels import (
+        generate_flops_per_sample,
+    )
+
+    rows = m // 2 if anti else m
+    n, n_u = b * rows * nx, b * rows
+    net = generate_flops_per_sample(nx, neurons) if neurons else 0
+    return (FP32_PER_NORMAL * n + n_u + b * m * (net + 4 * nx + 10),
+            INT_PER_NORMAL * (n + n_u),
+            SFU_PER_NORMAL * n + b * m * (2 + sum(neurons)),
+            4 * (b * (2 + nx) + n_weights + b * (1 + nx)))
+
+
+def _merged_work(b, m, nx, anti, neurons, n_weights):
+    t = _terminal_work(b, m, nx, anti)
+    i = _integral_work(b, m, nx, anti, neurons, n_weights)
+    return tuple(a + c for a, c in zip(t[:3], i[:3])) + (i[3] + 4 * b,)
+
+
+def _normals_work(n):
+    return (FP32_PER_NORMAL * n, INT_PER_NORMAL * n, SFU_PER_NORMAL * n,
+            4 * n)
+
+
+def _bound(work):
+    """(bound ms, "bytes" | "operations", binding pipe): the larger of the
+    bytes over HBM3's rate and the busiest pipe's operations over its
+    rate (the pipes run side by side)."""
+    fp32, int_ops, sfu, n_bytes = work
+    t = {"FP32": fp32 / PEAK_FP32_FLOPS, "INT32": int_ops / PEAK_INT32_OPS,
+         "SFU": sfu / PEAK_SFU_OPS}
+    pipe = max(t, key=t.get)
+    t_bytes = n_bytes / PEAK_BYTES_S
+    if t_bytes > t[pipe]:
+        return t_bytes * 1e3, "bytes", "HBM"
+    return t[pipe] * 1e3, "operations", pipe
+
+
+# ---- paths -----------------------------------------------------------------
+
+def _run_path(path: str, n_iter: int):
+    """Run one path; returns (runner, {library name: launches})."""
+    import torch
+
+    from deeppicarditeration_torch.ops import estimators as est
+    from deeppicarditeration_torch.ops import kernels
+    from deeppicarditeration_torch.training.picard import PicardRunner
+
+    cfg = path_cfg(path, n_iter)
+    runner = PicardRunner(cfg, exp_root=ROOT / "build" / "chip_smoke_runs"
+                          / path)
+    for lib in kernels.ALL:
+        lib.launches = 0
+    for route in est.route_calls:
+        est.route_calls[route] = 0
+    t0 = time.perf_counter()
+    runner.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {lib.source.stem: lib.launches for lib in kernels.ALL}
+    routes = dict(est.route_calls)
+    rows = [json.loads(ln) for ln in
+            (runner.exp_dir / "metrics.jsonl").read_text().splitlines()]
+    final = {}
+    for r in rows:
+        if r["context"] == "eval":
+            final[int(r["iter"])] = r
+    for tm in runner.timings:
+        ev = final.get(tm["iter"], {})
+        print(f"path {path} iteration {tm['iter']}: generate "
+              f"{tm['generate_ms']:.1f} ms, fit {tm['fit_ms']:.1f} ms, "
+              f"rRMSE {ev.get('rRMSE')}, rRMSEg {ev.get('rRMSEg')}")
+    print(f"path {path}: {n_iter} iterations in {wall:.1f} s; generation "
+          f"calls {runner.generate_calls}, by the route taken {routes}; "
+          f"launches {launches}")
+    steady = [tm for tm in runner.timings if tm["iter"] > 1]
+    if len(steady) >= 2:
+        for key in ("generate_ms", "fit_ms"):
+            v = [tm[key] for tm in steady]
+            q = statistics.quantiles(v, n=4)
+            print(f"path {path} steady state (iterations 2-{n_iter}): {key} "
+                  f"median {statistics.median(v):.1f}, quartiles "
+                  f"{q[0]:.1f}-{q[2]:.1f}")
+    curve = [final[i]["rRMSE"] for i in sorted(final)]
+    if curve:
+        last = final[max(final)]
+        print(f"path {path} final rRMSE {last['rRMSE']}, rRMSEg "
+              f"{last['rRMSEg']}; mean rRMSE of the last "
+              f"{min(10, len(curve))} iterations "
+              f"{statistics.mean(curve[-10:])}")
+    for i in range(1, n_iter + 1):
+        r = final.get(i, {}).get("rRMSE")
+        if r is None or not math.isfinite(r) or r > RRMSE_MAX:
+            _fail(f"path {path} iteration {i} rRMSE {r} (want finite and "
+                  f"<= {RRMSE_MAX})")
+    return runner, launches, routes
+
+
+def _expect_launches(path, runner, launches, routes, want):
+    """Fail unless every kernel launched exactly ``want`` times (0 where not
+    named) and the dispatch took the path's route for every generation
+    call."""
+    from deeppicarditeration_torch.ops import estimators as est
+
+    full = {name: want.get(name, 0) for name in launches}
+    route = est.MERGED if path in ("A", "D") else est.SPLIT
+    want_routes = {r: runner.generate_calls if r == route else 0
+                   for r in routes}
+    if (launches != full or runner.generate_calls == 0
+            or routes != want_routes):
+        _fail(f"path {path}: launches {launches}, want {full}; routes "
+              f"{routes}, want {want_routes}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iterations", type=int, default=3,
-                    help="Picard iterations of the main path (default 3)")
+                    help="Picard iterations of each path (default 3)")
     args = ap.parse_args(argv)
     import torch
 
@@ -180,11 +399,8 @@ def main(argv=None) -> int:
     from deeppicarditeration_torch.device import make_generator
     from deeppicarditeration_torch.models.solution import Solution
     from deeppicarditeration_torch.ops import estimators as est
-    from deeppicarditeration_torch.ops import kernels
-    from deeppicarditeration_torch.training.picard import (
-        PicardRunner,
-        gen_config_from_cfg,
-    )
+    from deeppicarditeration_torch.ops import kernels, philox
+    from deeppicarditeration_torch.training.picard import gen_config_from_cfg
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -199,28 +415,35 @@ def main(argv=None) -> int:
     if H100_SXM not in name:
         _fail(f"the bound uses the peaks of the H100 SXM ({H100_SXM!r}); "
               f"this card is {name!r}")
+    t_start = time.perf_counter()
 
     # ---- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    lib = kernels.GENERATE
-    lib.lib()
-    info = [ln.strip() for ln in lib.build_log.splitlines()
-            if "registers" in ln or "spill" in ln]
-    print(f"build: {time.perf_counter() - t0:.1f} s; {lib.so_path.name}; "
-          + " | ".join(info))
+    kernels.build(*kernels.ALL)
+    print(f"build: {time.perf_counter() - t0:.1f} s for "
+          f"{len(kernels.ALL)} kernels in parallel")
+    for lib in kernels.ALL:
+        info = [ln.strip() for ln in lib.build_log.splitlines()
+                if "registers" in ln or "spill" in ln]
+        print(f"  {lib.so_path.name}: nvcc {lib.build_seconds or 0:.1f} s; "
+              + " | ".join(info))
+    max_err = {lib.source.stem: 0.0 for lib in kernels.ALL}
 
-    # ---- 2. kernel vs plain, same external noise, full width ---------------
+    # ---- 2. merged kernel vs plain, same external noise, full width --------
     b, m, nx = 256, 4096, 100
-    max_err = 0.0
     for net in (False, True):
         eq, sol, tx = _problem(b, m, nx, net, 1, dev)
         g = torch.Generator(device=dev).manual_seed(2)
         u01 = torch.rand((b, m, 1), generator=g, device=dev)
         nt = torch.randn((b, m, nx), generator=g, device=dev)
         ni = torch.randn((b, m, nx), generator=g, device=dev)
-        max_err = max(max_err, _same_noise(
-            "random net" if net else "zero iterate", eq, sol, tx, m, u01,
-            nt, ni))
+        label = (f"merged, {'random net' if net else 'zero iterate'}, "
+                 f"B={b} M={m}")
+        max_err["generate"] = max(max_err["generate"], _same(
+            label, kernels.generate_with_gradients_cuda(
+                0, eq, sol, tx, m, u01, nt, ni),
+            kernels.generate_with_gradients_plain(
+                0, eq, sol, tx, m, u01, nt, ni)))
         del u01, nt, ni
 
     # ---- 3. in-kernel Philox vs torch.Generator noise (CLT) ---------------
@@ -228,56 +451,17 @@ def main(argv=None) -> int:
     out = kernels.generate_with_gradients_cuda(20261016, eq, sol, tx, m)
     ref, var = kernels.generate_with_gradients_plain(7, eq, sol, tx, m,
                                                      return_var=True)
-    _clt("random net", out, ref, var, m, CLT_SIGMAS)
+    _clt("merged, random net", out, ref, var, m, CLT_SIGMAS)
 
-    # ---- 4. the main path --------------------------------------------------
+    # ---- 4. path A ---------------------------------------------------------
     n_iter = args.iterations
-    cfg = burgers_w1_cfg(n_iter)
-    runner = PicardRunner(cfg, exp_root=ROOT / "build" / "chip_smoke_runs")
-    kernels.GENERATE.launches = 0
-    t0 = time.perf_counter()
-    runner.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = kernels.GENERATE.launches
-    rows = [json.loads(ln) for ln in
-            (runner.exp_dir / "metrics.jsonl").read_text().splitlines()]
-    final = {}
-    for r in rows:
-        if r["context"] == "eval":
-            final[int(r["iter"])] = r
-    for tm in runner.timings:
-        ev = final.get(tm["iter"], {})
-        print(f"iteration {tm['iter']}: generate {tm['generate_ms']:.1f} ms"
-              f", fit {tm['fit_ms']:.1f} ms, rRMSE {ev.get('rRMSE')}, "
-              f"rRMSEg {ev.get('rRMSEg')}, kernel launches "
-              f"{launches / n_iter:g}/iteration")
-    print(f"main path: {n_iter} iterations in {wall:.1f} s; kernel launches "
-          f"{launches}, generation calls {runner.generate_calls}")
-    steady = [tm for tm in runner.timings if tm["iter"] > 1]
-    if len(steady) >= 2:
-        for key in ("generate_ms", "fit_ms"):
-            v = [tm[key] for tm in steady]
-            q = statistics.quantiles(v, n=4)
-            print(f"steady state (iterations 2-{n_iter}): {key} median "
-                  f"{statistics.median(v):.1f}, quartiles {q[0]:.1f}-"
-                  f"{q[2]:.1f}")
-    curve = [final[i]["rRMSE"] for i in sorted(final)]
-    if curve:
-        last = final[max(final)]
-        print(f"final rRMSE {last['rRMSE']}, rRMSEg {last['rRMSEg']}; mean "
-              f"rRMSE of the last {min(10, len(curve))} iterations "
-              f"{statistics.mean(curve[-10:])}")
-    if launches != runner.generate_calls or launches == 0:
-        _fail("the main path did not generate through the kernel")
-    for i in range(1, n_iter + 1):
-        r = final.get(i, {}).get("rRMSE")
-        if r is None or not math.isfinite(r) or r > RRMSE_MAX:
-            _fail(f"iteration {i} rRMSE {r} (want finite and <= "
-                  f"{RRMSE_MAX})")
+    runner_a, launches_a, routes_a = _run_path("A", n_iter)
+    _expect_launches("A", runner_a, launches_a, routes_a,
+                     {"generate": runner_a.generate_calls})
 
-    # ---- 5. the main path's shapes: same noise, law, times, bound ----------
-    eq, sol = runner.equation, runner.u_current  # the trained iterate
+    # ---- 5. merged kernel at path A's shapes -------------------------------
+    eq, sol = runner_a.equation, runner_a.u_current  # the trained iterate
+    cfg = path_cfg("A", n_iter)
     gen = gen_config_from_cfg(cfg)
     nb, mm = int(cfg.DATA.DATA_SIZE), gen.n_estimate_terminal
     tx = est.sample_tx(make_generator(dev, 4), eq, nb, gen, device=dev)
@@ -285,49 +469,216 @@ def main(argv=None) -> int:
     u01 = torch.rand((nb, mm, 1), generator=g, device=dev)
     nt = torch.randn((nb, mm, nx), generator=g, device=dev)
     ni = torch.randn((nb, mm, nx), generator=g, device=dev)
-    for label, s in (("zero iterate", Solution.zero(nx)),
-                     (f"iterate {n_iter}", sol)):
-        max_err = max(max_err, _same_noise(label, eq, s, tx, mm, u01, nt,
-                                           ni))
-    del u01, nt, ni
+    zero = Solution.zero(nx)
+    for label, s in (("zero iterate", zero), (f"iterate {n_iter}", sol)):
+        max_err["generate"] = max(max_err["generate"], _same(
+            f"merged, {label}, B={nb} M={mm}",
+            kernels.generate_with_gradients_cuda(0, eq, s, tx, mm, u01, nt,
+                                                 ni),
+            kernels.generate_with_gradients_plain(0, eq, s, tx, mm, u01, nt,
+                                                  ni)))
+    # antithetic pairing at M=8192 on the same noise as half draws
+    max_err["generate"] = max(max_err["generate"], _same(
+        f"merged antithetic, iterate {n_iter}, B={nb} M={2 * mm}",
+        kernels.generate_with_gradients_cuda(0, eq, sol, tx, 2 * mm, u01, nt,
+                                             ni, antithetic=True),
+        kernels.generate_with_gradients_plain(0, eq, sol, tx, 2 * mm, u01,
+                                              nt, ni, antithetic=True)))
+    bound_z = _bonferroni(nb * (1 + nx))
     out = kernels.generate_with_gradients_cuda(5, eq, sol, tx, mm)
     ref, var = kernels.generate_with_gradients_plain(7, eq, sol, tx, mm,
                                                      return_var=True)
-    n_out = out.numel()
-    _clt(f"iterate {n_iter}", out, ref, var, mm,
-         statistics.NormalDist().inv_cdf(1 - CLT_FAMILY_P / (2 * n_out)))
+    _clt(f"merged, iterate {n_iter}", out, ref, var, mm, bound_z)
     del out, ref, var
-    ms = _time_ms(lambda: kernels.generate_with_gradients_cuda(
-        5, eq, sol, tx, mm), 3)
-    plain_ms = _time_ms(lambda: kernels.generate_with_gradients_plain(
-        5, eq, sol, tx, mm), 2)
-    n_hidden = len(sol.module.neurons)
-    flops = nb * mm * kernels.generate_flops_per_sample(
-        nx, sol.module.neurons)
+
+    # ---- 6. standalone kernels at the same shapes --------------------------
+    for anti in (False, True):
+        rows = mm // 2 if anti else mm
+        h = nt[:, :rows]
+        max_err["terminal"] = max(max_err["terminal"], _same(
+            f"terminal{' antithetic' if anti else ''}, B={nb} M={mm}",
+            kernels.terminal_with_gradients_cuda(
+                0, eq, tx, mm, h.contiguous(), antithetic=anti),
+            kernels.terminal_with_gradients_plain(
+                0, eq, tx, mm, h, antithetic=anti)))
+        cases = [("zero iterate", zero), (f"iterate {n_iter}", sol)]
+        for label, s in (cases if not anti else cases[1:]):
+            u, n = u01[:, :rows].contiguous(), ni[:, :rows].contiguous()
+            max_err["integral"] = max(max_err["integral"], _same(
+                f"integral{' antithetic' if anti else ''}, {label}, "
+                f"B={nb} M={mm}",
+                kernels.integral_with_gradients_cuda(
+                    0, eq, s, tx, mm, u, n, antithetic=anti),
+                kernels.integral_with_gradients_plain(
+                    0, eq, s, tx, mm, u, n, antithetic=anti)))
+            del u, n
+    del u01, nt, ni
+    # each estimator kernel with its own draws at all nb points, against
+    # its plain version fed the host Philox's draws at the first and last
+    # EDGE points (whose keys are their rows in the launch)
+    pts = list(range(EDGE)) + list(range(nb - EDGE, nb))
+    u_h, nt_h, ni_h = _host_draws(EXACT_SEED, pts, mm, nx, dev)
+    txp = tx[pts]
+    for anti in (False, True):
+        rows = mm // 2 if anti else mm
+        u, a, c = (v[:, :rows].contiguous() for v in (u_h, nt_h, ni_h))
+        tag = (f"{' antithetic' if anti else ''}, iterate {n_iter}, own "
+               f"draws vs host Philox at points 0-{EDGE - 1} and "
+               f"{nb - EDGE}-{nb - 1}, M={mm}")
+        for stem, out, ref in (
+                ("generate",
+                 kernels.generate_with_gradients_cuda(
+                     EXACT_SEED, eq, sol, tx, mm, antithetic=anti),
+                 kernels.generate_with_gradients_plain(
+                     0, eq, sol, txp, mm, u, a, c, antithetic=anti)),
+                ("terminal",
+                 kernels.terminal_with_gradients_cuda(
+                     EXACT_SEED, eq, tx, mm, antithetic=anti),
+                 kernels.terminal_with_gradients_plain(
+                     0, eq, txp, mm, a, antithetic=anti)),
+                ("integral",
+                 kernels.integral_with_gradients_cuda(
+                     EXACT_SEED, eq, sol, tx, mm, antithetic=anti),
+                 kernels.integral_with_gradients_plain(
+                     0, eq, sol, txp, mm, u, c, antithetic=anti))):
+            max_err[stem] = max(max_err[stem],
+                                _same(f"{stem}{tag}", out[pts], ref))
+        del u, a, c
+    del u_h, nt_h, ni_h
+
+    # normals: the host Philox's values at the head and the end of a 2^28
+    # buffer; moments over 4 x 2^28 draws, lag 1-8 correlations; layout
+    n_buf, n_total, lags = 2 ** 28, 0, range(1, 9)
+    s1 = s2 = s4 = 0.0
+    lag = dict.fromkeys(lags, 0.0)
+    for i in range(4):
+        v = kernels.normals_cuda(EXACT_SEED + i, (n_buf,), dev)
+        if not torch.isfinite(v).all():
+            _fail("the normals kernel wrote a non-finite value")
+        for start in ((0, n_buf - NORMALS_CHECK) if i == 0 else ()):
+            ref = torch.from_numpy(philox.normals_flat(
+                EXACT_SEED, start, NORMALS_CHECK)).to(dev)
+            err = (v[start:start + NORMALS_CHECK] - ref).abs()
+            ok = bool((err <= DRAW_TOL + DRAW_TOL * ref.abs()).all())
+            print(f"normals kernel vs host Philox at flat indices {start}-"
+                  f"{start + NORMALS_CHECK - 1}: max |diff| "
+                  f"{float(err.max()):.3e}, within rtol=atol={DRAW_TOL}: "
+                  f"{ok}")
+            if not ok:
+                _fail("the normals kernel's values differ from the host "
+                      "Philox's")
+            max_err["normals"] = max(max_err["normals"], float(err.max()))
+        x = v.double()
+        del v
+        s1 += float(x.sum())
+        s2 += float((x * x).sum())
+        s4 += float((x ** 4).sum())
+        for k in lags:
+            lag[k] += float((x[k:] * x[:-k]).sum())
+        n_total += n_buf
+        del x
+    se = 1.0 / math.sqrt(n_total)
+    z_mom = {"mean": (s1 / n_total) / se,
+             "var": (s2 / n_total - 1.0) / (math.sqrt(2.0) * se),
+             "m4": (s4 / n_total - 3.0) / (math.sqrt(96.0) * se),
+             **{f"lag{k}": (lag[k] / (n_total - 4 * k)) / se for k in lags}}
+    print(f"normals kernel over {n_total} draws: mean {s1 / n_total:.3e}, "
+          f"var {s2 / n_total:.6f}, 4th moment {s4 / n_total:.5f}, lag-1 "
+          f"{lag[1] / (n_total - 4):.3e}; z-scores "
+          + ", ".join(f"{k} {v:.2f}" for k, v in z_mom.items()))
+    if any(abs(v) > CLT_SIGMAS for v in z_mom.values()):
+        _fail("the normals kernel's moments are off N(0, 1)")
+    a = kernels.normals_cuda(11, NORMALS_CHUNK, dev).reshape(-1)
+    c = kernels.normals_cuda(11, (12345, 7), dev).reshape(-1)
+    if not torch.equal(a[:c.numel()], c):
+        _fail("the normals kernel's draws depend on the buffer's shape")
+    print(f"normals kernel: the same seed gives the same {c.numel()} "
+          f"leading values at shapes {NORMALS_CHUNK} and (12345, 7)")
+    del a, c
+
+    # ---- 7. paths B, C, D --------------------------------------------------
+    runner_b, launches_b, routes_b = _run_path("B", n_iter)
+    calls = runner_b.generate_calls
+    _expect_launches("B", runner_b, launches_b, routes_b,
+                     {"terminal": calls, "integral": calls})
+    runner_c, launches_c, routes_c = _run_path("C", n_iter)
+    gen_c = gen_config_from_cfg(path_cfg("C", n_iter))
+    width = est._act_width(runner_c.u_current)
+    per_call = (gen_c.n_estimate_terminal // gen_c.chunk(mm, nb, nx)
+                + gen_c.n_estimate_integral // gen_c.chunk(mm, nb, nx, width))
+    if per_call != 2 * 64 or gen_c.chunk(mm, nb, nx, 0) != 64:
+        _fail(f"path C: {per_call} chunks per call, want 2 x 64")
+    _expect_launches("C", runner_c, launches_c, routes_c,
+                     {"normals": per_call * runner_c.generate_calls})
+    runner_d, launches_d, routes_d = _run_path("D", n_iter)
+    _expect_launches("D", runner_d, launches_d, routes_d,
+                     {"generate": runner_d.generate_calls})
+
+    # ---- 8. times and bounds at the paths' shapes --------------------------
+    neurons = sol.module.neurons
     n_weights = sum(p.numel() for p in sol.module.parameters())
-    n_bytes = 4 * (nb * (1 + nx + 2) + n_weights + nb * (1 + nx))
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    print(f"generate at B={nb} M={mm}: kernel {ms:.2f} ms "
-          f"({flops / ms / 1e9:.1f} TFLOP/s FP32 on the net), plain "
-          f"{plain_ms:.1f} ms, bound {max(t_ops, t_bytes):.2f} ms "
-          f"({flops:.3e} FP32 operations, {n_hidden}x128 net; "
-          f"{2 * nb * mm * nx:.3e} normals)")
-    line = {"kernels": [{
-        "name": "generate_with_gradients",
-        "route": "cuda",
-        "source": "deeppicarditeration_torch/csrc/generate.cu",
-        "replaces": "deeppicarditeration_tpu/ops/pallas_kernels.py:869",
-        "launches": launches,
-        "launches_per_iteration": launches / n_iter,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None,
-    }]}
-    print(json.dumps(line))
+    rows = []
+
+    def row(lib, stem, replaces, path, launches, n_calls, ms, plain_ms,
+            work, library_ms=None, shape=""):
+        bound_ms, bound_by, pipe = _bound(work)
+        print(f"{lib}: {ms:.3f} ms per call at {shape} (path {path}), plain "
+              f"{plain_ms:.3f} ms, library {library_ms}, bound "
+              f"{bound_ms:.3f} ms ({bound_by}, {pipe}; FP32 {work[0]:.3e}, "
+              f"INT32 {work[1]:.3e}, SFU {work[2]:.3e}, bytes "
+              f"{work[3]:.3e}); {ms / bound_ms:.1f}x the bound")
+        rows.append({
+            "name": lib, "route": "cuda",
+            "source": f"deeppicarditeration_torch/csrc/{stem}.cu",
+            "replaces": replaces, "path": path, "launches": launches,
+            "launches_per_iteration": launches / n_iter,
+            "launches_per_call": launches / max(n_calls, 1),
+            "max_abs_err": max_err[stem], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_pipe": pipe,
+            "library_ms": library_ms})
+
+    src = "deeppicarditeration_tpu/ops/pallas_kernels.py"
+    shape = f"B={nb} M={mm} nx={nx}, {len(neurons)}x128 net"
+    row("generate_with_gradients", "generate", f"{src}:869", "A",
+        launches_a["generate"], runner_a.generate_calls,
+        _time_ms(lambda: kernels.generate_with_gradients_cuda(
+            5, eq, sol, tx, mm), 3),
+        _time_ms(lambda: kernels.generate_with_gradients_plain(
+            5, eq, sol, tx, mm), 2),
+        _merged_work(nb, mm, nx, False, neurons, n_weights), shape=shape)
+    ms_d = _time_ms(lambda: kernels.generate_with_gradients_cuda(
+        5, eq, sol, tx, 2 * mm, antithetic=True), 2)
+    bd = _bound(_merged_work(nb, 2 * mm, nx, True, neurons, n_weights))
+    print(f"generate_with_gradients antithetic (path D's shapes, M="
+          f"{2 * mm}): {ms_d:.3f} ms per call, bound {bd[0]:.3f} ms "
+          f"({bd[2]})")
+    row("terminal_with_gradients", "terminal", f"{src}:1244", "B",
+        launches_b["terminal"], runner_b.generate_calls,
+        _time_ms(lambda: kernels.terminal_with_gradients_cuda(
+            5, eq, tx, mm), 10),
+        _time_ms(lambda: kernels.terminal_with_gradients_plain(
+            5, eq, tx, mm), 2),
+        _terminal_work(nb, mm, nx, False), shape=f"B={nb} M={mm} nx={nx}")
+    row("integral_with_gradients", "integral", f"{src}:690", "B",
+        launches_b["integral"], runner_b.generate_calls,
+        _time_ms(lambda: kernels.integral_with_gradients_cuda(
+            5, eq, sol, tx, mm), 3),
+        _time_ms(lambda: kernels.integral_with_gradients_plain(
+            5, eq, sol, tx, mm), 2),
+        _integral_work(nb, mm, nx, False, neurons, n_weights), shape=shape)
+    n_chunk = math.prod(NORMALS_CHUNK)
+    cuda_gen = torch.Generator(device=dev).manual_seed(5)
+    row("normals", "normals", f"{src}:71", "C", launches_c["normals"],
+        runner_c.generate_calls,
+        _time_ms(lambda: kernels.normals_cuda(5, NORMALS_CHUNK, dev), 50),
+        _time_ms(lambda: kernels.normals_plain(5, NORMALS_CHUNK, dev), 50),
+        _normals_work(n_chunk),
+        library_ms=_time_ms(lambda: torch.randn(
+            NORMALS_CHUNK, generator=cuda_gen, device=dev), 50),
+        shape=f"{NORMALS_CHUNK}")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
+          f"card check")
+    print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

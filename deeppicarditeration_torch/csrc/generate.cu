@@ -11,7 +11,12 @@
 //             acc += Tt (f - f0) * (1, dWi / (sqrt(max(s - t, 1e-6)) sqrt(a)))
 //   out = acc / M + (g0 + f0 Tt, 0),  shape (B, 1 + nx) f32.
 // Specialised to the Burgers equation "Cha" (g and ff below) and a Value
-// MLP of ELU hidden layers of width 128 with no output clamp.
+// MLP of ELU hidden layers of width 128 with no output clamp (value_mlp.cuh).
+//
+// Antithetic pairing (anti = 1): samples 2p and 2p + 1 share draw p, the
+// second with both increments negated and the same time u; external noise
+// then has M / 2 rows. The sum over samples is that of the TPU kernel, which
+// mirrors per inner block instead.
 //
 // What bounds it on an H100: FP32 arithmetic. Per sample the net costs
 // ~62.7 k multiply-adds forward and ~49.4 k backward (4x128, nx = 100); the
@@ -22,35 +27,25 @@
 //     atomics: the result is deterministic);
 //   * the block walks its M samples in inner blocks of S = 32; each of its
 //     4 warps owns 8 samples and runs them through the whole net alone
-//     (only __syncwarp inside the net), 8 samples x 4 neurons per lane;
-//   * activations of every hidden layer stay in shared memory for the
-//     backward pass (L x 32 x 128 f32 = 64 KB at L = 4); the backward pass
-//     overwrites them in place with the gradients;
-//   * the weights (251 KB, more than a block's shared memory) are read
-//     straight from global memory through L1/L2, in layouts that make each
-//     warp's loads coalesced: W^T for the forward pass, W for the backward;
-//   * normals come from a Philox4x32-10 generator keyed by (seed, point)
-//     and counted by (sample, quad of dimensions, chain), so the draws do
-//     not depend on the launch shape; Box-Muller uses both outputs.
-// Cha's ff reads u_x only through sum_j u_x_j, so the backward pass stops
-// at the first layer's pre-activation gradient g1 and contracts it with the
-// column sums of W1's x-part: sum_j u_x_j = sum_n g1_n sum_j W1[n, 1 + j].
-// Dots are plain FP32 FMA (f32-equivalent, as the reference requires).
+//     (value_mlp.cuh: only __syncwarp inside the net);
+//   * normals come from Philox4x32-10 keyed by (seed, point) and counted by
+//     (sample, quad of dimensions, chain) (philox.cuh), so the draws do not
+//     depend on the launch shape; Box-Muller uses both outputs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "philox.cuh"
+#include "value_mlp.cuh"
+
 namespace {
 
-constexpr int H = 128;              // hidden width
-constexpr int NC = H / 32;          // neurons per lane
+using namespace dpi;
+
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
-constexpr int SPW = 8;              // samples per warp
 constexpr int S = WARPS * SPW;      // samples per inner block
 constexpr int MAXJ = 4;             // accumulator slots per thread
-constexpr float ST_FLOOR = 1e-6f;   // estimators._ST_FLOOR
-constexpr float TWO_PI = 6.283185307179586f;
 
 struct Params {
   const float* t;        // (B, 1)
@@ -58,69 +53,14 @@ struct Params {
   const float* g0;       // (B, 1)  g(x)
   const float* f0;       // (B, 1)  get_f(t, x)
   const float* w;        // packed net (see pack order in ops/kernels.py)
-  const float* u01;      // (B, M) or null: in-kernel draws
-  const float* noise_t;  // (B, M, nx) or null
-  const float* noise_i;  // (B, M, nx) or null
+  const float* u01;      // (B, Md) or null: in-kernel draws
+  const float* noise_t;  // (B, Md, nx) or null
+  const float* noise_i;  // (B, Md, nx) or null
   float* out;            // (B, 1 + nx)
-  int B, M, nx, L, has_net;
+  int B, M, nx, L, has_net, anti;  // Md = anti ? M / 2 : M
   uint32_t seed_lo, seed_hi;
   float T, alpha_sqrt, k, c0;
 };
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 key) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      key.x += 0x9E3779B9u;
-      key.y += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
-    const uint32_t lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
-    const uint32_t lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ key.x, lo1, hi0 ^ c.w ^ key.y, lo0);
-  }
-  return c;
-}
-
-// uint32 bits -> uniform in (0, 1]: top 23 bits into an f32 mantissa with
-// exponent 0 gives [1, 2), and 2 - f maps it to (0, 1], so log stays finite.
-__device__ __forceinline__ float uniform_from_bits(uint32_t bits) {
-  return 2.0f - __uint_as_float((bits >> 9) | 0x3F800000u);
-}
-
-__device__ __forceinline__ void box_muller(uint32_t b1, uint32_t b2,
-                                           float* n0, float* n1) {
-  const float r = sqrtf(-2.0f * logf(uniform_from_bits(b1)));
-  float s, c;
-  sincosf(TWO_PI * uniform_from_bits(b2), &s, &c);
-  *n0 = r * c;
-  *n1 = r * s;
-}
-
-// four normals for dimensions 4q .. 4q + 3 of sample k, chain `stream`
-__device__ __forceinline__ void normals4(uint32_t k, uint32_t q,
-                                         uint32_t stream, uint32_t seed_hi,
-                                         uint2 key, float v[4]) {
-  const uint4 r = philox4x32_10(make_uint4(k, q, stream, seed_hi), key);
-  box_muller(r.x, r.y, &v[0], &v[1]);
-  box_muller(r.z, r.w, &v[2], &v[3]);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// the reference's exp-based ELU, and its derivative read back from the
-// activation h: elu'(z) = 1 for z > 0 (then h = z > 0), else exp(z) = h + 1
-__device__ __forceinline__ float elu(float z) {
-  return z > 0.0f ? z : expf(z) - 1.0f;
-}
-__device__ __forceinline__ float elu_grad_from_h(float h) {
-  return h > 0.0f ? 1.0f : h + 1.0f;
-}
 
 __host__ __device__ constexpr size_t smem_floats(int nx, int L) {
   return (size_t)L * S * H + 3 * (size_t)S * nx + nx + H + 5 * S;
@@ -130,6 +70,7 @@ __global__ void __launch_bounds__(THREADS)
 generate_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
   const int nx = p.nx, L = p.has_net ? p.L : 0;
+  const int Md = p.anti ? p.M / 2 : p.M;
   float* hbuf = smem;                       // L x S x H activations/grads
   float* xs = hbuf + (size_t)L * S * H;     // S x nx  X_s
   float* dwt = xs + S * nx;                 // S x nx  terminal normals
@@ -150,23 +91,10 @@ generate_kernel(const Params p) {
   const float cT = sqrt_Tt * p.alpha_sqrt;
   const float inv_yT = 1.0f / (sqrt_Tt * p.alpha_sqrt);
   const uint2 key = make_uint2(p.seed_lo, (uint32_t)b);
-
-  // packed net: W1^T (1+nx, H), b1 (H), then per hidden layer l >= 2:
-  // W_l^T (H, H), W_l (H, H), b_l (H); then the head w (H), b (1)
-  const float* W1T = p.w;
-  const float* b1 = W1T + (size_t)(1 + nx) * H;
-  const float* hidden = b1 + H;
-  const float* w_out = hidden + (size_t)(L > 0 ? L - 1 : 0) * (2 * H * H + H);
-  const float b_out = p.has_net ? w_out[H] : 0.0f;
+  const ValueMlp net = value_mlp(p.w, nx, L);
 
   for (int j = tid; j < nx; j += THREADS) xrow[j] = p.x[(size_t)b * nx + j];
-  if (p.has_net) {
-    for (int n = tid; n < H; n += THREADS) {
-      float c = 0.0f;
-      for (int j = 0; j < nx; ++j) c += W1T[(size_t)(1 + j) * H + n];
-      wcol[n] = c;
-    }
-  }
+  if (p.has_net) column_sums(net, nx, wcol, tid, THREADS);
   float acc_t[MAXJ], acc_i[MAXJ];
 #pragma unroll
   for (int r = 0; r < MAXJ; ++r) acc_t[r] = acc_i[r] = 0.0f;
@@ -182,9 +110,8 @@ generate_kernel(const Params p) {
       const int k = kb * S + sl;
       float u = 0.0f;
       if (k < p.M) {
-        u = p.u01 ? p.u01[(size_t)b * p.M + k]
-                  : uniform_from_bits(
-                        philox4x32_10(make_uint4(k, 0u, 2u, p.seed_hi), key).x);
+        const int kd = p.anti ? k >> 1 : k;
+        u = p.u01 ? p.u01[(size_t)b * Md + kd] : time_uniform(kd, p.seed_hi, key);
       }
       const float s = t + u * Tt;
       const float st = s - t;
@@ -201,9 +128,11 @@ generate_kernel(const Params p) {
         const int k = kb * S + sl;
         float a = 0.0f, c = 0.0f;
         if (k < p.M) {
-          const size_t o = ((size_t)b * p.M + k) * nx + j;
-          a = p.noise_t[o];
-          c = p.noise_i[o];
+          const int kd = p.anti ? k >> 1 : k;
+          const float sg = (p.anti && (k & 1)) ? -1.0f : 1.0f;
+          const size_t o = ((size_t)b * Md + kd) * nx + j;
+          a = sg * p.noise_t[o];
+          c = sg * p.noise_i[o];
         }
         dwt[sl * nx + j] = a;
         dwi[sl * nx + j] = c;
@@ -215,8 +144,15 @@ generate_kernel(const Params p) {
         const int k = kb * S + sl;
         float nt[4] = {0.0f, 0.0f, 0.0f, 0.0f}, ni[4] = {0.0f, 0.0f, 0.0f, 0.0f};
         if (k < p.M) {
-          normals4(k, q, 0u, p.seed_hi, key, nt);
-          normals4(k, q, 1u, p.seed_hi, key, ni);
+          const int kd = p.anti ? k >> 1 : k;
+          const float sg = (p.anti && (k & 1)) ? -1.0f : 1.0f;
+          normals4(kd, q, STREAM_TERMINAL, p.seed_hi, key, nt);
+          normals4(kd, q, STREAM_INTEGRAL, p.seed_hi, key, ni);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            nt[r] *= sg;
+            ni[r] *= sg;
+          }
         }
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
@@ -246,149 +182,8 @@ generate_kernel(const Params p) {
     float u[SPW], sux[SPW];
 #pragma unroll
     for (int i = 0; i < SPW; ++i) u[i] = sux[i] = 0.0f;
-    if (p.has_net) {
-      float acc[SPW][NC];
-      // layer 1: z = [s, X_s] W1^T + b1
-#pragma unroll
-      for (int i = 0; i < SPW; ++i)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
-      for (int j = 0; j < nx; ++j) {
-        float w[NC];
-#pragma unroll
-        for (int c = 0; c < NC; ++c)
-          w[c] = __ldg(&W1T[(size_t)(1 + j) * H + lane + 32 * c]);
-#pragma unroll
-        for (int i = 0; i < SPW; ++i) {
-          const float a = xs[(s0 + i) * nx + j];
-#pragma unroll
-          for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(a, w[c], acc[i][c]);
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int n = lane + 32 * c;
-        const float w0 = __ldg(&W1T[n]), bb = __ldg(&b1[n]);
-#pragma unroll
-        for (int i = 0; i < SPW; ++i) {
-          const float z = fmaf(w0, s_val[s0 + i], acc[i][c]) + bb;
-          hbuf[(s0 + i) * H + n] = elu(z);
-        }
-      }
-      __syncwarp();
-
-      // hidden layers 2..L: z = h W^T + b
-      for (int l = 1; l < L; ++l) {
-        const float* WT = hidden + (size_t)(l - 1) * (2 * H * H + H);
-        const float* bl = WT + 2 * H * H;
-        const float* hp = hbuf + (size_t)(l - 1) * S * H + s0 * H;
-        float* hc = hbuf + (size_t)l * S * H + s0 * H;
-#pragma unroll
-        for (int i = 0; i < SPW; ++i)
-#pragma unroll
-          for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
-        for (int kk = 0; kk < H; kk += 4) {
-          float w[4][NC];
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int c = 0; c < NC; ++c)
-              w[r][c] = __ldg(&WT[(kk + r) * H + lane + 32 * c]);
-#pragma unroll
-          for (int i = 0; i < SPW; ++i) {
-            const float4 a = *reinterpret_cast<const float4*>(hp + i * H + kk);
-#pragma unroll
-            for (int c = 0; c < NC; ++c) {
-              acc[i][c] = fmaf(a.x, w[0][c], acc[i][c]);
-              acc[i][c] = fmaf(a.y, w[1][c], acc[i][c]);
-              acc[i][c] = fmaf(a.z, w[2][c], acc[i][c]);
-              acc[i][c] = fmaf(a.w, w[3][c], acc[i][c]);
-            }
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const int n = lane + 32 * c;
-          const float bb = __ldg(&bl[n]);
-#pragma unroll
-          for (int i = 0; i < SPW; ++i) hc[i * H + n] = elu(acc[i][c] + bb);
-        }
-        __syncwarp();
-      }
-
-      // head: u = h_L w + b; then g_L = w * elu'(h_L), in place
-      float* hl = hbuf + (size_t)(L - 1) * S * H + s0 * H;
-#pragma unroll
-      for (int i = 0; i < SPW; ++i) {
-        float part = 0.0f;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const int n = lane + 32 * c;
-          part = fmaf(__ldg(&w_out[n]), hl[i * H + n], part);
-        }
-        u[i] = warp_sum(part) + b_out;
-      }
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int n = lane + 32 * c;
-        const float wn = __ldg(&w_out[n]);
-#pragma unroll
-        for (int i = 0; i < SPW; ++i)
-          hl[i * H + n] = wn * elu_grad_from_h(hl[i * H + n]);
-      }
-      __syncwarp();
-
-      // backward through hidden layers L..2: g_{l-1} = (g_l W) * elu'(h_{l-1})
-      for (int l = L - 1; l >= 1; --l) {
-        const float* W = hidden + (size_t)(l - 1) * (2 * H * H + H) + H * H;
-        const float* gl = hbuf + (size_t)l * S * H + s0 * H;
-        float* hp = hbuf + (size_t)(l - 1) * S * H + s0 * H;
-#pragma unroll
-        for (int i = 0; i < SPW; ++i)
-#pragma unroll
-          for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
-        for (int nn = 0; nn < H; nn += 4) {
-          float w[4][NC];
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int c = 0; c < NC; ++c)
-              w[r][c] = __ldg(&W[(nn + r) * H + lane + 32 * c]);
-#pragma unroll
-          for (int i = 0; i < SPW; ++i) {
-            const float4 g = *reinterpret_cast<const float4*>(gl + i * H + nn);
-#pragma unroll
-            for (int c = 0; c < NC; ++c) {
-              acc[i][c] = fmaf(g.x, w[0][c], acc[i][c]);
-              acc[i][c] = fmaf(g.y, w[1][c], acc[i][c]);
-              acc[i][c] = fmaf(g.z, w[2][c], acc[i][c]);
-              acc[i][c] = fmaf(g.w, w[3][c], acc[i][c]);
-            }
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const int kcol = lane + 32 * c;
-#pragma unroll
-          for (int i = 0; i < SPW; ++i)
-            hp[i * H + kcol] = acc[i][c] * elu_grad_from_h(hp[i * H + kcol]);
-        }
-        __syncwarp();
-      }
-
-      // sum_j u_x_j = g1 . wcol
-      const float* g1 = hbuf + s0 * H;
-#pragma unroll
-      for (int i = 0; i < SPW; ++i) {
-        float part = 0.0f;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const int n = lane + 32 * c;
-          part = fmaf(g1[i * H + n], wcol[n], part);
-        }
-        sux[i] = warp_sum(part);
-      }
-    }
+    if (p.has_net)
+      value_and_grad_sum(net, nx, S, s0, lane, xs, s_val, hbuf, wcol, u, sux);
 
     // ---- f = ff(s, X_s, u, u_x) for Cha, and the per-sample weights -----
     if (lane == 0) {
@@ -452,7 +247,7 @@ long long dpi_generate_smem_bytes(int nx, int L) {
 int dpi_generate(const float* t, const float* x, const float* g0,
                  const float* f0, const float* w, const float* u01,
                  const float* noise_t, const float* noise_i, float* out,
-                 int B, int M, int nx, int L, int has_net,
+                 int B, int M, int nx, int L, int has_net, int anti,
                  unsigned long long seed, float T, float alpha_sqrt, float k,
                  float c0, void* stream) {
   const size_t smem = smem_floats(nx, has_net ? L : 0) * sizeof(float);
@@ -463,7 +258,7 @@ int dpi_generate(const float* t, const float* x, const float* g0,
   Params p;
   p.t = t; p.x = x; p.g0 = g0; p.f0 = f0; p.w = w;
   p.u01 = u01; p.noise_t = noise_t; p.noise_i = noise_i; p.out = out;
-  p.B = B; p.M = M; p.nx = nx; p.L = L; p.has_net = has_net;
+  p.B = B; p.M = M; p.nx = nx; p.L = L; p.has_net = has_net; p.anti = anti;
   p.seed_lo = (uint32_t)(seed & 0xFFFFFFFFull);
   p.seed_hi = (uint32_t)(seed >> 32);
   p.T = T; p.alpha_sqrt = alpha_sqrt; p.k = k; p.c0 = c0;

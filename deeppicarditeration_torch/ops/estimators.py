@@ -1,7 +1,7 @@
 """Monte-Carlo target generation: the computational core of DPI.
 
 Counterpart of ``deeppicarditeration_tpu/ops/estimators.py``, ported as far
-as the Burgers gradient-supervised recipe needs. For each collocation point
+as the Burgers gradient-supervised recipes need. For each collocation point
 (t, x) and M samples the Picard target is
 
     u_hat(t, x) = terminal + integral
@@ -9,11 +9,19 @@ as the Burgers gradient-supervised recipe needs. For each collocation point
     integral = E[(T-t) (f(s, X_s, u_k, grad u_k) - f0) (1, Ys)] + (f0 (T-t), 0)
                s ~ U[t, T],  Ys = dW / sqrt(s-t) / sqrt(a),  f0 = f at (t, x)
 
-computed by the merged estimator of ``ops/kernels.py`` (a CUDA kernel on
-the card, its plain version on the CPU). Not yet ported (later slices): the
-split terminal/integral estimators with Kahan accumulation, antithetic
-pairing, TD estimators, Hessian targets, the two-layer formula and the
-value-only mode.
+Two routes compute it (``generate_with_gradients``):
+  * the merged estimator kernel (``ops/kernels.py``: a CUDA kernel on the
+    card, its plain version on the CPU), when both chains take the same M
+    and ``pallas_generate`` allows it;
+  * the split estimators ``estimate_terminal_with_gradients`` and
+    ``estimate_integral_with_gradients``: each the standalone kernel of
+    ``ops/kernels.py`` under ``pallas_terminal`` / ``pallas_integral``, else
+    a loop over chunks of the M samples with Kahan accumulation whose
+    normals come from the normals kernel under ``tpu_prng`` and from a
+    torch.Generator otherwise.
+Antithetic pairing (``antithetic``) works on every route. Not yet ported
+(later slices): TD estimators, Hessian targets and SDGD, the two-layer
+formula and the value-only mode.
 """
 
 from __future__ import annotations
@@ -28,12 +36,22 @@ from deeppicarditeration_torch.device import (
     make_generator,
     resolve_device,
 )
+from deeppicarditeration_torch.equations.burgers import Cha
 from deeppicarditeration_torch.models.solution import Solution
-from deeppicarditeration_torch.ops.kernels import generate_with_gradients_cuda
+from deeppicarditeration_torch.ops.derivatives import get_f
+from deeppicarditeration_torch.ops.kernels import (
+    generate_with_gradients_cuda,
+    integral_with_gradients_cuda,
+    kernel_net,
+    normals_cuda,
+    normals_plain,
+    terminal_with_gradients_cuda,
+)
 from deeppicarditeration_torch.ops.samplers import (
     sample_t_picard,
     sample_t_uniform,
 )
+from deeppicarditeration_torch.ops.summation import KahanAcc
 
 # Floor on (s - t) wherever it appears under 1/sqrt: in f32 the uniform
 # s-draw can produce s == t exactly, which makes the likelihood-ratio
@@ -41,44 +59,282 @@ from deeppicarditeration_torch.ops.samplers import (
 _ST_FLOOR = 1e-6
 
 
+def largest_divisor(n: int, cap: int, step: int = 1) -> int:
+    """Largest divisor of ``n`` that is <= max(cap, step) and a multiple of
+    ``step``. Raises when no such divisor exists: the one reachable case is
+    antithetic pairing (step=2) with an odd sample count."""
+    d = min(n, max(cap, step))
+    while d >= step:
+        if n % d == 0 and d % step == 0:
+            return d
+        d -= 1
+    raise ValueError(
+        f"no divisor of {n} <= {max(cap, step)} is a multiple of {step}"
+        + (" — antithetic pairing needs an even sample count"
+           if step == 2 else ""))
+
+
+_FALLBACK_NOTICED = set()
+
+
+def _notice_fallback(flag: str, reason: str, action: str) -> None:
+    """One line, once per (flag, reason), when a configured flag does not
+    get what it asked for (``action``: what runs instead)."""
+    if (flag, reason) in _FALLBACK_NOTICED:
+        return
+    _FALLBACK_NOTICED.add((flag, reason))
+    print(f"{flag}: requested but unavailable ({reason}); {action}")
+
+
 @dataclasses.dataclass(frozen=True)
 class GenConfig:
-    """Static generation parameters (the fields the ported path reads)."""
+    """Static generation parameters (the fields the ported paths read)."""
 
     n_estimate_terminal: int = 1
     n_estimate_integral: int = 1
-    chunk_elems: int = 2 ** 22  # sizes DATA.GEN_BATCH's default
+    chunk_elems: int = 2 ** 22  # target B * m_chunk * nx elements per step
     t_always_uniform: bool = False
     t_uniform_eps: float = 0.0
     sample_bound: Optional[float] = None
     estimate_delta_t: float = 0.0  # >0 => TD estimators (not ported)
-    antithetic: bool = False  # +/- dW pairs (not ported)
+    tpu_prng: bool = False  # chunk normals from the normals kernel
+    antithetic: bool = False  # +/- dW pairs: half the draws, lower variance
+    pallas_terminal: bool = False  # standalone terminal kernel
+    pallas_integral: bool = False  # standalone integral kernel
+    # Merged terminal+integral kernel: False / True / "auto". "auto" takes
+    # it where it covers the equation and the frozen net (kernel_net), and
+    # the split estimators elsewhere, with a one-line notice.
+    pallas_generate: object = "auto"
+
+    def chunk(self, m: int, batch: int, nx: int, act_width: int = 0) -> int:
+        """Largest divisor of m with batch * chunk * nx <= chunk_elems
+        (even when antithetic pairing is on); ``act_width`` (``_act_width``
+        of the frozen nets the chunk runs) adds the bound batch * chunk *
+        act_width <= _ACT_BUDGET_ELEMS. The chunk size fixes the chunk
+        count, and with it each chunk's random stream."""
+        target = max(1, self.chunk_elems // max(batch * nx, 1))
+        if act_width:
+            target = min(target, max(
+                1, _ACT_BUDGET_ELEMS // max(batch * act_width, 1)))
+        step = 2 if self.antithetic else 1
+        return largest_divisor(m, target, step)
+
+
+# Activation-element budget for GenConfig.chunk's second bound (the JAX
+# package's calibration, kept so that chunk counts agree).
+_ACT_BUDGET_ELEMS = 3 * 2 ** 28
+
+
+def _act_width(*sols) -> int:
+    """Summed matmul output widths of the frozen nets a chunk runs (0 for
+    the zero solution): the act_width for GenConfig.chunk."""
+    w = 0
+    for s in sols:
+        if s is None or s.module is None:
+            continue
+        for p in s.module.parameters():
+            if p.ndim >= 2:
+                w += int(p.shape[0])  # Linear weight: (out, in)
+    return w
+
+
+def _safe(st):
+    return torch.clamp(st, min=_ST_FLOOR)
+
+
+def _scan_mean(seed: int, m: int, mc: int, out_shape, chunk_sum_fn,
+               like: torch.Tensor) -> torch.Tensor:
+    """sum_c chunk_sum_fn(seed_c, c) / m with Kahan accumulation; chunk c
+    draws from seed_c = derive_seed(seed, c)."""
+    acc = KahanAcc.zeros(out_shape, dtype=like.dtype, device=like.device)
+    for ck in range(m // mc):
+        acc = acc.add(chunk_sum_fn(derive_seed(seed, ck), ck))
+    return acc.value / m
+
+
+def _draw_normals(gen: GenConfig, seed: int, shape, device) -> torch.Tensor:
+    """dW draws: the normals kernel under gen.tpu_prng (its plain version,
+    torch.randn, for the CPU), else torch.randn on a torch.Generator."""
+    if gen.tpu_prng:
+        return normals_cuda(seed, shape, device)
+    return normals_plain(seed, shape, device)
+
+
+def _draw_increments(gen: GenConfig, seed: int, b: int, mc: int, nx: int,
+                     device, noise: Optional[torch.Tensor] = None):
+    """Chunk increments dW (b, mc, nx); antithetic => [h, -h] pairs.
+    ``noise``: this chunk's injected draws (b, mc or mc / 2, nx)."""
+    if noise is None:
+        rows = mc // 2 if gen.antithetic else mc
+        noise = _draw_normals(gen, seed, (b, rows, nx), device)
+    if gen.antithetic:
+        return torch.cat([noise, -noise], dim=1)
+    return noise
+
+
+def _chunk_rows(gen: GenConfig, mc: int, ck: int):
+    """The draw rows of chunk ck in an injected (b, rows, .) array."""
+    r = mc // 2 if gen.antithetic else mc
+    return slice(ck * r, (ck + 1) * r)
+
+
+# ---------------------------------------------------------------------------
+# value + gradient estimators
+# ---------------------------------------------------------------------------
+
+def estimate_terminal_with_gradients(seed: int, eq, tx: torch.Tensor,
+                                     gen: GenConfig,
+                                     noise: Optional[torch.Tensor] = None):
+    """E[(g(X_T) - g(x)) (1, Y)] + (g(x), 0); (B, 1 + nx).
+
+    ``noise`` (B, rows, nx), rows = M or M / 2 with antithetic pairing,
+    replaces the draws (the test path, as the kernels' external noise)."""
+    m = gen.n_estimate_terminal
+    if gen.pallas_terminal:
+        return terminal_with_gradients_cuda(seed, eq, tx, m, noise,
+                                            antithetic=gen.antithetic)
+    t, x = tx[:, :1], tx[:, 1:]
+    b, nx = x.shape
+    mc = gen.chunk(m, b, nx)
+    g0 = eq.g(x)  # (B, 1) control-variate baseline
+    # _safe: a collocation t can hit T exactly in f32
+    sqrt_Tt = torch.sqrt(_safe(eq.T - t))
+    inv_y = 1.0 / (sqrt_Tt * eq.alpha_sqrt)  # Y = dW * inv_y
+
+    def chunk_sum(ck_seed, ck):
+        dW = _draw_increments(
+            gen, ck_seed, b, mc, nx, tx.device,
+            None if noise is None else noise[:, _chunk_rows(gen, mc, ck)])
+        XT = x[:, None, :] + sqrt_Tt[:, None, :] * eq.alpha_sqrt * dW
+        diff = eq.g(XT) - g0[:, None, :]  # (B, mc, 1)
+        val = torch.sum(diff, dim=1)
+        # sum_m diff * Y: contract over the chunk axis
+        grad = torch.einsum("bmo,bmn->bn", diff, dW) * inv_y
+        return torch.cat([val, grad], dim=-1)
+
+    mean = _scan_mean(seed, m, mc, (b, 1 + nx), chunk_sum, tx)
+    return torch.cat([mean[:, :1] + g0, mean[:, 1:]], dim=-1)
+
+
+def _baseline_f(eq, sol: Solution, t, x):
+    """f at the collocation point itself (the integral CV baseline). The
+    SDGD per-subset baselines come with the FN slice (get_f raises for
+    Hessian equations)."""
+    return get_f(eq, sol, t, x)
+
+
+def _integral_kernel_applies(eq) -> bool:
+    return (eq.has_gradient_term and not eq.has_hessian_term
+            and not eq.has_laplacian_term)
+
+
+def estimate_integral_with_gradients(seed: int, eq, sol: Solution,
+                                     tx: torch.Tensor, gen: GenConfig,
+                                     u01: Optional[torch.Tensor] = None,
+                                     noise: Optional[torch.Tensor] = None):
+    """E[(T-t)(f - f0)(1, Ys)] + (f0 (T-t), 0); (B, 1 + nx).
+
+    ``u01`` (B, rows, 1) and ``noise`` (B, rows, nx) replace the draws (the
+    test path); antithetic pairs share their time draw s."""
+    m = gen.n_estimate_integral
+    if gen.pallas_integral and _integral_kernel_applies(eq):
+        return integral_with_gradients_cuda(seed, eq, sol, tx, m, u01, noise,
+                                            antithetic=gen.antithetic)
+    t, x = tx[:, :1], tx[:, 1:]
+    b, nx = x.shape
+    mc = gen.chunk(m, b, nx, _act_width(sol))
+    f0 = _baseline_f(eq, sol, t, x)
+    Tt = eq.T - t
+
+    def chunk_sum(ck_seed, ck):
+        rows = _chunk_rows(gen, mc, ck)
+        if u01 is not None:
+            uh = u01[:, rows]
+        else:
+            uh = torch.rand((b, rows.stop - rows.start, 1), dtype=x.dtype,
+                            device=x.device,
+                            generator=make_generator(x.device, ck_seed, 0))
+        u = torch.cat([uh, uh], dim=1) if gen.antithetic else uh
+        s = t[:, None, :] + u * Tt[:, None, :]
+        dW = _draw_increments(gen, derive_seed(ck_seed, 1), b, mc, nx,
+                              x.device,
+                              None if noise is None else noise[:, rows])
+        st = s - t[:, None, :]
+        Xs = x[:, None, :] + torch.sqrt(st) * eq.alpha_sqrt * dW
+        f = get_f(eq, sol, s, Xs)
+        diff = Tt[:, None, :] * (f - f0[:, None, :])  # (B, mc, 1)
+        val = torch.sum(diff, dim=1)
+        inv_y = 1.0 / (torch.sqrt(_safe(st)) * eq.alpha_sqrt)  # (B, mc, 1)
+        grad = torch.einsum("bmo,bmn->bn", diff * inv_y, dW)
+        return torch.cat([val, grad], dim=-1)
+
+    mean = _scan_mean(seed, m, mc, (b, 1 + nx), chunk_sum, tx)
+    return torch.cat([mean[:, :1] + f0 * Tt, mean[:, 1:]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# the route and the dispatch
+# ---------------------------------------------------------------------------
+
+MERGED, SPLIT = "merged", "split"
+
+# Generation calls per route, counted by the dispatch as it takes them
+route_calls = {MERGED: 0, SPLIT: 0}
+
+
+def generation_route(eq, sol: Solution, gen: GenConfig) -> str:
+    """MERGED or SPLIT, decided by the configuration and the structure of
+    the equation and frozen net alone, before any launch:
+      * different terminal and integral M => SPLIT;
+      * pallas_generate False => SPLIT, True => MERGED (the merged kernel
+        raises on the card where it does not cover the net);
+      * "auto" => MERGED where the merged kernel covers the equation (Cha)
+        and the net (``kernel_net``), else SPLIT with a printed notice."""
+    mode = gen.pallas_generate
+    if gen.n_estimate_terminal != gen.n_estimate_integral or mode is False:
+        return SPLIT
+    if mode is True:
+        return MERGED
+    if mode != "auto":
+        raise ValueError(f"pallas_generate must be False, True or 'auto' "
+                         f"(got {mode!r})")
+    reason = None
+    if not isinstance(eq, Cha):
+        reason = f"the merged kernel covers Cha only, not {type(eq).__name__}"
+    else:
+        try:
+            kernel_net(sol, sol.nx)
+        except NotImplementedError as e:
+            reason = str(e)
+    if reason is not None:
+        _notice_fallback("DATA.TPU.PALLAS_GENERATE: auto", reason,
+                         "using the split estimators")
+        return SPLIT
+    return MERGED
 
 
 def generate_with_gradients(seed: int, eq, sol: Solution, tx: torch.Tensor,
                             gen: GenConfig) -> torch.Tensor:
-    """(B, 1 + nx) value + gradient targets of the frozen iterate ``sol``.
-
-    Every configuration this slice covers goes to the merged estimator
-    (a CUDA kernel for CUDA tensors, which raises for an equation or net it
-    does not cover); the others raise NotImplementedError."""
+    """(B, 1 + nx) value + gradient targets of the frozen iterate ``sol``,
+    by the route of ``generation_route``. The split route's terminal and
+    integral estimators draw from derive_seed(seed, 1) and (seed, 2)."""
     if gen.estimate_delta_t > 0:
         raise NotImplementedError(
-            "DATA.ESTIMATE_DELTA_T > 0 (TD estimators) is not ported yet")
-    if gen.antithetic:
-        raise NotImplementedError(
-            "DATA.TPU.ANTITHETIC is not ported yet (the merged kernel's "
-            "antithetic pairing comes with a later slice)")
-    if gen.n_estimate_terminal != gen.n_estimate_integral:
-        raise NotImplementedError(
-            "different terminal and integral sample counts need the split "
-            "estimators, which are not ported yet")
-    if (not eq.has_gradient_term or eq.has_hessian_term
-            or eq.has_laplacian_term):
+            "DATA.ESTIMATE_DELTA_T > 0 (TD estimators) is not ported yet; "
+            "it comes with the TD slice")
+    if not _integral_kernel_applies(eq):
         raise NotImplementedError(
             "only gradient-term equations are ported (Cha)")
-    return generate_with_gradients_cuda(seed, eq, sol, tx,
-                                        gen.n_estimate_terminal)
+    route = generation_route(eq, sol, gen)
+    route_calls[route] += 1
+    if route == MERGED:
+        return generate_with_gradients_cuda(seed, eq, sol, tx,
+                                            gen.n_estimate_terminal,
+                                            antithetic=gen.antithetic)
+    g = estimate_terminal_with_gradients(derive_seed(seed, 1), eq, tx, gen)
+    y = estimate_integral_with_gradients(derive_seed(seed, 2), eq, sol, tx,
+                                         gen)
+    return g + y
 
 
 def sample_tx(generator: torch.Generator, eq, n_batch: int, gen: GenConfig,
@@ -113,4 +369,3 @@ def sample_batch(seed: int, eq, sol: Solution, n_batch: int, gen: GenConfig,
                    device)
     u = generate_with_gradients(derive_seed(seed, 1), eq, sol, tx, gen)
     return tx, _clip(u, gen)
-

@@ -1,18 +1,30 @@
 """Hand-written CUDA kernels of the port, their wrappers and plain versions.
 
 Counterpart of ``deeppicarditeration_tpu/ops/pallas_kernels.py``. Ported so
-far: the merged terminal + integral estimator kernel (``_generate_kernel``
-there, ``csrc/generate.cu`` here).
+far, each from its TPU kernel there:
+
+==========================  ====================  ==========================
+wrapper                     source                TPU kernel
+==========================  ====================  ==========================
+generate_with_gradients     csrc/generate.cu      _generate_kernel (merged)
+terminal_with_gradients     csrc/terminal.cu      _terminal_kernel
+integral_with_gradients     csrc/integral.cu      _integral_kernel
+normals                     csrc/normals.cu       _normals_kernel
+==========================  ====================  ==========================
+
+Shared device code: ``csrc/philox.cuh`` (Philox4x32-10, Box-Muller) and
+``csrc/value_mlp.cuh`` (the frozen value net's forward and backward pass).
 
 Build: at first use, ``nvcc`` compiles each ``csrc/*.cu`` source for
 ``sm_90a`` into a shared library with a plain C interface under
-``build/kernels/`` (named by a hash of source and flags), loaded with
-ctypes. Nothing is downloaded; a missing ``nvcc`` or a failed build raises.
+``build/kernels/`` (named by a hash of source, headers and flags), loaded
+with ctypes; ``build`` compiles several at once. Nothing is downloaded; a
+missing ``nvcc`` or a failed build raises.
 
-Each wrapper takes the plain PyTorch version for tensors on the CPU, and
-for CUDA tensors launches its kernel or raises: there is no fallback. Each
-library object counts its launches in ``launches`` (a plain integer that
-only the launch site increments).
+Each wrapper (``*_cuda``) takes the plain PyTorch version (``*_plain``, same
+signature) for tensors on the CPU, and for CUDA tensors launches its kernel
+or raises: there is no fallback. Each library object counts its launches in
+``launches`` (a plain integer that only the launch site increments).
 """
 
 from __future__ import annotations
@@ -25,7 +37,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -40,6 +52,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Shared memory one block may use on Hopper (232,448 bytes)
 MAX_SMEM_BYTES = 232448
+# Hidden width the net kernels are compiled for (value_mlp.cuh: H)
+KERNEL_WIDTH = 128
 
 
 def _nvcc() -> str:
@@ -52,10 +66,12 @@ def _nvcc() -> str:
 
 
 class CudaLibrary:
-    """One ``csrc`` source, built at first use and loaded with ctypes."""
+    """One ``csrc`` source, built at first use and loaded with ctypes;
+    ``declare`` sets the C entry points' argument types."""
 
-    def __init__(self, source: str):
+    def __init__(self, source: str, declare: Callable[[ctypes.CDLL], None]):
         self.source = CSRC_DIR / source
+        self.declare = declare
         self.launches = 0
         self.build_log = ""
         self.build_seconds: Optional[float] = None
@@ -63,134 +79,244 @@ class CudaLibrary:
 
     @property
     def so_path(self) -> pathlib.Path:
-        h = hashlib.sha256(self.source.read_bytes()
-                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        return BUILD_DIR / f"lib{self.source.stem}_{h}.so"
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC_DIR.glob("*.cuh")):
+            h.update(header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"lib{self.source.stem}_{h.hexdigest()[:16]}.so"
 
-    def _build(self) -> None:
+    def _start_build(self):
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        t0 = time.perf_counter()
-        proc = subprocess.run(
+        proc = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(self.source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return proc, tmp, time.perf_counter()
+
+    def _finish_build(self, job) -> None:
+        proc, tmp, t0 = job
+        self.build_log = proc.communicate()[0]
         self.build_seconds = time.perf_counter() - t0
-        self.build_log = proc.stdout
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(
                 f"nvcc failed to build {self.source.name} (exit "
-                f"{proc.returncode}):\n{proc.stdout}")
+                f"{proc.returncode}):\n{self.build_log}")
         os.replace(tmp, self.so_path)
 
     def lib(self) -> ctypes.CDLL:
         """The loaded library, built first unless its .so exists."""
         if self._lib is None:
             if not self.so_path.exists():
-                self._build()
+                self._finish_build(self._start_build())
             self._lib = ctypes.CDLL(str(self.so_path))
-            _declare(self._lib)
+            self.declare(self._lib)
         return self._lib
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.dpi_generate.argtypes = [p] * 9 + [i] * 5 + [ctypes.c_ulonglong] \
-        + [f] * 4 + [p]
-    lib.dpi_generate.restype = i
-    lib.dpi_generate_hidden_width.argtypes = []
-    lib.dpi_generate_hidden_width.restype = i
-    lib.dpi_generate_max_nx.argtypes = []
-    lib.dpi_generate_max_nx.restype = i
-    lib.dpi_generate_smem_bytes.argtypes = [i, i]
-    lib.dpi_generate_smem_bytes.restype = ctypes.c_longlong
+def build(*libs: CudaLibrary) -> None:
+    """Build the libraries that are not built yet, one nvcc each, all
+    started together; then load them. Raises on the first failed build
+    after every nvcc has ended."""
+    jobs = [(lib, lib._start_build()) for lib in libs
+            if lib._lib is None and not lib.so_path.exists()]
+    errors = []
+    for lib, job in jobs:
+        try:
+            lib._finish_build(job)
+        except RuntimeError as e:
+            errors.append(e)
+    if errors:
+        raise errors[0]
+    for lib in libs:
+        lib.lib()
 
 
-GENERATE = CudaLibrary("generate.cu")
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U64, _I64 = ctypes.c_ulonglong, ctypes.c_longlong
+
+
+def _declare_net_limits(lib: ctypes.CDLL, name: str) -> None:
+    getattr(lib, f"dpi_{name}_hidden_width").argtypes = []
+    getattr(lib, f"dpi_{name}_hidden_width").restype = _I
+    getattr(lib, f"dpi_{name}_max_nx").argtypes = []
+    getattr(lib, f"dpi_{name}_max_nx").restype = _I
+    getattr(lib, f"dpi_{name}_smem_bytes").argtypes = [_I, _I]
+    getattr(lib, f"dpi_{name}_smem_bytes").restype = _I64
+
+
+def _declare_generate(lib: ctypes.CDLL) -> None:
+    lib.dpi_generate.argtypes = [_P] * 9 + [_I] * 6 + [_U64] + [_F] * 4 \
+        + [_P]
+    lib.dpi_generate.restype = _I
+    _declare_net_limits(lib, "generate")
+
+
+def _declare_terminal(lib: ctypes.CDLL) -> None:
+    lib.dpi_terminal.argtypes = [_P] * 5 + [_I] * 4 + [_U64] + [_F] * 3 \
+        + [_P]
+    lib.dpi_terminal.restype = _I
+    lib.dpi_terminal_max_nx.argtypes = []
+    lib.dpi_terminal_max_nx.restype = _I
+
+
+def _declare_integral(lib: ctypes.CDLL) -> None:
+    lib.dpi_integral.argtypes = [_P] * 7 + [_I] * 6 + [_U64] + [_F] * 4 \
+        + [_P]
+    lib.dpi_integral.restype = _I
+    _declare_net_limits(lib, "integral")
+
+
+def _declare_normals(lib: ctypes.CDLL) -> None:
+    lib.dpi_normals.argtypes = [_P, _I64, _U64, _P]
+    lib.dpi_normals.restype = _I
+
+
+GENERATE = CudaLibrary("generate.cu", _declare_generate)
+TERMINAL = CudaLibrary("terminal.cu", _declare_terminal)
+INTEGRAL = CudaLibrary("integral.cu", _declare_integral)
+NORMALS = CudaLibrary("normals.cu", _declare_normals)
+ALL = (GENERATE, TERMINAL, INTEGRAL, NORMALS)
 
 
 # ---------------------------------------------------------------------------
-# merged terminal + integral estimator (TPU: _generate_kernel)
+# shared helpers
 # ---------------------------------------------------------------------------
 
-def _largest_divisor(n: int, cap: int) -> int:
-    d = max(1, min(n, cap))
-    while n % d:
-        d -= 1
-    return d
+def draw_rows(m: int, antithetic: bool) -> int:
+    """Rows of draws an estimator of ``m`` samples takes: m, or m / 2 with
+    antithetic pairing (which needs an even m)."""
+    if antithetic and m % 2:
+        raise ValueError(
+            f"antithetic pairing needs an even sample count (got {m})")
+    return m // 2 if antithetic else m
 
 
-def generate_with_gradients_plain(seed: int, eq, sol: Solution,
-                                  tx: torch.Tensor, m: int,
-                                  u01: Optional[torch.Tensor] = None,
-                                  noise_t: Optional[torch.Tensor] = None,
-                                  noise_i: Optional[torch.Tensor] = None, *,
-                                  chunk_rows: int = 2 ** 16,
-                                  return_var: bool = False):
-    """Plain PyTorch version of the merged estimator kernel.
+def _draw_chunks(seed: int, tx: torch.Tensor, m: int, antithetic: bool,
+                 chunk_rows: int, spec, external: Optional[dict]):
+    """The plain versions' randomness, chunk by chunk over the samples.
 
-    Same signature and meaning as ``generate_with_gradients_cuda``: with
-    external ``u01`` (B, m, 1), ``noise_t`` and ``noise_i`` (B, m, nx) it
-    uses them, else it draws them chunk by chunk from a torch.Generator
-    seeded with ``seed``. Chunked over m so that at most ``chunk_rows``
-    samples pass through the frozen net at once. ``return_var`` also
-    returns the per-point sample variance of each of the 1 + nx summands
-    (for CLT bounds)."""
-    from deeppicarditeration_torch.ops.estimators import _ST_FLOOR
+    ``spec``: (name, width, "u" | "n") per input. Yields dicts of
+    (B, mc, width) tensors: slices of the ``external`` arrays (B, rows,
+    width), or draws from a torch.Generator seeded with ``seed``. With
+    ``antithetic`` each chunk holds its draw rows followed by their mirrors
+    (normals negated, uniforms repeated)."""
+    from deeppicarditeration_torch.ops.estimators import largest_divisor
 
-    t, x = tx[:, :1], tx[:, 1:]
-    b, nx = x.shape
-    a = eq.alpha_sqrt
-    external = noise_t is not None
+    b = tx.shape[0]
+    rows = draw_rows(m, antithetic)
     gen = None
-    if not external:
+    if external is None:
         gen = torch.Generator(device=tx.device)
         gen.manual_seed(int(seed))
-    Tt = torch.clamp(eq.T - t, min=1e-6)
-    sqrt_Tt = torch.sqrt(Tt)
-    inv_yT = 1.0 / (sqrt_Tt * a)
-    g0 = eq.g(x)
-    f0 = get_f(eq, sol, t, x)
-    mc = _largest_divisor(m, max(1, chunk_rows // b))
-    s1 = tx.new_zeros((b, 1 + nx))
-    s2 = tx.new_zeros((b, 1 + nx)) if return_var else None
+    per = 2 if antithetic else 1
+    mc = largest_divisor(rows, chunk_rows // (b * per))
     kw = dict(dtype=tx.dtype, device=tx.device, generator=gen)
-    for c0 in range(0, m, mc):
-        if external:
-            u = u01[:, c0:c0 + mc]
-            dWt = noise_t[:, c0:c0 + mc]
-            dWi = noise_i[:, c0:c0 + mc]
-        else:
-            u = torch.rand((b, mc, 1), **kw)
-            dWt = torch.randn((b, mc, nx), **kw)
-            dWi = torch.randn((b, mc, nx), **kw)
-        xT = x[:, None, :] + sqrt_Tt[:, None, :] * a * dWt
-        diff_t = eq.g(xT) - g0[:, None, :]
-        s = t[:, None, :] + u * Tt[:, None, :]
-        st = s - t[:, None, :]
-        xs = x[:, None, :] + torch.sqrt(st) * a * dWi
-        f = get_f(eq, sol, s.reshape(-1, 1), xs.reshape(-1, nx))
-        diff_i = Tt[:, None, :] * (f.reshape(b, mc, 1) - f0[:, None, :])
-        inv_ys = 1.0 / (torch.sqrt(torch.clamp(st, min=_ST_FLOOR)) * a)
-        z = torch.cat([diff_t + diff_i,
-                       diff_t * dWt * inv_yT[:, None, :]
-                       + diff_i * inv_ys * dWi], dim=-1)
+    for c0 in range(0, rows, mc):
+        chunk = {}
+        for name, width, kind in spec:
+            if external is not None:
+                v = external[name][:, c0:c0 + mc]
+            elif kind == "u":
+                v = torch.rand((b, mc, width), **kw)
+            else:
+                v = torch.randn((b, mc, width), **kw)
+            if antithetic:
+                v = torch.cat([v, v if kind == "u" else -v], dim=1)
+            chunk[name] = v
+        yield chunk
+
+
+def _accumulate(chunks_z, b: int, d: int, m: int, antithetic: bool,
+                like: torch.Tensor, return_var: bool):
+    """Mean over the m samples of the (B, mc, d) summands ``chunks_z``;
+    with ``return_var`` also the variance v of one summand such that the
+    mean's standard error is sqrt(v / m) (antithetic: twice the variance of
+    a pair's average, as the pairs are the independent draws)."""
+    s1 = like.new_zeros((b, d))
+    s2 = like.new_zeros((b, d)) if return_var else None
+    for z in chunks_z:
         s1 += z.sum(dim=1)
         if return_var:
+            if antithetic:
+                h = z.shape[1] // 2
+                z = 0.5 * (z[:, :h] + z[:, h:])
             s2 += (z * z).sum(dim=1)
     mean = s1 / m
+    if not return_var:
+        return mean, None
+    n = m // 2 if antithetic else m
+    var = torch.clamp(s2 / n - mean * mean, min=0.0)
+    return mean, (2.0 * var if antithetic else var)
+
+
+def _terminal_z(eq, x, sqrt_Tt, g0, inv_y, dW):
+    """Terminal summands (B, mc, 1 + nx): (g(X_T) - g0) (1, dW inv_y)."""
+    xT = x[:, None, :] + sqrt_Tt[:, None, :] * eq.alpha_sqrt * dW
+    diff = eq.g(xT) - g0[:, None, :]
+    return torch.cat([diff, diff * dW * inv_y[:, None, :]], dim=-1)
+
+
+def _integral_z(eq, sol, t, x, Tt, f0, u, dW):
+    """Integral summands (B, mc, 1 + nx): Tt (f - f0) (1, dW / ys)."""
+    from deeppicarditeration_torch.ops.estimators import _ST_FLOOR
+
+    b, mc, nx = dW.shape
+    s = t[:, None, :] + u * Tt[:, None, :]
+    st = s - t[:, None, :]
+    xs = x[:, None, :] + torch.sqrt(st) * eq.alpha_sqrt * dW
+    f = get_f(eq, sol, s.reshape(-1, 1), xs.reshape(-1, nx))
+    diff = Tt[:, None, :] * (f.reshape(b, mc, 1) - f0[:, None, :])
+    inv_ys = 1.0 / (torch.sqrt(torch.clamp(st, min=_ST_FLOOR))
+                    * eq.alpha_sqrt)
+    return torch.cat([diff, diff * inv_ys * dW], dim=-1)
+
+
+def _with_value_offset(mean: torch.Tensor, offset: torch.Tensor):
     out = mean.clone()
-    out[:, 0:1] += g0 + f0 * Tt
-    if return_var:
-        return out, torch.clamp(s2 / m - mean * mean, min=0.0)
+    out[:, 0:1] += offset
     return out
 
 
-def kernel_net(sol: Solution, nx: int, width: int = 128) -> Optional[MLP]:
-    """The MLP the kernel runs for ``sol`` (None for the zero iterate).
-    Raises for a frozen iterate the kernel does not cover (``width``: the
-    hidden width the kernel is compiled for)."""
+def _check(name: str, v: torch.Tensor, shape, device) -> None:
+    if v.device != device or v.dtype != torch.float32:
+        raise ValueError(f"{name}: expected float32 on {device}, got "
+                         f"{v.dtype} on {v.device}")
+    if tuple(v.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(v.shape)}")
+    if not v.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _on_card(name: str, tx: torch.Tensor, eq) -> None:
+    """Checks every CUDA wrapper makes before it launches."""
+    if tx.device.type != "cuda":
+        raise ValueError(f"unsupported device {tx.device}")
+    if not isinstance(eq, Cha):
+        raise NotImplementedError(
+            f"the CUDA {name} kernel covers the Cha equation only (got "
+            f"{type(eq).__name__}); other equations come in later slices")
+
+
+def _ptr(v: Optional[torch.Tensor]):
+    return v.data_ptr() if v is not None else None
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _seed(seed: int) -> int:
+    return int(seed) & 0xFFFFFFFFFFFFFFFF
+
+
+def kernel_net(sol: Solution, nx: int, width: int = KERNEL_WIDTH
+               ) -> Optional[MLP]:
+    """The MLP the net kernels run for ``sol`` (None for the zero iterate).
+    Raises for a frozen iterate they do not cover (``width``: the hidden
+    width they are compiled for)."""
     if sol.kind == "zero":
         return None
     mod = sol.module
@@ -225,78 +351,286 @@ def pack_mlp(mod: MLP) -> torch.Tensor:
     return torch.cat([p.detach().contiguous().reshape(-1) for p in parts])
 
 
-def _check(name: str, v: torch.Tensor, shape, device) -> None:
-    if v.device != device or v.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32 on {device}, got "
-                         f"{v.dtype} on {v.device}")
-    if tuple(v.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
-                         f"{tuple(v.shape)}")
-    if not v.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
+def _net_for_launch(lib: ctypes.CDLL, name: str, sol: Solution,
+                    tx: torch.Tensor, nx: int):
+    """(module or None, hidden layers) after the net kernels' limits."""
+    if nx > getattr(lib, f"dpi_{name}_max_nx")():
+        raise NotImplementedError(
+            f"nx={nx} exceeds the {name} kernel's "
+            f"{getattr(lib, f'dpi_{name}_max_nx')()}")
+    mod = kernel_net(sol, nx, getattr(lib, f"dpi_{name}_hidden_width")())
+    n_hidden = len(mod.neurons) if mod is not None else 0
+    smem = getattr(lib, f"dpi_{name}_smem_bytes")(nx, n_hidden)
+    if smem > MAX_SMEM_BYTES:
+        raise NotImplementedError(
+            f"the {name} kernel needs {smem} B of shared memory at nx={nx}, "
+            f"{n_hidden} hidden layers (at most {MAX_SMEM_BYTES})")
+    if mod is not None and next(mod.parameters()).device != tx.device:
+        raise ValueError("the frozen net must lie on the device of tx")
+    return mod, n_hidden
+
+
+# ---------------------------------------------------------------------------
+# merged terminal + integral estimator (TPU: _generate_kernel)
+# ---------------------------------------------------------------------------
+
+def generate_with_gradients_plain(seed: int, eq, sol: Solution,
+                                  tx: torch.Tensor, m: int,
+                                  u01: Optional[torch.Tensor] = None,
+                                  noise_t: Optional[torch.Tensor] = None,
+                                  noise_i: Optional[torch.Tensor] = None, *,
+                                  antithetic: bool = False,
+                                  chunk_rows: int = 2 ** 16,
+                                  return_var: bool = False):
+    """Plain PyTorch version of the merged estimator kernel.
+
+    Same signature and meaning as ``generate_with_gradients_cuda``: with
+    external ``u01`` (B, rows, 1), ``noise_t`` and ``noise_i`` (B, rows,
+    nx), rows = ``draw_rows(m, antithetic)``, it uses them, else it draws
+    them chunk by chunk from a torch.Generator seeded with ``seed``.
+    Chunked over m so that at most about ``chunk_rows`` samples pass
+    through the frozen net at once. ``return_var`` also returns the
+    per-sample variance of each of the 1 + nx outputs (for CLT checks; see
+    ``_accumulate``)."""
+    t, x = tx[:, :1], tx[:, 1:]
+    b, nx = x.shape
+    Tt = torch.clamp(eq.T - t, min=1e-6)
+    sqrt_Tt = torch.sqrt(Tt)
+    inv_yT = 1.0 / (sqrt_Tt * eq.alpha_sqrt)
+    g0 = eq.g(x)
+    f0 = get_f(eq, sol, t, x)
+    external = None
+    if noise_t is not None:
+        external = {"u": u01, "nt": noise_t, "ni": noise_i}
+    chunks = _draw_chunks(seed, tx, m, antithetic, chunk_rows,
+                          [("u", 1, "u"), ("nt", nx, "n"), ("ni", nx, "n")],
+                          external)
+    mean, var = _accumulate(
+        (_terminal_z(eq, x, sqrt_Tt, g0, inv_yT, c["nt"])
+         + _integral_z(eq, sol, t, x, Tt, f0, c["u"], c["ni"])
+         for c in chunks), b, 1 + nx, m, antithetic, tx, return_var)
+    out = _with_value_offset(mean, g0 + f0 * Tt)
+    return (out, var) if return_var else out
 
 
 def generate_with_gradients_cuda(seed: int, eq, sol: Solution,
                                  tx: torch.Tensor, m: int,
                                  u01: Optional[torch.Tensor] = None,
                                  noise_t: Optional[torch.Tensor] = None,
-                                 noise_i: Optional[torch.Tensor] = None
-                                 ) -> torch.Tensor:
+                                 noise_i: Optional[torch.Tensor] = None, *,
+                                 antithetic: bool = False) -> torch.Tensor:
     """Merged terminal + integral estimator, (B, 1 + nx) f32.
 
     ``m`` is the shared per-point sample count of both chains. Without
     external noise the kernel draws its own normals (Philox4x32-10 keyed by
-    (seed, point)); with ``u01`` (B, m, 1) and ``noise_t``/``noise_i``
-    (B, m, nx) it uses those, as the TPU kernel does (its test path). CPU
+    (seed, point)); with ``u01`` (B, rows, 1) and ``noise_t``/``noise_i``
+    (B, rows, nx) it uses those, as the TPU kernel does (its test path).
+    ``antithetic`` pairs each draw with its mirror: rows = m / 2. CPU
     tensors take ``generate_with_gradients_plain``."""
     if tx.device.type == "cpu":
         return generate_with_gradients_plain(seed, eq, sol, tx, m, u01,
-                                             noise_t, noise_i)
-    if tx.device.type != "cuda":
-        raise ValueError(f"unsupported device {tx.device}")
-    if not isinstance(eq, Cha):
-        raise NotImplementedError(
-            f"the CUDA estimator kernel covers the Cha equation only (got "
-            f"{type(eq).__name__}); other equations come in later slices")
+                                             noise_t, noise_i,
+                                             antithetic=antithetic)
+    _on_card("estimator", tx, eq)
     b, nx = tx.shape[0], tx.shape[1] - 1
     _check("tx", tx, (b, 1 + nx), tx.device)
+    rows = draw_rows(m, antithetic)
     ext = [v is not None for v in (u01, noise_t, noise_i)]
     if any(ext) and not all(ext):
         raise ValueError("external noise needs all of u01, noise_t, noise_i")
     if all(ext):
-        _check("u01", u01, (b, m, 1), tx.device)
-        _check("noise_t", noise_t, (b, m, nx), tx.device)
-        _check("noise_i", noise_i, (b, m, nx), tx.device)
+        _check("u01", u01, (b, rows, 1), tx.device)
+        _check("noise_t", noise_t, (b, rows, nx), tx.device)
+        _check("noise_i", noise_i, (b, rows, nx), tx.device)
     lib = GENERATE.lib()
-    if nx > lib.dpi_generate_max_nx():
-        raise NotImplementedError(
-            f"nx={nx} exceeds the kernel's {lib.dpi_generate_max_nx()}")
-    mod = kernel_net(sol, nx, lib.dpi_generate_hidden_width())
-    n_hidden = len(mod.neurons) if mod is not None else 0
-    smem = lib.dpi_generate_smem_bytes(nx, n_hidden)
-    if smem > MAX_SMEM_BYTES:
-        raise NotImplementedError(
-            f"the kernel needs {smem} B of shared memory at nx={nx}, "
-            f"{n_hidden} hidden layers (at most {MAX_SMEM_BYTES})")
-    if mod is not None and next(mod.parameters()).device != tx.device:
-        raise ValueError("the frozen net must lie on the device of tx")
+    mod, n_hidden = _net_for_launch(lib, "generate", sol, tx, nx)
     t = tx[:, :1].contiguous()
     x = tx[:, 1:].contiguous()
     g0 = eq.g(x).contiguous()
     f0 = get_f(eq, sol, t, x).contiguous()
     w = pack_mlp(mod) if mod is not None else None
     out = torch.empty((b, 1 + nx), dtype=torch.float32, device=tx.device)
-    ptr = (lambda v: v.data_ptr() if v is not None else None)
-    stream = torch.cuda.current_stream(tx.device).cuda_stream
     rc = lib.dpi_generate(
-        ptr(t), ptr(x), ptr(g0), ptr(f0), ptr(w), ptr(u01), ptr(noise_t),
-        ptr(noise_i), ptr(out), b, int(m), nx, n_hidden,
-        int(mod is not None), int(seed) & 0xFFFFFFFFFFFFFFFF,
-        float(eq.T), float(eq.alpha_sqrt), float(eq.k),
-        float(eq.ff_offset), stream)
+        _ptr(t), _ptr(x), _ptr(g0), _ptr(f0), _ptr(w), _ptr(u01),
+        _ptr(noise_t), _ptr(noise_i), _ptr(out), b, int(m), nx, n_hidden,
+        int(mod is not None), int(antithetic), _seed(seed), float(eq.T),
+        float(eq.alpha_sqrt), float(eq.k), float(eq.ff_offset),
+        _stream(tx.device))
     if rc != 0:
         raise RuntimeError(f"dpi_generate launch failed: CUDA error {rc}")
     GENERATE.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# terminal estimator alone (TPU: _terminal_kernel)
+# ---------------------------------------------------------------------------
+
+def terminal_with_gradients_plain(seed: int, eq, tx: torch.Tensor, m: int,
+                                  noise: Optional[torch.Tensor] = None, *,
+                                  antithetic: bool = False,
+                                  chunk_rows: int = 2 ** 16,
+                                  return_var: bool = False):
+    """Plain PyTorch version of the terminal kernel:
+    E[(g(X_T) - g0) (1, Y)] + (g0, 0), Tt floored at 1e-6. ``noise``
+    (B, rows, nx), rows = ``draw_rows(m, antithetic)``, or draws from a
+    torch.Generator seeded with ``seed``."""
+    t, x = tx[:, :1], tx[:, 1:]
+    b, nx = x.shape
+    sqrt_Tt = torch.sqrt(torch.clamp(eq.T - t, min=1e-6))
+    inv_y = 1.0 / (sqrt_Tt * eq.alpha_sqrt)
+    g0 = eq.g(x)
+    chunks = _draw_chunks(seed, tx, m, antithetic, chunk_rows,
+                          [("n", nx, "n")],
+                          None if noise is None else {"n": noise})
+    mean, var = _accumulate(
+        (_terminal_z(eq, x, sqrt_Tt, g0, inv_y, c["n"]) for c in chunks),
+        b, 1 + nx, m, antithetic, tx, return_var)
+    out = _with_value_offset(mean, g0)
+    return (out, var) if return_var else out
+
+
+def terminal_with_gradients_cuda(seed: int, eq, tx: torch.Tensor, m: int,
+                                 noise: Optional[torch.Tensor] = None, *,
+                                 antithetic: bool = False) -> torch.Tensor:
+    """Terminal CV estimator, (B, 1 + nx) f32: the terminal kernel for CUDA
+    tensors (Philox draws keyed by (seed, point), or external ``noise``
+    (B, rows, nx)), the plain version for CPU tensors."""
+    if tx.device.type == "cpu":
+        return terminal_with_gradients_plain(seed, eq, tx, m, noise,
+                                             antithetic=antithetic)
+    _on_card("terminal", tx, eq)
+    b, nx = tx.shape[0], tx.shape[1] - 1
+    _check("tx", tx, (b, 1 + nx), tx.device)
+    rows = draw_rows(m, antithetic)
+    if noise is not None:
+        _check("noise", noise, (b, rows, nx), tx.device)
+    lib = TERMINAL.lib()
+    if nx > lib.dpi_terminal_max_nx():
+        raise NotImplementedError(
+            f"nx={nx} exceeds the terminal kernel's "
+            f"{lib.dpi_terminal_max_nx()}")
+    t = tx[:, :1].contiguous()
+    x = tx[:, 1:].contiguous()
+    g0 = eq.g(x).contiguous()
+    out = torch.empty((b, 1 + nx), dtype=torch.float32, device=tx.device)
+    rc = lib.dpi_terminal(
+        _ptr(t), _ptr(x), _ptr(g0), _ptr(noise), _ptr(out), b, int(m), nx,
+        int(antithetic), _seed(seed), float(eq.T), float(eq.alpha_sqrt),
+        float(eq.k), _stream(tx.device))
+    if rc != 0:
+        raise RuntimeError(f"dpi_terminal launch failed: CUDA error {rc}")
+    TERMINAL.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# integral estimator alone (TPU: _integral_kernel)
+# ---------------------------------------------------------------------------
+
+def integral_with_gradients_plain(seed: int, eq, sol: Solution,
+                                  tx: torch.Tensor, m: int,
+                                  u01: Optional[torch.Tensor] = None,
+                                  noise: Optional[torch.Tensor] = None, *,
+                                  antithetic: bool = False,
+                                  f0: Optional[torch.Tensor] = None,
+                                  chunk_rows: int = 2 ** 16,
+                                  return_var: bool = False):
+    """Plain PyTorch version of the integral kernel:
+    E[Tt (f - f0) (1, Ys)] + (f0 Tt, 0), Tt = T - t. ``u01`` (B, rows, 1)
+    and ``noise`` (B, rows, nx), or draws from a torch.Generator seeded
+    with ``seed``; pairs share u. ``f0`` defaults to f at (t, x)."""
+    t, x = tx[:, :1], tx[:, 1:]
+    b, nx = x.shape
+    Tt = eq.T - t
+    if f0 is None:
+        f0 = get_f(eq, sol, t, x)
+    external = None if noise is None else {"u": u01, "n": noise}
+    chunks = _draw_chunks(seed, tx, m, antithetic, chunk_rows,
+                          [("u", 1, "u"), ("n", nx, "n")], external)
+    mean, var = _accumulate(
+        (_integral_z(eq, sol, t, x, Tt, f0, c["u"], c["n"]) for c in chunks),
+        b, 1 + nx, m, antithetic, tx, return_var)
+    out = _with_value_offset(mean, f0 * Tt)
+    return (out, var) if return_var else out
+
+
+def integral_with_gradients_cuda(seed: int, eq, sol: Solution,
+                                 tx: torch.Tensor, m: int,
+                                 u01: Optional[torch.Tensor] = None,
+                                 noise: Optional[torch.Tensor] = None, *,
+                                 antithetic: bool = False,
+                                 f0: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """Integral CV estimator, (B, 1 + nx) f32: the integral kernel for CUDA
+    tensors (in-kernel Philox draws, or external ``u01`` (B, rows, 1) and
+    ``noise`` (B, rows, nx)), the plain version for CPU tensors."""
+    if tx.device.type == "cpu":
+        return integral_with_gradients_plain(seed, eq, sol, tx, m, u01,
+                                             noise, antithetic=antithetic,
+                                             f0=f0)
+    _on_card("integral", tx, eq)
+    b, nx = tx.shape[0], tx.shape[1] - 1
+    _check("tx", tx, (b, 1 + nx), tx.device)
+    rows = draw_rows(m, antithetic)
+    if (u01 is None) != (noise is None):
+        raise ValueError("external noise needs both u01 and noise")
+    if noise is not None:
+        _check("u01", u01, (b, rows, 1), tx.device)
+        _check("noise", noise, (b, rows, nx), tx.device)
+    lib = INTEGRAL.lib()
+    mod, n_hidden = _net_for_launch(lib, "integral", sol, tx, nx)
+    t = tx[:, :1].contiguous()
+    x = tx[:, 1:].contiguous()
+    if f0 is None:
+        f0 = get_f(eq, sol, t, x)
+    f0 = f0.contiguous()
+    _check("f0", f0, (b, 1), tx.device)
+    w = pack_mlp(mod) if mod is not None else None
+    out = torch.empty((b, 1 + nx), dtype=torch.float32, device=tx.device)
+    rc = lib.dpi_integral(
+        _ptr(t), _ptr(x), _ptr(f0), _ptr(w), _ptr(u01), _ptr(noise),
+        _ptr(out), b, int(m), nx, n_hidden, int(mod is not None),
+        int(antithetic), _seed(seed), float(eq.T), float(eq.alpha_sqrt),
+        float(eq.k), float(eq.ff_offset), _stream(tx.device))
+    if rc != 0:
+        raise RuntimeError(f"dpi_integral launch failed: CUDA error {rc}")
+    INTEGRAL.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# standard normal buffer (TPU: _normals_kernel)
+# ---------------------------------------------------------------------------
+
+def normals_plain(seed: int, shape, device=None) -> torch.Tensor:
+    """Plain version of the normals kernel: ``torch.randn`` on a
+    torch.Generator seeded with ``seed`` (f32)."""
+    device = torch.device("cpu" if device is None else device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                       device=device)
+
+
+def normals_cuda(seed: int, shape, device) -> torch.Tensor:
+    """N(0, 1) f32 buffer of ``shape`` on ``device``: the normals kernel on
+    a CUDA device (the value at flat index i depends on (seed, i) alone),
+    the plain version on the CPU."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return normals_plain(seed, shape, device)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    out = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    if out.data_ptr() % 16:
+        raise ValueError("the normals kernel stores 16-byte vectors")
+    lib = NORMALS.lib()
+    rc = lib.dpi_normals(_ptr(out), out.numel(), _seed(seed),
+                         _stream(device))
+    if rc != 0:
+        raise RuntimeError(f"dpi_normals launch failed: CUDA error {rc}")
+    NORMALS.launches += 1
     return out
 
 
@@ -310,4 +644,3 @@ def generate_flops_per_sample(nx: int, neurons) -> int:
     bwd = hidden[-1] + sum(a * b for a, b in zip(hidden, hidden[1:])) \
         + hidden[0]
     return 2 * (fwd + bwd)
-

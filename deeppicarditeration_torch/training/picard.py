@@ -53,6 +53,16 @@ _MATMUL_PRECISION = {"highest": "highest", "float32": "highest",
                      "bfloat16": "medium"}
 
 
+def _tri_state(v):
+    """Parse a false/true/"auto" config value (YAML bool or string)."""
+    if isinstance(v, str):
+        s = v.strip().lower()
+        if s == "auto":
+            return "auto"
+        return s in ("1", "true", "yes", "on")
+    return bool(v)
+
+
 def gen_config_from_cfg(cfg) -> GenConfig:
     d = cfg.DATA
     kwargs = d.kwargs or {}
@@ -72,7 +82,11 @@ def gen_config_from_cfg(cfg) -> GenConfig:
         sample_bound=(float(d.SAMPLE_BOUND)
                       if d.SAMPLE_BOUND is not None else None),
         estimate_delta_t=float(d.ESTIMATE_DELTA_T),
+        tpu_prng=bool(d.TPU.PRNG),
         antithetic=bool(d.TPU.ANTITHETIC),
+        pallas_terminal=bool(d.TPU.PALLAS_TERMINAL),
+        pallas_integral=bool(d.TPU.PALLAS_INTEGRAL),
+        pallas_generate=_tri_state(d.TPU.PALLAS_GENERATE),
     )
 
 
@@ -91,9 +105,6 @@ def _reject_unported(cfg) -> None:
         (cfg.EVAL.REFERENCE_FILE is not None, "EVAL.REFERENCE_FILE"),
         (bool(cfg.EVAL.PLOT), "EVAL.PLOT"),
         (cfg.MESH.SHAPE is not None, "MESH.SHAPE (multi-device runs)"),
-        (cfg.DATA.TPU.PALLAS_GENERATE is False
-         or str(cfg.DATA.TPU.PALLAS_GENERATE).lower() == "false",
-         "DATA.TPU.PALLAS_GENERATE: false (generation without the kernel)"),
         (str(cfg.DATA.TPU.PALLAS_PRECISION) == "default"
          or cfg.DATA.TPU.PALLAS_ACT is not None,
          "single-pass bf16 in-kernel dots (DATA.TPU.PALLAS_PRECISION: "

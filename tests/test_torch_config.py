@@ -17,6 +17,7 @@ from deeppicarditeration_torch import config as tconfig
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 W1 = ROOT / "configs/burgers/base_100d_T1.0_w1.0.yaml"
+BEST = ROOT / "configs/burgers/base_100d_T1.0_w1.0_best.yaml"
 
 
 def _without_device(d):
@@ -57,8 +58,10 @@ def test_dump_is_json_readable_as_yaml(tmp_path):
 def test_runner_rejects_what_the_port_lacks(tmp_path):
     from deeppicarditeration_torch.training.picard import PicardRunner
 
-    for ov in (["DATA.TPU.PALLAS_GENERATE", "false"], ["RESUME", "true"],
+    for ov in (["DATA.EXACT", "true"], ["RESUME", "true"],
                ["DATA.TPU.PALLAS_PRECISION", "default"],
+               ["TRAIN.SUPERVISE_HESSIAN", "true"],
+               ["PICARD.FORMULA", "TwoLayer"],
                ["METHOD.cls", "PINN"], ["DATA.SAVE", "true"]):
         cfg = tconfig.load_cfg(W1, ["DEVICE", "cpu"] + ov)
         with pytest.raises(NotImplementedError):
@@ -70,6 +73,32 @@ def test_chip_smoke_recipe_equals_the_yaml_chain():
 
     assert (chip_smoke.burgers_w1_cfg(100).to_dict()
             == tconfig.load_cfg(W1).to_dict())
+
+
+@pytest.mark.parametrize("path", ["B", "C", "D"])
+def test_chip_smoke_path_recipes_equal_the_yaml(path):
+    """Paths B and C are the w1.0 YAML with chip_smoke's flag overrides;
+    path D is configs/burgers/base_100d_T1.0_w1.0_best.yaml. Both packages
+    load them to the same tree and map the DATA.TPU flags alike."""
+    import chip_smoke
+    from deeppicarditeration_torch.training.picard import (
+        gen_config_from_cfg,
+    )
+    from deeppicarditeration_tpu.training.picard import (
+        gen_config_from_cfg as jax_gen_config_from_cfg,
+    )
+
+    yaml = BEST if path == "D" else W1
+    overrides = list(chip_smoke.PATHS[path][1])
+    port = tconfig.load_cfg(yaml, overrides)
+    assert chip_smoke.path_cfg(path, 100).to_dict() == port.to_dict()
+    jcfg = jax_load_cfg(yaml, overrides)
+    assert _without_device(port.to_dict()) == jcfg.to_dict()
+    gen, jgen = gen_config_from_cfg(port), jax_gen_config_from_cfg(jcfg, 1)
+    for field in ("n_estimate_terminal", "n_estimate_integral", "tpu_prng",
+                  "antithetic", "pallas_terminal", "pallas_integral",
+                  "pallas_generate", "chunk_elems"):
+        assert getattr(gen, field) == getattr(jgen, field), field
 
 
 _BANNED = ("jax", "flax", "optax", "orbax", "deeppicarditeration_tpu")

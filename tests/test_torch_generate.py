@@ -22,6 +22,7 @@ from deeppicarditeration_tpu.ops.pallas_kernels import (
     generate_with_gradients_pallas,
 )
 from deeppicarditeration_torch.data.dataset import generate_dataset
+from deeppicarditeration_torch.device import derive_seed
 from deeppicarditeration_torch.equations import make_equation
 from deeppicarditeration_torch.models.convert import mlp_state_dict_from_flax
 from deeppicarditeration_torch.models.networks import MLP
@@ -139,13 +140,29 @@ def test_dispatcher_routes_to_the_estimator_and_rejects_unported():
     out = est.generate_with_gradients(11, eq, sol, tx, gen)
     ref = kernels.generate_with_gradients_plain(11, eq, sol, tx, m)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
-    for bad in (dict(antithetic=True), dict(estimate_delta_t=0.1),
-                dict(n_estimate_integral=2 * m)):
-        with pytest.raises(NotImplementedError):
-            est.generate_with_gradients(
-                11, eq, sol, tx,
-                est.GenConfig(**{"n_estimate_terminal": m,
-                                 "n_estimate_integral": m, **bad}))
+    # antithetic pairing stays on the merged estimator
+    anti = est.GenConfig(n_estimate_terminal=m, n_estimate_integral=m,
+                         antithetic=True)
+    out = est.generate_with_gradients(11, eq, sol, tx, anti)
+    ref = kernels.generate_with_gradients_plain(11, eq, sol, tx, m,
+                                                antithetic=True)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    # different sample counts take the split estimators
+    split = est.GenConfig(n_estimate_terminal=m, n_estimate_integral=2 * m)
+    out = est.generate_with_gradients(11, eq, sol, tx, split)
+    ref = (est.estimate_terminal_with_gradients(derive_seed(11, 1), eq, tx,
+                                                split)
+           + est.estimate_integral_with_gradients(derive_seed(11, 2), eq,
+                                                  sol, tx, split))
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    # still unported: TD estimators and the value-only mode
+    with pytest.raises(NotImplementedError, match="TD"):
+        est.generate_with_gradients(
+            11, eq, sol, tx, est.GenConfig(n_estimate_terminal=m,
+                                           n_estimate_integral=m,
+                                           estimate_delta_t=0.1))
+    with pytest.raises(NotImplementedError, match="value"):
+        est.sample_batch(11, eq, sol, b, gen, mode="value", device="cpu")
 
 
 @pytest.mark.parametrize("entry", ["sample_tx", "sample_batch",

@@ -1,4 +1,4 @@
-"""The CUDA estimator kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 These tests need an NVIDIA card with nvcc (sm_90a); elsewhere they skip.
 They import neither JAX nor the JAX package, so they run where only torch
@@ -16,7 +16,7 @@ from deeppicarditeration_torch.equations import make_equation
 from deeppicarditeration_torch.models.networks import MLP
 from deeppicarditeration_torch.models.solution import Solution
 from deeppicarditeration_torch.ops import estimators as est
-from deeppicarditeration_torch.ops import kernels
+from deeppicarditeration_torch.ops import kernels, philox
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
@@ -89,6 +89,156 @@ def test_launch_counter_and_dispatcher(cuda):
     assert out.shape == (8, 101) and out.is_cuda
     tanh = Solution.from_net(
         MLP(101, (128,), ("Tanh",), 1).to(cuda), "Value", 100)
+    # "auto": a net the merged kernel does not cover takes the split path
+    out = est.generate_with_gradients(5, eq, tanh, tx, gen)
+    assert out.is_cuda and torch.isfinite(out).all()
+    forced = est.GenConfig(n_estimate_terminal=32, n_estimate_integral=32,
+                           pallas_generate=True)
     with pytest.raises(NotImplementedError):
-        est.generate_with_gradients(5, eq, tanh, tx, gen)
+        est.generate_with_gradients(5, eq, tanh, tx, forced)
     assert kernels.GENERATE.launches == n0 + 1
+
+
+@pytest.mark.parametrize("anti,m,nx", [(False, 64, 100), (True, 64, 100),
+                                       (False, 50, 7), (True, 70, 300)])
+def test_terminal_kernel_matches_plain_on_external_noise(cuda, anti, m, nx):
+    eq, _, tx, _, nt, _ = _problem(cuda, 16, m, nx, net=False)
+    noise = nt[:, :m // 2].contiguous() if anti else nt
+    out = kernels.terminal_with_gradients_cuda(0, eq, tx, m, noise,
+                                               antithetic=anti)
+    ref = kernels.terminal_with_gradients_plain(0, eq, tx, m, noise,
+                                                antithetic=anti)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("net,anti,m,nx", [
+    (False, False, 64, 100), (True, False, 64, 100), (True, True, 64, 100),
+    (True, False, 50, 7), (True, True, 70, 7)])
+def test_integral_kernel_matches_plain_on_external_noise(cuda, net, anti, m,
+                                                         nx):
+    eq, sol, tx, u01, _, ni = _problem(cuda, 16, m, nx, net)
+    if anti:
+        u01, ni = u01[:, :m // 2].contiguous(), ni[:, :m // 2].contiguous()
+    out = kernels.integral_with_gradients_cuda(0, eq, sol, tx, m, u01, ni,
+                                               antithetic=anti)
+    ref = kernels.integral_with_gradients_plain(0, eq, sol, tx, m, u01, ni,
+                                                antithetic=anti)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
+
+
+def test_merged_kernel_antithetic_matches_plain(cuda):
+    m = 64
+    eq, sol, tx, u01, nt, ni = _problem(cuda, 16, m)
+    h = [v[:, :m // 2].contiguous() for v in (u01, nt, ni)]
+    out = kernels.generate_with_gradients_cuda(0, eq, sol, tx, m, *h,
+                                               antithetic=True)
+    ref = kernels.generate_with_gradients_plain(0, eq, sol, tx, m, *h,
+                                                antithetic=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("which", ["terminal", "integral"])
+@pytest.mark.parametrize("anti", [False, True])
+def test_standalone_philox_within_clt_bounds(cuda, which, anti):
+    b, m = 32, 4096
+    eq, sol, tx, *_ = _problem(cuda, b, m)
+    if which == "terminal":
+        run = lambda s: kernels.terminal_with_gradients_cuda(  # noqa: E731
+            s, eq, tx, m, antithetic=anti)
+        ref, var = kernels.terminal_with_gradients_plain(
+            99, eq, tx, m, antithetic=anti, return_var=True)
+    else:
+        run = lambda s: kernels.integral_with_gradients_cuda(  # noqa: E731
+            s, eq, sol, tx, m, antithetic=anti)
+        ref, var = kernels.integral_with_gradients_plain(
+            99, eq, sol, tx, m, antithetic=anti, return_var=True)
+    out = run(1234)
+    assert torch.equal(out, run(1234))  # deterministic for a fixed seed
+    assert not torch.equal(out, run(1235))
+    z = (out - ref) / torch.sqrt(2.0 * var / m).clamp(min=1e-12)
+    assert torch.isfinite(out).all()
+    assert float(z.abs().max()) < 5.0, float(z.abs().max())
+
+
+@pytest.mark.parametrize("which", ["generate", "terminal", "integral"])
+@pytest.mark.parametrize("anti", [False, True])
+def test_inkernel_draws_equal_the_host_philox(cuda, which, anti):
+    """A kernel with its own draws equals its plain version fed the host
+    Philox's draws (ops/philox.py) at the first and last points."""
+    b, m, nx, seed = 64, 256, 100, (7 << 32) | 5
+    eq, sol, tx, *_ = _problem(cuda, b, m)
+    pts = [0, 1, 2, b - 2, b - 1]
+    rows = m // 2 if anti else m
+
+    def host(a):
+        return torch.from_numpy(a).to(cuda)
+
+    u = host(philox.estimator_times(seed, pts, rows))
+    nt = host(philox.estimator_normals(seed, pts, rows, nx,
+                                       philox.STREAM_TERMINAL))
+    ni = host(philox.estimator_normals(seed, pts, rows, nx,
+                                       philox.STREAM_INTEGRAL))
+    if which == "generate":
+        out = kernels.generate_with_gradients_cuda(seed, eq, sol, tx, m,
+                                                   antithetic=anti)
+        ref = kernels.generate_with_gradients_plain(
+            0, eq, sol, tx[pts], m, u, nt, ni, antithetic=anti)
+    elif which == "terminal":
+        out = kernels.terminal_with_gradients_cuda(seed, eq, tx, m,
+                                                   antithetic=anti)
+        ref = kernels.terminal_with_gradients_plain(0, eq, tx[pts], m, nt,
+                                                    antithetic=anti)
+    else:
+        out = kernels.integral_with_gradients_cuda(seed, eq, sol, tx, m,
+                                                   antithetic=anti)
+        ref = kernels.integral_with_gradients_plain(
+            0, eq, sol, tx[pts], m, u, ni, antithetic=anti)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out[pts], ref, rtol=RTOL, atol=ATOL)
+
+
+def test_normals_kernel_equals_the_host_philox(cuda):
+    seed, n = (7 << 32) | 5, 2 ** 22
+    v = kernels.normals_cuda(seed, (n,), cuda)
+    for start in (0, 12345, n - 4099):
+        ref = torch.from_numpy(philox.normals_flat(seed, start, 4099))
+        torch.testing.assert_close(v[start:start + 4099].cpu(), ref,
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_normals_kernel_moments_and_layout(cuda):
+    n0 = kernels.NORMALS.launches
+    v = kernels.normals_cuda(7, (4096, 64, 100), cuda)
+    assert kernels.NORMALS.launches == n0 + 1
+    assert v.shape == (4096, 64, 100) and v.dtype == torch.float32
+    x = v.double().reshape(-1)
+    n = x.numel()
+    se = 1.0 / n ** 0.5
+    assert abs(float(x.mean())) < 5 * se
+    assert abs(float((x * x).mean()) - 1.0) < 5 * 2 ** 0.5 * se
+    assert abs(float((x ** 4).mean()) - 3.0) < 5 * 96 ** 0.5 * se
+    assert abs(float((x[1:] * x[:-1]).mean())) < 5 * se
+    # the value at flat index i depends on (seed, i) alone
+    w = kernels.normals_cuda(7, (1001, 3), cuda)
+    assert torch.equal(w.reshape(-1), v.reshape(-1)[:3003])
+    assert not torch.equal(kernels.normals_cuda(8, (1001, 3), cuda), w)
+
+
+def test_split_route_launch_counts(cuda):
+    m = 64
+    eq, sol, tx, *_ = _problem(cuda, 8, m)
+    c0 = [lib.launches for lib in kernels.ALL]
+    gen = est.GenConfig(n_estimate_terminal=m, n_estimate_integral=m,
+                        pallas_generate=False, pallas_terminal=True,
+                        pallas_integral=True)
+    est.generate_with_gradients(5, eq, sol, tx, gen)
+    gen = est.GenConfig(n_estimate_terminal=m, n_estimate_integral=m,
+                        pallas_generate=False, tpu_prng=True,
+                        chunk_elems=8 * 100 * 16)
+    est.generate_with_gradients(5, eq, sol, tx, gen)
+    d = [lib.launches - c for lib, c in zip(kernels.ALL, c0)]
+    # GENERATE, TERMINAL, INTEGRAL, NORMALS: 4 + 4 chunks of 16 samples
+    assert d == [0, 1, 1, 8], d
