@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's generation paths on one NVIDIA card and check them.
+"""Drive the PyTorch port's paths on one NVIDIA card and check them.
 
-    python3 chip_smoke.py                   # every path for 3 iterations
-    python3 chip_smoke.py --iterations 100  # the recipes' full Picard budget
+    python3 chip_smoke.py                   # paths A-D for 3 iterations,
+                                            # path E for 3000 epochs
+    python3 chip_smoke.py --iterations 100  # the DPI recipes' full budget
+    python3 chip_smoke.py --epochs 35000    # the D-DBSDE recipe's full budget
 
 Paths (the Burgers 100-d w1.0 recipe through ``PicardRunner`` at full
 width: nx=100, 4x128 ELU net, B=4096 points from the path's sampler):
@@ -13,13 +15,20 @@ width: nx=100, 4x128 ELU net, B=4096 points from the path's sampler):
   C  PALLAS_GENERATE false, PRNG true: the chunk estimators (64 chunks of
      64 samples each, Kahan over chunks), normals from ``normals.cu``;
   D  configs/burgers/base_100d_T1.0_w1.0_best.yaml: M=8192 with antithetic
-     pairing, through the merged kernel.
+     pairing, through the merged kernel;
+  E  configs/burgers/diffusion_100d_T1.0_beta10.0.yaml, the D-DBSDE
+     baseline (K=20 steps, batch 512, beta 10, the same 4x128 ELU net) as
+     the recipe stands: one rollout kernel launch (``csrc/rollout.cu``) per
+     epoch; cut to 3000 of its 35 000 epochs (``--epochs``).
 Each path's kernel launch counts are read around its run (every count set
-to 0 just before) and checked against its generation calls.
+to 0 just before) and checked against its generation calls (A-D) or its
+epochs (E). The rate probe's entry point
+(``python -m deeppicarditeration_torch.utils.probe_roofline``) is driven the
+same way.
 
 Phases (each failure exits non-zero; the result line is printed last, and
 only when every phase passed):
-  1. build the four CUDA kernels from ``deeppicarditeration_torch/csrc``
+  1. build the six CUDA kernels from ``deeppicarditeration_torch/csrc``
      (one nvcc each, all started together);
   2. the merged kernel against its plain PyTorch version on the same
      external noise (B=256, M=4096; zero iterate and a random net);
@@ -43,8 +52,22 @@ only when every phase passed):
      2^30 draws, its lag 1-8 correlations, and its independence from the
      buffer's shape;
   7. paths B, C and D, 3 iterations each;
-  8. kernel, plain-version and library times at the paths' shapes, and
+  8. the rollout kernel at path E's shapes (K=20, B=512, nx=100, the
+     baseline's mix of full and tail-shrunk steps): its draws against the
+     host Philox value for value, its paths against the plain version fed
+     those draws, the increment relation, xs[0] = x0, the same values at
+     another B, and the law of the endpoint over 2^16 x 100 paths;
+  9. path E, 3000 epochs (``--epochs``): one launch per epoch, the final
+     rRMSE under ``DIFFUSION_RRMSE_MAX``, ms per epoch and the kernel's
+     share of it;
+ 10. the probe kernel in each mode against its plain version at 2
+     iterations, and in the elu mode also at the entry point's full size
+     (1024 iterations); then the entry point at full size, its rates beside
+     the bound model's peaks and its loop's SASS per unit (the elu chain's
+     exp must stay in the loop);
+ 11. kernel, plain-version and library times at the paths' shapes, and
      each kernel's bound, printed as one ``{"kernels": [...]}`` JSON line.
+     A time below its bound fails the run: the model counted too much.
 Needs one NVIDIA H100 SXM card; imports nothing of JAX.
 """
 
@@ -93,6 +116,20 @@ BURGERS_W1_BEST = {
              "TPU": {"ANTITHETIC": True}},
 }
 
+# configs/burgers/diffusion_100d_T1.0_beta10.0.yaml on top of the w1.0
+# recipe (its BASE is the w0.0 recipe, which differs from w1.0 only in the
+# three keys below that the Picard path reads: NAME, PICARD.N, fixed_weight)
+BURGERS_DIFFUSION = {
+    "NAME": "Cha5.0_NoEnT_100D_T1.0_w0.0_DS4096_M4096_E16_Diffusion_K20_"
+            "beta10.0",
+    "METHOD": {"cls": "Diffusion", "K": 20, "dt": 0.005},
+    "PICARD": {"N": 1},
+    "TRAIN": {"N_EPOCHS": 35000,
+              "LOSS": {"beta": 10.0,
+                       "SCALER": {"kwargs": {"fixed_weight": 0.0}}}},
+    "EVAL": {"FREQ": 100},
+}
+
 # path -> (recipe layers, CLI-style overrides)
 PATHS = {
     "A": ((BURGERS_W1_RECIPE,), []),
@@ -103,6 +140,7 @@ PATHS = {
     "C": ((BURGERS_W1_RECIPE,),
           ["DATA.TPU.PALLAS_GENERATE", "false", "DATA.TPU.PRNG", "true"]),
     "D": ((BURGERS_W1_RECIPE, BURGERS_W1_BEST), []),
+    "E": ((BURGERS_W1_RECIPE, BURGERS_DIFFUSION), []),
 }
 
 TOL = 5e-5  # kernel vs plain on the same noise: rtol = atol
@@ -114,6 +152,34 @@ EDGE = 8  # points checked at each end of the launch
 DRAW_TOL = 1e-5  # normals kernel vs host Philox: rtol = atol
 NORMALS_CHECK = 2 ** 16  # values checked at each end of the buffer
 RRMSE_MAX = 0.35
+# Path E's final rRMSE at its cut (3000 of 35 000 epochs), fixed before its
+# first run on the card: an untrained net scores ~1 (the zero function
+# exactly 1); the JAX records end at 0.089-0.098 after 35 000 epochs; at
+# 3000 epochs Adam at lr 1e-3 should be near 0.10-0.20 (PERF.md, the
+# prediction for path E). The limit leaves room for another random stream
+# and flags a run that did not train.
+DIFFUSION_EPOCHS = 3000
+DIFFUSION_RRMSE_MAX = 0.35
+PATH_TOL = 1e-5  # rollout kernel vs host Philox / plain version: rtol=atol
+LAW_ROWS = 2 ** 16  # endpoint law check: rows of 100 dimensions
+PROBE_TOL = 1e-5  # probe kernel vs plain (f32 sums reordered): rtol=atol
+# Every mode is checked at PROBE_CHECK_ITERS iterations. bits and normals
+# only there: their plain version draws every unit on the host (~0.8 s for 2
+# iterations at a full grid, ~7 min at 1024). elu draws only iteration 0's
+# normals, so it is also checked at the entry point's full size, where each
+# partial sum adds PROBE_ITERS x 32 terms in another order and through
+# another exp than the plain version: |diff| <= ELU_SUM_ULPS 2^-24 x (its
+# sum of |terms|), ELU_SUM_ULPS = 2 (PROBE_ITERS + 32) (recursive summation
+# on both sides, at most PROBE_ITERS + 31 additions per term) + 16 (expf and
+# torch.exp within 2 ulp each of a value below 1, on terms of mean
+# magnitude ~1/2).
+PROBE_CHECK_ITERS = 2
+PROBE_ITERS, PROBE_REPEATS = 1024, 8  # the probe's entry point at full size
+ELU_SUM_ULPS = 2 * (PROBE_ITERS + 32) + 16
+# The elu probe's chain through the accumulator keeps its exp in the loop:
+# one special function per unit in the loop's SASS. The bits and normals
+# sums depend on every iteration's draws and equal the plain version, so
+# they cannot be hoisted. No kernel, and no probe mode, may beat its bound.
 NORMALS_CHUNK = (4096, 64, 100)  # path C's per-chunk draw
 
 # NVIDIA's data sheet for the H100 SXM (dense, at 700 W): FP32 FLOP/s
@@ -130,19 +196,28 @@ PEAK_BYTES_S = 3.35e12
 CLOCK_HZ = PEAK_FP32_FLOPS / (SMS * 128 * 2)
 PEAK_INT32_OPS = SMS * 64 * CLOCK_HZ
 PEAK_SFU_OPS = SMS * 16 * CLOCK_HZ
-# Work per N(0,1) draw, as the kernels need it (Box-Muller on Philox bits):
-# a quarter of a Philox4x32-10 call -- 10 rounds of 2 32x32 products, each
-# a high and a low half (4 integer multiplies), and 2 three-input XORs (one
-# LOP3 each on sm_90); the key schedule depends on the key alone, fixed for
-# a launch (normals.cu) or a block (the estimators), so it is hoisted --
-# plus a shift and an OR to make the uniform; half a Box-Muller: log, sqrt,
-# sin, cos per pair (2 special functions), and 3 FP32 ops.
-PHILOX_INT_OPS = 10 * (4 + 2)
-INT_PER_NORMAL = PHILOX_INT_OPS // 4 + 2
+# Integer work per draw, counted in the SASS of the rate probe's loops
+# (``cuobjdump -sass`` of csrc/probe.cu, printed by phase 10): a
+# Philox4x32-10 call is 33 integer instructions (a 32x32 product with both
+# halves is one IMAD.WIDE, a three-input XOR one LOP3, the key schedule is
+# hoisted, the constant stream word folds part of rounds 1-2), and the
+# uniform's shift-or is one LEA.HI per word: 33 / 4 + 1 per 32-bit word.
+# Box-Muller's fast path adds 11 per pair: logf's exponent split 4, sqrtf's
+# range test 2, sincosf's quadrant 5 (its slow path, for arguments above
+# 105615, is never taken on (0, 2 pi]). Per normal, besides: half a
+# Box-Muller's log, sqrt, sin, cos (2 special functions) and 3 FP32 ops.
+INT_PER_WORD = 33 / 4 + 1
+INT_PER_NORMAL = INT_PER_WORD + 11 / 2
 SFU_PER_NORMAL, FP32_PER_NORMAL = 2, 3
+# per unit of the rate probe, on top of the draw: the uniform's subtract
+# (bits) and the accumulation (every mode); the ELU chain's shift, compare,
+# exp range reduction, subtract, select and product (~9 FP32 operations)
+# around one exp (one special function)
+PROBE_ELU_FP32, PROBE_ELU_SFU = 9, 1
 
 
-def path_cfg(path: str, n_iter: int, device: str = "cuda"):
+def path_cfg(path: str, n_iter: int = None, device: str = "cuda",
+             epochs: int = None):
     from deeppicarditeration_torch.config import default_cfg
 
     layers, overrides = PATHS[path]
@@ -150,9 +225,16 @@ def path_cfg(path: str, n_iter: int, device: str = "cuda"):
     for layer in layers:
         cfg.merge(layer, allow_new=False)
     cfg.merge_from_list(list(overrides))
-    cfg.PICARD.N = n_iter
+    if n_iter is not None:
+        cfg.PICARD.N = n_iter
+    if epochs is not None:
+        cfg.TRAIN.N_EPOCHS = epochs
     cfg.DEVICE = device
     return cfg.freeze()
+
+
+def diffusion_cfg(epochs: int, device: str = "cuda"):
+    return path_cfg("E", device=device, epochs=epochs)
 
 
 def burgers_w1_cfg(n_iter: int, device: str = "cuda"):
@@ -175,6 +257,34 @@ def _time_ms(fn, reps: int) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def _device_ms(fn, kernel: str, reps: int):
+    """Device time per launch of the CUDA kernel whose name contains
+    ``kernel``, from a torch.profiler trace of ``reps`` calls of ``fn``;
+    None where the trace shows no device time for it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        total = getattr(ev, "device_time_total",
+                        getattr(ev, "cuda_time_total", 0))
+        if kernel in ev.key and ev.count and total:
+            return total / ev.count / 1e3
+    return None
+
+
+def _not_below(label: str, ms: float, bound_ms: float) -> None:
+    """Fail where a measured time beats its bound: the bound model counts
+    more work than the kernel does."""
+    if not ms >= bound_ms:
+        _fail(f"{label}: {ms:.4f} ms beats its bound of {bound_ms:.4f} ms")
 
 
 def _same(label: str, out, ref) -> float:
@@ -273,7 +383,7 @@ def _integral_work(b, m, nx, anti, neurons, n_weights):
     n, n_u = b * rows * nx, b * rows
     net = generate_flops_per_sample(nx, neurons) if neurons else 0
     return (FP32_PER_NORMAL * n + n_u + b * m * (net + 4 * nx + 10),
-            INT_PER_NORMAL * (n + n_u),
+            INT_PER_NORMAL * n + INT_PER_WORD * n_u,
             SFU_PER_NORMAL * n + b * m * (2 + sum(neurons)),
             4 * (b * (2 + nx) + n_weights + b * (1 + nx)))
 
@@ -287,6 +397,26 @@ def _merged_work(b, m, nx, anti, neurons, n_weights):
 def _normals_work(n):
     return (FP32_PER_NORMAL * n, INT_PER_NORMAL * n, SFU_PER_NORMAL * n,
             4 * n)
+
+
+def _rollout_work(K, b, nx):
+    """One rollout: K B nx normals; per normal a product and two sums; x0
+    (and the step scales) in, xs (K+1, B, nx) and xi (K, B, nx) out."""
+    n = K * b * nx
+    return ((FP32_PER_NORMAL + 3) * n, INT_PER_NORMAL * n,
+            SFU_PER_NORMAL * n, 4 * ((2 * K + 1) * b * nx + b * nx + b))
+
+
+def _probe_work(which, units, grid):
+    """One probe call of ``units`` units: the mode's draw or ELU chain plus
+    the accumulation; the (grid * 8, 128) partial sums out."""
+    n_bytes = 4 * grid * 8 * 128
+    if which == "bits":
+        return 2 * units, INT_PER_WORD * units, 0, n_bytes
+    if which == "normals":
+        return ((FP32_PER_NORMAL + 1) * units, INT_PER_NORMAL * units,
+                SFU_PER_NORMAL * units, n_bytes)
+    return PROBE_ELU_FP32 * units, 0, PROBE_ELU_SFU * units, n_bytes
 
 
 def _bound(work):
@@ -363,6 +493,123 @@ def _run_path(path: str, n_iter: int):
     return runner, launches, routes
 
 
+def _path_e_inputs(eq, b, K, dt, seed, device):
+    """t0 ~ U(0, T), x0 ~ law(X_t0) and the tail-shrunk steps, as the
+    D-DBSDE baseline draws them."""
+    import torch
+
+    from deeppicarditeration_torch.training.baselines import rollout_dts
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    t0 = eq.T * torch.rand((b, 1), generator=g, device=device)
+    x0 = eq.sample_x(g, t0)
+    return x0.contiguous(), rollout_dts(eq, t0, dt, K).sqrt().contiguous()
+
+
+def _check_rollout(cfg, device) -> float:
+    """Phase 8: the rollout kernel at path E's shapes; returns the max
+    |diff| against the host Philox's draws and the plain paths."""
+    import torch
+
+    from deeppicarditeration_torch.equations import make_equation
+    from deeppicarditeration_torch.ops import kernels, philox
+
+    K, b, dt = int(cfg.METHOD.K), int(cfg.TRAIN.BATCH_SIZE), float(
+        cfg.METHOD.dt)
+    eq = make_equation(cfg.EQUATION.cls, **cfg.EQUATION.kwargs)
+    nx, a = eq.nx, eq.alpha_sqrt
+    x0, sdt = _path_e_inputs(eq, b, K, dt, 21, device)
+    full_step = torch.full_like(sdt, dt).sqrt()
+    n_full = int((sdt == full_step).sum())
+    n_short = int((sdt < full_step).sum())
+    xs, xi = kernels.paths_cuda(EXACT_SEED, x0, sdt, a, K)
+    torch.cuda.synchronize()
+    host = torch.from_numpy(philox.path_normals(EXACT_SEED, K, b, nx)).to(
+        device)
+    ref, _ = kernels.paths_plain(0, x0, sdt, a, K, host)
+    steps = sdt[None] * a * xi
+    errs = {"xi vs host Philox": (xi, host), "xs vs plain on the host "
+            "draws": (xs, ref), "increments": (xs[1:] - xs[:-1], steps)}
+    worst = 0.0
+    for label, (out, want) in errs.items():
+        err = (out - want).abs()
+        ok = bool((err <= PATH_TOL + PATH_TOL * want.abs()).all())
+        print(f"rollout kernel K={K} B={b} nx={nx} ({label}): max |diff| "
+              f"{float(err.max()):.3e}, within rtol=atol={PATH_TOL}: {ok}")
+        if not ok or not torch.isfinite(out).all():
+            _fail(f"the rollout kernel disagrees ({label})")
+        worst = max(worst, float(err.max()))
+    if not torch.equal(xs[0], x0) or not (n_full and n_short
+                                          and n_full + n_short == b):
+        _fail(f"rollout: xs[0] != x0, or not a mix of full and tail-shrunk "
+              f"steps ({n_full} full, {n_short} shorter)")
+    xs_b, xi_b = kernels.paths_cuda(EXACT_SEED, x0[:100].contiguous(),
+                                    sdt[:100].contiguous(), a, K)
+    if not (torch.equal(xi_b, xi[:, :100]) and torch.equal(xs_b,
+                                                           xs[:, :100])):
+        _fail("the rollout kernel's values depend on B")
+    print(f"rollout kernel: xs[0] = x0; {n_full} rows with the full step, "
+          f"{n_short} tail-shrunk; the same values at B=100 and B={b}")
+    # the endpoint's law: (X_K - x0) / (sqrt(alpha) sqrt(K dt_b)) ~ N(0, 1)
+    x0, sdt = _path_e_inputs(eq, LAW_ROWS, K, dt, 22, device)
+    xs, _ = kernels.paths_cuda(23, x0, sdt, a, K)
+    z = ((xs[-1] - x0) / (a * sdt * math.sqrt(K))).double().reshape(-1)
+    n = z.numel()
+    zm, zv = float(z.mean()) * math.sqrt(n), (float(z.var()) - 1.0) / \
+        math.sqrt(2.0 / n)
+    print(f"rollout kernel endpoint over {n} draws: mean z-score {zm:.2f}, "
+          f"variance z-score {zv:.2f} (bound {CLT_SIGMAS})")
+    if abs(zm) > CLT_SIGMAS or abs(zv) > CLT_SIGMAS:
+        _fail("the rollout kernel's endpoint law is off")
+    return worst
+
+
+def _run_diffusion(epochs: int):
+    """Phase 9: path E through the CLI's runner; returns (runner, launches,
+    ms per epoch)."""
+    import torch
+
+    from deeppicarditeration_torch.ops import kernels
+    from deeppicarditeration_torch.training.picard import PicardRunner
+
+    cfg = diffusion_cfg(epochs)
+    runner = PicardRunner(cfg, exp_root=ROOT / "build" / "chip_smoke_runs"
+                          / "E")
+    for lib in kernels.ALL:
+        lib.launches = 0
+    t0 = time.perf_counter()
+    runner.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {lib.source.stem: lib.launches for lib in kernels.ALL}
+    want = {name: (epochs if name == "rollout" else 0) for name in launches}
+    if launches != want or runner.rollout_calls != epochs:
+        _fail(f"path E: launches {launches}, rollouts {runner.rollout_calls}"
+              f"; want {want}")
+    per_epoch = [tm["interval_ms"] / tm["epochs"] for tm in runner.timings]
+    rows = [json.loads(ln) for ln in
+            (runner.exp_dir / "metrics.jsonl").read_text().splitlines()]
+    evals = [r for r in rows if r["context"] == "eval"]
+    q = statistics.quantiles(per_epoch, n=4)
+    print(f"path E: {epochs} epochs in {wall:.1f} s; launches {launches}; "
+          f"ms per epoch (CUDA events per {cfg.EVAL.FREQ}-epoch interval) "
+          f"median {statistics.median(per_epoch):.3f}, quartiles "
+          f"{q[0]:.3f}-{q[2]:.3f}, first interval {per_epoch[0]:.3f}; "
+          f"epochs total {sum(tm['interval_ms'] for tm in runner.timings):.0f}"
+          f" ms")
+    step = max(1, len(evals) // 10)
+    print("path E rRMSE by epoch: " + ", ".join(
+        f"{r['step'] + 1}: {r['rRMSE']:.4f}" for r in evals[step - 1::step]))
+    last = evals[-1]
+    print(f"path E final rRMSE {last['rRMSE']}, rRMSEg {last['rRMSEg']} "
+          f"(JAX records after 35000 epochs: 0.0894-0.0981 / 0.221-0.227)")
+    r = last["rRMSE"]
+    if r is None or not math.isfinite(r) or r > DIFFUSION_RRMSE_MAX:
+        _fail(f"path E final rRMSE {r} (want finite and <= "
+              f"{DIFFUSION_RRMSE_MAX})")
+    return runner, launches, statistics.median(per_epoch)
+
+
 def _expect_launches(path, runner, launches, routes, want):
     """Fail unless every kernel launched exactly ``want`` times (0 where not
     named) and the dispatch took the path's route for every generation
@@ -379,10 +626,103 @@ def _expect_launches(path, runner, launches, routes, want):
               f"{routes}, want {want_routes}")
 
 
+def _elu_abs_sums(seed, grid, iters, dev):
+    """The elu probe's (grid * 8, 128) sums of |term| over every term each
+    partial sum adds: iters times those of iteration 0's units (the shift
+    acc * 1e-30 is below f32 resolution for any x0 the draw gives)."""
+    import torch
+
+    from deeppicarditeration_torch.ops import philox
+
+    rows, lanes = philox.PROBE_ROWS, philox.LANES
+    x = torch.from_numpy(philox.probe_units(seed, "normals", grid, 1)).to(
+        dev).reshape(grid, rows, philox.PROBE_BLK // rows, lanes)
+    y = torch.where(x > 0, x, torch.exp(x) - 1.0)
+    ge = torch.where(x > 0, torch.ones_like(x), y + 1.0)
+    return iters * (y * ge).abs().sum(dim=2).reshape(grid * rows, lanes)
+
+
+def _probe_phase(dev):
+    """Phase 10: the probe kernel in each mode against its plain version,
+    then the probe's entry point at full size, its rates beside the bound
+    model; returns (max |diff|, the entry point's launches, per-mode
+    results)."""
+    import torch
+
+    from deeppicarditeration_torch.ops import kernels
+    from deeppicarditeration_torch.utils import probe_roofline
+
+    worst = 0.0
+    checks = [(which, PROBE_CHECK_ITERS) for which in kernels.PROBE_MODES]
+    for which, iters in checks + [("elu", PROBE_ITERS)]:
+        grid = kernels.probe_grid(which)
+        out = kernels.probe_cuda(which, EXACT_SEED, iters, dev, grid)
+        ref = kernels.probe_plain(which, EXACT_SEED, grid, iters, dev)
+        torch.cuda.synchronize()
+        err = (out - ref).abs()
+        if iters == PROBE_CHECK_ITERS:
+            limit, how = PROBE_TOL + PROBE_TOL * ref.abs(), \
+                f"rtol=atol={PROBE_TOL}"
+        else:
+            limit = ELU_SUM_ULPS * 2.0 ** -24 * _elu_abs_sums(
+                EXACT_SEED, grid, iters, dev)
+            how = (f"{ELU_SUM_ULPS} x 2^-24 x the sum of |terms| (at most "
+                   f"{float(limit.max()):.3e}; |ref| up to "
+                   f"{float(ref.abs().max()):.3e})")
+        ok = bool((err <= limit).all())
+        print(f"probe kernel vs plain ({which}, grid {grid}, {iters} "
+              f"iterations): max |diff| {float(err.max()):.3e}, within "
+              f"{how}: {ok}")
+        if not ok or not torch.isfinite(out).all():
+            _fail(f"the probe kernel disagrees with its plain version "
+                  f"({which}, {iters} iterations)")
+        worst = max(worst, float(err.max()))
+    kernels.PROBE.launches = 0
+    probes = {r["probe"]: r for r in probe_roofline.main(
+        ["--iters", str(PROBE_ITERS), "--repeats", str(PROBE_REPEATS)])}
+    launches_probe = kernels.PROBE.launches
+    if launches_probe != len(probes) * (1 + PROBE_REPEATS):
+        _fail(f"the probe's entry point launched {launches_probe} times")
+    peaks = {"FP32": PEAK_FP32_FLOPS, "INT32": PEAK_INT32_OPS,
+             "SFU": PEAK_SFU_OPS}
+    modes = {}
+    for which, r in probes.items():
+        work = _probe_work(which, r["units"], r["grid"])
+        bms, _, pipe = _bound(work)
+        per_unit = dict(zip(("FP32", "INT32", "SFU"),
+                            (w / r["units"] for w in work[:3])))
+        implied = {p: r["units_per_s"] * per_unit[p] for p in peaks
+                   if per_unit[p]}
+        sass = r["sass_per_unit"]
+        print(f"probe {which}: {r['units_per_s']:.4e} units/s "
+              f"({r['s_per_call'] * 1e3:.3f} ms for {r['units']:.3e} units, "
+              f"grid {r['grid']}); implied "
+              + ", ".join(f"{p} {v:.3e}/s = {v / peaks[p]:.2f} of the "
+                          f"model's {peaks[p]:.3e}"
+                          for p, v in implied.items())
+              + f"; bound {bms:.3f} ms ({pipe}); the loop's SASS per unit: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in sass.items())
+              + f" (model: FP32 {per_unit['FP32']}, INT32 "
+              f"{per_unit['INT32']}, SFU {per_unit['SFU']})")
+        if which == "elu" and sass["sfu"] != PROBE_ELU_SFU:
+            _fail("the elu probe's exp left its loop (SASS special "
+                  f"functions per unit {sass['sfu']})")
+        _not_below(f"probe {which}", r["s_per_call"] * 1e3, bms)
+        modes[which] = {"units_per_s": r["units_per_s"],
+                        "ms": r["s_per_call"] * 1e3, "units": r["units"],
+                        "grid": r["grid"], "bound_ms": bms,
+                        "bound_pipe": pipe, "implied_ops_per_s": implied,
+                        "sass_per_unit": sass}
+    return worst, launches_probe, modes
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iterations", type=int, default=3,
-                    help="Picard iterations of each path (default 3)")
+                    help="Picard iterations of paths A-D (default 3)")
+    ap.add_argument("--epochs", type=int, default=DIFFUSION_EPOCHS,
+                    help=f"epochs of path E (default {DIFFUSION_EPOCHS}; "
+                         "the recipe's own is 35000)")
     args = ap.parse_args(argv)
     import torch
 
@@ -401,6 +741,7 @@ def main(argv=None) -> int:
     from deeppicarditeration_torch.ops import estimators as est
     from deeppicarditeration_torch.ops import kernels, philox
     from deeppicarditeration_torch.training.picard import gen_config_from_cfg
+    from deeppicarditeration_torch.utils import probe_roofline
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -614,14 +955,25 @@ def main(argv=None) -> int:
     _expect_launches("D", runner_d, launches_d, routes_d,
                      {"generate": runner_d.generate_calls})
 
-    # ---- 8. times and bounds at the paths' shapes --------------------------
+    # ---- 8. rollout kernel at path E's shapes -----------------------------
+    cfg_e = diffusion_cfg(args.epochs)
+    max_err["rollout"] = _check_rollout(cfg_e, dev)
+
+    # ---- 9. path E ---------------------------------------------------------
+    runner_e, launches_e, ms_epoch = _run_diffusion(args.epochs)
+
+    # ---- 10. rate probe ----------------------------------------------------
+    max_err["probe"], launches_probe, modes = _probe_phase(dev)
+
+    # ---- 11. times and bounds at the paths' shapes -------------------------
     neurons = sol.module.neurons
     n_weights = sum(p.numel() for p in sol.module.parameters())
     rows = []
 
     def row(lib, stem, replaces, path, launches, n_calls, ms, plain_ms,
-            work, library_ms=None, shape=""):
+            work, library_ms=None, shape="", extra=None):
         bound_ms, bound_by, pipe = _bound(work)
+        _not_below(lib, ms, bound_ms)
         print(f"{lib}: {ms:.3f} ms per call at {shape} (path {path}), plain "
               f"{plain_ms:.3f} ms, library {library_ms}, bound "
               f"{bound_ms:.3f} ms ({bound_by}, {pipe}; FP32 {work[0]:.3e}, "
@@ -635,7 +987,7 @@ def main(argv=None) -> int:
             "launches_per_call": launches / max(n_calls, 1),
             "max_abs_err": max_err[stem], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bound_pipe": pipe,
-            "library_ms": library_ms})
+            "library_ms": library_ms, **(extra or {})})
 
     src = "deeppicarditeration_tpu/ops/pallas_kernels.py"
     shape = f"B={nb} M={mm} nx={nx}, {len(neurons)}x128 net"
@@ -649,6 +1001,7 @@ def main(argv=None) -> int:
     ms_d = _time_ms(lambda: kernels.generate_with_gradients_cuda(
         5, eq, sol, tx, 2 * mm, antithetic=True), 2)
     bd = _bound(_merged_work(nb, 2 * mm, nx, True, neurons, n_weights))
+    _not_below("generate_with_gradients antithetic", ms_d, bd[0])
     print(f"generate_with_gradients antithetic (path D's shapes, M="
           f"{2 * mm}): {ms_d:.3f} ms per call, bound {bd[0]:.3f} ms "
           f"({bd[2]})")
@@ -676,6 +1029,45 @@ def main(argv=None) -> int:
         library_ms=_time_ms(lambda: torch.randn(
             NORMALS_CHUNK, generator=cuda_gen, device=dev), 50),
         shape=f"{NORMALS_CHUNK}")
+    # rollout at path E's shapes, one launch per epoch
+    K_e, b_e = int(cfg_e.METHOD.K), int(cfg_e.TRAIN.BATCH_SIZE)
+    eq_e = runner_e.equation
+    x0, sdt = _path_e_inputs(eq_e, b_e, K_e, float(cfg_e.METHOD.dt), 24, dev)
+    def launch():
+        return kernels.paths_cuda(5, x0, sdt, eq_e.alpha_sqrt, K_e)
+
+    ms_roll = _time_ms(launch, 200)  # back to back, host overhead included
+    dev_roll = _device_ms(launch, "paths_kernel", 200)
+    row("paths", "rollout", "deeppicarditeration_tpu/ops/rollout.py:98", "E",
+        launches_e["rollout"], runner_e.rollout_calls, ms_roll,
+        _time_ms(lambda: kernels.paths_plain(5, x0, sdt, eq_e.alpha_sqrt,
+                                             K_e), 200),
+        _rollout_work(K_e, b_e, eq_e.nx),
+        shape=f"K={K_e} B={b_e} nx={eq_e.nx}",
+        extra={"launches_per_iteration": launches_e["rollout"],
+               "launches_per_epoch": launches_e["rollout"] / args.epochs,
+               "device_ms": dev_roll, "ms_per_epoch": ms_epoch,
+               "share_of_epoch": (None if dev_roll is None
+                                  else dev_roll / ms_epoch)})
+    if dev_roll is not None:
+        _not_below("paths (device time)", dev_roll, rows[-1]["bound_ms"])
+    share = ("not measured (no device time in the trace)" if dev_roll is None
+             else f"{100 * dev_roll / ms_epoch:.3f} %")
+    print(f"path E: the rollout kernel takes {ms_roll:.4f} ms per call back "
+          f"to back, {dev_roll} ms of device time (torch.profiler), of "
+          f"{ms_epoch:.3f} ms per epoch; its device time's share {share}")
+    # the probe at the entry point's full size in the elu mode, where it is
+    # also checked against its plain version; every mode under "modes"
+    grid = kernels.probe_grid("elu")
+    row("probe", "probe", "scripts/probe_vpu_roofline.py:50",
+        "probe entry point", launches_probe, len(modes) * (1 + PROBE_REPEATS),
+        modes["elu"]["ms"],
+        _time_ms(lambda: kernels.probe_plain(
+            "elu", EXACT_SEED, grid, PROBE_ITERS, dev), 1),
+        _probe_work("elu", probe_roofline.units_per_call(grid, PROBE_ITERS),
+                    grid),
+        shape=f"elu, grid {grid}, {PROBE_ITERS} iterations",
+        extra={"launches_per_iteration": None, "modes": modes})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           f"card check")
     print(json.dumps({"kernels": rows}))

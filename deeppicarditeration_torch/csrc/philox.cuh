@@ -10,7 +10,11 @@
 //     dimensions, stream, seed_hi); stream 0 = terminal normals,
 //     1 = integral normals, 2 = the integral's time draw u;
 //   normals kernel:    key (seed_lo, 0), counter (quad index lo, quad
-//     index hi, stream 3, seed_hi).
+//     index hi, stream 3, seed_hi);
+//   rollout kernel:    key (seed_lo, row b), counter (step / 4, dimension,
+//     stream 4, seed_hi);
+//   rate probe:        key (seed_lo, block), counter (quad in the tile,
+//     iteration, stream 5, seed_hi).
 // Distinct streams or seeds never share a counter. Its host reference,
 // which the kernels' draws are checked against value for value, is
 // deeppicarditeration_torch/ops/philox.py. Also the warp reduction the
@@ -27,6 +31,8 @@ constexpr uint32_t STREAM_TERMINAL = 0u;
 constexpr uint32_t STREAM_INTEGRAL = 1u;
 constexpr uint32_t STREAM_TIME = 2u;
 constexpr uint32_t STREAM_NORMALS = 3u;
+constexpr uint32_t STREAM_PATHS = 4u;
+constexpr uint32_t STREAM_PROBE = 5u;
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 key) {
 #pragma unroll

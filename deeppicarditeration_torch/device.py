@@ -1,6 +1,9 @@
-"""Device selection and seed derivation shared by the port's entry points."""
+"""Device selection, seed derivation and phase timing shared by the port's
+entry points."""
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -35,3 +38,30 @@ def make_generator(device: torch.device, *path: int) -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed(derive_seed(*path))
     return g
+
+
+class Timer:
+    """Wall time of a phase in ms: CUDA events on the card, the host clock
+    on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.ms = None
+
+    def __enter__(self):
+        if self.cuda:
+            self._a = torch.cuda.Event(enable_timing=True)
+            self._b = torch.cuda.Event(enable_timing=True)
+            self._a.record()
+        else:
+            self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.cuda:
+            self._b.record()
+            self._b.synchronize()
+            self.ms = self._a.elapsed_time(self._b)
+        else:
+            self.ms = (time.perf_counter() - self._t0) * 1e3
+        return False

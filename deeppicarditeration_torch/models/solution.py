@@ -73,17 +73,24 @@ class Solution:
         """The scalar value head u(t, x), shape (..., 1)."""
         return self(tx)[..., 0:1]
 
-    def value_and_grad_x(self, t: torch.Tensor, x: torch.Tensor):
-        """(u, du/dx) per sample, detached; u: (..., 1), du/dx: (..., nx).
+    def value_and_grad_x(self, t: torch.Tensor, x: torch.Tensor,
+                         create_graph: bool = False):
+        """(u, du/dx) per sample; u: (..., 1), du/dx: (..., nx).
 
-        One batched backward pass with a ones cotangent."""
+        One batched backward pass with a ones cotangent. Detached by
+        default (the estimators' frozen iterate); with ``create_graph=True``
+        both stay on the graph, so that a loss on them back-propagates to
+        the parameters (the D-DBSDE loss, a double backward)."""
         if self.kind == "zero":
             return x.new_zeros(x.shape[:-1] + (1,)), torch.zeros_like(x)
         with torch.enable_grad():
             xx = x.detach().requires_grad_(True)
             tx = torch.cat([t.expand(xx.shape[:-1] + (1,)), xx], dim=-1)
             u = self.module(tx)
-            (gx,) = torch.autograd.grad(u, xx, torch.ones_like(u))
+            (gx,) = torch.autograd.grad(u, xx, torch.ones_like(u),
+                                        create_graph=create_graph)
+        if create_graph:
+            return u, gx
         return u.detach(), gx
 
     def value_and_grad_tx(self, tx: torch.Tensor, create_graph: bool = False):

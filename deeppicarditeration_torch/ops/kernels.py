@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels of the port, their wrappers and plain versions.
 
 Counterpart of ``deeppicarditeration_tpu/ops/pallas_kernels.py``. Ported so
-far, each from its TPU kernel there:
+far, each from its TPU kernel there (the last two from
+``deeppicarditeration_tpu/ops/rollout.py`` and
+``scripts/probe_vpu_roofline.py``):
 
 ==========================  ====================  ==========================
 wrapper                     source                TPU kernel
@@ -10,6 +12,8 @@ generate_with_gradients     csrc/generate.cu      _generate_kernel (merged)
 terminal_with_gradients     csrc/terminal.cu      _terminal_kernel
 integral_with_gradients     csrc/integral.cu      _integral_kernel
 normals                     csrc/normals.cu       _normals_kernel
+paths                       csrc/rollout.cu       _paths_kernel
+probe                       csrc/probe.cu         _probe_kernel
 ==========================  ====================  ==========================
 
 Shared device code: ``csrc/philox.cuh`` (Philox4x32-10, Box-Muller) and
@@ -173,11 +177,25 @@ def _declare_normals(lib: ctypes.CDLL) -> None:
     lib.dpi_normals.restype = _I
 
 
+def _declare_rollout(lib: ctypes.CDLL) -> None:
+    lib.dpi_paths.argtypes = [_P] * 4 + [_I] * 3 + [_U64, _F, _P]
+    lib.dpi_paths.restype = _I
+
+
+def _declare_probe(lib: ctypes.CDLL) -> None:
+    lib.dpi_probe.argtypes = [_P, _I, _I, _I, _U64, _P]
+    lib.dpi_probe.restype = _I
+    lib.dpi_probe_grid.argtypes = [_I]
+    lib.dpi_probe_grid.restype = _I
+
+
 GENERATE = CudaLibrary("generate.cu", _declare_generate)
 TERMINAL = CudaLibrary("terminal.cu", _declare_terminal)
 INTEGRAL = CudaLibrary("integral.cu", _declare_integral)
 NORMALS = CudaLibrary("normals.cu", _declare_normals)
-ALL = (GENERATE, TERMINAL, INTEGRAL, NORMALS)
+ROLLOUT = CudaLibrary("rollout.cu", _declare_rollout)
+PROBE = CudaLibrary("probe.cu", _declare_probe)
+ALL = (GENERATE, TERMINAL, INTEGRAL, NORMALS, ROLLOUT, PROBE)
 
 
 # ---------------------------------------------------------------------------
@@ -631,6 +649,135 @@ def normals_cuda(seed: int, shape, device) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"dpi_normals launch failed: CUDA error {rc}")
     NORMALS.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K-step Brownian paths (TPU: _paths_kernel in ops/rollout.py)
+# ---------------------------------------------------------------------------
+
+def paths_plain(seed: int, x0: torch.Tensor, sqrt_dts: torch.Tensor,
+                alpha_sqrt: float, K: int,
+                xi: Optional[torch.Tensor] = None):
+    """Plain version of the rollout kernel: (xs (K+1, B, nx), xi (K, B,
+    nx)) with xs = x0 + cumsum(sqrt_dts sqrt(alpha) xi) over the steps.
+    ``xi`` external, or drawn from a torch.Generator seeded with ``seed``."""
+    if xi is None:
+        gen = torch.Generator(device=x0.device)
+        gen.manual_seed(int(seed))
+        xi = torch.randn((int(K),) + tuple(x0.shape), generator=gen,
+                         dtype=x0.dtype, device=x0.device)
+    steps = sqrt_dts[None] * alpha_sqrt * xi
+    xs = torch.cat([x0[None], x0[None] + torch.cumsum(steps, dim=0)], dim=0)
+    return xs, xi
+
+
+def paths_cuda(seed: int, x0: torch.Tensor, sqrt_dts: torch.Tensor,
+               alpha_sqrt: float, K: int):
+    """Exact drift-free K-step paths from x0 (B, nx) with per-row step
+    scale sqrt_dts (B, 1) * alpha_sqrt: (xs (K+1, B, nx), xi (K, B, nx))
+    f32. The rollout kernel for CUDA tensors (xi[k, b, j] depends on
+    (seed, k, b, j) alone), the plain version for CPU tensors."""
+    if x0.device.type == "cpu":
+        return paths_plain(seed, x0, sqrt_dts, alpha_sqrt, K)
+    if x0.device.type != "cuda":
+        raise ValueError(f"unsupported device {x0.device}")
+    if x0.dim() != 2 or int(K) < 0:
+        raise ValueError(f"x0 must be (B, nx) and K >= 0 (got "
+                         f"{tuple(x0.shape)}, K={K})")
+    b, nx = x0.shape
+    _check("x0", x0, (b, nx), x0.device)
+    _check("sqrt_dts", sqrt_dts, (b, 1), x0.device)
+    xs = torch.empty((int(K) + 1, b, nx), dtype=torch.float32,
+                     device=x0.device)
+    xi = torch.empty((int(K), b, nx), dtype=torch.float32, device=x0.device)
+    lib = ROLLOUT.lib()
+    rc = lib.dpi_paths(_ptr(x0), _ptr(sqrt_dts), _ptr(xs), _ptr(xi), b, nx,
+                       int(K), _seed(seed), float(alpha_sqrt),
+                       _stream(x0.device))
+    if rc != 0:
+        raise RuntimeError(f"dpi_paths launch failed: CUDA error {rc}")
+    ROLLOUT.launches += 1
+    return xs, xi
+
+
+# ---------------------------------------------------------------------------
+# PRNG / ELU rate probe (TPU: _probe_kernel in scripts/probe_vpu_roofline.py)
+# ---------------------------------------------------------------------------
+
+PROBE_MODES = ("bits", "normals", "elu")
+
+
+def _probe_mode(which: str) -> int:
+    if which not in PROBE_MODES:
+        raise ValueError(f"unknown probe mode {which!r} (known: "
+                         f"{PROBE_MODES})")
+    return PROBE_MODES.index(which)
+
+
+def probe_grid(which: str) -> int:
+    """Blocks of the probe kernel that fill the current card in mode
+    ``which``: a multiple of its SM count."""
+    grid = PROBE.lib().dpi_probe_grid(_probe_mode(which))
+    if grid <= 0:
+        raise RuntimeError(f"dpi_probe_grid failed ({grid})")
+    return grid
+
+
+def probe_plain(which: str, seed: int, grid: int, iters: int,
+                device=None) -> torch.Tensor:
+    """Plain version of the probe kernel: the (grid * 8, 128) partial sums
+    of the units drawn by the host Philox (``ops/philox.py``), or, for
+    "elu", of the ELU chain on its host normals x0. Host draws cost ~1 s
+    per 4M Philox calls, so keep ``grid * iters`` small."""
+    from deeppicarditeration_torch.ops import philox
+
+    _probe_mode(which)
+    device = torch.device("cpu" if device is None else device)
+    rows, lanes = philox.PROBE_ROWS, philox.LANES
+    per = philox.PROBE_BLK // rows
+
+    def draws(kind, n_iter):
+        u = torch.from_numpy(philox.probe_units(seed, kind, grid, n_iter))
+        return u.to(device).reshape(grid, n_iter, rows, per, lanes)
+
+    acc = torch.zeros((grid, rows, lanes), dtype=torch.float32,
+                      device=device)
+    if which == "elu":
+        x0 = draws("normals", 1)[:, 0]
+        for _ in range(int(iters)):
+            x = x0 + acc[:, :, None, :] * 1e-30
+            y = torch.where(x > 0, x, torch.exp(x) - 1.0)
+            ge = torch.where(x > 0, torch.ones_like(x), y + 1.0)
+            acc = acc + (y * ge).sum(dim=2)
+    else:
+        units = draws(which, int(iters))
+        for i in range(int(iters)):
+            acc = acc + units[:, i].sum(dim=2)
+    return acc.reshape(grid * rows, lanes)
+
+
+def probe_cuda(which: str, seed: int, iters: int, device,
+               grid: Optional[int] = None) -> torch.Tensor:
+    """The rate probe's (grid * 8, 128) partial sums: the probe kernel on a
+    CUDA device (``grid`` defaults to ``probe_grid``), the plain version on
+    the CPU (``grid`` then required)."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        if grid is None:
+            raise ValueError("the plain probe needs an explicit grid")
+        return probe_plain(which, seed, grid, iters, device)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    mode = _probe_mode(which)
+    if grid is None:
+        grid = probe_grid(which)
+    out = torch.empty((grid * 8, 128), dtype=torch.float32, device=device)
+    rc = PROBE.lib().dpi_probe(_ptr(out), mode, int(grid), int(iters),
+                               _seed(seed), _stream(device))
+    if rc != 0:
+        raise RuntimeError(f"dpi_probe launch failed: CUDA error {rc}")
+    PROBE.launches += 1
     return out
 
 

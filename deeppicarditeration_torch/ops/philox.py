@@ -10,7 +10,11 @@ it value for value. It rebuilds each kernel's counter layout (see
   (i / 4 lo, i / 4 hi, stream 3, seed_hi), key (seed_lo, 0);
 * ``estimator_normals`` / ``estimator_times``: the estimator kernels' dW
   rows and time uniforms of given points, counter (draw, quad, stream,
-  seed_hi), key (seed_lo, point), point = the row of tx in the launch.
+  seed_hi), key (seed_lo, point), point = the row of tx in the launch;
+* ``path_normals``: the rollout kernel's increments xi[k, b, j], counter
+  (k / 4, j, stream 4, seed_hi), key (seed_lo, b);
+* ``probe_units``: the rate probe's draws, counter (quad, iteration,
+  stream 5, seed_hi), key (seed_lo, block).
 
 Fed as external noise to a kernel's plain version, these draws must give
 what the kernel computes with its own (``chip_smoke.py``,
@@ -24,6 +28,10 @@ from __future__ import annotations
 import numpy as np
 
 STREAM_TERMINAL, STREAM_INTEGRAL, STREAM_TIME, STREAM_NORMALS = 0, 1, 2, 3
+STREAM_PATHS, STREAM_PROBE = 4, 5
+# the rate probe's tile: LANES columns, PROBE_ROWS partial-sum rows, and
+# PROBE_BLK rows of units per iteration (probe.cu)
+LANES, PROBE_ROWS, PROBE_BLK = 128, 8, 256
 
 _U64 = np.uint64
 _MASK = _U64(0xFFFFFFFF)
@@ -116,3 +124,45 @@ def estimator_times(seed: int, points, rows: int) -> np.ndarray:
     k = np.arange(rows, dtype=np.uint64)[None, :]
     w0 = philox4x32_10((k, 0, STREAM_TIME, hi), (lo, p))[0]
     return uniform_from_bits(np.broadcast_to(w0, (len(p), rows)))[..., None]
+
+
+def path_normals(seed: int, K: int, b: int, nx: int) -> np.ndarray:
+    """(K, b, nx) float32: the rollout kernel's increments. xi[k, b, j] is
+    normal k % 4 of counter (k / 4, j, stream 4, seed_hi) under key
+    (seed_lo, b): Box-Muller of words 0-1 gives steps 4c and 4c + 1, of
+    words 2-3 steps 4c + 2 and 4c + 3."""
+    lo, hi = _split(seed)
+    c = np.arange((K + 3) // 4, dtype=np.uint64)[:, None, None]
+    rows = np.arange(b, dtype=np.uint64)[None, :, None]
+    j = np.arange(nx, dtype=np.uint64)[None, None, :]
+    words = philox4x32_10((c, j, STREAM_PATHS, hi), (lo, rows))
+    words = [np.broadcast_to(w, (c.shape[0], b, nx)) for w in words]
+    quads = _quad_normals(words)  # (K / 4, b, nx, 4)
+    out = quads.transpose(0, 3, 1, 2).reshape(-1, b, nx)
+    return np.ascontiguousarray(out[:K])
+
+
+def probe_units(seed: int, which: str, grid: int, iters: int) -> np.ndarray:
+    """(grid, iters, PROBE_BLK, LANES) float32: the units the rate probe
+    draws in block g and iteration i, "bits" (uniforms) or "normals". The
+    4 units of rows 4w .. 4w + 3 in column c come from counter
+    (w * LANES + c, i, stream 5, seed_hi) under key (seed_lo, g)."""
+    lo, hi = _split(seed)
+    g = np.arange(grid, dtype=np.uint64)[:, None, None, None]
+    i = np.arange(iters, dtype=np.uint64)[None, :, None, None]
+    w = np.arange(PROBE_BLK // 4, dtype=np.uint64)[None, None, :, None]
+    c = np.arange(LANES, dtype=np.uint64)[None, None, None, :]
+    words = philox4x32_10((w * _U64(LANES) + c, i, STREAM_PROBE, hi),
+                          (lo, g))
+    shape = (grid, iters, PROBE_BLK // 4, LANES)
+    words = [np.broadcast_to(v, shape) for v in words]
+    if which == "bits":
+        units = np.stack([uniform_from_bits(v) for v in words], axis=-1)
+    elif which == "normals":
+        units = _quad_normals(words)
+    else:
+        raise ValueError(f"unknown probe draw {which!r}")
+    # (grid, iters, quad row w, column c, 4) -> rows 4w .. 4w + 3
+    return np.ascontiguousarray(
+        units.transpose(0, 1, 2, 4, 3).reshape(grid, iters, PROBE_BLK,
+                                               LANES))

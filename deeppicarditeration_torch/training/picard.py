@@ -10,15 +10,16 @@ metrics readback per iteration) in a plain loop.
 
 Random streams: the JAX package splits keys; here each stream is a
 ``torch.Generator`` seeded from ``derive_seed(SEED, iteration, purpose,
-...)``. Not ported yet: RESUME, offline datasets and DATA.SAVE, the
-TwoLayer formula, the baselines, multi-device runs, plots.
+...)``. METHOD.cls Diffusion runs the D-DBSDE baseline
+(``training/baselines.py``) in place of the Picard steps. Not ported yet:
+RESUME, offline datasets and DATA.SAVE, the TwoLayer formula, the PINN and
+DBDP baselines, multi-device runs, plots.
 """
 
 from __future__ import annotations
 
 import pathlib
 import shutil
-import time
 from typing import List, Optional
 
 import torch
@@ -30,6 +31,7 @@ from deeppicarditeration_torch.data.dataset import (
     generate_dataset,
 )
 from deeppicarditeration_torch.device import (
+    Timer,
     derive_seed,
     make_generator,
     resolve_device,
@@ -93,7 +95,8 @@ def gen_config_from_cfg(cfg) -> GenConfig:
 def _reject_unported(cfg) -> None:
     """Fail loudly on recipe features this slice of the port lacks."""
     checks = [
-        (cfg.METHOD.cls != "Picard", f"METHOD.cls {cfg.METHOD.cls!r}"),
+        (cfg.METHOD.cls not in ("Picard", "Diffusion"),
+         f"METHOD.cls {cfg.METHOD.cls!r}"),
         (cfg.PICARD.FORMULA is not None,
          f"PICARD.FORMULA {cfg.PICARD.FORMULA!r}"),
         (bool(cfg.RESUME), "RESUME"),
@@ -114,33 +117,6 @@ def _reject_unported(cfg) -> None:
         if bad:
             raise NotImplementedError(
                 f"{what} is not ported yet; it comes with a later slice")
-
-
-class _Timer:
-    """Wall time of a phase in ms: CUDA events on the card, the host clock
-    on the CPU."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.ms = None
-
-    def __enter__(self):
-        if self.cuda:
-            self._a = torch.cuda.Event(enable_timing=True)
-            self._b = torch.cuda.Event(enable_timing=True)
-            self._a.record()
-        else:
-            self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        if self.cuda:
-            self._b.record()
-            self._b.synchronize()
-            self.ms = self._a.elapsed_time(self._b)
-        else:
-            self.ms = (time.perf_counter() - self._t0) * 1e3
-        return False
 
 
 class PicardRunner:
@@ -173,6 +149,7 @@ class PicardRunner:
         self.logger = MetricLogger(self.exp_dir, cfg.LOGGING.LOGGER)
         self.global_step = 0
         self.generate_calls = 0
+        self.rollout_calls = 0
         self.timings: List[dict] = []
 
     # ------------------------------------------------------------------
@@ -267,6 +244,11 @@ class PicardRunner:
     def run_one(self) -> bool:
         cfg = self.cfg
         self.i += 1
+        if cfg.METHOD.cls in ("PINN", "Diffusion", "FullyNonlinearSolver"):
+            from deeppicarditeration_torch.training import baselines
+
+            baselines.run_baseline(self)
+            return True
         module = init_solution(
             cfg, self.equation, self.device,
             make_generator(torch.device("cpu"), self.seed, self.i, 0)).module
@@ -274,11 +256,11 @@ class PicardRunner:
             ckpt.load_params(ckpt.ckpt_path(self.exp_dir, self.i - 1),
                              module)
         gen = gen_config_from_cfg(cfg)
-        with _Timer(self.device) as t_gen:
+        with Timer(self.device) as t_gen:
             ds = self._make_dataset(derive_seed(self.seed, self.i, 1), gen,
                                     self.generation_mode)
         optimizer = make_optimizer(cfg.TRAIN.OPTIMIZER, module.parameters())
-        with _Timer(self.device) as t_fit:
+        with Timer(self.device) as t_fit:
             self._train_iteration(module, optimizer, ds)
         ckpt.save_params(ckpt.ckpt_path(self.exp_dir, self.i), module)
         self.u_current = Solution.from_net(freeze(module), self.net_type,

@@ -18,6 +18,7 @@ from deeppicarditeration_torch import config as tconfig
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 W1 = ROOT / "configs/burgers/base_100d_T1.0_w1.0.yaml"
 BEST = ROOT / "configs/burgers/base_100d_T1.0_w1.0_best.yaml"
+DIFFUSION = ROOT / "configs/burgers/diffusion_100d_T1.0_beta10.0.yaml"
 
 
 def _without_device(d):
@@ -62,7 +63,8 @@ def test_runner_rejects_what_the_port_lacks(tmp_path):
                ["DATA.TPU.PALLAS_PRECISION", "default"],
                ["TRAIN.SUPERVISE_HESSIAN", "true"],
                ["PICARD.FORMULA", "TwoLayer"],
-               ["METHOD.cls", "PINN"], ["DATA.SAVE", "true"]):
+               ["METHOD.cls", "PINN"], ["DATA.SAVE", "true"],
+               ["METHOD.cls", "FullyNonlinearSolver"]):
         cfg = tconfig.load_cfg(W1, ["DEVICE", "cpu"] + ov)
         with pytest.raises(NotImplementedError):
             PicardRunner(cfg, exp_root=tmp_path)
@@ -99,6 +101,26 @@ def test_chip_smoke_path_recipes_equal_the_yaml(path):
                   "antithetic", "pallas_terminal", "pallas_integral",
                   "pallas_generate", "chunk_elems"):
         assert getattr(gen, field) == getattr(jgen, field), field
+
+
+def test_chip_smoke_path_e_equals_the_diffusion_yaml():
+    """Path E is configs/burgers/diffusion_100d_T1.0_beta10.0.yaml as it
+    stands; ``--epochs 35000`` gives the recipe's own budget, and the JAX
+    package loads the YAML to the same tree."""
+    import chip_smoke
+
+    overrides = list(chip_smoke.PATHS["E"][1])
+    assert overrides == []
+    port = tconfig.load_cfg(DIFFUSION, overrides)
+    assert chip_smoke.diffusion_cfg(35000).to_dict() == port.to_dict()
+    assert port.TRAIN.N_EPOCHS == 35000 and port.METHOD.cls == "Diffusion"
+    assert _without_device(port.to_dict()) == jax_load_cfg(
+        DIFFUSION, overrides).to_dict()
+    cut = chip_smoke.diffusion_cfg(chip_smoke.DIFFUSION_EPOCHS).to_dict()
+    assert cut["TRAIN"].pop("N_EPOCHS") == 3000
+    full = port.to_dict()
+    full["TRAIN"].pop("N_EPOCHS")
+    assert cut == full
 
 
 _BANNED = ("jax", "flax", "optax", "orbax", "deeppicarditeration_tpu")

@@ -240,5 +240,121 @@ def test_split_route_launch_counts(cuda):
                         chunk_elems=8 * 100 * 16)
     est.generate_with_gradients(5, eq, sol, tx, gen)
     d = [lib.launches - c for lib, c in zip(kernels.ALL, c0)]
-    # GENERATE, TERMINAL, INTEGRAL, NORMALS: 4 + 4 chunks of 16 samples
-    assert d == [0, 1, 1, 8], d
+    # GENERATE, TERMINAL, INTEGRAL, NORMALS (4 + 4 chunks of 16 samples),
+    # ROLLOUT, PROBE
+    assert d == [0, 1, 1, 8, 0, 0], d
+
+
+# ---- rollout kernel (csrc/rollout.cu) ---------------------------------------
+
+# Kernel draws vs the host Philox, and kernel paths vs the plain version
+# fed those draws: f32 Box-Muller on the card vs float64 on the host, a
+# few ulps; the sums are the same sequential f32 sums (rtol = atol).
+PATH_TOL = 1e-5
+
+
+def _path_inputs(cuda, b, nx, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x0 = torch.randn((b, nx), generator=g)
+    t0 = torch.rand((b, 1), generator=g)
+    # the baseline's tail-shrunk steps: dt where t0 + K dt <= T, else less
+    dts = torch.where(t0 + 20 * 0.005 <= 1.0, torch.full_like(t0, 0.005),
+                      (1.0 - t0) / 20)
+    return x0.to(cuda), dts.sqrt().to(cuda)
+
+
+def test_rollout_kernel_equals_the_host_philox_and_the_plain_version(cuda):
+    seed, K, b, nx = (7 << 32) | 5, 20, 64, 100
+    x0, sdt = _path_inputs(cuda, b, nx)
+    n0 = kernels.ROLLOUT.launches
+    xs, xi = kernels.paths_cuda(seed, x0, sdt, 1.3, K)
+    torch.cuda.synchronize()
+    assert kernels.ROLLOUT.launches == n0 + 1
+    assert xs.shape == (K + 1, b, nx) and xi.shape == (K, b, nx)
+    host = torch.from_numpy(philox.path_normals(seed, K, b, nx)).to(cuda)
+    torch.testing.assert_close(xi, host, rtol=PATH_TOL, atol=PATH_TOL)
+    ref, _ = kernels.paths_plain(0, x0, sdt, 1.3, K, host)
+    torch.testing.assert_close(xs, ref, rtol=PATH_TOL, atol=PATH_TOL)
+    assert torch.equal(xs[0], x0)
+    torch.testing.assert_close(xs[1:] - xs[:-1], sdt[None] * 1.3 * xi,
+                               rtol=PATH_TOL, atol=PATH_TOL)
+    # xi[k, b, j] depends on (seed, k, b, j) alone: the same at another B
+    xs17, xi17 = kernels.paths_cuda(seed, x0[:17].contiguous(),
+                                    sdt[:17].contiguous(), 1.3, K)
+    assert torch.equal(xi17, xi[:, :17]) and torch.equal(xs17, xs[:, :17])
+    other = kernels.paths_cuda(seed + 1, x0, sdt, 1.3, K)[1]
+    assert not torch.equal(other, xi)
+
+
+def test_rollout_kernel_law_of_the_endpoint(cuda):
+    """X_K ~ N(x0, alpha K dt) per element: mean and variance of the
+    standardized endpoint within 5 standard errors."""
+    K, b, nx, dt, alpha_sqrt = 20, 4096, 100, 0.005, 1.3
+    x0 = torch.zeros((b, nx), device=cuda)
+    sdt = torch.full((b, 1), dt ** 0.5, device=cuda)
+    xs, _ = kernels.paths_cuda(11, x0, sdt, alpha_sqrt, K)
+    z = (xs[-1] / (alpha_sqrt * (K * dt) ** 0.5)).double().reshape(-1)
+    n = z.numel()
+    assert abs(float(z.mean())) < 5 / n ** 0.5
+    assert abs(float(z.var()) - 1.0) < 5 * (2 / n) ** 0.5
+
+
+def test_rollout_wrapper_checks_its_inputs(cuda):
+    x0, sdt = _path_inputs(cuda, 8, 4)
+    with pytest.raises(ValueError):
+        kernels.paths_cuda(0, x0.t(), sdt, 1.0, 4)  # not contiguous
+    with pytest.raises(ValueError):
+        kernels.paths_cuda(0, x0, sdt[:4].contiguous(), 1.0, 4)
+    with pytest.raises(ValueError):
+        kernels.paths_cuda(0, x0.double(), sdt, 1.0, 4)
+
+
+# ---- rate probe (csrc/probe.cu) ---------------------------------------------
+
+# f32 partial sums of 32 x iters units in another order than the plain
+# version's, on draws that agree to a few ulps (rtol = atol)
+PROBE_TOL = 1e-5
+
+
+@pytest.mark.parametrize("which", kernels.PROBE_MODES)
+def test_probe_kernel_matches_its_plain_version(cuda, which):
+    seed, grid, iters = (7 << 32) | 5, 6, 3
+    n0 = kernels.PROBE.launches
+    out = kernels.probe_cuda(which, seed, iters, cuda, grid)
+    torch.cuda.synchronize()
+    assert kernels.PROBE.launches == n0 + 1
+    ref = kernels.probe_plain(which, seed, grid, iters, cuda)
+    torch.testing.assert_close(out, ref, rtol=PROBE_TOL, atol=PROBE_TOL)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert kernels.probe_grid(which) % n_sm == 0
+
+
+# ---- the D-DBSDE baseline through the rollout kernel -------------------------
+
+def test_diffusion_baseline_runs_through_the_rollout_kernel(cuda, tmp_path):
+    import json
+
+    from deeppicarditeration_torch.config import default_cfg
+    from deeppicarditeration_torch.training.picard import PicardRunner
+
+    cfg = default_cfg()
+    cfg.merge({"NAME": "diff_gpu", "FORCE": True,
+               "EQUATION": {"cls": "Cha", "kwargs": {"nx": 8, "alpha": 1.0,
+                                                     "k": 1.0, "T": 1.0}},
+               "METHOD": {"cls": "Diffusion", "K": 5, "dt": 0.05},
+               "PICARD": {"N": 1},
+               "TRAIN": {"BATCH_SIZE": 64, "N_EPOCHS": 30,
+                         "LOSS": {"beta": 10.0}},
+               "NETWORK": {"NEURONS": [32, 32],
+                           "ACTIVATIONS": ["ELU", "ELU"]},
+               "EVAL": {"FREQ": 10, "L2_N_POINTS": 200, "TEST_GRAD": True}},
+              allow_new=False)
+    runner = PicardRunner(cfg.freeze(), exp_root=tmp_path)
+    n0 = kernels.ROLLOUT.launches
+    runner.run()
+    assert kernels.ROLLOUT.launches - n0 == runner.rollout_calls == 30
+    rows = [json.loads(ln) for ln in
+            (runner.exp_dir / "metrics.jsonl").read_text().splitlines()]
+    evals = [r["rRMSE"] for r in rows if r["context"] == "eval"]
+    assert len(evals) == 3 and all(e is not None for e in evals)
+    assert next(runner.u_current.module.parameters()).is_cuda

@@ -95,3 +95,29 @@ def test_box_muller_normals_have_standard_moments():
     assert abs((x ** 4).mean() - 3.0) < 5 * np.sqrt(96.0) * se
     for lag in range(1, 9):
         assert abs((x[lag:] * x[:-lag]).mean()) < 5 * se, lag
+
+
+def test_path_normals_layout_and_shape_independence():
+    """The rollout kernel's xi[k, b, j]: normal k % 4 of counter (k / 4, j,
+    stream 4, seed_hi) under key (seed_lo, b), a function of (seed, k, b,
+    j) alone, so any (K, B, nx) is a corner of a larger draw."""
+    seed, K, b, nx = (7 << 32) | 5, 10, 6, 9
+    xi = philox.path_normals(seed, K, b, nx)
+    assert xi.shape == (K, b, nx) and xi.dtype == np.float32
+    np.testing.assert_array_equal(philox.path_normals(seed, 3, 2, 4),
+                                  xi[:3, :2, :4])
+    k, row, j = 6, 4, 7  # quad 1, words 2-3
+    words = philox.philox4x32_10((k // 4, j, philox.STREAM_PATHS, 7),
+                                 (5, row))
+    n2, n3 = philox.box_muller(words[2], words[3])
+    np.testing.assert_array_equal(xi[6:8, row, j], np.float32([n2, n3]))
+    assert not np.array_equal(philox.path_normals(seed + 1, K, b, nx), xi)
+    # its own stream: not the estimator kernels' stream 0-3 draws
+    assert philox.STREAM_PATHS not in (philox.STREAM_TERMINAL,
+                                       philox.STREAM_INTEGRAL,
+                                       philox.STREAM_TIME,
+                                       philox.STREAM_NORMALS)
+    big = philox.path_normals(11, 64, 64, 64).astype(np.float64)
+    se = big.size ** -0.5
+    assert abs(big.mean()) < 5 * se
+    assert abs((big * big).mean() - 1.0) < 5 * np.sqrt(2.0) * se
