@@ -7,7 +7,9 @@
     python3 chip_smoke.py --epochs 35000    # the D-DBSDE recipe's full budget
 
 Paths (the Burgers 100-d w1.0 recipe through ``PicardRunner`` at full
-width: nx=100, 4x128 ELU net, B=4096 points from the path's sampler):
+width: nx=100, 4x128 ELU net, B=4096 points from the path's sampler; A-D
+at the recipe's DATA.TPU.PALLAS_PRECISION, bf16x3, the net on the tensor
+cores):
   A  the merged estimator kernel (``csrc/generate.cu``), M=4096;
   B  DATA.TPU.PALLAS_GENERATE false, PALLAS_TERMINAL and PALLAS_INTEGRAL
      true: the standalone terminal and integral kernels (``terminal.cu``,
@@ -19,39 +21,48 @@ width: nx=100, 4x128 ELU net, B=4096 points from the path's sampler):
   E  configs/burgers/diffusion_100d_T1.0_beta10.0.yaml, the D-DBSDE
      baseline (K=20 steps, batch 512, beta 10, the same 4x128 ELU net) as
      the recipe stands: one rollout kernel launch (``csrc/rollout.cu``) per
-     epoch; cut to 3000 of its 35 000 epochs (``--epochs``).
+     epoch; cut to 3000 of its 35 000 epochs (``--epochs``);
+  F  A with DATA.TPU.PALLAS_PRECISION highest: the merged kernel's FP32-FMA
+     net pass;
+  G  B with DATA.TPU.PALLAS_PRECISION highest: the integral kernel's
+     FP32-FMA net pass.
 Each path's kernel launch counts are read around its run (every count set
-to 0 just before) and checked against its generation calls (A-D) or its
-epochs (E). The rate probe's entry point
+to 0 just before) and checked against its generation calls (A-D, F, G; the
+net kernels' also by precision mode) or its epochs (E). The rate probe's entry point
 (``python -m deeppicarditeration_torch.utils.probe_roofline``) is driven the
 same way.
 
 Phases (each failure exits non-zero; the result line is printed last, and
 only when every phase passed):
   1. build the six CUDA kernels from ``deeppicarditeration_torch/csrc``
-     (one nvcc each, all started together);
+     (one nvcc each, all started together); the tensor-core kernels of
+     ``generate.cu`` and ``integral.cu`` must hold HGMMA (wgmma) in their
+     SASS;
   2. the merged kernel against its plain PyTorch version on the same
-     external noise (B=256, M=4096; zero iterate and a random net);
+     external noise (B=256, M=4096; zero iterate and a random net), in
+     bf16x3 and in highest;
   3. the merged kernel's Philox normals against the plain version's
-     torch.Generator normals (B=64): within 5 CLT standard errors per
-     output, and a mean squared z-score near 1;
+     torch.Generator normals (B=64, bf16x3): within 5 CLT standard errors
+     per output, and a mean squared z-score near 1;
   4. path A, 3 iterations (``--iterations``);
   5. at path A's shapes (B=4096, M=4096) with its zero and trained
-     iterates: the merged kernel against the plain version on the same
-     noise and its Philox draws against torch.Generator draws (a
-     Bonferroni CLT bound over all outputs); the merged kernel with
-     antithetic pairing on the same half noise at M=8192;
+     iterates, in bf16x3 and in highest: the merged kernel against the
+     plain version in the same mode on the same noise (and the max |diff|
+     of the kernel's bf16x3 and highest outputs), the merged kernel with
+     antithetic pairing on the same half noise at M=8192; its Philox draws
+     against torch.Generator draws (bf16x3, a Bonferroni CLT bound over all
+     outputs);
   6. at the same shapes: the terminal and integral kernels against their
      plain versions on the same noise, with and without antithetic
-     pairing (the integral with the zero and the trained iterate); the
-     in-kernel draws of the merged, terminal and integral kernels against
-     the host Philox of ``ops/philox.py``, value for value (each kernel
-     with its own draws equals its plain version fed the host's draws, at
-     the first and last 8 points); the normals kernel's values against the
-     host Philox at the head and the end of a 2^28 buffer, its moments over
-     2^30 draws, its lag 1-8 correlations, and its independence from the
-     buffer's shape;
-  7. paths B, C and D, 3 iterations each;
+     pairing (the integral with the zero and the trained iterate, in both
+     modes); the in-kernel draws of the merged, terminal and integral
+     kernels against the host Philox of ``ops/philox.py``, value for value
+     (each kernel with its own draws equals its plain version fed the
+     host's draws, at the first and last 8 points; the net kernels in both
+     modes); the normals kernel's values against the host Philox at the
+     head and the end of a 2^28 buffer, its moments over 2^30 draws, its
+     lag 1-8 correlations, and its independence from the buffer's shape;
+  7. paths B, C, D, F and G, 3 iterations each;
   8. the rollout kernel at path E's shapes (K=20, B=512, nx=100, the
      baseline's mix of full and tail-shrunk steps): its draws against the
      host Philox value for value, its paths against the plain version fed
@@ -66,8 +77,10 @@ only when every phase passed):
      the bound model's peaks and its loop's SASS per unit (the elu chain's
      exp must stay in the loop);
  11. kernel, plain-version and library times at the paths' shapes, and
-     each kernel's bound, printed as one ``{"kernels": [...]}`` JSON line.
-     A time below its bound fails the run: the model counted too much.
+     each kernel's bound, printed as one ``{"kernels": [...]}`` JSON line
+     (the net kernels with a row per precision mode, timed in turns in
+     this call). A time below its bound fails the run: the model counted
+     too much.
 Needs one NVIDIA H100 SXM card; imports nothing of JAX.
 """
 
@@ -141,7 +154,15 @@ PATHS = {
           ["DATA.TPU.PALLAS_GENERATE", "false", "DATA.TPU.PRNG", "true"]),
     "D": ((BURGERS_W1_RECIPE, BURGERS_W1_BEST), []),
     "E": ((BURGERS_W1_RECIPE, BURGERS_DIFFUSION), []),
+    "F": ((BURGERS_W1_RECIPE,), ["DATA.TPU.PALLAS_PRECISION", "highest"]),
+    "G": ((BURGERS_W1_RECIPE,),
+          ["DATA.TPU.PALLAS_GENERATE", "false",
+           "DATA.TPU.PALLAS_TERMINAL", "true",
+           "DATA.TPU.PALLAS_INTEGRAL", "true",
+           "DATA.TPU.PALLAS_PRECISION", "highest"]),
 }
+# the precision modes of the net kernels' rows, the main path's first
+MODES = ("bf16x3", "highest")
 
 TOL = 5e-5  # kernel vs plain on the same noise: rtol = atol
 CLT_SIGMAS = 5.0  # per output, phase 3
@@ -188,6 +209,8 @@ H100_SXM = "H100 80GB HBM3"
 SMS = 132
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
+# dense bf16 tensor-core FLOP/s (wgmma), the data sheet's
+PEAK_BF16_TENSOR = 989e12
 # Per-SM issue rates per clock for compute capability 9.0 (CUDA C++
 # Programming Guide, arithmetic instruction throughput): 128 FP32
 # add/multiply/FMA, 64 32-bit integer add/logical/shift/multiply, 16
@@ -259,6 +282,17 @@ def _time_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def _in_turns(fns: dict, reps: int) -> dict:
+    """ms per call of each of ``fns`` (two versions), timed in turns: a, b,
+    b, a, ``reps`` calls each time; the mean of each's two turns."""
+    (ka, fa), (kb, fb) = fns.items()
+    ta1, tb1, tb2, ta2 = (_time_ms(fa, reps), _time_ms(fb, reps),
+                          _time_ms(fb, reps), _time_ms(fa, reps))
+    print(f"in turns: {ka} {ta1:.3f}, {kb} {tb1:.3f}, {kb} {tb2:.3f}, {ka} "
+          f"{ta2:.3f} ms")
+    return {ka: (ta1 + ta2) / 2, kb: (tb1 + tb2) / 2}
+
+
 def _device_ms(fn, kernel: str, reps: int):
     """Device time per launch of the CUDA kernel whose name contains
     ``kernel``, from a torch.profiler trace of ``reps`` calls of ``fn``;
@@ -318,6 +352,11 @@ def _clt(label, out, ref, var, m, bound) -> None:
               f"({label})")
 
 
+def _err_key(stem: str, mode: str) -> str:
+    """max_err's key of a net kernel in a precision mode."""
+    return stem if mode == "highest" else f"{stem} {mode}"
+
+
 def _bonferroni(n_out: int) -> float:
     return statistics.NormalDist().inv_cdf(1 - CLT_FAMILY_P / (2 * n_out))
 
@@ -360,43 +399,68 @@ def _problem(b, m, nx, net, seed, device):
 # ---- work and bound models (per call, from the call's shapes) -------------
 
 def _terminal_work(b, m, nx, anti):
-    """(FP32 ops, INT32 ops, special functions, bytes) of one terminal
-    estimator call: the normals, X_T and the sums (5 FP32 per sample and
-    dimension), the sigmoid per sample; t, x, g0 in, (B, 1 + nx) out."""
+    """(FP32 ops, INT32 ops, special functions, bytes, bf16 tensor FLOPs)
+    of one terminal estimator call: the normals, X_T and the sums (5 FP32
+    per sample and dimension), the sigmoid per sample; t, x, g0 in,
+    (B, 1 + nx) out."""
     n = b * (m // 2 if anti else m) * nx
     return (FP32_PER_NORMAL * n + 5 * b * m * nx + 4 * b * m,
             INT_PER_NORMAL * n, SFU_PER_NORMAL * n + 2 * b * m,
-            4 * (b * (2 + nx) + b * (1 + nx)))
+            4 * (b * (2 + nx) + b * (1 + nx)), 0)
 
 
-def _integral_work(b, m, nx, anti, neurons, n_weights):
-    """The same for one integral estimator call: normals and the time
-    uniforms, X_s and the sums (4 FP32 per sample and dimension), the net's
-    forward and backward pass (``generate_flops_per_sample``), an exp per
-    hidden unit (ELU), ~10 FP32 and 2 special functions per sample; t, x,
-    f0 and the weights in, (B, 1 + nx) out."""
+def _net_work(nx, neurons, precision):
+    """(FP32, bf16 tensor) FLOPs of the frozen net's pass per sample.
+    "highest": all of ``generate_flops_per_sample`` on the FP32 pipe.
+    bf16x3 / "default": the layers' products (layer 1 forward and each
+    hidden layer forward and backward) on the tensor pipe, 3 passes or 1;
+    on the FP32 pipe the head, its gradient and the contraction with W1's
+    column sums in as many products, one subtract per split A element, 3
+    operations per hidden unit for bias and ELU, 1 for elu'(z) backward."""
     from deeppicarditeration_torch.ops.kernels import (
         generate_flops_per_sample,
     )
 
+    if not neurons:
+        return 0, 0
+    net = generate_flops_per_sample(nx, neurons)
+    if precision == "highest":
+        return net, 0
+    passes = 3 if precision == "bf16x3" else 1
+    hidden = sum(a * c for a, c in zip(neurons, neurons[1:]))
+    mm = 2 * ((1 + nx) * neurons[0] + 2 * hidden)
+    split = (1 + nx) + 2 * sum(neurons[1:])
+    epilogue = 3 * sum(neurons) + sum(neurons[:-1])
+    return passes * (net - mm) + split + epilogue, passes * mm
+
+
+def _integral_work(b, m, nx, anti, neurons, n_weights, precision="highest"):
+    """The same for one integral estimator call: normals and the time
+    uniforms, X_s and the sums (4 FP32 per sample and dimension), the net's
+    forward and backward pass (``_net_work``), an exp per hidden unit
+    (ELU), ~10 FP32 and 2 special functions per sample; t, x, f0 and the
+    weights in, (B, 1 + nx) out."""
     rows = m // 2 if anti else m
     n, n_u = b * rows * nx, b * rows
-    net = generate_flops_per_sample(nx, neurons) if neurons else 0
-    return (FP32_PER_NORMAL * n + n_u + b * m * (net + 4 * nx + 10),
+    net_fp32, net_tensor = _net_work(nx, neurons, precision)
+    return (FP32_PER_NORMAL * n + n_u + b * m * (net_fp32 + 4 * nx + 10),
             INT_PER_NORMAL * n + INT_PER_WORD * n_u,
             SFU_PER_NORMAL * n + b * m * (2 + sum(neurons)),
-            4 * (b * (2 + nx) + n_weights + b * (1 + nx)))
+            4 * (b * (2 + nx) + n_weights + b * (1 + nx)),
+            b * m * net_tensor)
 
 
-def _merged_work(b, m, nx, anti, neurons, n_weights):
+def _merged_work(b, m, nx, anti, neurons, n_weights, precision="highest"):
     t = _terminal_work(b, m, nx, anti)
-    i = _integral_work(b, m, nx, anti, neurons, n_weights)
-    return tuple(a + c for a, c in zip(t[:3], i[:3])) + (i[3] + 4 * b,)
+    i = _integral_work(b, m, nx, anti, neurons, n_weights, precision)
+    w = [a + c for a, c in zip(t, i)]
+    w[3] = i[3] + 4 * b
+    return tuple(w)
 
 
 def _normals_work(n):
     return (FP32_PER_NORMAL * n, INT_PER_NORMAL * n, SFU_PER_NORMAL * n,
-            4 * n)
+            4 * n, 0)
 
 
 def _rollout_work(K, b, nx):
@@ -404,7 +468,7 @@ def _rollout_work(K, b, nx):
     (and the step scales) in, xs (K+1, B, nx) and xi (K, B, nx) out."""
     n = K * b * nx
     return ((FP32_PER_NORMAL + 3) * n, INT_PER_NORMAL * n,
-            SFU_PER_NORMAL * n, 4 * ((2 * K + 1) * b * nx + b * nx + b))
+            SFU_PER_NORMAL * n, 4 * ((2 * K + 1) * b * nx + b * nx + b), 0)
 
 
 def _probe_work(which, units, grid):
@@ -412,20 +476,20 @@ def _probe_work(which, units, grid):
     the accumulation; the (grid * 8, 128) partial sums out."""
     n_bytes = 4 * grid * 8 * 128
     if which == "bits":
-        return 2 * units, INT_PER_WORD * units, 0, n_bytes
+        return 2 * units, INT_PER_WORD * units, 0, n_bytes, 0
     if which == "normals":
         return ((FP32_PER_NORMAL + 1) * units, INT_PER_NORMAL * units,
-                SFU_PER_NORMAL * units, n_bytes)
-    return PROBE_ELU_FP32 * units, 0, PROBE_ELU_SFU * units, n_bytes
+                SFU_PER_NORMAL * units, n_bytes, 0)
+    return PROBE_ELU_FP32 * units, 0, PROBE_ELU_SFU * units, n_bytes, 0
 
 
 def _bound(work):
     """(bound ms, "bytes" | "operations", binding pipe): the larger of the
     bytes over HBM3's rate and the busiest pipe's operations over its
-    rate (the pipes run side by side)."""
-    fp32, int_ops, sfu, n_bytes = work
+    rate (the pipes run side by side; TENSOR: bf16 wgmma)."""
+    fp32, int_ops, sfu, n_bytes, tensor = work
     t = {"FP32": fp32 / PEAK_FP32_FLOPS, "INT32": int_ops / PEAK_INT32_OPS,
-         "SFU": sfu / PEAK_SFU_OPS}
+         "SFU": sfu / PEAK_SFU_OPS, "TENSOR": tensor / PEAK_BF16_TENSOR}
     pipe = max(t, key=t.get)
     t_bytes = n_bytes / PEAK_BYTES_S
     if t_bytes > t[pipe]:
@@ -448,6 +512,7 @@ def _run_path(path: str, n_iter: int):
                           / path)
     for lib in kernels.ALL:
         lib.launches = 0
+        lib.mode_launches.clear()
     for route in est.route_calls:
         est.route_calls[route] = 0
     t0 = time.perf_counter()
@@ -455,6 +520,8 @@ def _run_path(path: str, n_iter: int):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {lib.source.stem: lib.launches for lib in kernels.ALL}
+    modes = {lib.source.stem: dict(lib.mode_launches) for lib in kernels.ALL
+             if lib.mode_launches}
     routes = dict(est.route_calls)
     rows = [json.loads(ln) for ln in
             (runner.exp_dir / "metrics.jsonl").read_text().splitlines()]
@@ -469,7 +536,7 @@ def _run_path(path: str, n_iter: int):
               f"rRMSE {ev.get('rRMSE')}, rRMSEg {ev.get('rRMSEg')}")
     print(f"path {path}: {n_iter} iterations in {wall:.1f} s; generation "
           f"calls {runner.generate_calls}, by the route taken {routes}; "
-          f"launches {launches}")
+          f"launches {launches}, by precision {modes}")
     steady = [tm for tm in runner.timings if tm["iter"] > 1]
     if len(steady) >= 2:
         for key in ("generate_ms", "fit_ms"):
@@ -490,7 +557,7 @@ def _run_path(path: str, n_iter: int):
         if r is None or not math.isfinite(r) or r > RRMSE_MAX:
             _fail(f"path {path} iteration {i} rRMSE {r} (want finite and "
                   f"<= {RRMSE_MAX})")
-    return runner, launches, routes
+    return runner, launches, (routes, modes)
 
 
 def _path_e_inputs(eq, b, K, dt, seed, device):
@@ -610,20 +677,51 @@ def _run_diffusion(epochs: int):
     return runner, launches, statistics.median(per_epoch)
 
 
-def _expect_launches(path, runner, launches, routes, want):
+def _expect_launches(path, runner, launches, seen, want):
     """Fail unless every kernel launched exactly ``want`` times (0 where not
-    named) and the dispatch took the path's route for every generation
-    call."""
+    named), the net kernels all in the path's precision mode, and the
+    dispatch took the path's route for every generation call."""
     from deeppicarditeration_torch.ops import estimators as est
+    from deeppicarditeration_torch.training.picard import gen_config_from_cfg
 
+    routes, modes = seen
     full = {name: want.get(name, 0) for name in launches}
-    route = est.MERGED if path in ("A", "D") else est.SPLIT
+    mode = gen_config_from_cfg(runner.cfg).pallas_precision
+    want_modes = {name: {mode: n} for name, n in full.items()
+                  if n and name in ("generate", "integral")}
+    route = est.MERGED if path in ("A", "D", "F") else est.SPLIT
     want_routes = {r: runner.generate_calls if r == route else 0
                    for r in routes}
     if (launches != full or runner.generate_calls == 0
-            or routes != want_routes):
-        _fail(f"path {path}: launches {launches}, want {full}; routes "
-              f"{routes}, want {want_routes}")
+            or routes != want_routes or modes != want_modes):
+        _fail(f"path {path}: launches {launches}, by precision {modes}, "
+              f"want {full}, {want_modes}; routes {routes}, want "
+              f"{want_routes}")
+
+
+def _hgmma_counts():
+    """(HGMMA, WARPGROUP.DEPBAR) instructions in the SASS of the
+    tensor-core kernels (``cuobjdump -sass`` of the built libraries, all
+    instantiations), by kernel. A DEPBAR waits for wgmma to finish: one
+    per slab group is the design, one per HGMMA a serialised pass."""
+    import re
+    import shutil
+
+    from deeppicarditeration_torch.ops import kernels
+
+    tool = (shutil.which("cuobjdump")
+            or str(pathlib.Path(kernels._nvcc()).parent / "cuobjdump"))
+    out = {}
+    for lib, fn in ((kernels.GENERATE, "generate_tc_kernel"),
+                    (kernels.INTEGRAL, "integral_tc_kernel")):
+        sass = subprocess.run([tool, "-sass", str(lib.so_path)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        body = [part for part in re.split(r"\n\s*Function : ", sass)
+                if part.split("\n", 1)[0].find(fn) >= 0]
+        out[fn] = (sum(part.count("HGMMA") for part in body),
+                   sum(part.count("WARPGROUP.DEPBAR") for part in body))
+    return out
 
 
 def _elu_abs_sums(seed, grid, iters, dev):
@@ -768,7 +866,13 @@ def main(argv=None) -> int:
                 if "registers" in ln or "spill" in ln]
         print(f"  {lib.so_path.name}: nvcc {lib.build_seconds or 0:.1f} s; "
               + " | ".join(info))
-    max_err = {lib.source.stem: 0.0 for lib in kernels.ALL}
+    hgmma = _hgmma_counts()
+    print("tensor-core kernels' SASS: " + ", ".join(
+        f"{k} HGMMA {h}, WARPGROUP.DEPBAR {d}" for k, (h, d) in hgmma.items()))
+    if not all(h for h, _ in hgmma.values()):
+        _fail("a tensor-core kernel holds no HGMMA in its SASS")
+    max_err = {f"{lib.source.stem}{sfx}": 0.0 for lib in kernels.ALL
+               for sfx in ("", " bf16x3")}
 
     # ---- 2. merged kernel vs plain, same external noise, full width --------
     b, m, nx = 256, 4096, 100
@@ -778,20 +882,23 @@ def main(argv=None) -> int:
         u01 = torch.rand((b, m, 1), generator=g, device=dev)
         nt = torch.randn((b, m, nx), generator=g, device=dev)
         ni = torch.randn((b, m, nx), generator=g, device=dev)
-        label = (f"merged, {'random net' if net else 'zero iterate'}, "
-                 f"B={b} M={m}")
-        max_err["generate"] = max(max_err["generate"], _same(
-            label, kernels.generate_with_gradients_cuda(
-                0, eq, sol, tx, m, u01, nt, ni),
-            kernels.generate_with_gradients_plain(
-                0, eq, sol, tx, m, u01, nt, ni)))
+        for mode in MODES:
+            label = (f"merged {mode}, "
+                     f"{'random net' if net else 'zero iterate'}, B={b} M={m}")
+            key = _err_key("generate", mode)
+            max_err[key] = max(max_err[key], _same(
+                label, kernels.generate_with_gradients_cuda(
+                    0, eq, sol, tx, m, u01, nt, ni, precision=mode),
+                kernels.generate_with_gradients_plain(
+                    0, eq, sol, tx, m, u01, nt, ni, precision=mode)))
         del u01, nt, ni
 
     # ---- 3. in-kernel Philox vs torch.Generator noise (CLT) ---------------
     eq, sol, tx = _problem(64, m, nx, True, 3, dev)
-    out = kernels.generate_with_gradients_cuda(20261016, eq, sol, tx, m)
-    ref, var = kernels.generate_with_gradients_plain(7, eq, sol, tx, m,
-                                                     return_var=True)
+    out = kernels.generate_with_gradients_cuda(20261016, eq, sol, tx, m,
+                                               precision=MODES[0])
+    ref, var = kernels.generate_with_gradients_plain(
+        7, eq, sol, tx, m, precision=MODES[0], return_var=True)
     _clt("merged, random net", out, ref, var, m, CLT_SIGMAS)
 
     # ---- 4. path A ---------------------------------------------------------
@@ -811,24 +918,38 @@ def main(argv=None) -> int:
     nt = torch.randn((nb, mm, nx), generator=g, device=dev)
     ni = torch.randn((nb, mm, nx), generator=g, device=dev)
     zero = Solution.zero(nx)
+    outs = {}
     for label, s in (("zero iterate", zero), (f"iterate {n_iter}", sol)):
-        max_err["generate"] = max(max_err["generate"], _same(
-            f"merged, {label}, B={nb} M={mm}",
-            kernels.generate_with_gradients_cuda(0, eq, s, tx, mm, u01, nt,
-                                                 ni),
-            kernels.generate_with_gradients_plain(0, eq, s, tx, mm, u01, nt,
-                                                  ni)))
+        for mode in MODES:
+            key = _err_key("generate", mode)
+            outs[mode] = kernels.generate_with_gradients_cuda(
+                0, eq, s, tx, mm, u01, nt, ni, precision=mode)
+            max_err[key] = max(max_err[key], _same(
+                f"merged {mode}, {label}, B={nb} M={mm}", outs[mode],
+                kernels.generate_with_gradients_plain(
+                    0, eq, s, tx, mm, u01, nt, ni, precision=mode)))
+        delta = float((outs["bf16x3"] - outs["highest"]).abs().max())
+        print(f"merged kernel, {label}, B={nb} M={mm}: max |bf16x3 - "
+              f"highest| {delta:.3e} (the JAX package measured ~2e-5 on the "
+              f"TPU)")
+    del outs
     # antithetic pairing at M=8192 on the same noise as half draws
-    max_err["generate"] = max(max_err["generate"], _same(
-        f"merged antithetic, iterate {n_iter}, B={nb} M={2 * mm}",
-        kernels.generate_with_gradients_cuda(0, eq, sol, tx, 2 * mm, u01, nt,
-                                             ni, antithetic=True),
-        kernels.generate_with_gradients_plain(0, eq, sol, tx, 2 * mm, u01,
-                                              nt, ni, antithetic=True)))
+    for mode in MODES:
+        key = _err_key("generate", mode)
+        max_err[key] = max(max_err[key], _same(
+            f"merged {mode} antithetic, iterate {n_iter}, B={nb} "
+            f"M={2 * mm}",
+            kernels.generate_with_gradients_cuda(
+                0, eq, sol, tx, 2 * mm, u01, nt, ni, antithetic=True,
+                precision=mode),
+            kernels.generate_with_gradients_plain(
+                0, eq, sol, tx, 2 * mm, u01, nt, ni, antithetic=True,
+                precision=mode)))
     bound_z = _bonferroni(nb * (1 + nx))
-    out = kernels.generate_with_gradients_cuda(5, eq, sol, tx, mm)
-    ref, var = kernels.generate_with_gradients_plain(7, eq, sol, tx, mm,
-                                                     return_var=True)
+    out = kernels.generate_with_gradients_cuda(5, eq, sol, tx, mm,
+                                               precision=MODES[0])
+    ref, var = kernels.generate_with_gradients_plain(
+        7, eq, sol, tx, mm, precision=MODES[0], return_var=True)
     _clt(f"merged, iterate {n_iter}", out, ref, var, mm, bound_z)
     del out, ref, var
 
@@ -845,13 +966,17 @@ def main(argv=None) -> int:
         cases = [("zero iterate", zero), (f"iterate {n_iter}", sol)]
         for label, s in (cases if not anti else cases[1:]):
             u, n = u01[:, :rows].contiguous(), ni[:, :rows].contiguous()
-            max_err["integral"] = max(max_err["integral"], _same(
-                f"integral{' antithetic' if anti else ''}, {label}, "
-                f"B={nb} M={mm}",
-                kernels.integral_with_gradients_cuda(
-                    0, eq, s, tx, mm, u, n, antithetic=anti),
-                kernels.integral_with_gradients_plain(
-                    0, eq, s, tx, mm, u, n, antithetic=anti)))
+            for mode in MODES:
+                key = _err_key("integral", mode)
+                max_err[key] = max(max_err[key], _same(
+                    f"integral {mode}{' antithetic' if anti else ''}, "
+                    f"{label}, B={nb} M={mm}",
+                    kernels.integral_with_gradients_cuda(
+                        0, eq, s, tx, mm, u, n, antithetic=anti,
+                        precision=mode),
+                    kernels.integral_with_gradients_plain(
+                        0, eq, s, tx, mm, u, n, antithetic=anti,
+                        precision=mode)))
             del u, n
     del u01, nt, ni
     # each estimator kernel with its own draws at all nb points, against
@@ -866,24 +991,30 @@ def main(argv=None) -> int:
         tag = (f"{' antithetic' if anti else ''}, iterate {n_iter}, own "
                f"draws vs host Philox at points 0-{EDGE - 1} and "
                f"{nb - EDGE}-{nb - 1}, M={mm}")
-        for stem, out, ref in (
-                ("generate",
+        checks = [("terminal", "highest",
+                   kernels.terminal_with_gradients_cuda(
+                       EXACT_SEED, eq, tx, mm, antithetic=anti),
+                   kernels.terminal_with_gradients_plain(
+                       0, eq, txp, mm, a, antithetic=anti))]
+        for mode in MODES:
+            kw = dict(antithetic=anti, precision=mode)
+            checks += [
+                ("generate", mode,
                  kernels.generate_with_gradients_cuda(
-                     EXACT_SEED, eq, sol, tx, mm, antithetic=anti),
+                     EXACT_SEED, eq, sol, tx, mm, **kw),
                  kernels.generate_with_gradients_plain(
-                     0, eq, sol, txp, mm, u, a, c, antithetic=anti)),
-                ("terminal",
-                 kernels.terminal_with_gradients_cuda(
-                     EXACT_SEED, eq, tx, mm, antithetic=anti),
-                 kernels.terminal_with_gradients_plain(
-                     0, eq, txp, mm, a, antithetic=anti)),
-                ("integral",
+                     0, eq, sol, txp, mm, u, a, c, **kw)),
+                ("integral", mode,
                  kernels.integral_with_gradients_cuda(
-                     EXACT_SEED, eq, sol, tx, mm, antithetic=anti),
+                     EXACT_SEED, eq, sol, tx, mm, **kw),
                  kernels.integral_with_gradients_plain(
-                     0, eq, sol, txp, mm, u, c, antithetic=anti))):
-            max_err[stem] = max(max_err[stem],
-                                _same(f"{stem}{tag}", out[pts], ref))
+                     0, eq, sol, txp, mm, u, c, **kw))]
+        for stem, mode, out, ref in checks:
+            key = _err_key(stem, mode)
+            max_err[key] = max(max_err[key], _same(
+                f"{stem}{'' if stem == 'terminal' else ' ' + mode}{tag}",
+                out[pts], ref))
+        del checks
         del u, a, c
     del u_h, nt_h, ni_h
 
@@ -954,6 +1085,13 @@ def main(argv=None) -> int:
     runner_d, launches_d, routes_d = _run_path("D", n_iter)
     _expect_launches("D", runner_d, launches_d, routes_d,
                      {"generate": runner_d.generate_calls})
+    runner_f, launches_f, routes_f = _run_path("F", n_iter)
+    _expect_launches("F", runner_f, launches_f, routes_f,
+                     {"generate": runner_f.generate_calls})
+    runner_g, launches_g, routes_g = _run_path("G", n_iter)
+    calls = runner_g.generate_calls
+    _expect_launches("G", runner_g, launches_g, routes_g,
+                     {"terminal": calls, "integral": calls})
 
     # ---- 8. rollout kernel at path E's shapes -----------------------------
     cfg_e = diffusion_cfg(args.epochs)
@@ -971,40 +1109,60 @@ def main(argv=None) -> int:
     rows = []
 
     def row(lib, stem, replaces, path, launches, n_calls, ms, plain_ms,
-            work, library_ms=None, shape="", extra=None):
+            work, library_ms=None, shape="", extra=None, mode=None):
         bound_ms, bound_by, pipe = _bound(work)
-        _not_below(lib, ms, bound_ms)
-        print(f"{lib}: {ms:.3f} ms per call at {shape} (path {path}), plain "
-              f"{plain_ms:.3f} ms, library {library_ms}, bound "
+        name = lib if mode is None else f"{lib} {mode}"
+        _not_below(name, ms, bound_ms)
+        print(f"{name}: {ms:.3f} ms per call at {shape} (path {path}), "
+              f"plain {plain_ms:.3f} ms, library {library_ms}, bound "
               f"{bound_ms:.3f} ms ({bound_by}, {pipe}; FP32 {work[0]:.3e}, "
               f"INT32 {work[1]:.3e}, SFU {work[2]:.3e}, bytes "
-              f"{work[3]:.3e}); {ms / bound_ms:.1f}x the bound")
+              f"{work[3]:.3e}, bf16 tensor {work[4]:.3e}); "
+              f"{ms / bound_ms:.1f}x the bound")
         rows.append({
-            "name": lib, "route": "cuda",
+            "name": name, "route": "cuda",
             "source": f"deeppicarditeration_torch/csrc/{stem}.cu",
             "replaces": replaces, "path": path, "launches": launches,
             "launches_per_iteration": launches / n_iter,
             "launches_per_call": launches / max(n_calls, 1),
-            "max_abs_err": max_err[stem], "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": max_err[_err_key(stem, mode or "highest")],
+            "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bound_pipe": pipe,
-            "library_ms": library_ms, **(extra or {})})
+            "library_ms": library_ms,
+            **({} if mode is None else {"precision": mode}), **(extra or {})})
 
     src = "deeppicarditeration_tpu/ops/pallas_kernels.py"
     shape = f"B={nb} M={mm} nx={nx}, {len(neurons)}x128 net"
-    row("generate_with_gradients", "generate", f"{src}:869", "A",
-        launches_a["generate"], runner_a.generate_calls,
-        _time_ms(lambda: kernels.generate_with_gradients_cuda(
-            5, eq, sol, tx, mm), 3),
-        _time_ms(lambda: kernels.generate_with_gradients_plain(
-            5, eq, sol, tx, mm), 2),
-        _merged_work(nb, mm, nx, False, neurons, n_weights), shape=shape)
-    ms_d = _time_ms(lambda: kernels.generate_with_gradients_cuda(
-        5, eq, sol, tx, 2 * mm, antithetic=True), 2)
-    bd = _bound(_merged_work(nb, 2 * mm, nx, True, neurons, n_weights))
-    _not_below("generate_with_gradients antithetic", ms_d, bd[0])
-    print(f"generate_with_gradients antithetic (path D's shapes, M="
-          f"{2 * mm}): {ms_d:.3f} ms per call, bound {bd[0]:.3f} ms "
-          f"({bd[2]})")
+    # the net kernels in both modes, timed in turns (bf16x3, highest,
+    # highest, bf16x3), with their plain versions
+    gen_ms = _in_turns({mode: (lambda mode=mode: kernels.
+                               generate_with_gradients_cuda(
+                                   5, eq, sol, tx, mm, precision=mode))
+                        for mode in MODES}, 3)
+    int_ms = _in_turns({mode: (lambda mode=mode: kernels.
+                               integral_with_gradients_cuda(
+                                   5, eq, sol, tx, mm, precision=mode))
+                        for mode in MODES}, 3)
+    for mode, (path, runner, launches) in zip(MODES, (
+            ("A", runner_a, launches_a), ("F", runner_f, launches_f))):
+        row("generate_with_gradients", "generate", f"{src}:869", path,
+            launches["generate"], runner.generate_calls, gen_ms[mode],
+            _time_ms(lambda: kernels.generate_with_gradients_plain(
+                5, eq, sol, tx, mm, precision=mode), 2),
+            _merged_work(nb, mm, nx, False, neurons, n_weights, mode),
+            shape=shape, mode=mode)
+    ms_d = _in_turns({mode: (lambda mode=mode: kernels.
+                             generate_with_gradients_cuda(
+                                 5, eq, sol, tx, 2 * mm, antithetic=True,
+                                 precision=mode)) for mode in MODES}, 2)
+    for mode in MODES:
+        bd = _bound(_merged_work(nb, 2 * mm, nx, True, neurons, n_weights,
+                                 mode))
+        _not_below(f"generate_with_gradients {mode} antithetic", ms_d[mode],
+                   bd[0])
+        print(f"generate_with_gradients {mode} antithetic (path D's shapes, "
+              f"M={2 * mm}): {ms_d[mode]:.3f} ms per call, bound "
+              f"{bd[0]:.3f} ms ({bd[2]})")
     row("terminal_with_gradients", "terminal", f"{src}:1244", "B",
         launches_b["terminal"], runner_b.generate_calls,
         _time_ms(lambda: kernels.terminal_with_gradients_cuda(
@@ -1012,13 +1170,14 @@ def main(argv=None) -> int:
         _time_ms(lambda: kernels.terminal_with_gradients_plain(
             5, eq, tx, mm), 2),
         _terminal_work(nb, mm, nx, False), shape=f"B={nb} M={mm} nx={nx}")
-    row("integral_with_gradients", "integral", f"{src}:690", "B",
-        launches_b["integral"], runner_b.generate_calls,
-        _time_ms(lambda: kernels.integral_with_gradients_cuda(
-            5, eq, sol, tx, mm), 3),
-        _time_ms(lambda: kernels.integral_with_gradients_plain(
-            5, eq, sol, tx, mm), 2),
-        _integral_work(nb, mm, nx, False, neurons, n_weights), shape=shape)
+    for mode, (path, runner, launches) in zip(MODES, (
+            ("B", runner_b, launches_b), ("G", runner_g, launches_g))):
+        row("integral_with_gradients", "integral", f"{src}:690", path,
+            launches["integral"], runner.generate_calls, int_ms[mode],
+            _time_ms(lambda: kernels.integral_with_gradients_plain(
+                5, eq, sol, tx, mm, precision=mode), 2),
+            _integral_work(nb, mm, nx, False, neurons, n_weights, mode),
+            shape=shape, mode=mode)
     n_chunk = math.prod(NORMALS_CHUNK)
     cuda_gen = torch.Generator(device=dev).manual_seed(5)
     row("normals", "normals", f"{src}:71", "C", launches_c["normals"],

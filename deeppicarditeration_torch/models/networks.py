@@ -79,11 +79,21 @@ class MLP(nn.Module):
             nn.init.zeros_(lin.bias)
         self._acts = [get_activation(a) for a in self.activations]
 
-    def forward(self, tx):
+    def forward(self, tx, dot=None):
+        """``dot(a, kernel)``: the contraction of a (..., in) with the
+        (in, out) kernel W^T in place of the f32 matmul (the counterpart of
+        the JAX MLP's ``dot_general`` knob; ``ops/kernels.py:precision_dot``
+        for the estimator kernels' precision modes)."""
+
+        def linear(lin, h):
+            if dot is None:
+                return lin(h)
+            return dot(h, lin.weight.t()) + lin.bias
+
         h = tx
         for lin, act in zip(self.layers[:-1], self._acts):
-            h = act(lin(h))
-        h = self.layers[-1](h)
+            h = act(linear(lin, h))
+        h = linear(self.layers[-1], h)
         if self.bound is not None:
             if not self.bound > 0:
                 raise ValueError("NETWORK.BOUND must be positive")

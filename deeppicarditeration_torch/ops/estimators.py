@@ -40,6 +40,7 @@ from deeppicarditeration_torch.equations.burgers import Cha
 from deeppicarditeration_torch.models.solution import Solution
 from deeppicarditeration_torch.ops.derivatives import get_f
 from deeppicarditeration_torch.ops.kernels import (
+    check_precision,
     generate_with_gradients_cuda,
     integral_with_gradients_cuda,
     kernel_net,
@@ -105,6 +106,15 @@ class GenConfig:
     # it where it covers the equation and the frozen net (kernel_net), and
     # the split estimators elsewhere, with a one-line notice.
     pallas_generate: object = "auto"
+    # Precision of the frozen-net dots in the merged and the integral
+    # estimator kernels (ops/kernels.py:PRECISIONS): "bf16x3" (the hi/lo
+    # split, f32-equivalent, on the tensor cores), "default" (one bf16
+    # pass) or "highest" (FP32 FMA). The chunk estimators, the fit and the
+    # eval stay f32. DATA.TPU.PALLAS_PRECISION.
+    pallas_precision: str = "bf16x3"
+
+    def __post_init__(self):
+        check_precision(self.pallas_precision)
 
     def chunk(self, m: int, batch: int, nx: int, act_width: int = 0) -> int:
         """Largest divisor of m with batch * chunk * nx <= chunk_elems
@@ -239,7 +249,8 @@ def estimate_integral_with_gradients(seed: int, eq, sol: Solution,
     m = gen.n_estimate_integral
     if gen.pallas_integral and _integral_kernel_applies(eq):
         return integral_with_gradients_cuda(seed, eq, sol, tx, m, u01, noise,
-                                            antithetic=gen.antithetic)
+                                            antithetic=gen.antithetic,
+                                            precision=gen.pallas_precision)
     t, x = tx[:, :1], tx[:, 1:]
     b, nx = x.shape
     mc = gen.chunk(m, b, nx, _act_width(sol))
@@ -330,7 +341,8 @@ def generate_with_gradients(seed: int, eq, sol: Solution, tx: torch.Tensor,
     if route == MERGED:
         return generate_with_gradients_cuda(seed, eq, sol, tx,
                                             gen.n_estimate_terminal,
-                                            antithetic=gen.antithetic)
+                                            antithetic=gen.antithetic,
+                                            precision=gen.pallas_precision)
     g = estimate_terminal_with_gradients(derive_seed(seed, 1), eq, tx, gen)
     y = estimate_integral_with_gradients(derive_seed(seed, 2), eq, sol, tx,
                                          gen)

@@ -16,8 +16,17 @@ paths                       csrc/rollout.cu       _paths_kernel
 probe                       csrc/probe.cu         _probe_kernel
 ==========================  ====================  ==========================
 
-Shared device code: ``csrc/philox.cuh`` (Philox4x32-10, Box-Muller) and
-``csrc/value_mlp.cuh`` (the frozen value net's forward and backward pass).
+Shared device code: ``csrc/philox.cuh`` (Philox4x32-10, Box-Muller),
+``csrc/value_mlp.cuh`` (the frozen value net's forward and backward pass in
+FP32 FMA) and ``csrc/value_mlp_tc.cuh`` (the same pass on the tensor cores).
+
+Precision (``DATA.TPU.PALLAS_PRECISION``, the TPU kernels'
+``mxu_precision``) of the frozen-net dots in the merged and the integral
+estimator: ``"bf16x3"`` splits each f32 operand into a bf16 hi part and a
+bf16-rounded residual lo and sums hi*hi + lo*hi + hi*lo (``_split3`` in the
+JAX package; the kernels run it on the tensor cores with ``wgmma``),
+``"default"`` is the single hi*hi pass, ``"highest"`` full f32 (the FP32-FMA
+pass). The plain versions compute the same products (``precision_dot``).
 
 Build: at first use, ``nvcc`` compiles each ``csrc/*.cu`` source for
 ``sm_90a`` into a shared library with a plain C interface under
@@ -44,6 +53,7 @@ import time
 from typing import Callable, Optional
 
 import torch
+from torch import nn
 
 from deeppicarditeration_torch.equations.burgers import Cha
 from deeppicarditeration_torch.models.networks import MLP
@@ -77,6 +87,9 @@ class CudaLibrary:
         self.source = CSRC_DIR / source
         self.declare = declare
         self.launches = 0
+        # launches by precision mode (the net kernels' FP32-FMA and
+        # tensor-core kernels), counted at the same launch site
+        self.mode_launches: dict = {}
         self.build_log = ""
         self.build_seconds: Optional[float] = None
         self._lib = None
@@ -108,6 +121,12 @@ class CudaLibrary:
                 f"nvcc failed to build {self.source.name} (exit "
                 f"{proc.returncode}):\n{self.build_log}")
         os.replace(tmp, self.so_path)
+
+    def count(self, mode: Optional[str] = None) -> None:
+        """One launch (of the kernel for ``mode``)."""
+        self.launches += 1
+        if mode is not None:
+            self.mode_launches[mode] = self.mode_launches.get(mode, 0) + 1
 
     def lib(self) -> ctypes.CDLL:
         """The loaded library, built first unless its .so exists."""
@@ -155,6 +174,7 @@ def _declare_generate(lib: ctypes.CDLL) -> None:
         + [_P]
     lib.dpi_generate.restype = _I
     _declare_net_limits(lib, "generate")
+    _declare_tc(lib, "generate", 11)
 
 
 def _declare_terminal(lib: ctypes.CDLL) -> None:
@@ -170,6 +190,19 @@ def _declare_integral(lib: ctypes.CDLL) -> None:
         + [_P]
     lib.dpi_integral.restype = _I
     _declare_net_limits(lib, "integral")
+    _declare_tc(lib, "integral", 9)
+
+
+def _declare_tc(lib: ctypes.CDLL, name: str, n_ptr: int) -> None:
+    """The tensor-core entry point ``dpi_{name}_tc`` (``n_ptr`` pointers,
+    then B, M, nx, L, has_net, anti, mode, the seed, T, alpha_sqrt, k, c0
+    and the stream) and its scratch query (nx, L)."""
+    fn = getattr(lib, f"dpi_{name}_tc")
+    fn.argtypes = [_P] * n_ptr + [_I] * 7 + [_U64] + [_F] * 4 + [_P]
+    fn.restype = _I
+    q = getattr(lib, f"dpi_{name}_tc_scratch_bytes")
+    q.argtypes = [_I, _I]
+    q.restype = _I64
 
 
 def _declare_normals(lib: ctypes.CDLL) -> None:
@@ -369,23 +402,182 @@ def pack_mlp(mod: MLP) -> torch.Tensor:
     return torch.cat([p.detach().contiguous().reshape(-1) for p in parts])
 
 
+# ---------------------------------------------------------------------------
+# precision of the frozen-net dots (DATA.TPU.PALLAS_PRECISION)
+# ---------------------------------------------------------------------------
+
+PRECISIONS = ("bf16x3", "highest", "default")
+# the tensor-core kernels' mode argument
+_TC_MODES = {"bf16x3": 1, "default": 2}
+# K-extent of the tensor-core pass's weight slabs (value_mlp_tc.cuh: SLAB_K)
+TC_SLAB_K = 64
+
+
+def check_precision(precision: str) -> str:
+    if precision not in PRECISIONS:
+        raise ValueError(f"pallas_precision must be one of {PRECISIONS} "
+                         f"(got {precision!r})")
+    return precision
+
+
+def _bf16(a: torch.Tensor) -> torch.Tensor:
+    """a rounded to bf16 (to nearest even) and back to f32."""
+    return a.to(torch.bfloat16).to(a.dtype)
+
+
+def _dot_at(a: torch.Tensor, b: torch.Tensor, precision: str):
+    """a @ b in ``precision``: "bf16x3" is ``_split3`` (hi = bf16(a),
+    lo = bf16(a - hi); hi*hi + lo*hi + hi*lo, the lo*lo term dropped),
+    "default" the hi*hi pass. Each product is an f32 matmul of bf16-exact
+    operands, so every product is exact and only the order of the f32 sums
+    differs from the tensor cores'."""
+    a_hi, b_hi = _bf16(a), _bf16(b)
+    if precision == "default":
+        return a_hi @ b_hi
+    return a_hi @ b_hi + _bf16(a - a_hi) @ b_hi + a_hi @ _bf16(b - b_hi)
+
+
+class _PrecisionDot(torch.autograd.Function):
+    """a (..., K) @ b (K, N) in a bf16 mode, with the backward of the JAX
+    package's ``_bf16x3_bwd`` (its 1-pass analogue for "default"):
+    da = dot(g, b^T), db = dot(a^T, g) over the flattened leading dims."""
+
+    @staticmethod
+    def forward(ctx, a, b, precision):
+        ctx.save_for_backward(a, b)
+        ctx.precision = precision
+        return _dot_at(a, b, precision)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _dot_at(g, b.t(), ctx.precision)
+        if ctx.needs_input_grad[1]:
+            db = _dot_at(a.reshape(-1, a.shape[-1]).t(),
+                         g.reshape(-1, g.shape[-1]), ctx.precision)
+        return da, db, None
+
+
+def precision_dot(a: torch.Tensor, b: torch.Tensor,
+                  precision: str) -> torch.Tensor:
+    """The dense contraction a (..., K) @ b (K, N) in ``precision``
+    (``PRECISIONS``); "highest" is the plain f32 matmul."""
+    if check_precision(precision) == "highest":
+        return a @ b
+    return _PrecisionDot.apply(a, b, precision)
+
+
+class _MlpAtPrecision(nn.Module):
+    """An MLP whose dots run in ``precision`` (the JAX package's swap of
+    the module's ``dot_general``, ``pallas_kernels._sol_statics``)."""
+
+    def __init__(self, mod: MLP, precision: str):
+        super().__init__()
+        self.mod = mod
+        self.precision = precision
+
+    def forward(self, tx):
+        return self.mod(tx, dot=lambda a, b: precision_dot(a, b,
+                                                           self.precision))
+
+
+def with_precision(sol: Solution, precision: str) -> Solution:
+    """``sol`` with its MLP's dots in ``precision``; the zero iterate, other
+    modules and "highest" are returned as they are."""
+    if (check_precision(precision) == "highest" or sol.kind != "net"
+            or not isinstance(sol.module, MLP)):
+        return sol
+    return Solution.from_net(_MlpAtPrecision(sol.module, precision),
+                             sol.net_type, sol.nx)
+
+
+def _core_tiles(w: torch.Tensor) -> torch.Tensor:
+    """(out, in) -> the tensor-core pass's image: 8 x 8 core matrices
+    (8 rows of out, 16 bytes of in each), core (i, j) at (i * in / 8 + j)
+    * 64 elements, flattened."""
+    n, k = w.shape
+    return w.reshape(n // 8, 8, k // 8, 8).permute(0, 2, 1, 3).reshape(-1)
+
+
+def tc_k1(nx: int) -> int:
+    """Layer 1's K in the tensor-core pass: 1 + nx padded to whole slabs."""
+    return -(-(1 + nx) // TC_SLAB_K) * TC_SLAB_K
+
+
+def pack_mlp_tc(mod: MLP, nx: int):
+    """The tensor-core kernels' net: (bf16 images, f32 vectors).
+
+    Images, in ``_core_tiles`` layout, hi = bf16(W) then lo = bf16(W - hi)
+    of W1 (its input columns reordered to x_1..x_nx, s, zero padding to
+    ``tc_k1(nx)``, so that the draws' quads align with the k-chunks), then
+    of each hidden layer's W (out, in); the forward pass reads W K-major
+    and the backward pass the same bytes through the B transpose.
+    Vectors: the L biases (H each), the head's weight row (H), the column
+    sums over x of hi(W1) and of lo(W1) (H each), the head's bias."""
+    def hi_lo(w):
+        hi = w.to(torch.bfloat16)
+        return hi, (w - hi.float()).to(torch.bfloat16)
+
+    lin = list(mod.layers)
+    w1 = lin[0].weight.detach()
+    w1_hi, w1_lo = hi_lo(torch.cat(
+        [w1[:, 1:], w1[:, :1],
+         w1.new_zeros((w1.shape[0], tc_k1(nx) - 1 - nx))], dim=1))
+    images = [_core_tiles(w1_hi), _core_tiles(w1_lo)]
+    for layer in lin[1:-1]:
+        images += [_core_tiles(w) for w in hi_lo(layer.weight.detach())]
+    vec = [layer.bias.detach() for layer in lin[:-1]]
+    vec += [lin[-1].weight.detach().reshape(-1),
+            w1_hi[:, :nx].float().sum(dim=1),
+            w1_lo[:, :nx].float().sum(dim=1),
+            lin[-1].bias.detach().reshape(-1)]
+    return (torch.cat(images).contiguous(),
+            torch.cat([v.float() for v in vec]).contiguous())
+
+
 def _net_for_launch(lib: ctypes.CDLL, name: str, sol: Solution,
-                    tx: torch.Tensor, nx: int):
-    """(module or None, hidden layers) after the net kernels' limits."""
+                    tx: torch.Tensor, nx: int, precision: str):
+    """(module or None, hidden layers, scratch bytes) after the net
+    kernels' limits: the FP32-FMA kernel's shared memory under "highest",
+    the tensor-core kernel's plan (0 or the global bytes its backward
+    pass keeps when they do not fit in shared memory) otherwise."""
     if nx > getattr(lib, f"dpi_{name}_max_nx")():
         raise NotImplementedError(
             f"nx={nx} exceeds the {name} kernel's "
             f"{getattr(lib, f'dpi_{name}_max_nx')()}")
     mod = kernel_net(sol, nx, getattr(lib, f"dpi_{name}_hidden_width")())
     n_hidden = len(mod.neurons) if mod is not None else 0
-    smem = getattr(lib, f"dpi_{name}_smem_bytes")(nx, n_hidden)
-    if smem > MAX_SMEM_BYTES:
-        raise NotImplementedError(
-            f"the {name} kernel needs {smem} B of shared memory at nx={nx}, "
-            f"{n_hidden} hidden layers (at most {MAX_SMEM_BYTES})")
+    scratch = 0
+    if precision == "highest":
+        smem = getattr(lib, f"dpi_{name}_smem_bytes")(nx, n_hidden)
+        if smem > MAX_SMEM_BYTES:
+            raise NotImplementedError(
+                f"the {name} kernel needs {smem} B of shared memory at "
+                f"nx={nx}, {n_hidden} hidden layers (at most "
+                f"{MAX_SMEM_BYTES})")
+    else:
+        scratch = getattr(lib, f"dpi_{name}_tc_scratch_bytes")(nx,
+                                                                n_hidden)
+        if scratch < 0:
+            raise NotImplementedError(
+                f"the {name} tensor-core kernel has no launch plan at "
+                f"nx={nx}, {n_hidden} hidden layers")
     if mod is not None and next(mod.parameters()).device != tx.device:
         raise ValueError("the frozen net must lie on the device of tx")
-    return mod, n_hidden
+    return mod, n_hidden, scratch
+
+
+def _tc_net(mod: Optional[MLP], nx: int, scratch: int, device):
+    """The tensor-core launch's net buffers and scratch (None where
+    unused)."""
+    img = vec = None
+    if mod is not None:
+        img, vec = pack_mlp_tc(mod, nx)
+    buf = (torch.empty(scratch // 4, dtype=torch.float32, device=device)
+           if scratch > 0 else None)
+    return img, vec, buf
 
 
 # ---------------------------------------------------------------------------
@@ -398,6 +590,7 @@ def generate_with_gradients_plain(seed: int, eq, sol: Solution,
                                   noise_t: Optional[torch.Tensor] = None,
                                   noise_i: Optional[torch.Tensor] = None, *,
                                   antithetic: bool = False,
+                                  precision: str = "highest",
                                   chunk_rows: int = 2 ** 16,
                                   return_var: bool = False):
     """Plain PyTorch version of the merged estimator kernel.
@@ -406,6 +599,8 @@ def generate_with_gradients_plain(seed: int, eq, sol: Solution,
     external ``u01`` (B, rows, 1), ``noise_t`` and ``noise_i`` (B, rows,
     nx), rows = ``draw_rows(m, antithetic)``, it uses them, else it draws
     them chunk by chunk from a torch.Generator seeded with ``seed``.
+    ``precision`` is that of the frozen-net dots along the integral chain
+    (``PRECISIONS``; f0 stays f32, as in the TPU kernel's wrapper).
     Chunked over m so that at most about ``chunk_rows`` samples pass
     through the frozen net at once. ``return_var`` also returns the
     per-sample variance of each of the 1 + nx outputs (for CLT checks; see
@@ -417,6 +612,7 @@ def generate_with_gradients_plain(seed: int, eq, sol: Solution,
     inv_yT = 1.0 / (sqrt_Tt * eq.alpha_sqrt)
     g0 = eq.g(x)
     f0 = get_f(eq, sol, t, x)
+    sol_p = with_precision(sol, precision)
     external = None
     if noise_t is not None:
         external = {"u": u01, "nt": noise_t, "ni": noise_i}
@@ -425,7 +621,7 @@ def generate_with_gradients_plain(seed: int, eq, sol: Solution,
                           external)
     mean, var = _accumulate(
         (_terminal_z(eq, x, sqrt_Tt, g0, inv_yT, c["nt"])
-         + _integral_z(eq, sol, t, x, Tt, f0, c["u"], c["ni"])
+         + _integral_z(eq, sol_p, t, x, Tt, f0, c["u"], c["ni"])
          for c in chunks), b, 1 + nx, m, antithetic, tx, return_var)
     out = _with_value_offset(mean, g0 + f0 * Tt)
     return (out, var) if return_var else out
@@ -436,19 +632,24 @@ def generate_with_gradients_cuda(seed: int, eq, sol: Solution,
                                  u01: Optional[torch.Tensor] = None,
                                  noise_t: Optional[torch.Tensor] = None,
                                  noise_i: Optional[torch.Tensor] = None, *,
-                                 antithetic: bool = False) -> torch.Tensor:
+                                 antithetic: bool = False,
+                                 precision: str = "highest") -> torch.Tensor:
     """Merged terminal + integral estimator, (B, 1 + nx) f32.
 
     ``m`` is the shared per-point sample count of both chains. Without
     external noise the kernel draws its own normals (Philox4x32-10 keyed by
     (seed, point)); with ``u01`` (B, rows, 1) and ``noise_t``/``noise_i``
     (B, rows, nx) it uses those, as the TPU kernel does (its test path).
-    ``antithetic`` pairs each draw with its mirror: rows = m / 2. CPU
-    tensors take ``generate_with_gradients_plain``."""
+    ``antithetic`` pairs each draw with its mirror: rows = m / 2.
+    ``precision`` (``PRECISIONS``): "highest" launches the FP32-FMA kernel,
+    "bf16x3" and "default" the tensor-core kernel. CPU tensors take
+    ``generate_with_gradients_plain``."""
+    check_precision(precision)
     if tx.device.type == "cpu":
         return generate_with_gradients_plain(seed, eq, sol, tx, m, u01,
                                              noise_t, noise_i,
-                                             antithetic=antithetic)
+                                             antithetic=antithetic,
+                                             precision=precision)
     _on_card("estimator", tx, eq)
     b, nx = tx.shape[0], tx.shape[1] - 1
     _check("tx", tx, (b, 1 + nx), tx.device)
@@ -461,22 +662,31 @@ def generate_with_gradients_cuda(seed: int, eq, sol: Solution,
         _check("noise_t", noise_t, (b, rows, nx), tx.device)
         _check("noise_i", noise_i, (b, rows, nx), tx.device)
     lib = GENERATE.lib()
-    mod, n_hidden = _net_for_launch(lib, "generate", sol, tx, nx)
+    mod, n_hidden, scratch = _net_for_launch(lib, "generate", sol, tx, nx,
+                                             precision)
     t = tx[:, :1].contiguous()
     x = tx[:, 1:].contiguous()
     g0 = eq.g(x).contiguous()
     f0 = get_f(eq, sol, t, x).contiguous()
-    w = pack_mlp(mod) if mod is not None else None
     out = torch.empty((b, 1 + nx), dtype=torch.float32, device=tx.device)
-    rc = lib.dpi_generate(
-        _ptr(t), _ptr(x), _ptr(g0), _ptr(f0), _ptr(w), _ptr(u01),
-        _ptr(noise_t), _ptr(noise_i), _ptr(out), b, int(m), nx, n_hidden,
-        int(mod is not None), int(antithetic), _seed(seed), float(eq.T),
-        float(eq.alpha_sqrt), float(eq.k), float(eq.ff_offset),
-        _stream(tx.device))
+    shape = (b, int(m), nx, n_hidden, int(mod is not None), int(antithetic))
+    scalars = (_seed(seed), float(eq.T), float(eq.alpha_sqrt), float(eq.k),
+               float(eq.ff_offset), _stream(tx.device))
+    if precision == "highest":
+        w = pack_mlp(mod) if mod is not None else None
+        rc = lib.dpi_generate(
+            _ptr(t), _ptr(x), _ptr(g0), _ptr(f0), _ptr(w), _ptr(u01),
+            _ptr(noise_t), _ptr(noise_i), _ptr(out), *shape, *scalars)
+    else:
+        img, vec, buf = _tc_net(mod, nx, scratch, tx.device)
+        rc = lib.dpi_generate_tc(
+            _ptr(t), _ptr(x), _ptr(g0), _ptr(f0), _ptr(img), _ptr(vec),
+            _ptr(u01), _ptr(noise_t), _ptr(noise_i), _ptr(buf), _ptr(out),
+            *shape, _TC_MODES[precision], *scalars)
     if rc != 0:
-        raise RuntimeError(f"dpi_generate launch failed: CUDA error {rc}")
-    GENERATE.launches += 1
+        raise RuntimeError(f"dpi_generate launch failed: error {rc} (CUDA's, "
+                           f"or value_mlp_tc.cuh's ERR_* from 10001)")
+    GENERATE.count(precision)
     return out
 
 
@@ -552,12 +762,14 @@ def integral_with_gradients_plain(seed: int, eq, sol: Solution,
                                   noise: Optional[torch.Tensor] = None, *,
                                   antithetic: bool = False,
                                   f0: Optional[torch.Tensor] = None,
+                                  precision: str = "highest",
                                   chunk_rows: int = 2 ** 16,
                                   return_var: bool = False):
     """Plain PyTorch version of the integral kernel:
     E[Tt (f - f0) (1, Ys)] + (f0 Tt, 0), Tt = T - t. ``u01`` (B, rows, 1)
     and ``noise`` (B, rows, nx), or draws from a torch.Generator seeded
-    with ``seed``; pairs share u. ``f0`` defaults to f at (t, x)."""
+    with ``seed``; pairs share u. ``f0`` defaults to f at (t, x), in f32;
+    ``precision`` is that of the frozen-net dots at the samples."""
     t, x = tx[:, :1], tx[:, 1:]
     b, nx = x.shape
     Tt = eq.T - t
@@ -566,8 +778,10 @@ def integral_with_gradients_plain(seed: int, eq, sol: Solution,
     external = None if noise is None else {"u": u01, "n": noise}
     chunks = _draw_chunks(seed, tx, m, antithetic, chunk_rows,
                           [("u", 1, "u"), ("n", nx, "n")], external)
+    sol_p = with_precision(sol, precision)
     mean, var = _accumulate(
-        (_integral_z(eq, sol, t, x, Tt, f0, c["u"], c["n"]) for c in chunks),
+        (_integral_z(eq, sol_p, t, x, Tt, f0, c["u"], c["n"])
+         for c in chunks),
         b, 1 + nx, m, antithetic, tx, return_var)
     out = _with_value_offset(mean, f0 * Tt)
     return (out, var) if return_var else out
@@ -578,15 +792,19 @@ def integral_with_gradients_cuda(seed: int, eq, sol: Solution,
                                  u01: Optional[torch.Tensor] = None,
                                  noise: Optional[torch.Tensor] = None, *,
                                  antithetic: bool = False,
-                                 f0: Optional[torch.Tensor] = None
+                                 f0: Optional[torch.Tensor] = None,
+                                 precision: str = "highest"
                                  ) -> torch.Tensor:
     """Integral CV estimator, (B, 1 + nx) f32: the integral kernel for CUDA
     tensors (in-kernel Philox draws, or external ``u01`` (B, rows, 1) and
-    ``noise`` (B, rows, nx)), the plain version for CPU tensors."""
+    ``noise`` (B, rows, nx); the FP32-FMA kernel under ``precision``
+    "highest", the tensor-core kernel under "bf16x3" and "default"), the
+    plain version for CPU tensors."""
+    check_precision(precision)
     if tx.device.type == "cpu":
         return integral_with_gradients_plain(seed, eq, sol, tx, m, u01,
                                              noise, antithetic=antithetic,
-                                             f0=f0)
+                                             f0=f0, precision=precision)
     _on_card("integral", tx, eq)
     b, nx = tx.shape[0], tx.shape[1] - 1
     _check("tx", tx, (b, 1 + nx), tx.device)
@@ -597,23 +815,33 @@ def integral_with_gradients_cuda(seed: int, eq, sol: Solution,
         _check("u01", u01, (b, rows, 1), tx.device)
         _check("noise", noise, (b, rows, nx), tx.device)
     lib = INTEGRAL.lib()
-    mod, n_hidden = _net_for_launch(lib, "integral", sol, tx, nx)
+    mod, n_hidden, scratch = _net_for_launch(lib, "integral", sol, tx, nx,
+                                             precision)
     t = tx[:, :1].contiguous()
     x = tx[:, 1:].contiguous()
     if f0 is None:
         f0 = get_f(eq, sol, t, x)
     f0 = f0.contiguous()
     _check("f0", f0, (b, 1), tx.device)
-    w = pack_mlp(mod) if mod is not None else None
     out = torch.empty((b, 1 + nx), dtype=torch.float32, device=tx.device)
-    rc = lib.dpi_integral(
-        _ptr(t), _ptr(x), _ptr(f0), _ptr(w), _ptr(u01), _ptr(noise),
-        _ptr(out), b, int(m), nx, n_hidden, int(mod is not None),
-        int(antithetic), _seed(seed), float(eq.T), float(eq.alpha_sqrt),
-        float(eq.k), float(eq.ff_offset), _stream(tx.device))
+    shape = (b, int(m), nx, n_hidden, int(mod is not None), int(antithetic))
+    scalars = (_seed(seed), float(eq.T), float(eq.alpha_sqrt), float(eq.k),
+               float(eq.ff_offset), _stream(tx.device))
+    if precision == "highest":
+        w = pack_mlp(mod) if mod is not None else None
+        rc = lib.dpi_integral(
+            _ptr(t), _ptr(x), _ptr(f0), _ptr(w), _ptr(u01), _ptr(noise),
+            _ptr(out), *shape, *scalars)
+    else:
+        img, vec, buf = _tc_net(mod, nx, scratch, tx.device)
+        rc = lib.dpi_integral_tc(
+            _ptr(t), _ptr(x), _ptr(f0), _ptr(img), _ptr(vec), _ptr(u01),
+            _ptr(noise), _ptr(buf), _ptr(out), *shape, _TC_MODES[precision],
+            *scalars)
     if rc != 0:
-        raise RuntimeError(f"dpi_integral launch failed: CUDA error {rc}")
-    INTEGRAL.launches += 1
+        raise RuntimeError(f"dpi_integral launch failed: error {rc} (CUDA's, "
+                           f"or value_mlp_tc.cuh's ERR_* from 10001)")
+    INTEGRAL.count(precision)
     return out
 
 

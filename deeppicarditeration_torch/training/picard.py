@@ -89,6 +89,7 @@ def gen_config_from_cfg(cfg) -> GenConfig:
         pallas_terminal=bool(d.TPU.PALLAS_TERMINAL),
         pallas_integral=bool(d.TPU.PALLAS_INTEGRAL),
         pallas_generate=_tri_state(d.TPU.PALLAS_GENERATE),
+        pallas_precision=str(d.TPU.get("PALLAS_PRECISION", "bf16x3")),
     )
 
 
@@ -108,10 +109,8 @@ def _reject_unported(cfg) -> None:
         (cfg.EVAL.REFERENCE_FILE is not None, "EVAL.REFERENCE_FILE"),
         (bool(cfg.EVAL.PLOT), "EVAL.PLOT"),
         (cfg.MESH.SHAPE is not None, "MESH.SHAPE (multi-device runs)"),
-        (str(cfg.DATA.TPU.PALLAS_PRECISION) == "default"
-         or cfg.DATA.TPU.PALLAS_ACT is not None,
-         "single-pass bf16 in-kernel dots (DATA.TPU.PALLAS_PRECISION: "
-         "default, DATA.TPU.PALLAS_ACT); the kernel computes in FP32"),
+        (cfg.DATA.TPU.PALLAS_ACT is not None,
+         "bf16 activation storage in the kernel (DATA.TPU.PALLAS_ACT)"),
     ]
     for bad, what in checks:
         if bad:

@@ -60,7 +60,7 @@ def test_runner_rejects_what_the_port_lacks(tmp_path):
     from deeppicarditeration_torch.training.picard import PicardRunner
 
     for ov in (["DATA.EXACT", "true"], ["RESUME", "true"],
-               ["DATA.TPU.PALLAS_PRECISION", "default"],
+               ["DATA.TPU.PALLAS_ACT", "bf16"],
                ["TRAIN.SUPERVISE_HESSIAN", "true"],
                ["PICARD.FORMULA", "TwoLayer"],
                ["METHOD.cls", "PINN"], ["DATA.SAVE", "true"],
@@ -77,9 +77,9 @@ def test_chip_smoke_recipe_equals_the_yaml_chain():
             == tconfig.load_cfg(W1).to_dict())
 
 
-@pytest.mark.parametrize("path", ["B", "C", "D"])
+@pytest.mark.parametrize("path", ["B", "C", "D", "F", "G"])
 def test_chip_smoke_path_recipes_equal_the_yaml(path):
-    """Paths B and C are the w1.0 YAML with chip_smoke's flag overrides;
+    """Paths B, C, F and G are the w1.0 YAML with chip_smoke's overrides;
     path D is configs/burgers/base_100d_T1.0_w1.0_best.yaml. Both packages
     load them to the same tree and map the DATA.TPU flags alike."""
     import chip_smoke
@@ -99,7 +99,7 @@ def test_chip_smoke_path_recipes_equal_the_yaml(path):
     gen, jgen = gen_config_from_cfg(port), jax_gen_config_from_cfg(jcfg, 1)
     for field in ("n_estimate_terminal", "n_estimate_integral", "tpu_prng",
                   "antithetic", "pallas_terminal", "pallas_integral",
-                  "pallas_generate", "chunk_elems"):
+                  "pallas_generate", "pallas_precision", "chunk_elems"):
         assert getattr(gen, field) == getattr(jgen, field), field
 
 

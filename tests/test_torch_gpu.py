@@ -24,6 +24,10 @@ pytestmark = pytest.mark.gpu
 # FP32 sums over M samples in another order than the plain version's
 # (sequential FMA in the kernel, pairwise in torch): a few 1e-6 here.
 RTOL = ATOL = 5e-5
+# Under the one-pass "default" mode that order can flip the bf16 rounding
+# of one activation or gradient in a sample (2^-8 of it, where bf16x3's
+# residual keeps 2^-16): 7.8e-5 seen at m = 50 on an H100, so 5e-4.
+ONE_PASS_TOL = 5e-4
 
 
 @pytest.fixture
@@ -243,6 +247,126 @@ def test_split_route_launch_counts(cuda):
     # GENERATE, TERMINAL, INTEGRAL, NORMALS (4 + 4 chunks of 16 samples),
     # ROLLOUT, PROBE
     assert d == [0, 1, 1, 8, 0, 0], d
+
+
+# ---- the tensor-core net pass (csrc/value_mlp_tc.cuh) -----------------------
+
+def _deep(cuda, nx, neurons, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    mod = MLP(1 + nx, neurons, ("ELU",) * len(neurons), 1, generator=g)
+    return Solution.from_net(mod.to(cuda), "Value", nx)
+
+
+@pytest.mark.parametrize("which", ["generate", "integral"])
+@pytest.mark.parametrize("precision", ["bf16x3", "default"])
+@pytest.mark.parametrize("net,anti,m,nx", [
+    (True, False, 64, 100), (True, True, 128, 100), (False, False, 64, 100),
+    (True, False, 70, 7), (True, True, 50, 37)])
+def test_tensor_core_kernels_match_plain_in_their_mode(cuda, which,
+                                                       precision, net, anti,
+                                                       m, nx):
+    """Both kernels in a bf16 mode against the plain version in the same
+    mode on the same noise: with antithetic pairing, a ragged last tile
+    (m not a multiple of 64) and nx not a multiple of 16."""
+    eq, sol, tx, u01, nt, ni = _problem(cuda, 16, m, nx, net)
+    if anti:
+        u01, nt, ni = (v[:, :m // 2].contiguous() for v in (u01, nt, ni))
+    kw = dict(antithetic=anti, precision=precision)
+    if which == "generate":
+        lib = kernels.GENERATE
+        run = kernels.generate_with_gradients_cuda
+        plain = kernels.generate_with_gradients_plain
+        args = (0, eq, sol, tx, m, u01, nt, ni)
+    else:
+        lib = kernels.INTEGRAL
+        run = kernels.integral_with_gradients_cuda
+        plain = kernels.integral_with_gradients_plain
+        args = (0, eq, sol, tx, m, u01, ni)
+    n0 = lib.launches
+    out = run(*args, **kw)
+    assert lib.launches == n0 + 1
+    ref = plain(*args, **kw)
+    torch.cuda.synchronize()
+    tol = RTOL if precision == "bf16x3" else ONE_PASS_TOL
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+    assert lib.mode_launches[precision] >= 1
+    if net:  # the mode reaches the kernel: not the FP32 result
+        f32 = run(*args, antithetic=anti)
+        assert float((out - f32).abs().max()) > 0
+
+
+@pytest.mark.parametrize("which", ["generate", "integral"])
+@pytest.mark.parametrize("anti", [False, True])
+def test_tensor_core_draws_equal_the_host_philox(cuda, which, anti):
+    """Under bf16x3 each kernel's own draws equal the host Philox's
+    (ops/philox.py), and the FP32-FMA kernel's: the same counters."""
+    b, m, nx, seed = 64, 256, 100, (7 << 32) | 5
+    eq, sol, tx, *_ = _problem(cuda, b, m)
+    pts = [0, 1, 2, b - 2, b - 1]
+    rows = m // 2 if anti else m
+
+    def host(a):
+        return torch.from_numpy(a).to(cuda)
+
+    u = host(philox.estimator_times(seed, pts, rows))
+    nt = host(philox.estimator_normals(seed, pts, rows, nx,
+                                       philox.STREAM_TERMINAL))
+    ni = host(philox.estimator_normals(seed, pts, rows, nx,
+                                       philox.STREAM_INTEGRAL))
+    kw = dict(antithetic=anti, precision="bf16x3")
+    if which == "generate":
+        out = kernels.generate_with_gradients_cuda(seed, eq, sol, tx, m, **kw)
+        ref = kernels.generate_with_gradients_plain(0, eq, sol, tx[pts], m,
+                                                    u, nt, ni, **kw)
+    else:
+        out = kernels.integral_with_gradients_cuda(seed, eq, sol, tx, m, **kw)
+        ref = kernels.integral_with_gradients_plain(0, eq, sol, tx[pts], m,
+                                                    u, ni, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out[pts], ref, rtol=RTOL, atol=ATOL)
+    assert torch.equal(out, (kernels.generate_with_gradients_cuda
+                             if which == "generate" else
+                             kernels.integral_with_gradients_cuda)(
+        seed, eq, sol, tx, m, **kw))  # deterministic
+
+
+@pytest.mark.parametrize("nx,neurons", [(300, (128,) * 4), (100, (128,) * 6),
+                                        (100, (128,)), (511, (128,) * 2),
+                                        (200, (128,) * 2)])
+def test_tensor_core_kernels_cover_deep_and_wide_nets(cuda, nx, neurons):
+    """Every launch plan (value_mlp_tc.cuh: launch_plan_for): two blocks
+    per SM with the saved derivatives in global scratch (nx = 100), one
+    block with them in global scratch (nx = 300, 511) or in shared memory
+    (nx = 200); layer 1 in several K-slabs; a single hidden layer."""
+    m = 64
+    eq, _, tx, u01, nt, ni = _problem(cuda, 8, m, nx, net=False)
+    sol = _deep(cuda, nx, neurons)
+    for run, plain, args in (
+            (kernels.generate_with_gradients_cuda,
+             kernels.generate_with_gradients_plain,
+             (0, eq, sol, tx, m, u01, nt, ni)),
+            (kernels.integral_with_gradients_cuda,
+             kernels.integral_with_gradients_plain,
+             (0, eq, sol, tx, m, u01, ni))):
+        out = run(*args, precision="bf16x3")
+        ref = plain(*args, precision="bf16x3")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
+
+
+def test_dispatch_takes_the_tensor_cores_by_default(cuda):
+    """GenConfig's default precision (bf16x3) launches the tensor-core
+    kernel: its result is the plain bf16x3 version's, not the f32 one's."""
+    m = 64
+    eq, sol, tx, *_ = _problem(cuda, 8, m)
+    n0 = kernels.GENERATE.launches
+    gen = est.GenConfig(n_estimate_terminal=m, n_estimate_integral=m)
+    out = est.generate_with_gradients(5, eq, sol, tx, gen)
+    assert kernels.GENERATE.launches == n0 + 1
+    torch.testing.assert_close(
+        out, kernels.generate_with_gradients_cuda(5, eq, sol, tx, m,
+                                                  precision="bf16x3"),
+        rtol=0, atol=0)
 
 
 # ---- rollout kernel (csrc/rollout.cu) ---------------------------------------
