@@ -37,7 +37,9 @@ only when every phase passed):
   1. build the six CUDA kernels from ``deeppicarditeration_torch/csrc``
      (one nvcc each, all started together); the tensor-core kernels of
      ``generate.cu`` and ``integral.cu`` must hold HGMMA (wgmma) in their
-     SASS;
+     SASS; the instructions per normal, by pipe, that the terminal
+     kernel's draw loop issues at nx = 100
+     (``utils/probe_roofline.py:sass_mix``);
   2. the merged kernel against its plain PyTorch version on the same
      external noise (B=256, M=4096; zero iterate and a random net), in
      bf16x3 and in highest;
@@ -59,9 +61,11 @@ only when every phase passed):
      kernels against the host Philox of ``ops/philox.py``, value for value
      (each kernel with its own draws equals its plain version fed the
      host's draws, at the first and last 8 points; the net kernels in both
-     modes); the normals kernel's values against the host Philox at the
-     head and the end of a 2^28 buffer, its moments over 2^30 draws, its
-     lag 1-8 correlations, and its independence from the buffer's shape;
+     modes); the terminal kernel's Box-Muller against philox.cuh's, bit
+     for bit, at all 2^23 uniforms; the normals kernel's values against
+     the host Philox at the head and the end of a 2^28 buffer, its
+     moments over 2^30 draws, its lag 1-8 correlations, and its
+     independence from the buffer's shape;
   7. paths B, C, D, F and G, 3 iterations each;
   8. the rollout kernel at path E's shapes (K=20, B=512, nx=100, the
      baseline's mix of full and tail-shrunk steps): its draws against the
@@ -79,8 +83,9 @@ only when every phase passed):
  11. kernel, plain-version and library times at the paths' shapes, and
      each kernel's bound, printed as one ``{"kernels": [...]}`` JSON line
      (the net kernels with a row per precision mode, timed in turns in
-     this call). A time below its bound fails the run: the model counted
-     too much.
+     this call; the terminal kernel with and without antithetic pairing,
+     each against its own bound). A time below its bound fails the run:
+     the model counted too much.
 Needs one NVIDIA H100 SXM card; imports nothing of JAX.
 """
 
@@ -271,15 +276,13 @@ def _fail(msg: str) -> None:
 def _time_ms(fn, reps: int) -> float:
     import torch
 
+    from deeppicarditeration_torch.device import Timer
+
     fn()  # warm-up
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
+    with Timer(torch.device("cuda")) as tm:
+        for _ in range(reps):
+            fn()
+    return tm.ms / reps
 
 
 def _in_turns(fns: dict, reps: int) -> dict:
@@ -705,18 +708,14 @@ def _hgmma_counts():
     instantiations), by kernel. A DEPBAR waits for wgmma to finish: one
     per slab group is the design, one per HGMMA a serialised pass."""
     import re
-    import shutil
 
     from deeppicarditeration_torch.ops import kernels
+    from deeppicarditeration_torch.utils.probe_roofline import library_sass
 
-    tool = (shutil.which("cuobjdump")
-            or str(pathlib.Path(kernels._nvcc()).parent / "cuobjdump"))
     out = {}
     for lib, fn in ((kernels.GENERATE, "generate_tc_kernel"),
                     (kernels.INTEGRAL, "integral_tc_kernel")):
-        sass = subprocess.run([tool, "-sass", str(lib.so_path)],
-                              capture_output=True, text=True,
-                              check=True).stdout
+        sass = library_sass(lib)
         body = [part for part in re.split(r"\n\s*Function : ", sass)
                 if part.split("\n", 1)[0].find(fn) >= 0]
         out[fn] = (sum(part.count("HGMMA") for part in body),
@@ -871,6 +870,10 @@ def main(argv=None) -> int:
         f"{k} HGMMA {h}, WARPGROUP.DEPBAR {d}" for k, (h, d) in hgmma.items()))
     if not all(h for h, _ in hgmma.values()):
         _fail("a tensor-core kernel holds no HGMMA in its SASS")
+    terminal_sass = probe_roofline.sass_mix(
+        probe_roofline.library_sass(kernels.TERMINAL))
+    print("terminal kernel's SASS per normal at nx=100 (the draw loop's "
+          "fast path): " + json.dumps(terminal_sass))
     max_err = {f"{lib.source.stem}{sfx}": 0.0 for lib in kernels.ALL
                for sfx in ("", " bf16x3")}
 
@@ -1018,6 +1021,14 @@ def main(argv=None) -> int:
         del u, a, c
     del u_h, nt_h, ni_h
 
+    # the terminal kernel's guard-free Box-Muller against philox.cuh's, bit
+    # for bit, at all 2^23 uniforms
+    bad = kernels.terminal_draw_mismatches(dev)
+    print(f"terminal kernel's Box-Muller vs philox.cuh's over all 2^23 "
+          f"uniforms: {bad} mismatches")
+    if bad:
+        _fail("the terminal kernel's Box-Muller differs from philox.cuh's")
+
     # normals: the host Philox's values at the head and the end of a 2^28
     # buffer; moments over 4 x 2^28 draws, lag 1-8 correlations; layout
     n_buf, n_total, lags = 2 ** 28, 0, range(1, 9)
@@ -1163,13 +1174,25 @@ def main(argv=None) -> int:
         print(f"generate_with_gradients {mode} antithetic (path D's shapes, "
               f"M={2 * mm}): {ms_d[mode]:.3f} ms per call, bound "
               f"{bd[0]:.3f} ms ({bd[2]})")
+    # the terminal kernel with antithetic pairing at the same M (path D's
+    # pairing on the split route), against its own bound
+    ms_ta = _time_ms(lambda: kernels.terminal_with_gradients_cuda(
+        5, eq, tx, mm, antithetic=True), 10)
+    bd_ta = _bound(_terminal_work(nb, mm, nx, True))
+    _not_below("terminal_with_gradients antithetic", ms_ta, bd_ta[0])
+    print(f"terminal_with_gradients antithetic (M={mm}): {ms_ta:.3f} ms per "
+          f"call, bound {bd_ta[0]:.3f} ms ({bd_ta[2]}); "
+          f"{ms_ta / bd_ta[0]:.1f}x the bound")
     row("terminal_with_gradients", "terminal", f"{src}:1244", "B",
         launches_b["terminal"], runner_b.generate_calls,
         _time_ms(lambda: kernels.terminal_with_gradients_cuda(
             5, eq, tx, mm), 10),
         _time_ms(lambda: kernels.terminal_with_gradients_plain(
             5, eq, tx, mm), 2),
-        _terminal_work(nb, mm, nx, False), shape=f"B={nb} M={mm} nx={nx}")
+        _terminal_work(nb, mm, nx, False), shape=f"B={nb} M={mm} nx={nx}",
+        extra={"antithetic": {"ms": ms_ta, "bound_ms": bd_ta[0],
+                              "bound_pipe": bd_ta[2]},
+               "sass_per_normal": terminal_sass})
     for mode, (path, runner, launches) in zip(MODES, (
             ("B", runner_b, launches_b), ("G", runner_g, launches_g))):
         row("integral_with_gradients", "integral", f"{src}:690", path,

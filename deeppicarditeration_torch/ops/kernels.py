@@ -183,6 +183,10 @@ def _declare_terminal(lib: ctypes.CDLL) -> None:
     lib.dpi_terminal.restype = _I
     lib.dpi_terminal_max_nx.argtypes = []
     lib.dpi_terminal_max_nx.restype = _I
+    lib.dpi_terminal_smem_bytes.argtypes = [_I]
+    lib.dpi_terminal_smem_bytes.restype = _I64
+    lib.dpi_terminal_check_draws.argtypes = [_P, _P]
+    lib.dpi_terminal_check_draws.restype = _I
 
 
 def _declare_integral(lib: ctypes.CDLL) -> None:
@@ -734,9 +738,9 @@ def terminal_with_gradients_cuda(seed: int, eq, tx: torch.Tensor, m: int,
     if noise is not None:
         _check("noise", noise, (b, rows, nx), tx.device)
     lib = TERMINAL.lib()
-    if nx > lib.dpi_terminal_max_nx():
+    if lib.dpi_terminal_smem_bytes(nx) < 0:
         raise NotImplementedError(
-            f"nx={nx} exceeds the terminal kernel's "
+            f"nx={nx}: the terminal kernel covers 1 <= nx <= "
             f"{lib.dpi_terminal_max_nx()}")
     t = tx[:, :1].contiguous()
     x = tx[:, 1:].contiguous()
@@ -750,6 +754,20 @@ def terminal_with_gradients_cuda(seed: int, eq, tx: torch.Tensor, m: int,
         raise RuntimeError(f"dpi_terminal launch failed: CUDA error {rc}")
     TERMINAL.launches += 1
     return out
+
+
+def terminal_draw_mismatches(device) -> int:
+    """Mismatches of the terminal kernel's Box-Muller (its guard-free copy
+    of the library's logf, sqrtf and sincosf) against philox.cuh's, bit
+    for bit, over all 2^23 uniforms a draw word gives: 0 when its draws are
+    the other kernels' and the host reference's."""
+    device = torch.device(device)
+    bad = torch.zeros(1, dtype=torch.int32, device=device)
+    rc = TERMINAL.lib().dpi_terminal_check_draws(_ptr(bad), _stream(device))
+    if rc != 0:
+        raise RuntimeError(f"dpi_terminal_check_draws failed: CUDA error "
+                           f"{rc}")
+    return int(bad.item())
 
 
 # ---------------------------------------------------------------------------

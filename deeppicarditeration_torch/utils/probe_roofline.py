@@ -28,6 +28,7 @@ import pathlib
 import re
 import shutil
 import subprocess
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -44,12 +45,126 @@ SASS_PIPES = {
     "fp32": {"FFMA", "FADD", "FMUL", "FSEL", "FSETP", "FMNMX", "FCHK"},
     "sfu": {"MUFU"},
 }
+# SASS opcodes counted in the terminal kernel's mix besides SASS_PIPES'
+SASS_GROUPS = {**SASS_PIPES, "shfl": {"SHFL"}, "lds": {"LDS"},
+               "sts": {"STS"}}
+# the least a quad of normals issues in the terminal kernel's draw loop:
+# Philox rounds 3-10 (two 32-bit products each) and two Box-Mullers (one
+# MUFU.RSQ each)
+DRAW_IMAD_PER_QUAD, DRAW_MUFU_PER_QUAD = 14, 2
 _SASS_LINE = re.compile(
-    r"/\*([0-9a-f]+)\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z0-9_]+)([^;]*);")
+    r"/\*([0-9a-f]+)\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z0-9_]+)([^;]*);")
+
+
+class Ins(NamedTuple):
+    """One SASS instruction: its address, opcode (without modifiers), the
+    branch target of a BRA (else None), and whether a predicate guards
+    it."""
+    addr: int
+    op: str
+    target: Optional[int]
+    predicated: bool
 
 
 def units_per_call(grid: int, iters: int) -> int:
     return grid * philox.PROBE_BLK * philox.LANES * iters
+
+
+def function_sass(sass: str, match: Callable[[str], bool]) -> list:
+    """The instructions (``Ins``) of the first function in ``cuobjdump
+    -sass`` output whose mangled name satisfies ``match``."""
+    body = next((s for s in sass.split("Function : ")
+                 if s.startswith("_Z") and match(s.split("\n", 1)[0])),
+                None)
+    if body is None:
+        raise RuntimeError("no such function in the SASS")
+    ins = []
+    for a, pred, op, rest in _SASS_LINE.findall(body):
+        target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+        ins.append(Ins(int(a, 16), op, int(target.group(1), 16)
+                       if target else None, bool(pred)))
+    return ins
+
+
+def sass_loops(ins: list) -> list:
+    """(first, last) instruction indices of each loop of ``ins``
+    (``function_sass``): the span of each backward branch."""
+    index = {i.addr: k for k, i in enumerate(ins)}
+    return [(index[i.target], k) for k, i in enumerate(ins)
+            if i.target is not None and i.target < i.addr
+            and i.target in index]
+
+
+def fast_path(ins: list, first: int, last: int) -> list:
+    """Indices of the instructions one pass through ``ins[first:last + 1]``
+    issues on its fast path: a forward branch is taken where it is not
+    predicated, or where the code it skips holds a loop or a CALL (the
+    slow paths of sincosf's range reduction, sqrtf and the division,
+    which the estimator's arguments never take); other predicated branches
+    fall through (both sides count). Loops inside are left out."""
+    index = {i.addr: k for k, i in enumerate(ins)}
+    loops = [(s, e) for s, e in sass_loops(ins)
+             if first <= s and e <= last and (s, e) != (first, last)]
+    starts = {s: e for s, e in loops}
+    out, k = [], first
+    while k <= last:
+        if k in starts:
+            k = starts[k] + 1
+            continue
+        i = ins[k]
+        out.append(k)
+        if i.target is not None and i.target > i.addr:
+            j = index.get(i.target, last + 1)
+            slow = any(k < s and e < j for s, e in loops) or any(
+                ins[n].op == "CALL" for n in range(k + 1, min(j, last + 1)))
+            if not i.predicated or slow:
+                k = j
+                continue
+        k += 1
+    return out
+
+
+def sass_mix(sass: str) -> dict:
+    """Instructions per normal that the terminal kernel's draw loop issues,
+    from ``cuobjdump -sass`` output, in all and by group (``SASS_GROUPS``,
+    and "uniform": the uniform datapath's U* opcodes). The instantiation
+    read is nx <= 128's (one quad per lane, the main path's); its draw loop
+    is the ``fast_path`` of the loop that stores normals (STS) and holds
+    the Box-Muller (MUFU), with the most IMAD (Philox's products), over 4
+    normals per STS (one 128-bit store per quad). Raises unless that loop
+    holds a Philox and a Box-Muller per quad
+    (``DRAW_IMAD_PER_QUAD``, ``DRAW_MUFU_PER_QUAD``)."""
+    ins = function_sass(sass, lambda name: "terminal_kernelILi1E" in name)
+    loops = [collections.Counter(ins[k].op for k in fast_path(ins, *se))
+             for se in sass_loops(ins)]
+    draws = [ops for ops in loops if ops["STS"] and ops["MUFU"]]
+    if not draws:
+        raise RuntimeError("no loop of the terminal kernel's SASS stores "
+                           "normals and holds a Box-Muller")
+    ops = max(draws, key=lambda ops: ops["IMAD"])
+    quads = ops["STS"]
+    if (ops["IMAD"] < DRAW_IMAD_PER_QUAD * quads
+            or ops["MUFU"] < DRAW_MUFU_PER_QUAD * quads):
+        raise RuntimeError(
+            f"the terminal kernel's draw loop holds {ops['IMAD']} IMAD and "
+            f"{ops['MUFU']} MUFU for {quads} quads: not a Philox and a "
+            f"Box-Muller per quad")
+    mix = {"all": sum(ops.values()) / (4 * quads)}
+    for group, names in SASS_GROUPS.items():
+        mix[group] = sum(n for op, n in ops.items() if op in names) \
+            / (4 * quads)
+    mix["uniform"] = sum(n for op, n in ops.items()
+                         if op.startswith("U")) / (4 * quads)
+    return {"quads_per_iteration": quads, "draw_loop": mix}
+
+
+def library_sass(lib: kernels.CudaLibrary) -> str:
+    """``cuobjdump -sass`` of ``lib``'s built library."""
+    tool = (shutil.which("cuobjdump")
+            or str(pathlib.Path(kernels._nvcc()).parent / "cuobjdump"))
+    lib.lib()
+    return subprocess.run([tool, "-sass", str(lib.so_path)],
+                          capture_output=True, text=True, check=True).stdout
 
 
 def loop_opcodes(sass: str, which: str) -> collections.Counter:
@@ -57,36 +172,23 @@ def loop_opcodes(sass: str, which: str) -> collections.Counter:
     (the body of its longest backward branch) in ``cuobjdump -sass``
     output. Static counts: both sides of a branch inside the loop count."""
     mode = kernels.PROBE_MODES.index(which)
-    sections = sass.split("Function : ")
-    body = next((s for s in sections
-                 if s.startswith("_Z") and f"probe_kernelILi{mode}E" in
-                 s.split("\n", 1)[0]), None)
-    if body is None:
+    try:
+        ins = function_sass(
+            sass, lambda name: f"probe_kernelILi{mode}E" in name)
+    except RuntimeError:
         raise RuntimeError(f"no probe kernel for mode {which!r} in the SASS")
-    ins = []
-    for a, op, rest in _SASS_LINE.findall(body):
-        target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
-        ins.append((int(a, 16), op, int(target.group(1), 16)
-                    if target else None))
-    index = {a: k for k, (a, _, _) in enumerate(ins)}
-    loops = [(index[t], k) for k, (a, _, t) in enumerate(ins)
-             if t is not None and t < a and t in index]
+    loops = sass_loops(ins)
     if not loops:
         raise RuntimeError(f"no loop in the {which} probe kernel's SASS")
     s, e = max(loops, key=lambda se: se[1] - se[0])
-    return collections.Counter(op for _, op, _ in ins[s:e + 1])
+    return collections.Counter(i.op for i in ins[s:e + 1])
 
 
 def sass_per_unit(which: str) -> dict:
     """Instructions per unit in the probe kernel's loop, in all and by
     pipe (``SASS_PIPES``), from ``cuobjdump -sass`` of the built
     library."""
-    tool = (shutil.which("cuobjdump")
-            or str(pathlib.Path(kernels._nvcc()).parent / "cuobjdump"))
-    kernels.PROBE.lib()
-    sass = subprocess.run([tool, "-sass", str(kernels.PROBE.so_path)],
-                          capture_output=True, text=True, check=True).stdout
-    ops = loop_opcodes(sass, which)
+    ops = loop_opcodes(library_sass(kernels.PROBE), which)
     out = {"all": sum(ops.values()) / UNITS_PER_THREAD}
     for pipe, names in SASS_PIPES.items():
         out[pipe] = sum(n for op, n in ops.items() if op in names) \

@@ -103,10 +103,18 @@ def test_launch_counter_and_dispatcher(cuda):
     assert kernels.GENERATE.launches == n0 + 1
 
 
-@pytest.mark.parametrize("anti,m,nx", [(False, 64, 100), (True, 64, 100),
-                                       (False, 50, 7), (True, 70, 300)])
-def test_terminal_kernel_matches_plain_on_external_noise(cuda, anti, m, nx):
-    eq, _, tx, _, nt, _ = _problem(cuda, 16, m, nx, net=False)
+# The terminal kernel's edges (csrc/terminal.cu): nx at each quads-per-lane
+# template (1, 2, 4: nx <= 128, 256, 512) and warps per block (3 at 512),
+# a last quad cut short (nx % 4), M odd and not a multiple of the 32 draws
+# a warp takes at once, B = 1 and B not a multiple of the 4 warps' points.
+@pytest.mark.parametrize("anti,m,nx,b", [
+    (False, 64, 100, 16), (True, 64, 100, 16), (False, 50, 7, 16),
+    (True, 70, 300, 16), (False, 33, 1, 16), (True, 70, 4, 5),
+    (False, 97, 128, 3), (True, 66, 129, 7), (False, 45, 257, 2),
+    (True, 40, 512, 3), (False, 31, 100, 1), (True, 130, 100, 1)])
+def test_terminal_kernel_matches_plain_on_external_noise(cuda, anti, m, nx,
+                                                         b):
+    eq, _, tx, _, nt, _ = _problem(cuda, b, m, nx, net=False)
     noise = nt[:, :m // 2].contiguous() if anti else nt
     out = kernels.terminal_with_gradients_cuda(0, eq, tx, m, noise,
                                                antithetic=anti)
@@ -114,6 +122,51 @@ def test_terminal_kernel_matches_plain_on_external_noise(cuda, anti, m, nx):
                                                 antithetic=anti)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("anti,m,nx", [(False, 37, 1), (True, 66, 7),
+                                       (False, 33, 129), (True, 40, 512)])
+def test_terminal_own_draws_equal_the_host_philox_at_edge_widths(cuda, anti,
+                                                                 m, nx):
+    """The terminal kernel's own draws (the hoisted Philox of terminal.cu)
+    equal the host Philox's at nx off the main path's, and a fixed seed
+    gives the same result twice."""
+    b, seed = 6, (7 << 32) | 5
+    eq, _, tx, *_ = _problem(cuda, b, 2, nx, net=False)
+    pts = list(range(b))
+    noise = torch.from_numpy(philox.estimator_normals(
+        seed, pts, m // 2 if anti else m, nx,
+        philox.STREAM_TERMINAL)).to(cuda)
+    out = kernels.terminal_with_gradients_cuda(seed, eq, tx, m,
+                                               antithetic=anti)
+    again = kernels.terminal_with_gradients_cuda(seed, eq, tx, m,
+                                                 antithetic=anti)
+    ref = kernels.terminal_with_gradients_plain(0, eq, tx, m, noise,
+                                                antithetic=anti)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
+
+
+def test_terminal_box_muller_is_philox_cuh_at_every_uniform(cuda):
+    """The terminal kernel's guard-free Box-Muller returns philox.cuh's
+    bits at all 2^23 uniforms a draw word gives."""
+    assert kernels.terminal_draw_mismatches(cuda) == 0
+
+
+def test_terminal_plan_is_the_kernels(cuda):
+    """The kernel's plan (terminal.cu) fits a block's shared memory at
+    every nx it covers; past MAX_NX it has none and the wrapper raises."""
+    lib = kernels.TERMINAL.lib()
+    max_nx = lib.dpi_terminal_max_nx()
+    assert max_nx == 512
+    for nx in range(1, max_nx + 1):
+        assert 0 < lib.dpi_terminal_smem_bytes(nx) <= kernels.MAX_SMEM_BYTES
+    assert lib.dpi_terminal_smem_bytes(max_nx + 1) == -1
+    assert lib.dpi_terminal_smem_bytes(0) == -1
+    eq, _, tx, *_ = _problem(cuda, 2, 2, max_nx + 1, net=False)
+    with pytest.raises(NotImplementedError):
+        kernels.terminal_with_gradients_cuda(0, eq, tx, 2)
 
 
 @pytest.mark.parametrize("net,anti,m,nx", [
