@@ -9,8 +9,10 @@
 Paths (the Burgers 100-d w1.0 recipe through ``PicardRunner`` at full
 width: nx=100, 4x128 ELU net, B=4096 points from the path's sampler; A-D
 at the recipe's DATA.TPU.PALLAS_PRECISION, bf16x3, the net on the tensor
-cores):
+cores; every path's fit, and path E's epochs, as CUDA-graph replays,
+TRAIN.FUSED's "auto"):
   A  the merged estimator kernel (``csrc/generate.cu``), M=4096;
+  A' A with TRAIN.FUSED false: the fit as a plain loop;
   B  DATA.TPU.PALLAS_GENERATE false, PALLAS_TERMINAL and PALLAS_INTEGRAL
      true: the standalone terminal and integral kernels (``terminal.cu``,
      ``integral.cu``);
@@ -28,7 +30,8 @@ cores):
      FP32-FMA net pass.
 Each path's kernel launch counts are read around its run (every count set
 to 0 just before) and checked against its generation calls (A-D, F, G; the
-net kernels' also by precision mode) or its epochs (E). The rate probe's entry point
+net kernels' also by precision mode) or its epochs (E), and its CUDA-graph
+replays against its epochs (0 on A'). The rate probe's entry point
 (``python -m deeppicarditeration_torch.utils.probe_roofline``) is driven the
 same way.
 
@@ -46,7 +49,11 @@ only when every phase passed):
   3. the merged kernel's Philox normals against the plain version's
      torch.Generator normals (B=64, bf16x3): within 5 CLT standard errors
      per output, and a mean squared z-score near 1;
-  4. path A, 3 iterations (``--iterations``);
+  4. path A, 3 iterations (``--iterations``), then path A': A's rRMSE at
+     every iteration within 1 % of A''s (the captured fit against the
+     loop; capturable Adam's bias correction is f32 on the card, the
+     loop's f64 on the host), their fit ms, and iteration 1's relative
+     difference by segment (the same dataset);
   5. at path A's shapes (B=4096, M=4096) with its zero and trained
      iterates, in bf16x3 and in highest: the merged kernel against the
      plain version in the same mode on the same noise (and the max |diff|
@@ -72,9 +79,9 @@ only when every phase passed):
      host Philox value for value, its paths against the plain version fed
      those draws, the increment relation, xs[0] = x0, the same values at
      another B, and the law of the endpoint over 2^16 x 100 paths;
-  9. path E, 3000 epochs (``--epochs``): one launch per epoch, the final
-     rRMSE under ``DIFFUSION_RRMSE_MAX``, ms per epoch and the kernel's
-     share of it;
+  9. path E, 3000 epochs (``--epochs``): one launch and one graph replay
+     per epoch, the final rRMSE under ``DIFFUSION_RRMSE_MAX`` (beside the
+     eager epoch's), ms per epoch and the kernel's share of it;
  10. the probe kernel in each mode against its plain version at 2
      iterations, and in the elu mode also at the entry point's full size
      (1024 iterations); then the entry point at full size, its rates beside
@@ -151,6 +158,7 @@ BURGERS_DIFFUSION = {
 # path -> (recipe layers, CLI-style overrides)
 PATHS = {
     "A": ((BURGERS_W1_RECIPE,), []),
+    "A'": ((BURGERS_W1_RECIPE,), ["TRAIN.FUSED", "false"]),
     "B": ((BURGERS_W1_RECIPE,),
           ["DATA.TPU.PALLAS_GENERATE", "false",
            "DATA.TPU.PALLAS_TERMINAL", "true",
@@ -178,6 +186,9 @@ EDGE = 8  # points checked at each end of the launch
 DRAW_TOL = 1e-5  # normals kernel vs host Philox: rtol = atol
 NORMALS_CHECK = 2 ** 16  # values checked at each end of the buffer
 RRMSE_MAX = 0.35
+# path A (the captured fit) against A' (the loop): rRMSE within 1 % at
+# every iteration, fixed before the first run
+FUSED_RRMSE_REL = 0.01
 # Path E's final rRMSE at its cut (3000 of 35 000 epochs), fixed before its
 # first run on the card: an untrained net scores ~1 (the zero function
 # exactly 1); the JAX records end at 0.089-0.098 after 35 000 epochs; at
@@ -186,6 +197,9 @@ RRMSE_MAX = 0.35
 # and flags a run that did not train.
 DIFFUSION_EPOCHS = 3000
 DIFFUSION_RRMSE_MAX = 0.35
+# the eager epoch's final rRMSE at 3000 epochs (before the epoch was a
+# graph replay; one H100 80GB HBM3 at 700 W, PERF.md section 5)
+DIFFUSION_RRMSE_EAGER = 0.02843
 PATH_TOL = 1e-5  # rollout kernel vs host Philox / plain version: rtol=atol
 LAW_ROWS = 2 ** 16  # endpoint law check: rows of 100 dimensions
 PROBE_TOL = 1e-5  # probe kernel vs plain (f32 sums reordered): rtol=atol
@@ -508,7 +522,11 @@ def _run_path(path: str, n_iter: int):
 
     from deeppicarditeration_torch.ops import estimators as est
     from deeppicarditeration_torch.ops import kernels
-    from deeppicarditeration_torch.training.picard import PicardRunner
+    from deeppicarditeration_torch.training.picard import (
+        FUSED,
+        PicardRunner,
+        fit_route,
+    )
 
     cfg = path_cfg(path, n_iter)
     runner = PicardRunner(cfg, exp_root=ROOT / "build" / "chip_smoke_runs"
@@ -537,9 +555,16 @@ def _run_path(path: str, n_iter: int):
         print(f"path {path} iteration {tm['iter']}: generate "
               f"{tm['generate_ms']:.1f} ms, fit {tm['fit_ms']:.1f} ms, "
               f"rRMSE {ev.get('rRMSE')}, rRMSEg {ev.get('rRMSEg')}")
+    steps = int(cfg.DATA.DATA_SIZE) // int(cfg.TRAIN.BATCH_SIZE)
+    fused = fit_route(cfg, steps, True)[0] == FUSED
+    replays = n_iter * int(cfg.TRAIN.N_EPOCHS) if fused else 0
     print(f"path {path}: {n_iter} iterations in {wall:.1f} s; generation "
           f"calls {runner.generate_calls}, by the route taken {routes}; "
-          f"launches {launches}, by precision {modes}")
+          f"launches {launches}, by precision {modes}; fit CUDA-graph "
+          f"replays {runner.graph_replays} (one per epoch: {replays})")
+    if runner.graph_replays != replays:
+        _fail(f"path {path}: {runner.graph_replays} graph replays, want "
+              f"{replays}")
     steady = [tm for tm in runner.timings if tm["iter"] > 1]
     if len(steady) >= 2:
         for key in ("generate_ms", "fit_ms"):
@@ -561,6 +586,38 @@ def _run_path(path: str, n_iter: int):
             _fail(f"path {path} iteration {i} rRMSE {r} (want finite and "
                   f"<= {RRMSE_MAX})")
     return runner, launches, (routes, modes)
+
+
+def _captured_vs_loop(runner_a, runner_l, n_iter: int) -> None:
+    """Phase 4's comparison: path A (the fit as CUDA-graph replays) against
+    A' (the loop). Fails unless A's rRMSE at every iteration is within
+    FUSED_RRMSE_REL of A''s; prints both fits' steady-state ms and
+    iteration 1's relative difference by segment (the same dataset)."""
+    rows = {}
+    for key, runner in (("A", runner_a), ("A'", runner_l)):
+        rows[key] = [json.loads(ln) for ln in (
+            runner.exp_dir / "metrics.jsonl").read_text().splitlines()]
+    seg1 = {k: [r for r in v if r["context"] in ("train", "eval")
+                and r["iter"] == 1] for k, v in rows.items()}
+    rel = [max(abs(a[m] - b[m]) / abs(b[m]) for m in (
+        ("train_loss",) if a["context"] == "train" else ("rRMSE", "rRMSEg")))
+        for a, b in zip(seg1["A"], seg1["A'"])]
+    print(f"captured vs loop, iteration 1 (the same dataset), relative "
+          f"difference by segment (train loss; eval rRMSE, rRMSEg): "
+          + ", ".join(f"{v:.3e}" for v in rel))
+    fit_a, fit_l = (statistics.median(tm["fit_ms"] for tm in r.timings
+                                      if tm["iter"] > 1) if n_iter > 1
+                    else None for r in (runner_a, runner_l))
+    print(f"fit ms per iteration, steady state (median of iterations "
+          f"2-{n_iter}): captured (A) {fit_a}, loop (A') {fit_l}")
+    for i in range(1, n_iter + 1):
+        a, b = ([r["rRMSE"] for r in rows[k] if r["context"] == "eval"
+                 and r["iter"] == i][-1] for k in ("A", "A'"))
+        print(f"iteration {i}: rRMSE captured {a}, loop {b}, relative "
+              f"difference {abs(a - b) / b:.3e}")
+        if not abs(a - b) <= FUSED_RRMSE_REL * b:
+            _fail(f"path A's rRMSE at iteration {i} ({a}) is not within "
+                  f"{FUSED_RRMSE_REL:.0%} of path A''s ({b})")
 
 
 def _path_e_inputs(eq, b, K, dt, seed, device):
@@ -653,9 +710,11 @@ def _run_diffusion(epochs: int):
     wall = time.perf_counter() - t0
     launches = {lib.source.stem: lib.launches for lib in kernels.ALL}
     want = {name: (epochs if name == "rollout" else 0) for name in launches}
-    if launches != want or runner.rollout_calls != epochs:
+    if (launches != want or runner.rollout_calls != epochs
+            or runner.graph_replays != epochs):
         _fail(f"path E: launches {launches}, rollouts {runner.rollout_calls}"
-              f"; want {want}")
+              f", graph replays {runner.graph_replays}; want {want} and "
+              f"{epochs} replays")
     per_epoch = [tm["interval_ms"] / tm["epochs"] for tm in runner.timings]
     rows = [json.loads(ln) for ln in
             (runner.exp_dir / "metrics.jsonl").read_text().splitlines()]
@@ -672,7 +731,10 @@ def _run_diffusion(epochs: int):
         f"{r['step'] + 1}: {r['rRMSE']:.4f}" for r in evals[step - 1::step]))
     last = evals[-1]
     print(f"path E final rRMSE {last['rRMSE']}, rRMSEg {last['rRMSEg']} "
-          f"(JAX records after 35000 epochs: 0.0894-0.0981 / 0.221-0.227)")
+          f"(the eager epoch at {DIFFUSION_EPOCHS} epochs: "
+          f"{DIFFUSION_RRMSE_EAGER}; JAX records after 35000 epochs: "
+          f"0.0894-0.0981 / 0.221-0.227); {runner.graph_replays} epochs as "
+          f"CUDA-graph replays")
     r = last["rRMSE"]
     if r is None or not math.isfinite(r) or r > DIFFUSION_RRMSE_MAX:
         _fail(f"path E final rRMSE {r} (want finite and <= "
@@ -692,7 +754,7 @@ def _expect_launches(path, runner, launches, seen, want):
     mode = gen_config_from_cfg(runner.cfg).pallas_precision
     want_modes = {name: {mode: n} for name, n in full.items()
                   if n and name in ("generate", "integral")}
-    route = est.MERGED if path in ("A", "D", "F") else est.SPLIT
+    route = est.MERGED if path in ("A", "A'", "D", "F") else est.SPLIT
     want_routes = {r: runner.generate_calls if r == route else 0
                    for r in routes}
     if (launches != full or runner.generate_calls == 0
@@ -904,11 +966,15 @@ def main(argv=None) -> int:
         7, eq, sol, tx, m, precision=MODES[0], return_var=True)
     _clt("merged, random net", out, ref, var, m, CLT_SIGMAS)
 
-    # ---- 4. path A ---------------------------------------------------------
+    # ---- 4. path A, captured, against A', the loop ---------------------------
     n_iter = args.iterations
     runner_a, launches_a, routes_a = _run_path("A", n_iter)
     _expect_launches("A", runner_a, launches_a, routes_a,
                      {"generate": runner_a.generate_calls})
+    runner_l, launches_l, routes_l = _run_path("A'", n_iter)
+    _expect_launches("A'", runner_l, launches_l, routes_l,
+                     {"generate": runner_l.generate_calls})
+    _captured_vs_loop(runner_a, runner_l, n_iter)
 
     # ---- 5. merged kernel at path A's shapes -------------------------------
     eq, sol = runner_a.equation, runner_a.u_current  # the trained iterate

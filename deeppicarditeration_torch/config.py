@@ -177,11 +177,15 @@ def default_cfg() -> Config:
     """The fully-specified default tree (the JAX package's, plus DEVICE).
 
     Keys that only the JAX package reads (MESH, DATA.TPU.* kernel knobs
-    other than ANTITHETIC, TRAIN.FUSED/DISPATCH_STEPS, DATA.CHUNK_ELEMS as
-    a scan size) are kept so that every recipe loads to the same tree in
+    other than ANTITHETIC, TRAIN.DISPATCH_STEPS, DATA.CHUNK_ELEMS as a
+    scan size) are kept so that every recipe loads to the same tree in
     both packages. The port ignores the JAX-only speed knobs and raises on
     values that would change what it computes
-    (``training/picard.py:_reject_unported``)."""
+    (``training/picard.py:_reject_unported``). TRAIN.DISPATCH_STEPS bounds
+    the train steps of one XLA dispatch; the port's fused fit replays a
+    CUDA graph per epoch, which has no dispatch length to bound, so, like
+    the TPU tiling machinery, it has no counterpart. TRAIN.FUSED is read
+    by both (``training/picard.py:fit_route``)."""
     c = Config()
     c.BASE = None
     c.FORCE = False
@@ -213,7 +217,9 @@ def default_cfg() -> Config:
     c.TRAIN.SUPERVISE_GRADIENT = None
     c.TRAIN.SUPERVISE_HESSIAN = None
     c.TRAIN.NUM_HESS_SAMPLES = -1
-    c.TRAIN.FUSED = "auto"  # JAX: one-dispatch train+eval scan
+    # the fit and its evals fused: one lax.scan dispatch in the JAX
+    # package, CUDA-graph replays in the port ("auto" | true | false)
+    c.TRAIN.FUSED = "auto"
     c.TRAIN.DISPATCH_STEPS = 65536  # JAX: train steps per dispatch
     c.TRAIN.LOSS = Config()
     c.TRAIN.LOSS.beta = 0.0  # exp(beta * t) sample weighting

@@ -63,10 +63,14 @@ def generate_dataset(seed: int, eq, sol: Solution, n_total: int,
 
 
 def epoch_batches(generator: torch.Generator, ds: DeviceDataset,
-                  batch_size: int, shuffle: bool = True
+                  batch_size: int, shuffle: bool = True,
+                  out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One epoch as stacked batches: ((S, bs, 1+nx), (S, bs, ydim)); an
-    on-device permutation that drops the ragged tail."""
+    on-device permutation that drops the ragged tail. ``out``: static
+    buffers of those shapes that the batches are gathered into (the
+    captured fit's inputs), and returned; the same permutation either
+    way."""
     n = ds.size
     steps = n // batch_size
     if steps == 0:
@@ -78,6 +82,16 @@ def epoch_batches(generator: torch.Generator, ds: DeviceDataset,
     else:
         idx = torch.arange(n, device=ds.tx.device)
     idx = idx[: steps * batch_size]
-    tx = ds.tx.index_select(0, idx).reshape(steps, batch_size, -1)
-    y = ds.y.index_select(0, idx).reshape(steps, batch_size, -1)
+    if out is None:
+        tx = ds.tx.index_select(0, idx).reshape(steps, batch_size, -1)
+        y = ds.y.index_select(0, idx).reshape(steps, batch_size, -1)
+        return tx, y
+    tx, y = out
+    for buf, src in ((tx, ds.tx), (y, ds.y)):
+        if buf.shape != (steps, batch_size, src.shape[1]):
+            raise ValueError(
+                f"epoch buffer of shape {tuple(buf.shape)}, want "
+                f"{(steps, batch_size, src.shape[1])}")
+        torch.index_select(src, 0, idx,
+                           out=buf.view(steps * batch_size, -1))
     return tx, y

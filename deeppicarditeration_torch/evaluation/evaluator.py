@@ -36,15 +36,19 @@ def _metrics_dict(cat: Dict, test_grad: bool) -> Dict[str, torch.Tensor]:
     return metrics
 
 
-def _eval_points(generator, eq, n_points: int):
+def eval_points(generator, eq, n_points: int):
+    """The eval's points: t on a linspace over [0, T], x ~ law(X_t) drawn
+    from ``generator``, on its device."""
     t = torch.linspace(0.0, eq.T, n_points, device=generator.device)[:, None]
     return t, eq.sample_x(generator, t)
 
 
-def make_traced_eval(n_points: int, test_grad: bool, test_hessian: bool):
-    """(names, fn) with fn(sol, eq, generator) -> stacked metric values (a
-    tensor on the generator's device, in the sorted order of ``names``);
-    the in-training eval, read back once per iteration by the runner."""
+def make_traced_eval(test_grad: bool, test_hessian: bool):
+    """(names, fn) with fn(sol, eq, t, x) -> the metric values on the
+    points (t, x) stacked in one tensor, in the sorted order of ``names``:
+    the in-training eval, read back once per iteration by the runner. The
+    points come from ``eval_points`` (eagerly, where the fit is captured
+    as a CUDA graph: fn has no host sync and goes into the graph)."""
     if test_hessian:
         raise NotImplementedError(
             "EVAL.TEST_HESSIAN is not ported yet (FN slice)")
@@ -52,8 +56,7 @@ def make_traced_eval(n_points: int, test_grad: bool, test_hessian: bool):
         {k: torch.ones(1, 1) for k in ("u", "u_exact", "g", "g_exact")},
         test_grad))
 
-    def fn(sol: Solution, eq, generator):
-        t, x = _eval_points(generator, eq, n_points)
+    def fn(sol: Solution, eq, t, x):
         md = _metrics_dict(_eval_batch(sol, eq, t, x, test_grad), test_grad)
         return torch.stack([md[n] for n in names])
 
@@ -68,7 +71,7 @@ def eval_solution(generator, sol: Solution, eq, n_points: int,
     if test_hessian:
         raise NotImplementedError(
             "EVAL.TEST_HESSIAN is not ported yet (FN slice)")
-    t, x = _eval_points(generator, eq, n_points)
+    t, x = eval_points(generator, eq, n_points)
     bs = batch_size or n_points
     batches = [_eval_batch(sol, eq, t[i:i + bs], x[i:i + bs], test_grad)
                for i in range(0, n_points, bs)]

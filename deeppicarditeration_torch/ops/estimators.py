@@ -289,6 +289,16 @@ def estimate_integral_with_gradients(seed: int, eq, sol: Solution,
 
 MERGED, SPLIT = "merged", "split"
 
+# "auto" leaves the zero iterate (no net) to the chunk estimators below
+# this nx: on the H100 they beat the merged kernel at nx = 10 (11.5-15.3
+# against 16.1 ms at B = M = 4096) and lose at nx = 32 (24.4-26.9 against
+# 16.7); with a 2x128 or 4x128 net the merged kernel wins 6.5-8.4x at
+# nx = 10, 32 and 100 (``utils/route_bench.py``, PERF.md). The JAX
+# package's gate (``_kernel_worthwhile``) takes its chunks for every net
+# at nx < 32 and for nets narrower than 512 at nx < 256: measured on a
+# TPU, not on the H100.
+ZERO_ITERATE_MIN_NX = 32
+
 # Generation calls per route, counted by the dispatch as it takes them
 route_calls = {MERGED: 0, SPLIT: 0}
 
@@ -300,7 +310,9 @@ def generation_route(eq, sol: Solution, gen: GenConfig) -> str:
       * pallas_generate False => SPLIT, True => MERGED (the merged kernel
         raises on the card where it does not cover the net);
       * "auto" => MERGED where the merged kernel covers the equation (Cha)
-        and the net (``kernel_net``), else SPLIT with a printed notice."""
+        and the net (``kernel_net``), else SPLIT with a printed notice;
+        and SPLIT, silently, for the zero iterate at nx below
+        ZERO_ITERATE_MIN_NX, where the chunk estimators are faster."""
     mode = gen.pallas_generate
     if gen.n_estimate_terminal != gen.n_estimate_integral or mode is False:
         return SPLIT
@@ -320,6 +332,8 @@ def generation_route(eq, sol: Solution, gen: GenConfig) -> str:
     if reason is not None:
         _notice_fallback("DATA.TPU.PALLAS_GENERATE: auto", reason,
                          "using the split estimators")
+        return SPLIT
+    if sol.kind == "zero" and sol.nx < ZERO_ITERATE_MIN_NX:
         return SPLIT
     return MERGED
 

@@ -50,7 +50,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -919,13 +919,22 @@ def paths_plain(seed: int, x0: torch.Tensor, sqrt_dts: torch.Tensor,
 
 
 def paths_cuda(seed: int, x0: torch.Tensor, sqrt_dts: torch.Tensor,
-               alpha_sqrt: float, K: int):
+               alpha_sqrt: float, K: int,
+               out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Exact drift-free K-step paths from x0 (B, nx) with per-row step
     scale sqrt_dts (B, 1) * alpha_sqrt: (xs (K+1, B, nx), xi (K, B, nx))
     f32. The rollout kernel for CUDA tensors (xi[k, b, j] depends on
-    (seed, k, b, j) alone), the plain version for CPU tensors."""
+    (seed, k, b, j) alone), the plain version for CPU tensors. ``out``:
+    f32 buffers (xs, xi) of those shapes to write into and return (the
+    D-DBSDE epoch's static inputs; the kernel writes them directly)."""
     if x0.device.type == "cpu":
-        return paths_plain(seed, x0, sqrt_dts, alpha_sqrt, K)
+        xs, xi = paths_plain(seed, x0, sqrt_dts, alpha_sqrt, K)
+        if out is None:
+            return xs, xi
+        for name, buf, v in (("xs", out[0], xs), ("xi", out[1], xi)):
+            _check(name, buf, v.shape, x0.device)
+            buf.copy_(v)
+        return out
     if x0.device.type != "cuda":
         raise ValueError(f"unsupported device {x0.device}")
     if x0.dim() != 2 or int(K) < 0:
@@ -934,9 +943,15 @@ def paths_cuda(seed: int, x0: torch.Tensor, sqrt_dts: torch.Tensor,
     b, nx = x0.shape
     _check("x0", x0, (b, nx), x0.device)
     _check("sqrt_dts", sqrt_dts, (b, 1), x0.device)
-    xs = torch.empty((int(K) + 1, b, nx), dtype=torch.float32,
-                     device=x0.device)
-    xi = torch.empty((int(K), b, nx), dtype=torch.float32, device=x0.device)
+    if out is None:
+        xs = torch.empty((int(K) + 1, b, nx), dtype=torch.float32,
+                         device=x0.device)
+        xi = torch.empty((int(K), b, nx), dtype=torch.float32,
+                         device=x0.device)
+    else:
+        xs, xi = out
+        _check("xs", xs, (int(K) + 1, b, nx), x0.device)
+        _check("xi", xi, (int(K), b, nx), x0.device)
     lib = ROLLOUT.lib()
     rc = lib.dpi_paths(_ptr(x0), _ptr(sqrt_dts), _ptr(xs), _ptr(xi), b, nx,
                        int(K), _seed(seed), float(alpha_sqrt),

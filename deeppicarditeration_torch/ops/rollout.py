@@ -21,7 +21,7 @@ it other draws.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -49,7 +49,8 @@ def closed_form_paths(generator: Optional[torch.Generator], eq,
 def brownian_paths(generator: Optional[torch.Generator], eq,
                    t0: torch.Tensor, x0: torch.Tensor, dts: torch.Tensor,
                    K: int, use_pallas: bool = False, seed: int = 0,
-                   xi: Optional[torch.Tensor] = None):
+                   xi: Optional[torch.Tensor] = None,
+                   out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Exact K-step path from (t0, x0) with per-sample step dts.
 
     t0: (B, 1) start times, x0: (B, nx) start states, dts: (B, 1). Returns
@@ -59,9 +60,13 @@ def brownian_paths(generator: Optional[torch.Generator], eq,
     version, drawing from a torch.Generator seeded with ``seed``); else the
     closed form draws from ``generator`` or uses ``xi``. An equation that
     overrides ``transition`` (drift, state-dependent diffusion) takes a
-    sequential loop through its own law, drawing from ``generator``."""
+    sequential loop through its own law, drawing from ``generator``.
+    ``out``: buffers (xs, xi) that the rollout kernel writes into (the
+    D-DBSDE epoch's static inputs; ``use_pallas`` only)."""
     ks = torch.arange(K + 1, dtype=t0.dtype, device=t0.device)
     ts = t0[None] + dts[None] * ks[:, None, None]
+    if out is not None and not (use_pallas and uses_base_transition(eq)):
+        raise ValueError("out= is the rollout kernel's (use_pallas) only")
     if not uses_base_transition(eq):
         t, x = t0, x0
         xs, dws = [x0], []
@@ -77,7 +82,7 @@ def brownian_paths(generator: Optional[torch.Generator], eq,
     if use_pallas:
         xs, xi = kernels.paths_cuda(seed, x0.contiguous(),
                                     torch.sqrt(dts).contiguous(),
-                                    eq.alpha_sqrt, K)
+                                    eq.alpha_sqrt, K, out=out)
     else:
         xs, xi = closed_form_paths(generator, eq, x0, dts, K, xi)
     return ts, xs, xi

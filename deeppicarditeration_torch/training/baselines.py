@@ -5,10 +5,15 @@ dispatched by METHOD.cls from ``PicardRunner.run_one``. The PINN-HTE and
 DBDP (FullyNonlinearSolver) baselines come with later slices.
 
 The JAX package fuses each log interval of epochs into one ``lax.scan``
-dispatch; here the epochs run in a plain loop with the same semantics: a
-"diffusion" row (the interval's last loss) and an "eval" row per interval,
-read back once per interval, the periodic ``{model, optimizer}`` state and
-its meta sidecar, and the final params-only ``model_{i}``.
+dispatch, always. Here each D-DBSDE epoch's draws run eagerly (the
+per-epoch generators and the rollout kernel with its host seed) into
+static buffers, and its loss, double backward and Adam step are one
+CUDA-graph replay (``training/fused.py``), whenever the baseline runs on
+the card; on the CPU the same epoch runs eagerly. The log interval keeps
+the JAX semantics: a "diffusion" row (the interval's last loss) and an
+"eval" row per interval, read back once per interval, the periodic
+``{model, optimizer}`` state and its meta sidecar, and the final
+params-only ``model_{i}``.
 
 Random streams: the JAX package folds the epoch into the iteration's key and
 splits it four ways (t0, x0, paths, x_T); here each is a ``torch.Generator``
@@ -29,11 +34,16 @@ from deeppicarditeration_torch.device import (
     derive_seed,
     make_generator,
 )
-from deeppicarditeration_torch.evaluation.evaluator import make_traced_eval
+from deeppicarditeration_torch.evaluation.evaluator import (
+    eval_points,
+    make_traced_eval,
+)
 from deeppicarditeration_torch.models.factory import freeze, init_solution
 from deeppicarditeration_torch.models.solution import Solution
 from deeppicarditeration_torch.ops.rollout import brownian_paths
 from deeppicarditeration_torch.training import checkpoint as ckpt
+from deeppicarditeration_torch.training.fused import FusedStep
+from deeppicarditeration_torch.training.trainer import reset_optimizer
 
 # derive_seed(SEED, iteration, epoch, purpose): the epoch's draws
 T0, X0, PATHS, XT, EVAL = range(5)
@@ -90,11 +100,28 @@ def diffusion_loss(sol: Solution, eq, ts: torch.Tensor, xs: torch.Tensor,
     return loss
 
 
-def diffusion_draws(runner, epoch: int, terminal_weight: float):
+def diffusion_buffers(runner, terminal_weight: float) -> dict:
+    """Static buffers for ``diffusion_draws(..., out=)``: dts (B, 1), ts
+    (K+1, B, 1), xs (K+1, B, nx), the rollout's xi (K, B, nx) and, at a
+    positive terminal weight, xT (B, nx)."""
+    cfg, nx, dev = runner.cfg, runner.equation.nx, runner.device
+    K, bs = int(cfg.METHOD.K), int(cfg.TRAIN.BATCH_SIZE)
+    shapes = {"dts": (bs, 1), "ts": (K + 1, bs, 1), "xs": (K + 1, bs, nx),
+              "xi": (K, bs, nx)}
+    if terminal_weight > 0.0:
+        shapes["xT"] = (bs, nx)
+    return {k: torch.empty(v, dtype=torch.float32, device=dev)
+            for k, v in shapes.items()}
+
+
+def diffusion_draws(runner, epoch: int, terminal_weight: float,
+                    out: dict = None):
     """The epoch's inputs (dts, ts, xs, xT). The paths always come from the
     rollout kernel (its plain version on the CPU, which draws what the
     closed form would from the same seed), whatever DATA.TPU.PALLAS_ROLLOUT
-    says: on the card the kernel is faster at every measured shape."""
+    says: on the card the kernel is faster at every measured shape.
+    ``out`` (``diffusion_buffers``): written into and returned, the same
+    draws (the rollout kernel writes its paths there directly)."""
     cfg, eq, dev = runner.cfg, runner.equation, runner.device
     K, dt, bs = int(cfg.METHOD.K), float(cfg.METHOD.dt), int(
         cfg.TRAIN.BATCH_SIZE)
@@ -109,12 +136,19 @@ def diffusion_draws(runner, epoch: int, terminal_weight: float):
     dts = rollout_dts(eq, t0, dt, K)
     ts, xs, _ = brownian_paths(
         gen(PATHS), eq, t0, x0, dts, K, use_pallas=True,
-        seed=derive_seed(runner.seed, runner.i, epoch, PATHS))
+        seed=derive_seed(runner.seed, runner.i, epoch, PATHS),
+        out=None if out is None else (out["xs"], out["xi"]))
     runner.rollout_calls += 1
     xT = None
     if terminal_weight > 0.0:
         xT = eq.sample_x(gen(XT), torch.full((bs, 1), eq.T, device=dev))
-    return dts, ts, xs, xT
+    if out is None:
+        return dts, ts, xs, xT
+    out["dts"].copy_(dts)
+    out["ts"].copy_(ts)
+    if xT is not None:
+        out["xT"].copy_(xT)
+    return out["dts"], out["ts"], out["xs"], out.get("xT")
 
 
 def train_diffusion(runner):
@@ -127,16 +161,28 @@ def train_diffusion(runner):
     # no terminal-enforcing ansatz here (build_network rejects them), so the
     # terminal penalty always applies
     terminal_weight = float(cfg.TRAIN.LOSS.beta)
-    optimizer = torch.optim.Adam(module.parameters(), lr=BASELINE_LR)
+    optimizer = torch.optim.Adam(
+        module.parameters(), lr=BASELINE_LR,
+        capturable=runner.device.type == "cuda")
+    reset_optimizer(optimizer)
     sol = Solution.from_net(module, runner.net_type, eq.nx)
+    bufs = diffusion_buffers(runner, terminal_weight)
 
-    def step(epoch):
-        dts, ts, xs, xT = diffusion_draws(runner, epoch, terminal_weight)
+    def loss_step():
+        """The epoch on its drawn inputs: the graph's body."""
         optimizer.zero_grad(set_to_none=True)
-        loss = diffusion_loss(sol, eq, ts, xs, dts, xT, terminal_weight)
+        loss = diffusion_loss(sol, eq, bufs["ts"], bufs["xs"], bufs["dts"],
+                              bufs.get("xT"), terminal_weight)
         loss.backward()
         optimizer.step()
         return loss.detach()
+
+    fused = FusedStep(loss_step, bufs, module, optimizer)
+    runner.fused_steps.append(fused)
+
+    def step(epoch):
+        diffusion_draws(runner, epoch, terminal_weight, out=bufs)
+        return fused()
 
     return _baseline_loop(runner, step, module, optimizer,
                           int(cfg.TRAIN.N_EPOCHS), "diffusion")
@@ -164,8 +210,7 @@ def _baseline_loop(runner, step, module, optimizer, n_epochs: int, tag: str):
     state_path, meta_path = _baseline_state_paths(runner)
     names = eval_fn = None
     if eq.has_exact_solution:
-        names, eval_fn = make_traced_eval(int(cfg.EVAL.L2_N_POINTS),
-                                          bool(cfg.EVAL.TEST_GRAD), False)
+        names, eval_fn = make_traced_eval(bool(cfg.EVAL.TEST_GRAD), False)
     sol = Solution.from_net(module, runner.net_type, eq.nx)
     t_start = time.perf_counter()
     for e0 in range(0, n_epochs, log_interval):
@@ -178,7 +223,8 @@ def _baseline_loop(runner, step, module, optimizer, n_epochs: int, tag: str):
         if eval_fn is not None:
             g = torch.Generator(device=runner.device)
             g.manual_seed(derive_seed(runner.seed, runner.i, epoch, EVAL))
-            vals.append(eval_fn(sol, eq, g))
+            t, x = eval_points(g, eq, int(cfg.EVAL.L2_N_POINTS))
+            vals.append(eval_fn(sol, eq, t, x))
         host = torch.cat(vals).cpu().tolist()  # one readback per interval
         wall = time.perf_counter() - t_start
         runner.logger.log({"loss": host[0], "epoch": epoch,

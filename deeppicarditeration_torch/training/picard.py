@@ -4,9 +4,14 @@ Counterpart of ``deeppicarditeration_tpu/training/picard.py``. Per
 iteration: a fresh (or RELOADed) network, a dataset generated from the
 FROZEN previous iterate, a supervised fit for TRAIN.N_EPOCHS with an
 in-training eval at every EVAL.FREQ boundary, a checkpoint, a swap. The
-JAX package fuses the fit and its evals into one ``lax.scan`` dispatch; the
-port keeps that dispatch's semantics (eval at each EVAL.FREQ boundary, one
-metrics readback per iteration) in a plain loop.
+JAX package fuses the fit and its evals into one ``lax.scan`` dispatch
+(``TRAIN.FUSED``); the port's counterpart replays an epoch of train steps
+and its evals as a CUDA graph (``training/fused.py``), with the shuffle
+and the eval points drawn eagerly into its static buffers, so that the
+draws, the batch order and the logged rows are the loop's. ``fit_route``
+reads TRAIN.FUSED as the JAX runner does; where its gate fails, or under
+``false``, the fit is a plain loop. Either way one metrics readback per
+iteration.
 
 Random streams: the JAX package splits keys; here each stream is a
 ``torch.Generator`` seeded from ``derive_seed(SEED, iteration, purpose,
@@ -18,9 +23,10 @@ DBDP baselines, multi-device runs, plots.
 
 from __future__ import annotations
 
+import copy
 import pathlib
 import shutil
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -37,16 +43,21 @@ from deeppicarditeration_torch.device import (
     resolve_device,
 )
 from deeppicarditeration_torch.equations import make_equation
-from deeppicarditeration_torch.evaluation.evaluator import make_traced_eval
+from deeppicarditeration_torch.evaluation.evaluator import (
+    eval_points,
+    make_traced_eval,
+)
 from deeppicarditeration_torch.models.factory import freeze, init_solution
 from deeppicarditeration_torch.models.solution import Solution
 from deeppicarditeration_torch.ops.estimators import GenConfig
 from deeppicarditeration_torch.training import checkpoint as ckpt
+from deeppicarditeration_torch.training.fused import FusedStep
 from deeppicarditeration_torch.training.logging import MetricLogger
 from deeppicarditeration_torch.training.trainer import (
     TrainSpec,
     make_optimizer,
-    train_step,
+    reset_optimizer,
+    train_steps,
 )
 
 # PRECISION.MATMUL -> torch.set_float32_matmul_precision
@@ -118,6 +129,42 @@ def _reject_unported(cfg) -> None:
                 f"{what} is not ported yet; it comes with a later slice")
 
 
+FUSED, LOOP = "fused", "loop"
+
+
+def fit_route(cfg, steps: int,
+              has_exact_solution: bool) -> Tuple[str, Optional[str]]:
+    """(FUSED or LOOP, why the fused fit is unavailable or None):
+    TRAIN.FUSED read as the JAX runner reads it
+    (``training/picard.py:_train_iteration``). EVAL.FREQ null takes the
+    fused epochs without evals whatever TRAIN.FUSED says (the JAX
+    ``_make_epoch_scan``). Otherwise "auto" and true take the fused fit
+    unless its gate fails: steps not a multiple of the EVAL.FREQ segment,
+    EVAL.REFERENCE_FILE set, or EVAL.BATCH_SIZE below EVAL.L2_N_POINTS
+    (the fused eval takes every point in one pass); false takes the loop."""
+    freq = cfg.EVAL.FREQ
+    if freq is None:
+        return FUSED, None
+    seg = min(int(freq), steps)
+    n_points = int(cfg.EVAL.L2_N_POINTS)
+    eval_bs = cfg.EVAL.BATCH_SIZE
+    fail = None
+    if seg <= 0:
+        fail = "EVAL.FREQ/steps <= 0" if freq else None
+    elif steps % seg != 0:
+        fail = (f"steps ({steps}) is not a multiple of EVAL.FREQ "
+                f"({seg})")
+    elif cfg.EVAL.REFERENCE_FILE:
+        fail = "EVAL.REFERENCE_FILE is set"
+    elif (has_exact_solution and eval_bs is not None
+          and int(eval_bs) < n_points):
+        fail = (f"EVAL.BATCH_SIZE ({eval_bs}) < EVAL.L2_N_POINTS "
+                f"({n_points})")
+    if _tri_state(cfg.TRAIN.FUSED) is not False and fail is None and seg > 0:
+        return FUSED, None
+    return LOOP, fail
+
+
 class PicardRunner:
     """Drives PICARD.N iterations of generate -> fit -> checkpoint."""
 
@@ -150,6 +197,12 @@ class PicardRunner:
         self.generate_calls = 0
         self.rollout_calls = 0
         self.timings: List[dict] = []
+        # the fused fit's (shape key, FusedStep, train metric names, eval
+        # names): one train module and optimizer per runner, captured once
+        # per shape
+        self._fused = None
+        # every FusedStep of the run (the fit's, the baseline's)
+        self.fused_steps: List[FusedStep] = []
 
     # ------------------------------------------------------------------
     def _prepare_exp_dir(self):
@@ -167,6 +220,11 @@ class PicardRunner:
         cfg_file.write_text(self.cfg.dump())
 
     @property
+    def graph_replays(self) -> int:
+        """CUDA-graph replays of the run's fused steps (0 on the CPU)."""
+        return sum(step.replays for step in self.fused_steps)
+
+    @property
     def generation_mode(self) -> str:
         return "gradient" if self.supervise_gradient else "value"
 
@@ -182,12 +240,16 @@ class PicardRunner:
                                 n_total, gen, mode, gen_batch=gen_batch,
                                 dtype=self.dtype, device=self.device)
 
-    def _train_iteration(self, module, optimizer, ds: DeviceDataset):
+    def _train_iteration(self, module, ds: DeviceDataset):
+        """Fit the fresh (or RELOADed) ``module`` to ``ds`` for
+        TRAIN.N_EPOCHS epochs, by ``fit_route``; returns the trained
+        module (the fused fit's own, into which ``module``'s weights were
+        copied, or ``module`` itself)."""
         cfg = self.cfg
         bs = int(cfg.TRAIN.BATCH_SIZE)
         n_epochs = int(cfg.TRAIN.N_EPOCHS)
         if n_epochs <= 0:
-            return  # generation-only config: nothing to fit
+            return module  # generation-only config: nothing to fit
         steps = ds.size // bs
         freq = cfg.EVAL.FREQ
         seg = min(int(freq), steps) if freq else steps
@@ -196,46 +258,142 @@ class PicardRunner:
                 f"TRAIN.BATCH_SIZE ({bs}) exceeds the dataset size "
                 f"({ds.size}); no full batch can be formed")
         do_eval = bool(freq) and self.equation.has_exact_solution
-        names = eval_fn = None
+        route, fail = fit_route(cfg, steps, self.equation.has_exact_solution)
+        if route == FUSED:
+            return self._fit_fused(module, ds, steps, bs, seg, do_eval)
+        if _tri_state(cfg.TRAIN.FUSED) is True and fail:
+            # an explicit TRAIN.FUSED: true (not "auto") must not silently
+            # take the slow segmented loop (the JAX runner's notice)
+            print(f"TRAIN.FUSED: true requested but unavailable "
+                  f"({fail}); using the segmented loop")
+        return self._fit_loop(module, ds, steps, bs, seg, do_eval)
+
+    def _fit_streams(self):
+        """The iteration's shuffle and eval-point generators."""
+        return (make_generator(self.device, self.seed, self.i, 2, 0),
+                make_generator(self.device, self.seed, self.i, 2, 1))
+
+    def _fit_loop(self, module, ds, steps, bs, seg, do_eval):
+        cfg = self.cfg
+        optimizer = make_optimizer(cfg.TRAIN.OPTIMIZER, module.parameters())
+        n_points = int(cfg.EVAL.L2_N_POINTS)
+        eval_names = eval_fn = None
         if do_eval:
-            names, eval_fn = make_traced_eval(
-                int(cfg.EVAL.L2_N_POINTS), bool(cfg.EVAL.TEST_GRAD),
-                bool(cfg.EVAL.TEST_HESSIAN))
-        shuffle_gen = make_generator(self.device, self.seed, self.i, 2, 0)
-        eval_gen = make_generator(self.device, self.seed, self.i, 2, 1)
+            eval_names, eval_fn = make_traced_eval(
+                bool(cfg.EVAL.TEST_GRAD), bool(cfg.EVAL.TEST_HESSIAN))
+        sol = Solution.from_net(module, self.net_type, self.equation.nx)
+        shuffle_gen, eval_gen = self._fit_streams()
         shuffle = cfg.DATA.SHUFFLE is not False
-        rows = []  # (epoch, global step, train metrics, eval values)
-        for epoch in range(n_epochs):
+        rows, vals = [], []  # (epoch, global step); their metric values
+        for epoch in range(int(cfg.TRAIN.N_EPOCHS)):
             txs, ys = epoch_batches(shuffle_gen, ds, bs, shuffle=shuffle)
             for s0 in range(0, steps, seg):
                 s1 = min(s0 + seg, steps)
-                for s in range(s0, s1):
-                    metrics = train_step(module, optimizer, txs[s], ys[s],
-                                         self.spec)
+                names, m = train_steps(module, optimizer, txs[s0:s1],
+                                       ys[s0:s1], self.spec)
                 self.global_step += s1 - s0
-                ev = None
+                vals.append(m)
                 if do_eval:
-                    sol = Solution.from_net(module, self.net_type,
-                                            self.equation.nx)
-                    ev = eval_fn(sol, self.equation, eval_gen)
-                rows.append((epoch, self.global_step, metrics, ev))
-        if not freq:
-            rows = rows[-1:]  # no in-training eval: one train row
+                    t, x = eval_points(eval_gen, self.equation, n_points)
+                    vals.append(eval_fn(sol, self.equation, t, x))
+                rows.append((epoch, self.global_step))
         # ONE readback for the iteration's train + eval metrics
-        keys = list(rows[0][2])
-        flat = [torch.stack([r[2][k] for k in keys]) for r in rows]
-        flat += [r[3] for r in rows if r[3] is not None]
-        host = torch.cat(flat).cpu().tolist()
-        n_tr = len(keys)
-        lr = float((cfg.TRAIN.OPTIMIZER.kwargs or {}).get("lr", 1e-3))
-        ev_base = len(rows) * n_tr
-        for j, (epoch, gs, _, ev) in enumerate(rows):
-            row = dict(zip(keys, host[j * n_tr:(j + 1) * n_tr]))
+        self._log_fit(rows, torch.cat(vals).cpu().tolist(), names,
+                      eval_names)
+        return module
+
+    def _fused_step(self, fresh, ds, steps, bs, seg, do_eval):
+        """(shape key, FusedStep, train metric names, eval names): the
+        runner's fused fit for this shape, its module holding ``fresh``'s
+        weights and its optimizer reset; built (and captured at its first
+        call) once per shape."""
+        cfg, eq = self.cfg, self.equation
+        n_points = int(cfg.EVAL.L2_N_POINTS)
+        key = (steps, bs, seg, do_eval, n_points, bool(cfg.EVAL.TEST_GRAD),
+               ds.tx.shape[1], ds.y.shape[1])
+        if self._fused is not None and self._fused[0] == key:
+            step = self._fused[1]
+            with torch.no_grad():
+                step.module.load_state_dict(fresh.state_dict())
+            reset_optimizer(step.optimizer)
+            return self._fused
+        module = copy.deepcopy(fresh)
+        optimizer = make_optimizer(cfg.TRAIN.OPTIMIZER, module.parameters(),
+                                   capturable=self.device.type == "cuda")
+        reset_optimizer(optimizer)
+        inputs = {"txs": ds.tx.new_empty((steps, bs, ds.tx.shape[1])),
+                  "ys": ds.y.new_empty((steps, bs, ds.y.shape[1]))}
+        eval_names = eval_fn = None
+        if do_eval:
+            eval_names, eval_fn = make_traced_eval(
+                bool(cfg.EVAL.TEST_GRAD), bool(cfg.EVAL.TEST_HESSIAN))
+            inputs["eval_t"] = ds.tx.new_empty((n_points, 1))
+            inputs["eval_x"] = ds.tx.new_empty((steps // seg, n_points,
+                                                eq.nx))
+        sol = Solution.from_net(module, self.net_type, eq.nx)
+        names: List[str] = []
+
+        def body():
+            """An epoch: each segment's steps, its last metrics and its
+            eval, in one tensor."""
+            out = []
+            for j in range(steps // seg):
+                sl = slice(j * seg, (j + 1) * seg)
+                names[:], m = train_steps(module, optimizer,
+                                          inputs["txs"][sl],
+                                          inputs["ys"][sl], self.spec)
+                out.append(m)
+                if eval_fn is not None:
+                    out.append(eval_fn(sol, eq, inputs["eval_t"],
+                                       inputs["eval_x"][j]))
+            return torch.cat(out)
+
+        self._fused = (key, FusedStep(body, inputs, module, optimizer),
+                       names, eval_names)
+        self.fused_steps.append(self._fused[1])
+        return self._fused
+
+    def _fit_fused(self, fresh, ds, steps, bs, seg, do_eval):
+        cfg = self.cfg
+        _, step, names, eval_names = self._fused_step(fresh, ds, steps, bs,
+                                                      seg, do_eval)
+        n_points = int(cfg.EVAL.L2_N_POINTS)
+        shuffle_gen, eval_gen = self._fit_streams()
+        shuffle = cfg.DATA.SHUFFLE is not False
+        n_epochs, nseg = int(cfg.TRAIN.N_EPOCHS), steps // seg
+        ins = step.inputs
+        outs = []
+        for _ in range(n_epochs):
+            epoch_batches(shuffle_gen, ds, bs, shuffle=shuffle,
+                          out=(ins["txs"], ins["ys"]))
+            for j in range(nseg if do_eval else 0):
+                t, x = eval_points(eval_gen, self.equation, n_points)
+                ins["eval_t"].copy_(t)
+                ins["eval_x"][j].copy_(x)
+            outs.append(step().clone())
+        rows = [(e, self.global_step + e * steps + (j + 1) * seg)
+                for e in range(n_epochs) for j in range(nseg)]
+        self.global_step += n_epochs * steps
+        # ONE readback for the iteration's train + eval metrics
+        host = torch.stack(outs).cpu().reshape(-1).tolist()
+        if cfg.EVAL.FREQ is None:  # no in-training eval: one train row
+            rows, host = rows[-1:], host[-len(names):]
+        self._log_fit(rows, host, names, eval_names)
+        return step.module
+
+    def _log_fit(self, rows, host, names, eval_names):
+        """Log each (epoch, global step) row's train metrics ``names`` and,
+        where ``eval_names``, its eval, from ``host``: the rows' values in
+        order, each row's train values followed by its eval values."""
+        lr = float((self.cfg.TRAIN.OPTIMIZER.kwargs or {}).get("lr", 1e-3))
+        width = len(names) + len(eval_names or ())
+        for j, (epoch, gs) in enumerate(rows):
+            vals = host[j * width:(j + 1) * width]
+            row = dict(zip(names, vals))
             self.logger.log({**row, "iter": self.i, "epoch": epoch}, gs,
                             context="train")
-            if ev is not None:
-                off = ev_base + j * len(names)
-                em = dict(zip(names, host[off:off + len(names)]))
+            if eval_names:
+                em = dict(zip(eval_names, vals[len(names):]))
                 em["iter"] = self.i
                 em["lr"] = lr
                 self.logger.log(em, gs, context="eval")
@@ -258,11 +416,12 @@ class PicardRunner:
         with Timer(self.device) as t_gen:
             ds = self._make_dataset(derive_seed(self.seed, self.i, 1), gen,
                                     self.generation_mode)
-        optimizer = make_optimizer(cfg.TRAIN.OPTIMIZER, module.parameters())
         with Timer(self.device) as t_fit:
-            self._train_iteration(module, optimizer, ds)
-        ckpt.save_params(ckpt.ckpt_path(self.exp_dir, self.i), module)
-        self.u_current = Solution.from_net(freeze(module), self.net_type,
+            trained = self._train_iteration(module, ds)
+        ckpt.save_params(ckpt.ckpt_path(self.exp_dir, self.i), trained)
+        # the fused fit trains its own module on: the iterate is a copy
+        frozen = trained if trained is module else copy.deepcopy(trained)
+        self.u_current = Solution.from_net(freeze(frozen), self.net_type,
                                            self.equation.nx)
         timing = {"iter": self.i, "generate_ms": t_gen.ms,
                   "fit_ms": t_fit.ms}

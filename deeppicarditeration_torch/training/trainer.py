@@ -4,14 +4,17 @@ Counterpart of ``deeppicarditeration_tpu/training/trainer.py``. Adam is
 ``torch.optim.Adam``: optax's and torch's Adam agree (bias-corrected first
 and second moments, eps added to the square root of the corrected second
 moment, no eps inside the root), so the same lr/betas/eps give the same
-update up to rounding. Schedulers, the other optimizers and Hessian
-supervision come with later slices.
+update up to rounding. The captured fit (``training/fused.py``) takes
+``capturable=True`` on the card: its step count lives on the device and
+the bias correction is computed there in f32 (on the host in f64 without
+it). Schedulers, the other optimizers and Hessian supervision come with
+later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -23,10 +26,13 @@ from deeppicarditeration_torch.training.losses import (
 )
 
 
-def make_optimizer(opt_cfg, params) -> torch.optim.Optimizer:
+def make_optimizer(opt_cfg, params,
+                   capturable: bool = False) -> torch.optim.Optimizer:
     """torch optimizer for TRAIN.OPTIMIZER (Adam without a scheduler).
 
-    optax's keyword names are accepted: ``b1``/``b2`` map to ``betas``."""
+    optax's keyword names are accepted: ``b1``/``b2`` map to ``betas``.
+    ``capturable``: a step that a CUDA graph can capture (parameters on
+    the card)."""
     cls = opt_cfg.get("cls", "Adam")
     kwargs = dict(opt_cfg.get("kwargs", {}) or {})
     sched = (opt_cfg.get("SCHEDULER", {}) or {}).get("cls")
@@ -41,7 +47,31 @@ def make_optimizer(opt_cfg, params) -> torch.optim.Optimizer:
     eps = float(kwargs.pop("eps", 1e-8))
     if kwargs:
         raise NotImplementedError(f"Adam kwargs {sorted(kwargs)} not ported")
-    return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=eps)
+    return torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=eps,
+                            capturable=capturable)
+
+
+def reset_optimizer(optimizer: torch.optim.Adam) -> None:
+    """Adam's state as a fresh optimizer starts it (step 0, zero moments),
+    set in place: the tensors keep their addresses, so a captured step
+    stays valid. Creates the state where it does not exist yet, with the
+    step count on the parameter's device when capturable (else on the
+    host), as ``torch.optim.Adam`` would at its first step."""
+    for group in optimizer.param_groups:
+        capturable = bool(group.get("capturable", False))
+        for p in group["params"]:
+            state = optimizer.state[p]
+            if state:
+                for v in state.values():
+                    v.zero_()
+                continue
+            state["step"] = torch.zeros(
+                (), dtype=torch.float32,
+                device=p.device if capturable else "cpu")
+            state["exp_avg"] = torch.zeros_like(
+                p, memory_format=torch.preserve_format)
+            state["exp_avg_sq"] = torch.zeros_like(
+                p, memory_format=torch.preserve_format)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,3 +159,13 @@ def train_step(module, optimizer: torch.optim.Optimizer, tx, y,
     loss.backward()
     optimizer.step()
     return metrics
+
+
+def train_steps(module, optimizer: torch.optim.Optimizer, txs, ys,
+                spec: TrainSpec) -> Tuple[List[str], torch.Tensor]:
+    """``train_step`` on the batches ``txs[s], ys[s]`` in order; the last
+    step's metric names and their values stacked in one tensor. In the
+    captured fit that tensor is the graph's static output."""
+    for tx, y in zip(txs, ys):
+        metrics = train_step(module, optimizer, tx, y, spec)
+    return list(metrics), torch.stack(list(metrics.values()))

@@ -136,13 +136,22 @@ def test_dispatcher_routes_to_the_estimator_and_rejects_unported():
     eq = make_equation("Cha", nx=nx, alpha=1.0, k=1.0, T=1.0)
     sol = Solution.zero(nx)
     tx = torch.from_numpy(_inputs(4, b, m, nx)[0])
-    gen = est.GenConfig(n_estimate_terminal=m, n_estimate_integral=m)
+    gen = est.GenConfig(n_estimate_terminal=m, n_estimate_integral=m,
+                        pallas_generate=True)
     out = est.generate_with_gradients(11, eq, sol, tx, gen)
     ref = kernels.generate_with_gradients_plain(11, eq, sol, tx, m)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    # "auto" leaves the zero iterate at nx < 32 to the chunk estimators
+    auto = est.GenConfig(n_estimate_terminal=m, n_estimate_integral=m)
+    out = est.generate_with_gradients(11, eq, sol, tx, auto)
+    ref = (est.estimate_terminal_with_gradients(derive_seed(11, 1), eq, tx,
+                                                auto)
+           + est.estimate_integral_with_gradients(derive_seed(11, 2), eq,
+                                                  sol, tx, auto))
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
     # antithetic pairing stays on the merged estimator
     anti = est.GenConfig(n_estimate_terminal=m, n_estimate_integral=m,
-                         antithetic=True)
+                         antithetic=True, pallas_generate=True)
     out = est.generate_with_gradients(11, eq, sol, tx, anti)
     ref = kernels.generate_with_gradients_plain(11, eq, sol, tx, m,
                                                 antithetic=True)

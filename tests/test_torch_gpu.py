@@ -535,3 +535,84 @@ def test_diffusion_baseline_runs_through_the_rollout_kernel(cuda, tmp_path):
     evals = [r["rRMSE"] for r in rows if r["context"] == "eval"]
     assert len(evals) == 3 and all(e is not None for e in evals)
     assert next(runner.u_current.module.parameters()).is_cuda
+
+
+# ---- the fused fit as CUDA-graph replays ---------------------------------
+
+def _fit_cfg(fused):
+    from deeppicarditeration_torch.config import default_cfg
+
+    cfg = default_cfg()
+    cfg.merge({"NAME": f"fit_{fused}", "FORCE": True,
+               "EQUATION": {"cls": "Cha", "kwargs": {"nx": 100, "alpha": 1.0,
+                                                     "k": 5.0, "T": 1.0}},
+               "PICARD": {"N": 1},
+               "DATA": {"DATA_SIZE": 4096, "SAMPLE_BOUND": 2.0,
+                        "kwargs": {"t_always_uniform": True,
+                                   "n_estimate_terminal": 256,
+                                   "n_estimate_integral": 256}},
+               "TRAIN": {"N_EPOCHS": 16, "BATCH_SIZE": 512,
+                         "SUPERVISE_GRADIENT": True, "FUSED": fused,
+                         "LOSS": {"SCALER": {"cls": "FixedLossScaler",
+                                             "kwargs": {"fixed_weight": 1.0}}}},
+               "NETWORK": {"NEURONS": [128] * 4, "ACTIVATIONS": ["ELU"] * 4},
+               "EVAL": {"L2_N_POINTS": 10000, "FREQ": 8, "TEST_GRAD": True}},
+              allow_new=False)
+    return cfg.freeze()
+
+
+def test_captured_fit_matches_the_eager_fit(cuda, tmp_path):
+    """Path A's fit (128 steps, 16 evals) captured and as a loop, on the same
+    dataset and draws (one iteration from the zero iterate). Capturable Adam
+    computes its bias correction on the card in f32, the loop on the host
+    in f64; the difference grows with the steps: the first segment within
+    1e-5 relative, the last within 1e-3."""
+    import json
+
+    from deeppicarditeration_torch.training.picard import PicardRunner
+
+    rows = {}
+    for fused in ("auto", "false"):
+        runner = PicardRunner(_fit_cfg(fused), exp_root=tmp_path)
+        runner.run()
+        assert runner.graph_replays == (16 if fused == "auto" else 0)
+        rows[fused] = [json.loads(ln) for ln in (
+            runner.exp_dir / "metrics.jsonl").read_text().splitlines()]
+    segs = {k: [r for r in v if r["context"] in ("train", "eval")]
+            for k, v in rows.items()}
+    assert [(r["context"], r["step"]) for r in segs["auto"]] == [
+        (r["context"], r["step"]) for r in segs["false"]]
+    rel = []
+    for a, b in zip(segs["auto"], segs["false"]):
+        keys = ("train_loss",) if a["context"] == "train" else (
+            "rRMSE", "rRMSEg")
+        rel.append(max(abs(a[k] - b[k]) / abs(b[k]) for k in keys))
+    print(f"captured vs loop, relative difference by segment: {rel}")
+    assert max(rel[:2]) <= 1e-5 and max(rel[-2:]) <= 1e-3, rel
+
+
+def test_failed_capture_raises(cuda):
+    """A host sync in the body fails the capture: FusedStep raises, and
+    nothing runs the body eagerly instead."""
+    from deeppicarditeration_torch.training.fused import FusedStep
+    from deeppicarditeration_torch.training.trainer import reset_optimizer
+
+    mod = torch.nn.Linear(4, 1).to(cuda)
+    opt = torch.optim.Adam(mod.parameters(), capturable=True)
+    reset_optimizer(opt)
+    x = torch.randn((8, 4), device=cuda)
+
+    def body():
+        opt.zero_grad(set_to_none=True)
+        loss = mod(x).square().mean()
+        loss.backward()
+        opt.step()
+        if loss.item() < 0:  # a host sync: not capturable
+            raise AssertionError
+        return loss.detach()
+
+    step = FusedStep(body, {"x": x}, mod, opt)
+    with pytest.raises(RuntimeError):
+        step()
+    assert step.graph is None and step.replays == 0
+    torch.cuda.synchronize()

@@ -332,7 +332,9 @@ def calls(monkeypatch):
 
 
 @pytest.mark.parametrize("flags,want", [
-    (dict(), {"generate_with_gradients_cuda": 1}),
+    # "auto" leaves the zero iterate at nx < 32 to the chunk estimators
+    (dict(), {}),
+    (dict(pallas_generate=True), {"generate_with_gradients_cuda": 1}),
     (dict(pallas_generate=False, pallas_terminal=True,
           pallas_integral=True),
      {"terminal_with_gradients_cuda": 1, "integral_with_gradients_cuda": 1}),
@@ -438,6 +440,23 @@ def test_cli_e2e_split_path_on_cpu(tmp_path, monkeypatch):
     assert final["rRMSE"] < first["rRMSE"]
 
 
+@pytest.mark.parametrize("nx", [10, 32, 100])
+@pytest.mark.parametrize("neurons", [(), (128, 128), (128,) * 4])
+def test_auto_route_by_structure(nx, neurons):
+    """The route "auto" takes at each cell of the route table (PERF.md,
+    ``utils/route_bench.py``): the merged kernel, except for the zero
+    iterate at nx < 32, where the chunk estimators were faster on the
+    H100; decided from the structure alone, before any launch."""
+    _, teq = _eqs(nx, k=5.0)
+    sol = Solution.zero(nx)
+    if neurons:
+        sol = Solution.from_net(
+            MLP(1 + nx, neurons, ("ELU",) * len(neurons), 1), "Value", nx)
+    gen = est.GenConfig(n_estimate_terminal=64, n_estimate_integral=64)
+    want = est.SPLIT if (not neurons and nx < 32) else est.MERGED
+    assert est.generation_route(teq, sol, gen) == want
+
+
 def test_runner_maps_the_flags_and_counts_routes(tmp_path, capsys,
                                                  monkeypatch):
     (tmp_path / "tiny.yaml").write_text(TINY_SPLIT_YAML)
@@ -455,11 +474,12 @@ def test_runner_maps_the_flags_and_counts_routes(tmp_path, capsys,
                 "auto", True, True, True, False)
     monkeypatch.setattr(est, "route_calls", {est.MERGED: 0, est.SPLIT: 0})
     runner.run()
-    # iteration 1: the zero iterate (merged); iteration 2: a 2x32 net the
-    # merged kernel does not cover (auto: split, with a notice); the
-    # dispatch counts the route it takes
+    # iteration 1: the zero iterate at nx = 4 (auto: split, the chunks are
+    # faster there); iteration 2: a 2x32 net the merged kernel does not
+    # cover (auto: split, with a notice); the dispatch counts the route it
+    # takes
     assert runner.generate_calls == 2
-    assert est.route_calls == {est.MERGED: 1, est.SPLIT: 1}
+    assert est.route_calls == {est.MERGED: 0, est.SPLIT: 2}
     assert "using the split estimators" in capsys.readouterr().out
     for flag in ("false", "False", "0", "off"):
         cfg = load_cfg(tmp_path / "tiny.yaml",
