@@ -5,6 +5,7 @@
                                             # path E for 3000 epochs
     python3 chip_smoke.py --iterations 100  # the DPI recipes' full budget
     python3 chip_smoke.py --epochs 35000    # the D-DBSDE recipe's full budget
+    python3 chip_smoke.py --hjb-epochs 15000  # path I's full budget
 
 Paths (the Burgers 100-d w1.0 recipe through ``PicardRunner`` at full
 width: nx=100, 4x128 ELU net, B=4096 points from the path's sampler; A-D
@@ -27,7 +28,16 @@ TRAIN.FUSED's "auto"):
   F  A with DATA.TPU.PALLAS_PRECISION highest: the merged kernel's FP32-FMA
      net pass;
   G  B with DATA.TPU.PALLAS_PRECISION highest: the integral kernel's
-     FP32-FMA net pass.
+     FP32-FMA net pass;
+  H  configs/hjb/base_100d_T1.0_w0.1.yaml (the HJB family: the OU equation
+     with a 5-component mixture terminal, the 4x512 PISGradNet, B = M =
+     4096, PALLAS_PRECISION default): the merged kernel's HJB instance
+     (``csrc/generate_pis.cu``), one bf16 pass; cut to 3 iterations
+     (``--iterations``);
+  J  H with PALLAS_PRECISION bf16x3;
+  I  configs/hjb/diffusion_100d_T1.0.yaml, the D-DBSDE baseline on the OU
+     equation (K=50, a plain 4x512 ELU net, beta 10): one rollout launch
+     per epoch; cut to 2000 of its 15 000 epochs (``--hjb-epochs``).
 Each path's kernel launch counts are read around its run (every count set
 to 0 just before) and checked against its generation calls (A-D, F, G; the
 net kernels' also by precision mode) or its epochs (E), and its CUDA-graph
@@ -37,11 +47,11 @@ same way.
 
 Phases (each failure exits non-zero; the result line is printed last, and
 only when every phase passed):
-  1. build the six CUDA kernels from ``deeppicarditeration_torch/csrc``
+  1. build the seven CUDA kernels from ``deeppicarditeration_torch/csrc``
      (one nvcc each, all started together); the tensor-core kernels of
-     ``generate.cu`` and ``integral.cu`` must hold HGMMA (wgmma) in their
-     SASS; the instructions per normal, by pipe, that the terminal
-     kernel's draw loop issues at nx = 100
+     ``generate.cu``, ``integral.cu`` and ``generate_pis.cu`` must hold
+     HGMMA (wgmma) in their SASS; the instructions per normal, by pipe,
+     that the terminal kernel's draw loop issues at nx = 100
      (``utils/probe_roofline.py:sass_mix``);
   2. the merged kernel against its plain PyTorch version on the same
      external noise (B=256, M=4096; zero iterate and a random net), in
@@ -87,6 +97,23 @@ only when every phase passed):
      (1024 iterations); then the entry point at full size, its rates beside
      the bound model's peaks and its loop's SASS per unit (the elu chain's
      exp must stay in the loop);
+ 12. paths H and J, 3 iterations each: one ``generate_pis`` launch per
+     iteration in the path's mode, rRMSE at iterations 1-3 under
+     ``HJB_RRMSE_MAX``;
+ 13. ``generate_pis`` at path H's shapes (B = M = 4096, nx=100, the
+     trained 4x512 PISGradNet and the zero iterate): against its plain
+     version on the same external noise (max |diff| / max(|plain|, 1)
+     per value and gradient columns within ``PIS_REL_TOL``), the zero
+     iterate in "default" and "bf16x3" and the net in "bf16x3" at all B
+     points, the net in "default" at the first ``PIS_B`` = 256 (at all B
+     its error is printed beside the plain version's own under a
+     permutation of the net's hidden units); its own draws against the
+     host Philox at the first and last 8 points; its law against the
+     plain version's on independent streams (a Bonferroni CLT bound, 64
+     points);
+ 14. path I, 2000 epochs (``--hjb-epochs``): one rollout launch and one
+     graph replay per epoch, the final rRMSE under
+     ``HJB_DIFFUSION_RRMSE_MAX``;
  11. kernel, plain-version and library times at the paths' shapes, and
      each kernel's bound, printed as one ``{"kernels": [...]}`` JSON line
      (the net kernels with a row per precision mode, timed in turns in
@@ -155,6 +182,43 @@ BURGERS_DIFFUSION = {
     "EVAL": {"FREQ": 100},
 }
 
+# configs/hjb/base_100d_T1.0_w0.1.yaml (no BASE)
+HJB_RECIPE = {
+    "NAME": "OU_NoEnT_100D_T1.0_w0.1_M4096_hid512_lr1e-3_E16",
+    "FORCE": True,
+    "EQUATION": {"cls": "OUProcessEquation",
+                 "kwargs": {"nx": 100, "alpha": 1.0, "T": 1.0,
+                            "num_components": 5, "mean_scale": 1.0,
+                            "var_scale": 2.0, "alpha_scale": 4.0}},
+    "METHOD": {"cls": "Picard"},
+    "PICARD": {"N": 40},
+    "DATA": {"DATA_SIZE": 4096,
+             "kwargs": {"t_always_uniform": True,
+                        "n_estimate_terminal": 4096,
+                        "n_estimate_integral": 4096},
+             "CHUNK_ELEMS": 33554432,
+             "TPU": {"PALLAS_PRECISION": "default"}},
+    "TRAIN": {"N_EPOCHS": 16, "BATCH_SIZE": 512, "SUPERVISE_GRADIENT": True,
+              "LOSS": {"beta": 0.0,
+                       "SCALER": {"cls": "FixedLossScaler",
+                                  "kwargs": {"fixed_weight": 0.1}}},
+              "OPTIMIZER": {"kwargs": {"lr": 0.001}}},
+    "NETWORK": {"cls": "PicardSolution", "NEURONS": [512, 512, 512, 512],
+                "ACTIVATIONS": ["ELU", "ELU", "ELU", "ELU"], "BOUND": None,
+                "RELOAD": True, "PISGRADNET": True},
+    "EVAL": {"L2_N_POINTS": 100, "FREQ": 8, "TEST_GRAD": True},
+}
+
+# configs/hjb/diffusion_100d_T1.0.yaml on top of it (its BASE)
+HJB_DIFFUSION = {
+    "NAME": HJB_RECIPE["NAME"] + "_Diffusion_K50",
+    "METHOD": {"cls": "Diffusion", "K": 50, "dt": 0.005},
+    "PICARD": {"N": 1},
+    "TRAIN": {"N_EPOCHS": 15000, "LOSS": {"beta": 10.0}},
+    "NETWORK": {"PISGRADNET": False},
+    "EVAL": {"FREQ": 100},
+}
+
 # path -> (recipe layers, CLI-style overrides)
 PATHS = {
     "A": ((BURGERS_W1_RECIPE,), []),
@@ -173,6 +237,9 @@ PATHS = {
            "DATA.TPU.PALLAS_TERMINAL", "true",
            "DATA.TPU.PALLAS_INTEGRAL", "true",
            "DATA.TPU.PALLAS_PRECISION", "highest"]),
+    "H": ((HJB_RECIPE,), []),
+    "J": ((HJB_RECIPE,), ["DATA.TPU.PALLAS_PRECISION", "bf16x3"]),
+    "I": ((HJB_RECIPE, HJB_DIFFUSION), []),
 }
 # the precision modes of the net kernels' rows, the main path's first
 MODES = ("bf16x3", "highest")
@@ -200,6 +267,31 @@ DIFFUSION_RRMSE_MAX = 0.35
 # the eager epoch's final rRMSE at 3000 epochs (before the epoch was a
 # graph replay; one H100 80GB HBM3 at 700 W, PERF.md section 5)
 DIFFUSION_RRMSE_EAGER = 0.02843
+# The HJB family (paths H, J, I), each limit fixed before the first run of
+# this code on the card (PERF.md, the HJB prediction). generate_pis against
+# its plain version on the same noise: max |diff| / max(|plain|, 1), for
+# the value column and the gradient columns apart: f32 sums in another
+# order, and under the one-pass mode a bf16 rounding that an f32
+# difference of an ulp can flip.
+PIS_REL_TOL = {"default": 1e-3, "bf16x3": 1e-4}
+PIS_MODES = ("default", "bf16x3")  # path H's first
+# Points of the "default" comparison with a net (bf16x3 and the zero
+# iterate: all B). At all B the one-pass mode's gradient columns differ by
+# 1.8e-3 (PERF.md, the HJB findings): bf16 roundings that the f32 order
+# flips, weighted by 1/sqrt(s - t), whose tail grows with the points; the
+# limit holds at 256, as when it was fixed.
+PIS_B = 256
+# path H's rRMSE at iterations 1, 2, 3 and after (the JAX record under
+# "default": 0.394, 0.178, 0.156, bench_results/hjb100d_tpu_prec_default)
+HJB_RRMSE_MAX = (0.60, 0.35, 0.30)
+# path I's final rRMSE at its cut: an untrained net scores ~1; the JAX
+# records end at 0.073-0.104 after 15 000 epochs
+# the final iterate's eval beside the in-training one (path H's recipe
+# evaluates on 100 points; scripts/run_tpu_recipe.py, which wrote the JAX
+# records, on 1000)
+FINAL_EVAL_POINTS = 1000
+HJB_DIFFUSION_EPOCHS = 2000
+HJB_DIFFUSION_RRMSE_MAX = 0.35
 PATH_TOL = 1e-5  # rollout kernel vs host Philox / plain version: rtol=atol
 LAW_ROWS = 2 ** 16  # endpoint law check: rows of 100 dimensions
 PROBE_TOL = 1e-5  # probe kernel vs plain (f32 sums reordered): rtol=atol
@@ -259,14 +351,16 @@ PROBE_ELU_FP32, PROBE_ELU_SFU = 9, 1
 
 
 def path_cfg(path: str, n_iter: int = None, device: str = "cuda",
-             epochs: int = None):
+             epochs: int = None, overrides=()):
+    """The path's recipe; ``overrides``: CLI-style pairs on top of the
+    path's own."""
     from deeppicarditeration_torch.config import default_cfg
 
-    layers, overrides = PATHS[path]
+    layers, own = PATHS[path]
     cfg = default_cfg()
     for layer in layers:
         cfg.merge(layer, allow_new=False)
-    cfg.merge_from_list(list(overrides))
+    cfg.merge_from_list(list(own) + list(overrides))
     if n_iter is not None:
         cfg.PICARD.N = n_iter
     if epochs is not None:
@@ -277,6 +371,10 @@ def path_cfg(path: str, n_iter: int = None, device: str = "cuda",
 
 def diffusion_cfg(epochs: int, device: str = "cuda"):
     return path_cfg("E", device=device, epochs=epochs)
+
+
+def hjb_diffusion_cfg(epochs: int, device: str = "cuda"):
+    return path_cfg("I", device=device, epochs=epochs)
 
 
 def burgers_w1_cfg(n_iter: int, device: str = "cuda"):
@@ -367,6 +465,130 @@ def _clt(label, out, ref, var, m, bound) -> None:
             and torch.isfinite(out).all()):
         _fail(f"in-kernel draws disagree with the plain version's law "
               f"({label})")
+
+
+def _pis_rel(out, ref):
+    """max |out - ref| / max(|ref|, 1) over the value column and over the
+    gradient columns."""
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
+
+    return rel(out[:, :1], ref[:, :1]), rel(out[:, 1:], ref[:, 1:])
+
+
+def _pis_same(label: str, out, ref, mode: str) -> float:
+    """generate_pis vs plain on the same noise: fails unless ``_pis_rel``
+    is within PIS_REL_TOL[mode] for both; returns the max |diff|."""
+    import torch
+
+    torch.cuda.synchronize()
+    ev, eg = _pis_rel(out, ref)
+    err = float((out - ref).abs().max())
+    ok = (ev <= PIS_REL_TOL[mode] and eg <= PIS_REL_TOL[mode]
+          and bool(torch.isfinite(out).all()))
+    print(f"kernel vs plain ({label}): max |diff| {err:.3e}; relative "
+          f"value {ev:.3e}, gradient {eg:.3e}, within {PIS_REL_TOL[mode]}: "
+          f"{ok}")
+    if not ok:
+        _fail(f"generate_pis disagrees with its plain version ({label})")
+    return err
+
+
+def _permuted(sol, seed: int):
+    """``sol`` with the hidden units of its PISGradNet's main stack
+    permuted: the same function, whose dots sum in another order."""
+    import copy
+
+    import torch
+
+    from deeppicarditeration_torch.models.solution import Solution
+
+    mod = copy.deepcopy(sol.module)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for a, b in zip(mod.nn_module[:-1], mod.nn_module[1:]):
+            perm = torch.randperm(a.out_features, generator=g).to(
+                a.weight.device)
+            a.weight.copy_(a.weight[perm])
+            a.bias.copy_(a.bias[perm])
+            b.weight.copy_(b.weight[:, perm])
+    return Solution.from_net(mod, "Value", mod.dim)
+
+
+def _check_pis(runner, n_iter: int, max_err: dict):
+    """Phase 13: generate_pis at path H's shapes with ``runner``'s equation
+    and trained iterate. Against its plain version on the same external
+    noise (PIS_REL_TOL): the zero iterate in both modes and the iterate
+    under bf16x3 at all B points, the iterate under "default" at the first
+    PIS_B; there at all B, measured beside the plain version's own
+    disagreement with itself when the net's hidden units are permuted.
+    Its own draws against the host Philox at the first and last EDGE
+    points; its law against the plain version's (CLT, 64 points). Updates
+    ``max_err``; returns (eq, sol, tx, B, M)."""
+    import torch
+
+    from deeppicarditeration_torch.device import make_generator
+    from deeppicarditeration_torch.models.solution import Solution
+    from deeppicarditeration_torch.ops import estimators as est
+    from deeppicarditeration_torch.ops import kernels
+    from deeppicarditeration_torch.training.picard import gen_config_from_cfg
+
+    dev = torch.device("cuda")
+    eq, sol = runner.equation, runner.u_current
+    cfg = path_cfg("H", n_iter)
+    gen = gen_config_from_cfg(cfg)
+    nb, mm, nx = int(cfg.DATA.DATA_SIZE), gen.n_estimate_terminal, eq.nx
+    tx = est.sample_tx(make_generator(dev, 40), eq, nb, gen, device=dev)
+    g = torch.Generator(device=dev).manual_seed(41)
+    noise = (torch.rand((nb, mm, 1), generator=g, device=dev),
+             torch.randn((nb, mm, nx), generator=g, device=dev),
+             torch.randn((nb, mm, nx), generator=g, device=dev))
+
+    def pair(s, mode, b):
+        """(kernel, plain) on the first b points."""
+        t, n = tx[:b].contiguous(), [v[:b] for v in noise]
+        return (kernels.generate_pis_cuda(0, eq, s, t, mm, *n,
+                                          precision=mode),
+                kernels.generate_with_gradients_plain(0, eq, s, t, mm, *n,
+                                                      precision=mode))
+
+    for label, s in (("zero iterate", Solution.zero(nx)),
+                     (f"iterate {n_iter}", sol)):
+        for mode in PIS_MODES:
+            b = PIS_B if (mode == "default" and s.kind == "net") else nb
+            key = _err_key("generate_pis", mode)
+            max_err[key] = max(max_err[key], _pis_same(
+                f"generate_pis {mode}, {label}, B={b} M={mm}",
+                *pair(s, mode, b), mode))
+    out, ref = pair(sol, "default", nb)
+    perm = kernels.generate_with_gradients_plain(
+        0, eq, _permuted(sol, 42), tx, mm, *noise, precision="default")
+    print("generate_pis default, iterate %d, B=%d M=%d (measured): kernel "
+          "vs plain, relative value %.3e, gradient %.3e; the plain version "
+          "with the net's hidden units permuted vs plain %.3e, %.3e" % (
+              n_iter, nb, mm, *_pis_rel(out, ref), *_pis_rel(perm, ref)))
+    del noise, out, ref, perm
+    pts = list(range(EDGE)) + list(range(nb - EDGE, nb))
+    u_h, nt_h, ni_h = _host_draws(EXACT_SEED, pts, mm, nx, dev)
+    for mode in PIS_MODES:
+        key = _err_key("generate_pis", mode)
+        max_err[key] = max(max_err[key], _pis_same(
+            f"generate_pis {mode}, iterate {n_iter}, own draws vs host "
+            f"Philox at points 0-{EDGE - 1} and {nb - EDGE}-{nb - 1}, "
+            f"M={mm}",
+            kernels.generate_pis_cuda(EXACT_SEED, eq, sol, tx, mm,
+                                      precision=mode)[pts],
+            kernels.generate_with_gradients_plain(
+                0, eq, sol, tx[pts], mm, u_h, nt_h, ni_h,
+                precision=mode), mode))
+    del u_h, nt_h, ni_h
+    out = kernels.generate_pis_cuda(5, eq, sol, tx[:64].contiguous(), mm,
+                                    precision=PIS_MODES[0])
+    ref, var = kernels.generate_with_gradients_plain(
+        7, eq, sol, tx[:64], mm, precision=PIS_MODES[0], return_var=True)
+    _clt(f"generate_pis {PIS_MODES[0]}, iterate {n_iter}", out, ref, var,
+         mm, _bonferroni(64 * (1 + nx)))
+    return eq, sol, tx, nb, mm
 
 
 def _err_key(stem: str, mode: str) -> str:
@@ -475,6 +697,42 @@ def _merged_work(b, m, nx, anti, neurons, n_weights, precision="highest"):
     return tuple(w)
 
 
+def _pis_work(b, m, nx, hidden, ncomp, n_weights, precision):
+    """(FP32, INT32, SFU, bytes, bf16 tensor) of one generate_pis call.
+    Terminal chain: the normals, X_T (2 FP32 per dimension), the mixture's
+    terms per component (3 FP32 and a reciprocal per dimension), the
+    gradient sums (2). With a net (``hidden``), besides: the integral
+    normals and time uniform, X_s (2), the mixture at e^{-lambda/2} X_s
+    and its gradient (twice the terms), w, the drift and |w|^2 (6), the
+    sums (2) per dimension; per sample the embedding's sin and cos (20
+    FP32 each, the precise functions on the FP32 pipe) and an exp per
+    hidden unit of the gate, the encoder and the net (ELU); the products
+    (``generate_pis_macs_per_sample``) on the tensor pipe, 3 passes or 1.
+    t, x, g0, f0, the packed weights and the mixture in, (B, 1 + nx) out."""
+    from deeppicarditeration_torch.ops.kernels import (
+        generate_pis_macs_per_sample,
+    )
+
+    n, s = b * m * nx, b * m
+    fp32 = FP32_PER_NORMAL * n + n * (4 + 3 * ncomp) + s * (2 * ncomp + 4)
+    int_ops = INT_PER_NORMAL * n
+    sfu = SFU_PER_NORMAL * n + n * ncomp + s * (ncomp + 1)
+    tensor, w_bytes = 0, 0
+    if hidden:
+        c = 64
+        fp32 += (FP32_PER_NORMAL * n + n * (10 + 6 * ncomp)
+                 + s * (40 * c + 2 * ncomp + 10))
+        int_ops += INT_PER_NORMAL * n + INT_PER_WORD * s
+        sfu += (SFU_PER_NORMAL * n + 2 * n * ncomp
+                + s * (c * (len(hidden) + 2) + sum(hidden) + ncomp + 1))
+        passes = 3 if precision == "bf16x3" else 1
+        tensor = passes * 2 * s * generate_pis_macs_per_sample(nx, hidden)
+        w_bytes = n_weights * (4 if precision == "bf16x3" else 2)
+    return (fp32, int_ops, sfu,
+            4 * (b * (4 + nx) + b * (1 + nx) + 2 * ncomp * (nx + 1))
+            + w_bytes, tensor)
+
+
 def _normals_work(n):
     return (FP32_PER_NORMAL * n, INT_PER_NORMAL * n, SFU_PER_NORMAL * n,
             4 * n, 0)
@@ -516,8 +774,9 @@ def _bound(work):
 
 # ---- paths -----------------------------------------------------------------
 
-def _run_path(path: str, n_iter: int):
-    """Run one path; returns (runner, {library name: launches})."""
+def _run_path(path: str, n_iter: int, overrides=()):
+    """Run one path (``overrides`` on top of its recipe, as in
+    ``path_cfg``); returns (runner, {library name: launches})."""
     import torch
 
     from deeppicarditeration_torch.ops import estimators as est
@@ -528,7 +787,7 @@ def _run_path(path: str, n_iter: int):
         fit_route,
     )
 
-    cfg = path_cfg(path, n_iter)
+    cfg = path_cfg(path, n_iter, overrides=overrides)
     runner = PicardRunner(cfg, exp_root=ROOT / "build" / "chip_smoke_runs"
                           / path)
     for lib in kernels.ALL:
@@ -574,6 +833,14 @@ def _run_path(path: str, n_iter: int):
                   f"median {statistics.median(v):.1f}, quartiles "
                   f"{q[0]:.1f}-{q[2]:.1f}")
     curve = [final[i]["rRMSE"] for i in sorted(final)]
+    from deeppicarditeration_torch.evaluation.evaluator import eval_solution
+
+    m = eval_solution(torch.Generator(device=runner.device).manual_seed(1234),
+                      runner.u_current, runner.equation, FINAL_EVAL_POINTS,
+                      test_grad=True)
+    print(f"path {path} iterate {n_iter} on {FINAL_EVAL_POINTS} points "
+          f"(the JAX records' post-iteration eval): rRMSE {m['rRMSE']}, "
+          f"rRMSEg {m['rRMSEg']}")
     if curve:
         last = final[max(final)]
         print(f"path {path} final rRMSE {last['rRMSE']}, rRMSEg "
@@ -582,10 +849,18 @@ def _run_path(path: str, n_iter: int):
               f"{statistics.mean(curve[-10:])}")
     for i in range(1, n_iter + 1):
         r = final.get(i, {}).get("rRMSE")
-        if r is None or not math.isfinite(r) or r > RRMSE_MAX:
+        limit = _rrmse_limit(path, i)
+        if r is None or not math.isfinite(r) or r > limit:
             _fail(f"path {path} iteration {i} rRMSE {r} (want finite and "
-                  f"<= {RRMSE_MAX})")
+                  f"<= {limit})")
     return runner, launches, (routes, modes)
+
+
+def _rrmse_limit(path: str, i: int) -> float:
+    """Path ``path``'s rRMSE limit at iteration i."""
+    if path in ("H", "J"):
+        return HJB_RRMSE_MAX[min(i, len(HJB_RRMSE_MAX)) - 1]
+    return RRMSE_MAX
 
 
 def _captured_vs_loop(runner_a, runner_l, n_iter: int) -> None:
@@ -691,17 +966,18 @@ def _check_rollout(cfg, device) -> float:
     return worst
 
 
-def _run_diffusion(epochs: int):
-    """Phase 9: path E through the CLI's runner; returns (runner, launches,
-    ms per epoch)."""
+def _run_diffusion(epochs: int, path: str = "E"):
+    """Phases 9 and 14: path E or I through the CLI's runner; returns
+    (runner, launches, ms per epoch)."""
     import torch
 
     from deeppicarditeration_torch.ops import kernels
     from deeppicarditeration_torch.training.picard import PicardRunner
 
-    cfg = diffusion_cfg(epochs)
+    cfg = path_cfg(path, epochs=epochs)
+    limit = DIFFUSION_RRMSE_MAX if path == "E" else HJB_DIFFUSION_RRMSE_MAX
     runner = PicardRunner(cfg, exp_root=ROOT / "build" / "chip_smoke_runs"
-                          / "E")
+                          / path)
     for lib in kernels.ALL:
         lib.launches = 0
     t0 = time.perf_counter()
@@ -712,33 +988,33 @@ def _run_diffusion(epochs: int):
     want = {name: (epochs if name == "rollout" else 0) for name in launches}
     if (launches != want or runner.rollout_calls != epochs
             or runner.graph_replays != epochs):
-        _fail(f"path E: launches {launches}, rollouts {runner.rollout_calls}"
-              f", graph replays {runner.graph_replays}; want {want} and "
-              f"{epochs} replays")
+        _fail(f"path {path}: launches {launches}, rollouts "
+              f"{runner.rollout_calls}, graph replays "
+              f"{runner.graph_replays}; want {want} and {epochs} replays")
     per_epoch = [tm["interval_ms"] / tm["epochs"] for tm in runner.timings]
     rows = [json.loads(ln) for ln in
             (runner.exp_dir / "metrics.jsonl").read_text().splitlines()]
     evals = [r for r in rows if r["context"] == "eval"]
     q = statistics.quantiles(per_epoch, n=4)
-    print(f"path E: {epochs} epochs in {wall:.1f} s; launches {launches}; "
-          f"ms per epoch (CUDA events per {cfg.EVAL.FREQ}-epoch interval) "
-          f"median {statistics.median(per_epoch):.3f}, quartiles "
+    print(f"path {path}: {epochs} epochs in {wall:.1f} s; launches "
+          f"{launches}; ms per epoch (CUDA events per {cfg.EVAL.FREQ}-epoch "
+          f"interval) median {statistics.median(per_epoch):.3f}, quartiles "
           f"{q[0]:.3f}-{q[2]:.3f}, first interval {per_epoch[0]:.3f}; "
           f"epochs total {sum(tm['interval_ms'] for tm in runner.timings):.0f}"
           f" ms")
     step = max(1, len(evals) // 10)
-    print("path E rRMSE by epoch: " + ", ".join(
+    print(f"path {path} rRMSE by epoch: " + ", ".join(
         f"{r['step'] + 1}: {r['rRMSE']:.4f}" for r in evals[step - 1::step]))
     last = evals[-1]
-    print(f"path E final rRMSE {last['rRMSE']}, rRMSEg {last['rRMSEg']} "
-          f"(the eager epoch at {DIFFUSION_EPOCHS} epochs: "
-          f"{DIFFUSION_RRMSE_EAGER}; JAX records after 35000 epochs: "
-          f"0.0894-0.0981 / 0.221-0.227); {runner.graph_replays} epochs as "
-          f"CUDA-graph replays")
+    ref = (f"the eager epoch at {DIFFUSION_EPOCHS} epochs: "
+           f"{DIFFUSION_RRMSE_EAGER}; JAX records after 35000 epochs: "
+           f"0.0894-0.0981 / 0.221-0.227" if path == "E" else
+           "JAX records after 15000 epochs: 0.0732-0.1043 / 0.447-0.585")
+    print(f"path {path} final rRMSE {last['rRMSE']}, rRMSEg {last['rRMSEg']} "
+          f"({ref}); {runner.graph_replays} epochs as CUDA-graph replays")
     r = last["rRMSE"]
-    if r is None or not math.isfinite(r) or r > DIFFUSION_RRMSE_MAX:
-        _fail(f"path E final rRMSE {r} (want finite and <= "
-              f"{DIFFUSION_RRMSE_MAX})")
+    if r is None or not math.isfinite(r) or r > limit:
+        _fail(f"path {path} final rRMSE {r} (want finite and <= {limit})")
     return runner, launches, statistics.median(per_epoch)
 
 
@@ -753,8 +1029,9 @@ def _expect_launches(path, runner, launches, seen, want):
     full = {name: want.get(name, 0) for name in launches}
     mode = gen_config_from_cfg(runner.cfg).pallas_precision
     want_modes = {name: {mode: n} for name, n in full.items()
-                  if n and name in ("generate", "integral")}
-    route = est.MERGED if path in ("A", "A'", "D", "F") else est.SPLIT
+                  if n and name in ("generate", "integral", "generate_pis")}
+    route = (est.MERGED if path in ("A", "A'", "D", "F", "H", "J")
+             else est.SPLIT)
     want_routes = {r: runner.generate_calls if r == route else 0
                    for r in routes}
     if (launches != full or runner.generate_calls == 0
@@ -776,7 +1053,8 @@ def _hgmma_counts():
 
     out = {}
     for lib, fn in ((kernels.GENERATE, "generate_tc_kernel"),
-                    (kernels.INTEGRAL, "integral_tc_kernel")):
+                    (kernels.INTEGRAL, "integral_tc_kernel"),
+                    (kernels.GENERATE_PIS, "generate_pis_kernel")):
         sass = library_sass(lib)
         body = [part for part in re.split(r"\n\s*Function : ", sass)
                 if part.split("\n", 1)[0].find(fn) >= 0]
@@ -882,6 +1160,9 @@ def main(argv=None) -> int:
     ap.add_argument("--epochs", type=int, default=DIFFUSION_EPOCHS,
                     help=f"epochs of path E (default {DIFFUSION_EPOCHS}; "
                          "the recipe's own is 35000)")
+    ap.add_argument("--hjb-epochs", type=int, default=HJB_DIFFUSION_EPOCHS,
+                    help=f"epochs of path I (default {HJB_DIFFUSION_EPOCHS}; "
+                         "the recipe's own is 15000)")
     args = ap.parse_args(argv)
     import torch
 
@@ -937,7 +1218,7 @@ def main(argv=None) -> int:
     print("terminal kernel's SASS per normal at nx=100 (the draw loop's "
           "fast path): " + json.dumps(terminal_sass))
     max_err = {f"{lib.source.stem}{sfx}": 0.0 for lib in kernels.ALL
-               for sfx in ("", " bf16x3")}
+               for sfx in ("", " bf16x3", " default")}
 
     # ---- 2. merged kernel vs plain, same external noise, full width --------
     b, m, nx = 256, 4096, 100
@@ -1180,6 +1461,20 @@ def main(argv=None) -> int:
     # ---- 10. rate probe ----------------------------------------------------
     max_err["probe"], launches_probe, modes = _probe_phase(dev)
 
+    # ---- 12. paths H and J: the HJB family through generate_pis ----------
+    runner_h, launches_h, routes_h = _run_path("H", n_iter)
+    _expect_launches("H", runner_h, launches_h, routes_h,
+                     {"generate_pis": runner_h.generate_calls})
+    runner_j, launches_j, routes_j = _run_path("J", n_iter)
+    _expect_launches("J", runner_j, launches_j, routes_j,
+                     {"generate_pis": runner_j.generate_calls})
+
+    # ---- 13. generate_pis at path H's shapes -------------------------------
+    eq_h, sol_h, tx_h, nb_h, mm_h = _check_pis(runner_h, n_iter, max_err)
+
+    # ---- 14. path I: the HJB D-DBSDE recipe -------------------------------
+    runner_i, launches_i, ms_epoch_i = _run_diffusion(args.hjb_epochs, "I")
+
     # ---- 11. times and bounds at the paths' shapes -------------------------
     neurons = sol.module.neurons
     n_weights = sum(p.numel() for p in sol.module.parameters())
@@ -1316,6 +1611,27 @@ def main(argv=None) -> int:
                     grid),
         shape=f"elu, grid {grid}, {PROBE_ITERS} iterations",
         extra={"launches_per_iteration": None, "modes": modes})
+    # generate_pis at path H's shapes, both modes in turns (the trained
+    # iterate); its plain version at the same shapes, one call each
+    hidden_h = sol_h.module.hidden_shapes
+    n_w_h = sum(p.numel() for p in sol_h.module.parameters())
+    ncomp = int(eq_h.gmm_means.shape[0])
+    pis_ms = _in_turns({mode: (lambda mode=mode: kernels.generate_pis_cuda(
+        5, eq_h, sol_h, tx_h, mm_h, precision=mode)) for mode in PIS_MODES},
+        2)
+    for mode, (path, runner, launches) in zip(PIS_MODES, (
+            ("H", runner_h, launches_h), ("J", runner_j, launches_j))):
+        row("generate_pis", "generate_pis", f"{src}:869", path,
+            launches["generate_pis"], runner.generate_calls, pis_ms[mode],
+            _time_ms(lambda: kernels.generate_with_gradients_plain(
+                5, eq_h, sol_h, tx_h, mm_h, precision=mode), 1),
+            _pis_work(nb_h, mm_h, nx, hidden_h, ncomp, n_w_h, mode),
+            shape=f"B={nb_h} M={mm_h} nx={nx}, 4x512 PISGradNet",
+            mode=mode, extra={"instance": "OU + PISGradNet (HJB)"})
+    per_i = [tm["interval_ms"] / tm["epochs"] for tm in runner_i.timings]
+    print(f"path I: {ms_epoch_i:.3f} ms per epoch (median), "
+          f"{launches_i['rollout']} rollout launches (K="
+          f"{int(runner_i.cfg.METHOD.K)}), first interval {per_i[0]:.3f} ms")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           f"card check")
     print(json.dumps({"kernels": rows}))

@@ -1,0 +1,96 @@
+// The OU equation's terminal -log of a diagonal Gaussian mixture, for one
+// point per warp: lane l holds dimensions 4l .. 4l + 3 (nx <= 128), the
+// component sums go through warp_sum. The counterpart of
+// deeppicarditeration_torch/distributions.py:DiagGaussianMixture (and of the
+// JAX package's), which the plain versions run:
+//   lp_k = log w_k - 0.5 (sum_j (y_j - m_kj)^2 / v_kj + n_k),
+//   n_k  = sum_j log v_kj + nx log 2 pi  (from the wrapper),
+//   g(y) = -logsumexp_k lp_k, grad g(y) = sum_k softmax(lp)_k (y - m_k) / v_k,
+// the logsumexp with its maximum subtracted, as torch.logsumexp does.
+
+#pragma once
+
+#include "philox.cuh"
+
+namespace dpi {
+
+constexpr int GMM_MAX_COMPONENTS = 8;
+
+// The mixture in shared memory: means and variances (K x nx), then the
+// log-weights and the normalisers n (K each).
+struct Gmm {
+  const float* means;
+  const float* vars;
+  const float* lw;
+  const float* norm;
+  int K, nx;
+};
+
+// lp_k for k < g.K at the warp's point y (this lane's 4 dimensions q)
+__device__ __forceinline__ void gmm_logits(const Gmm& g, const float (&y)[4],
+                                           int q,
+                                           float (&lp)[GMM_MAX_COMPONENTS]) {
+#pragma unroll
+  for (int k = 0; k < GMM_MAX_COMPONENTS; ++k) {
+    if (k >= g.K) break;
+    float part = 0.0f;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int j = 4 * q + r;
+      if (j < g.nx) {
+        const float d = y[r] - g.means[k * g.nx + j];
+        part += d * d / g.vars[k * g.nx + j];
+      }
+    }
+    lp[k] = g.lw[k] - 0.5f * (warp_sum(part) + g.norm[k]);
+  }
+}
+
+__device__ __forceinline__ float gmm_max(const Gmm& g,
+                                         const float (&lp)[GMM_MAX_COMPONENTS]) {
+  float m = lp[0];
+#pragma unroll
+  for (int k = 1; k < GMM_MAX_COMPONENTS; ++k)
+    if (k < g.K) m = fmaxf(m, lp[k]);
+  return m;
+}
+
+// g(y) = -logsumexp(lp)
+__device__ __forceinline__ float gmm_neg_log_prob(
+    const Gmm& g, const float (&lp)[GMM_MAX_COMPONENTS]) {
+  const float m = gmm_max(g, lp);
+  float s = 0.0f;
+#pragma unroll
+  for (int k = 0; k < GMM_MAX_COMPONENTS; ++k)
+    if (k < g.K) s += expf(lp[k] - m);
+  return -(logf(s) + m);
+}
+
+// the responsibilities softmax(lp), written to r[0 .. K)
+__device__ __forceinline__ void gmm_resp(const Gmm& g,
+                                         const float (&lp)[GMM_MAX_COMPONENTS],
+                                         float* r) {
+  const float m = gmm_max(g, lp);
+  float e[GMM_MAX_COMPONENTS], s = 0.0f;
+#pragma unroll
+  for (int k = 0; k < GMM_MAX_COMPONENTS; ++k) {
+    e[k] = k < g.K ? expf(lp[k] - m) : 0.0f;
+    s += e[k];
+  }
+#pragma unroll
+  for (int k = 0; k < GMM_MAX_COMPONENTS; ++k)
+    if (k < g.K) r[k] = e[k] / s;
+}
+
+// d/dy_j g(y) = sum_k r_k (y_j - m_kj) / v_kj
+__device__ __forceinline__ float gmm_grad(const Gmm& g, const float* r,
+                                          float yj, int j) {
+  float s = 0.0f;
+#pragma unroll
+  for (int k = 0; k < GMM_MAX_COMPONENTS; ++k)
+    if (k < g.K) s += r[k] * ((yj - g.means[k * g.nx + j]) /
+                              g.vars[k * g.nx + j]);
+  return s;
+}
+
+}  // namespace dpi

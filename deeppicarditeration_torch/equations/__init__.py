@@ -9,6 +9,7 @@ from deeppicarditeration_torch.equations.base import (
     register_equation,
 )
 from deeppicarditeration_torch.equations.burgers import Cha
+from deeppicarditeration_torch.equations.hjb import OUProcessEquation
 
 __all__ = [
     "EquationMethods",
@@ -18,4 +19,5 @@ __all__ = [
     "get_equation_cls",
     "make_equation",
     "Cha",
+    "OUProcessEquation",
 ]

@@ -15,6 +15,7 @@ takes an explicit ``torch.Generator`` where the JAX code takes a key.
 from __future__ import annotations
 
 import math
+import zlib
 from typing import Dict, Type
 
 import torch
@@ -32,9 +33,15 @@ def get_equation_cls(name: str):
     if name not in _EQUATION_REGISTRY:
         raise NotImplementedError(
             f"Equation {name!r} is not ported yet (known: "
-            f"{sorted(_EQUATION_REGISTRY)}); HJB and FN come in later "
-            "slices of the port")
+            f"{sorted(_EQUATION_REGISTRY)}); the FN family comes in a later "
+            "slice of the port")
     return _EQUATION_REGISTRY[name]
+
+
+def param_tag(name: str) -> int:
+    """Process-stable 31-bit tag that domain-separates a problem
+    parameter's key (crc32, never the salted built-in ``hash``)."""
+    return zlib.crc32(name.encode()) & 0x7FFFFFFF
 
 
 def make_equation(name: str, run_seed: int = 0, **kwargs):
@@ -59,6 +66,12 @@ class EquationMethods:
     @property
     def alpha_sqrt(self) -> float:
         return math.sqrt(self.alpha)
+
+    def to(self, device) -> "EquationMethods":
+        """This equation with its tensor parameters on ``device`` (itself
+        where it has none)."""
+        del device
+        return self
 
     def fff(self, t, x, y, z):
         """Nonlinearity in terms of z = Sigma^T u_x."""

@@ -1,8 +1,10 @@
 """Network construction from config (NETWORK.* keys).
 
-Counterpart of ``deeppicarditeration_tpu/models/factory.py`` for the plain
-``PicardSolution`` MLP. ``PicardSolutionEnforceTerminal`` and PISGradNet
-come with later slices.
+Counterpart of ``deeppicarditeration_tpu/models/factory.py``: the plain
+``PicardSolution`` MLP, the terminal-enforcing
+``PicardSolutionEnforceTerminal`` (u = g(x) + (T - t) net, Value type)
+and ``NETWORK.PISGRADNET`` (the HJB recipes' ``PISGradNet``, whose g0 is
+the OU equation's mixture terminal).
 """
 
 from __future__ import annotations
@@ -10,24 +12,32 @@ from __future__ import annotations
 import torch
 
 from deeppicarditeration_torch.config import wants_float64
-from deeppicarditeration_torch.models.networks import MLP
-from deeppicarditeration_torch.models.solution import Solution, output_dim_for
+from deeppicarditeration_torch.models.networks import (
+    MLP,
+    EnforceTerminal,
+    PISGradNet,
+)
+from deeppicarditeration_torch.models.solution import (
+    VALUE,
+    Solution,
+    output_dim_for,
+)
 
-_KNOWN_NETWORK_CLS = (None, "PicardSolution")
+_KNOWN_NETWORK_CLS = (None, "PicardSolution", "PicardSolutionEnforceTerminal")
 
 
-def build_network(cfg, eq, device, generator=None) -> MLP:
-    """The MLP described by cfg.NETWORK for equation eq, on ``device``,
+def _check_cls(cfg) -> None:
+    if cfg.NETWORK.cls not in _KNOWN_NETWORK_CLS:
+        raise ValueError(
+            f"Unknown solution class {cfg.NETWORK.cls!r} "
+            f"(known: {_KNOWN_NETWORK_CLS})")
+
+
+def build_network(cfg, eq, device, generator=None) -> torch.nn.Module:
+    """The network described by cfg.NETWORK for equation eq, on ``device``,
     initialized from ``generator``."""
     net_cfg = cfg.NETWORK
-    if net_cfg.cls == "PicardSolutionEnforceTerminal" or net_cfg.PISGRADNET:
-        raise NotImplementedError(
-            "terminal-enforcing nets (PicardSolutionEnforceTerminal, "
-            "PISGradNet) are not ported yet; they come with the HJB slice")
-    if net_cfg.cls not in _KNOWN_NETWORK_CLS:
-        raise ValueError(
-            f"Unknown solution class {net_cfg.cls!r} "
-            f"(known: {_KNOWN_NETWORK_CLS})")
+    _check_cls(cfg)
     if wants_float64(cfg.DATA.FLOAT):
         raise NotImplementedError(
             "DATA.FLOAT double is not ported yet; the port runs f32")
@@ -37,9 +47,26 @@ def build_network(cfg, eq, device, generator=None) -> MLP:
         raise ValueError(
             f"NETWORK.ACTIVATIONS has {len(activations)} entries for "
             f"{len(neurons)} NEURONS — lengths must match")
+    if net_cfg.PISGRADNET:
+        if net_cfg.TYPE != VALUE:
+            raise ValueError("PISGradNet is a value ansatz")
+        if getattr(eq, "gmm_means", None) is None:
+            raise NotImplementedError(
+                "PISGradNet's g0 is ported for the OU equation's mixture "
+                f"terminal only (got {type(eq).__name__})")
+        module = PISGradNet(eq.nx, neurons, (eq.gmm_means, eq.gmm_vars,
+                                             eq.gmm_log_weights),
+                            T=eq.T, generator=generator)
+        return module.to(device)
     module = MLP(1 + eq.nx, neurons, activations,
                  output_dim_for(net_cfg.TYPE, eq.nx), bound=net_cfg.BOUND,
                  generator=generator)
+    if net_cfg.cls == "PicardSolutionEnforceTerminal":
+        if net_cfg.TYPE != VALUE:
+            raise NotImplementedError(
+                f"PicardSolutionEnforceTerminal with TYPE {net_cfg.TYPE!r} "
+                "is not ported yet (only 'Value')")
+        module = EnforceTerminal(module, eq.to(device).g, T=eq.T)
     return module.to(device)
 
 
@@ -47,6 +74,13 @@ def init_solution(cfg, eq, device, generator=None) -> Solution:
     """A freshly initialized network wrapped as a Solution."""
     module = build_network(cfg, eq, device, generator)
     return Solution.from_net(module, cfg.NETWORK.TYPE, eq.nx)
+
+
+def is_enforce_terminal(cfg) -> bool:
+    """Does the ansatz anchor g itself (no terminal penalty needed)?"""
+    _check_cls(cfg)
+    return (cfg.NETWORK.cls == "PicardSolutionEnforceTerminal"
+            or bool(cfg.NETWORK.PISGRADNET))
 
 
 def freeze(module: torch.nn.Module) -> torch.nn.Module:

@@ -1,8 +1,8 @@
 """Monte-Carlo target generation: the computational core of DPI.
 
 Counterpart of ``deeppicarditeration_tpu/ops/estimators.py``, ported as far
-as the Burgers gradient-supervised recipes need. For each collocation point
-(t, x) and M samples the Picard target is
+as the Burgers and HJB gradient-supervised recipes need. For each
+collocation point (t, x) and M samples the Picard target is
 
     u_hat(t, x) = terminal + integral
     terminal = E[(g(X_T) - g(x)) (1, Y)] + (g(x), 0),   Y = dW / sqrt(T-t) / sqrt(a)
@@ -11,8 +11,9 @@ as the Burgers gradient-supervised recipes need. For each collocation point
 
 Two routes compute it (``generate_with_gradients``):
   * the merged estimator kernel (``ops/kernels.py``: a CUDA kernel on the
-    card, its plain version on the CPU), when both chains take the same M
-    and ``pallas_generate`` allows it;
+    card, ``generate.cu`` for Cha and ``generate_pis.cu`` for the OU
+    equation, their plain version on the CPU), when both chains take the
+    same M and ``pallas_generate`` allows it;
   * the split estimators ``estimate_terminal_with_gradients`` and
     ``estimate_integral_with_gradients``: each the standalone kernel of
     ``ops/kernels.py`` under ``pallas_terminal`` / ``pallas_integral``, else
@@ -37,15 +38,18 @@ from deeppicarditeration_torch.device import (
     resolve_device,
 )
 from deeppicarditeration_torch.equations.burgers import Cha
+from deeppicarditeration_torch.equations.hjb import OUProcessEquation
 from deeppicarditeration_torch.models.solution import Solution
 from deeppicarditeration_torch.ops.derivatives import get_f
 from deeppicarditeration_torch.ops.kernels import (
     check_precision,
+    generate_pis_cuda,
     generate_with_gradients_cuda,
     integral_with_gradients_cuda,
     kernel_net,
     normals_cuda,
     normals_plain,
+    pis_covers,
     terminal_with_gradients_cuda,
 )
 from deeppicarditeration_torch.ops.samplers import (
@@ -137,14 +141,17 @@ _ACT_BUDGET_ELEMS = 3 * 2 ** 28
 
 def _act_width(*sols) -> int:
     """Summed matmul output widths of the frozen nets a chunk runs (0 for
-    the zero solution): the act_width for GenConfig.chunk."""
+    the zero solution): the act_width for GenConfig.chunk, counted as the
+    JAX package counts its parameter leaves (the last dim of every leaf of
+    two or more dims: a Linear weight's out, PISGradNet's phase)."""
     w = 0
     for s in sols:
         if s is None or s.module is None:
             continue
-        for p in s.module.parameters():
+        for name, p in s.module.named_parameters():
             if p.ndim >= 2:
-                w += int(p.shape[0])  # Linear weight: (out, in)
+                w += int(p.shape[0] if name.endswith("weight")
+                         else p.shape[-1])
     return w
 
 
@@ -309,9 +316,13 @@ def generation_route(eq, sol: Solution, gen: GenConfig) -> str:
       * different terminal and integral M => SPLIT;
       * pallas_generate False => SPLIT, True => MERGED (the merged kernel
         raises on the card where it does not cover the net);
-      * "auto" => MERGED where the merged kernel covers the equation (Cha)
-        and the net (``kernel_net``), else SPLIT with a printed notice;
-        and SPLIT, silently, for the zero iterate at nx below
+      * "auto" => MERGED where a merged kernel covers the equation and the
+        net: for Cha ``generate.cu`` (``kernel_net``: ELU MLPs of width
+        128), for the OU equation ``generate_pis.cu`` (``pis_covers``: a
+        PISGradNet of width 512 in "default" or "bf16x3"); else SPLIT with
+        a printed notice (other PISGradNet widths, EnforceTerminal, plain
+        MLPs on OU, "highest" with a PISGradNet, antithetic pairing on
+        OU); and SPLIT, silently, for the zero iterate at nx below
         ZERO_ITERATE_MIN_NX, where the chunk estimators are faster."""
     mode = gen.pallas_generate
     if gen.n_estimate_terminal != gen.n_estimate_integral or mode is False:
@@ -322,8 +333,13 @@ def generation_route(eq, sol: Solution, gen: GenConfig) -> str:
         raise ValueError(f"pallas_generate must be False, True or 'auto' "
                          f"(got {mode!r})")
     reason = None
-    if not isinstance(eq, Cha):
-        reason = f"the merged kernel covers Cha only, not {type(eq).__name__}"
+    if isinstance(eq, OUProcessEquation):
+        why = pis_covers(eq, sol, gen.pallas_precision, gen.antithetic)
+        if why is not None:
+            reason = f"the OU merged kernel (generate_pis.cu): {why}"
+    elif not isinstance(eq, Cha):
+        reason = (f"the merged kernels cover Cha and the OU equation, not "
+                  f"{type(eq).__name__}")
     else:
         try:
             kernel_net(sol, sol.nx)
@@ -349,14 +365,16 @@ def generate_with_gradients(seed: int, eq, sol: Solution, tx: torch.Tensor,
             "it comes with the TD slice")
     if not _integral_kernel_applies(eq):
         raise NotImplementedError(
-            "only gradient-term equations are ported (Cha)")
+            "only gradient-term equations are ported (Cha, the OU "
+            "equation)")
     route = generation_route(eq, sol, gen)
     route_calls[route] += 1
     if route == MERGED:
-        return generate_with_gradients_cuda(seed, eq, sol, tx,
-                                            gen.n_estimate_terminal,
-                                            antithetic=gen.antithetic,
-                                            precision=gen.pallas_precision)
+        merged = (generate_pis_cuda if isinstance(eq, OUProcessEquation)
+                  else generate_with_gradients_cuda)
+        return merged(seed, eq, sol, tx, gen.n_estimate_terminal,
+                      antithetic=gen.antithetic,
+                      precision=gen.pallas_precision)
     g = estimate_terminal_with_gradients(derive_seed(seed, 1), eq, tx, gen)
     y = estimate_integral_with_gradients(derive_seed(seed, 2), eq, sol, tx,
                                          gen)

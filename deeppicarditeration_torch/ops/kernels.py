@@ -9,6 +9,8 @@ far, each from its TPU kernel there (the last two from
 wrapper                     source                TPU kernel
 ==========================  ====================  ==========================
 generate_with_gradients     csrc/generate.cu      _generate_kernel (merged)
+generate_pis                csrc/generate_pis.cu  _generate_kernel (merged),
+                                                  its OU + PISGradNet instance
 terminal_with_gradients     csrc/terminal.cu      _terminal_kernel
 integral_with_gradients     csrc/integral.cu      _integral_kernel
 normals                     csrc/normals.cu       _normals_kernel
@@ -18,7 +20,8 @@ probe                       csrc/probe.cu         _probe_kernel
 
 Shared device code: ``csrc/philox.cuh`` (Philox4x32-10, Box-Muller),
 ``csrc/value_mlp.cuh`` (the frozen value net's forward and backward pass in
-FP32 FMA) and ``csrc/value_mlp_tc.cuh`` (the same pass on the tensor cores).
+FP32 FMA), ``csrc/value_mlp_tc.cuh`` (the same pass on the tensor cores)
+and ``csrc/gmm.cuh`` (the OU equation's mixture terminal).
 
 Precision (``DATA.TPU.PALLAS_PRECISION``, the TPU kernels'
 ``mxu_precision``) of the frozen-net dots in the merged and the integral
@@ -43,6 +46,7 @@ or raises: there is no fallback. Each library object counts its launches in
 from __future__ import annotations
 
 import ctypes
+import math
 import hashlib
 import os
 import pathlib
@@ -56,7 +60,8 @@ import torch
 from torch import nn
 
 from deeppicarditeration_torch.equations.burgers import Cha
-from deeppicarditeration_torch.models.networks import MLP
+from deeppicarditeration_torch.equations.hjb import OUProcessEquation
+from deeppicarditeration_torch.models.networks import MLP, PISGradNet
 from deeppicarditeration_torch.models.solution import VALUE, Solution
 from deeppicarditeration_torch.ops.derivatives import get_f
 
@@ -226,13 +231,34 @@ def _declare_probe(lib: ctypes.CDLL) -> None:
     lib.dpi_probe_grid.restype = _I
 
 
+def _declare_generate_pis(lib: ctypes.CDLL) -> None:
+    lib.dpi_generate_pis.argtypes = [_P] * 12 + [_I] * 8 + [_U64] \
+        + [_F] * 7 + [_P]
+    lib.dpi_generate_pis.restype = _I
+    for name in ("hidden_width", "channels", "max_nx", "max_components"):
+        fn = getattr(lib, f"dpi_generate_pis_{name}")
+        fn.argtypes = []
+        fn.restype = _I
+    lib.dpi_generate_pis_image_elems.argtypes = [_I, _I]
+    lib.dpi_generate_pis_image_elems.restype = _I64
+    lib.dpi_generate_pis_vec_floats.argtypes = [_I, _I]
+    lib.dpi_generate_pis_vec_floats.restype = _I
+    lib.dpi_generate_pis_smem_bytes.argtypes = [_I] * 4
+    lib.dpi_generate_pis_smem_bytes.restype = _I64
+    lib.dpi_generate_pis_grid.argtypes = [_I] * 5
+    lib.dpi_generate_pis_grid.restype = _I
+    lib.dpi_generate_pis_scratch_floats.argtypes = [_I]
+    lib.dpi_generate_pis_scratch_floats.restype = _I64
+
+
 GENERATE = CudaLibrary("generate.cu", _declare_generate)
+GENERATE_PIS = CudaLibrary("generate_pis.cu", _declare_generate_pis)
 TERMINAL = CudaLibrary("terminal.cu", _declare_terminal)
 INTEGRAL = CudaLibrary("integral.cu", _declare_integral)
 NORMALS = CudaLibrary("normals.cu", _declare_normals)
 ROLLOUT = CudaLibrary("rollout.cu", _declare_rollout)
 PROBE = CudaLibrary("probe.cu", _declare_probe)
-ALL = (GENERATE, TERMINAL, INTEGRAL, NORMALS, ROLLOUT, PROBE)
+ALL = (GENERATE, GENERATE_PIS, TERMINAL, INTEGRAL, NORMALS, ROLLOUT, PROBE)
 
 
 # ---------------------------------------------------------------------------
@@ -345,14 +371,15 @@ def _check(name: str, v: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _on_card(name: str, tx: torch.Tensor, eq) -> None:
-    """Checks every CUDA wrapper makes before it launches."""
+def _on_card(name: str, tx: torch.Tensor, eq, covers=Cha) -> None:
+    """Checks every CUDA wrapper makes before it launches: a CUDA tensor
+    and the equation class the kernel is specialised to."""
     if tx.device.type != "cuda":
         raise ValueError(f"unsupported device {tx.device}")
-    if not isinstance(eq, Cha):
+    if not isinstance(eq, covers):
         raise NotImplementedError(
-            f"the CUDA {name} kernel covers the Cha equation only (got "
-            f"{type(eq).__name__}); other equations come in later slices")
+            f"the CUDA {name} kernel covers the {covers.__name__} equation "
+            f"only (got {type(eq).__name__})")
 
 
 def _ptr(v: Optional[torch.Tensor]):
@@ -473,11 +500,12 @@ def precision_dot(a: torch.Tensor, b: torch.Tensor,
     return _PrecisionDot.apply(a, b, precision)
 
 
-class _MlpAtPrecision(nn.Module):
-    """An MLP whose dots run in ``precision`` (the JAX package's swap of
-    the module's ``dot_general``, ``pallas_kernels._sol_statics``)."""
+class _AtPrecision(nn.Module):
+    """An MLP or a PISGradNet whose dots (every Dense of it) run in
+    ``precision`` (the JAX package's swap of the module's
+    ``dot_general``, ``pallas_kernels._sol_statics``)."""
 
-    def __init__(self, mod: MLP, precision: str):
+    def __init__(self, mod: nn.Module, precision: str):
         super().__init__()
         self.mod = mod
         self.precision = precision
@@ -488,12 +516,13 @@ class _MlpAtPrecision(nn.Module):
 
 
 def with_precision(sol: Solution, precision: str) -> Solution:
-    """``sol`` with its MLP's dots in ``precision``; the zero iterate, other
-    modules and "highest" are returned as they are."""
+    """``sol`` with its MLP's or PISGradNet's dots in ``precision``; the
+    zero iterate, other modules (which have no such knob in the JAX
+    package either) and "highest" are returned as they are."""
     if (check_precision(precision) == "highest" or sol.kind != "net"
-            or not isinstance(sol.module, MLP)):
+            or not isinstance(sol.module, (MLP, PISGradNet))):
         return sol
-    return Solution.from_net(_MlpAtPrecision(sol.module, precision),
+    return Solution.from_net(_AtPrecision(sol.module, precision),
                              sol.net_type, sol.nx)
 
 
@@ -691,6 +720,226 @@ def generate_with_gradients_cuda(seed: int, eq, sol: Solution,
         raise RuntimeError(f"dpi_generate launch failed: error {rc} (CUDA's, "
                            f"or value_mlp_tc.cuh's ERR_* from 10001)")
     GENERATE.count(precision)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the merged estimator's HJB instance: OU + PISGradNet (csrc/generate_pis.cu)
+# ---------------------------------------------------------------------------
+
+# the PISGradNet the kernel is built for (generate_pis.cu: HW, CH, MAX_NX)
+PIS_WIDTH, PIS_CHANNELS, PIS_MAX_NX = 512, 64, 128
+
+
+def _pad16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def pis_layer_shapes(n_hidden: int, nx: int):
+    """(N, K) of the kernel's products in the order it takes them
+    (generate_pis.cu:layer_nk): the gate S_0..S_L, the time encoder
+    T_0, T_1, the net N_0..N_{L-1} and its head, then backward the head^T,
+    N_{L-1}^T..N_1^T and the x columns of N_0^T; N padded to 128 or 512,
+    K to 16."""
+    L, c, w = n_hidden, PIS_CHANNELS, PIS_WIDTH
+    return ([(128, 2 * c)] + [(128, c)] * L + [(128, 2 * c), (128, c)]
+            + [(w, _pad16(c + nx))] + [(w, w)] * (L - 1) + [(128, w)]
+            + [(w, _pad16(nx))] + [(w, w)] * (L - 1) + [(128, w)])
+
+
+def _slab_image(w: torch.Tensor, n: int, k: int) -> torch.Tensor:
+    """(N, K) B operand, zero-padded to (n, k), as the kernel's k16 slabs:
+    per slab the bf16 hi image then the lo image, each of 8 x 8 core
+    matrices, core (row / 8, col % 16 / 8) at (row / 8 x 2 + col % 16 / 8)
+    x 64 elements (K-major, no swizzle)."""
+    pad = w.new_zeros((n, k))
+    pad[:w.shape[0], :w.shape[1]] = w
+    hi = pad.to(torch.bfloat16)
+    lo = (pad - hi.float()).to(torch.bfloat16)
+
+    def slabs(a):
+        return a.reshape(n // 8, 8, k // 16, 2, 8).permute(
+            2, 0, 3, 1, 4).reshape(k // 16, n * 16)
+
+    return torch.stack([slabs(hi), slabs(lo)], dim=1).reshape(-1)
+
+
+def pack_pis_tc(mod: PISGradNet, nx: int):
+    """The PIS kernel's net: (bf16 slab images in ``pis_layer_shapes``
+    order, f32 vector: the embedding's coefficients and phase, the gate's
+    biases S_0..S_L, its head's row 0 and bias 0, the encoder's biases,
+    the net's biases and its head's; generate_pis.cu:vec_layout)."""
+    L = len(mod.hidden_shapes)
+    sn, te, nn_ = list(mod.smooth_net), list(mod.t_encoder), \
+        list(mod.nn_module)
+    c = PIS_CHANNELS
+    mats = ([lin.weight for lin in sn[:L + 1]]
+            + [lin.weight for lin in te]
+            + [lin.weight for lin in nn_]
+            + [nn_[-1].weight.t()]
+            + [nn_[l].weight.t() for l in range(L - 1, 0, -1)]
+            + [nn_[0].weight[:, c:c + nx].t()])
+    shapes = pis_layer_shapes(L, nx)
+    img = torch.cat([_slab_image(w.detach().float(), n, k)
+                     for w, (n, k) in zip(mats, shapes)])
+    vec = ([mod.timestep_coeff.reshape(-1), mod.timestep_phase.reshape(-1)]
+           + [lin.bias for lin in sn[:L + 1]]
+           + [sn[L + 1].weight[0], sn[L + 1].bias[:1]]
+           + [lin.bias for lin in te] + [lin.bias for lin in nn_])
+    return (img.contiguous(),
+            torch.cat([v.detach().float().reshape(-1) for v in vec])
+            .contiguous())
+
+
+def pack_gmm(eq: OUProcessEquation) -> torch.Tensor:
+    """The mixture as the kernel reads it: means, vars (K, nx), log-weights
+    and the normalisers sum_j log v_kj + nx log 2 pi (K), flat f32."""
+    norm = (torch.sum(torch.log(eq.gmm_vars), dim=-1)
+            + eq.nx * math.log(2.0 * math.pi))
+    return torch.cat([eq.gmm_means.reshape(-1), eq.gmm_vars.reshape(-1),
+                      eq.gmm_log_weights.reshape(-1), norm]).float() \
+        .contiguous()
+
+
+def kernel_pis(sol: Solution, nx: int) -> Optional[PISGradNet]:
+    """The PISGradNet the PIS kernel runs for ``sol`` (None for the zero
+    iterate). Raises for a frozen iterate it does not cover."""
+    if sol.kind == "zero":
+        return None
+    mod = sol.module
+    if not (sol.kind == "net" and sol.net_type == VALUE
+            and isinstance(mod, PISGradNet)):
+        raise NotImplementedError(
+            "the CUDA PIS estimator kernel covers the zero iterate and "
+            f"PISGradNets only (got module={type(mod).__name__})")
+    if (not mod.hidden_shapes
+            or any(n != PIS_WIDTH for n in mod.hidden_shapes)
+            or mod.channels != PIS_CHANNELS or mod.dim != nx):
+        raise NotImplementedError(
+            f"the CUDA PIS estimator kernel covers PISGradNets of hidden "
+            f"width {PIS_WIDTH} and {PIS_CHANNELS} channels (got "
+            f"{mod.hidden_shapes}, {mod.channels} channels)")
+    if any(p.dtype != torch.float32 for p in mod.parameters()):
+        raise NotImplementedError("the CUDA PIS estimator kernel is f32 only")
+    return mod
+
+
+def pis_covers(eq, sol: Solution, precision: str, antithetic: bool):
+    """None where the PIS kernel covers (eq, sol) in ``precision``, else
+    why not (the structure alone, before any launch)."""
+    if not isinstance(eq, OUProcessEquation):
+        return f"it covers the OU equation, not {type(eq).__name__}"
+    if eq.nx > PIS_MAX_NX:
+        return f"nx={eq.nx} exceeds its {PIS_MAX_NX}"
+    if antithetic:
+        return "it has no antithetic pairing"
+    try:
+        kernel_pis(sol, eq.nx)
+    except NotImplementedError as e:
+        return str(e)
+    if sol.kind != "zero" and check_precision(precision) == "highest":
+        return "it has no FP32 ('highest') net pass"
+    return None
+
+
+def pis_sigma0(mod: PISGradNet, precision: str) -> float:
+    """S(e(0))[0], the gate's constant, in ``precision`` as the plain
+    version computes it."""
+    with torch.no_grad():
+        z = torch.zeros((1, 1), dtype=torch.float32,
+                        device=mod.timestep_phase.device)
+        dot = None
+        if precision != "highest":
+            def dot(a, b):
+                return precision_dot(a, b, precision)
+        return float(mod.smooth(mod.embedding(z), dot)[0, 0])
+
+
+def generate_pis_cuda(seed: int, eq, sol: Solution, tx: torch.Tensor,
+                      m: int, u01: Optional[torch.Tensor] = None,
+                      noise_t: Optional[torch.Tensor] = None,
+                      noise_i: Optional[torch.Tensor] = None, *,
+                      antithetic: bool = False,
+                      precision: str = "default",
+                      lib: Optional[CudaLibrary] = None) -> torch.Tensor:
+    """Merged terminal + integral estimator for the OU equation and a
+    PISGradNet (or the zero) iterate, (B, 1 + nx) f32: the PIS kernel for
+    CUDA tensors (Philox draws keyed by (seed, point), or external ``u01``
+    (B, m, 1), ``noise_t``/``noise_i`` (B, m, nx)), in ``precision``
+    "default" or "bf16x3"; ``generate_with_gradients_plain`` for CPU
+    tensors. Raises for what the kernel does not cover (``pis_covers``).
+    ``lib``: another build of ``generate_pis.cu`` (``utils/pis_bench.py``)
+    in place of ``GENERATE_PIS``."""
+    check_precision(precision)
+    if tx.device.type == "cpu":
+        return generate_with_gradients_plain(seed, eq, sol, tx, m, u01,
+                                             noise_t, noise_i,
+                                             antithetic=antithetic,
+                                             precision=precision)
+    _on_card("PIS estimator", tx, eq, OUProcessEquation)
+    why = pis_covers(eq, sol, precision, antithetic)
+    if why is not None:
+        raise NotImplementedError(f"the CUDA PIS estimator kernel: {why}")
+    b, nx = tx.shape[0], tx.shape[1] - 1
+    _check("tx", tx, (b, 1 + nx), tx.device)
+    ext = [v is not None for v in (u01, noise_t, noise_i)]
+    if any(ext) and not all(ext):
+        raise ValueError("external noise needs all of u01, noise_t, noise_i")
+    if all(ext):
+        _check("u01", u01, (b, m, 1), tx.device)
+        _check("noise_t", noise_t, (b, m, nx), tx.device)
+        _check("noise_i", noise_i, (b, m, nx), tx.device)
+    mod = kernel_pis(sol, nx)
+    has_net = int(mod is not None)
+    n_hidden = len(mod.hidden_shapes) if has_net else 0
+    mode = _TC_MODES.get(precision, _TC_MODES["bf16x3"])
+    ncomp = int(eq.gmm_means.shape[0])
+    lib = lib or GENERATE_PIS
+    dll = lib.lib()
+    if ncomp > dll.dpi_generate_pis_max_components():
+        raise NotImplementedError(
+            f"{ncomp} mixture components exceed the PIS kernel's "
+            f"{dll.dpi_generate_pis_max_components()}")
+    smem = dll.dpi_generate_pis_smem_bytes(nx, ncomp, has_net, mode)
+    if not 0 < smem <= MAX_SMEM_BYTES:
+        raise NotImplementedError(
+            f"the PIS kernel has no launch plan at nx={nx}, {ncomp} "
+            f"components, precision {precision!r}")
+    grid = dll.dpi_generate_pis_grid(nx, ncomp, has_net, mode, b)
+    if grid < 1:
+        raise RuntimeError("the PIS kernel found no grid on this card")
+    img = vec = scratch = None
+    sigma0 = 0.0
+    if has_net:
+        if next(mod.parameters()).device != tx.device:
+            raise ValueError("the frozen net must lie on the device of tx")
+        img, vec = pack_pis_tc(mod, nx)
+        if (img.numel() != dll.dpi_generate_pis_image_elems(nx, n_hidden)
+                or vec.numel() != dll.dpi_generate_pis_vec_floats(
+                    nx, n_hidden)):
+            raise RuntimeError("pack_pis_tc and generate_pis.cu disagree "
+                               "on the packed net's layout")
+        scratch = torch.empty(
+            grid * dll.dpi_generate_pis_scratch_floats(n_hidden),
+            dtype=torch.float32, device=tx.device)
+        sigma0 = pis_sigma0(mod, precision)
+    t = tx[:, :1].contiguous()
+    x = tx[:, 1:].contiguous()
+    g0 = eq.g(x).contiguous()
+    f0 = get_f(eq, sol, t, x).contiguous()
+    gmm = pack_gmm(eq).to(tx.device)
+    out = torch.empty((b, 1 + nx), dtype=torch.float32, device=tx.device)
+    rc = dll.dpi_generate_pis(
+        _ptr(t), _ptr(x), _ptr(g0), _ptr(f0), _ptr(img), _ptr(vec),
+        _ptr(gmm), _ptr(u01), _ptr(noise_t), _ptr(noise_i), _ptr(scratch),
+        _ptr(out), b, int(m), nx, n_hidden, has_net, ncomp, mode, grid,
+        _seed(seed), float(eq.T), float(eq.alpha_sqrt), float(eq.theta),
+        float(eq.mu), float(0.5 * eq.alpha), float(eq.nx * eq.theta),
+        sigma0, _stream(tx.device))
+    if rc != 0:
+        raise RuntimeError(f"dpi_generate_pis launch failed: error {rc} "
+                           "(CUDA's, or generate_pis.cu's ERR_* from 10001)")
+    lib.count(precision)
     return out
 
 
@@ -1040,6 +1289,20 @@ def probe_cuda(which: str, seed: int, iters: int, device,
         raise RuntimeError(f"dpi_probe launch failed: CUDA error {rc}")
     PROBE.launches += 1
     return out
+
+
+def generate_pis_macs_per_sample(nx: int, hidden, channels: int = 64) -> int:
+    """Multiply-adds of the PIS kernel's products per sample (unpadded):
+    the gate (S_0..S_L and its head's column 0), the time encoder, the
+    net's forward pass to its head and the backward pass of the cotangent
+    to the x columns of its input."""
+    c, h = channels, list(hidden)
+    gate = 2 * c * c + (len(h)) * c * c + c
+    enc = 2 * c * c + c * c
+    fwd = (c + nx) * h[0] + sum(a * b for a, b in zip(h, h[1:])) \
+        + h[-1] * nx
+    bwd = nx * h[-1] + sum(a * b for a, b in zip(h, h[1:])) + h[0] * nx
+    return gate + enc + fwd + bwd
 
 
 def generate_flops_per_sample(nx: int, neurons) -> int:

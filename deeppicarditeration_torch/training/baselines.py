@@ -38,7 +38,11 @@ from deeppicarditeration_torch.evaluation.evaluator import (
     eval_points,
     make_traced_eval,
 )
-from deeppicarditeration_torch.models.factory import freeze, init_solution
+from deeppicarditeration_torch.models.factory import (
+    freeze,
+    init_solution,
+    is_enforce_terminal,
+)
 from deeppicarditeration_torch.models.solution import Solution
 from deeppicarditeration_torch.ops.rollout import brownian_paths
 from deeppicarditeration_torch.training import checkpoint as ckpt
@@ -158,9 +162,9 @@ def train_diffusion(runner):
     module = init_solution(
         cfg, eq, runner.device,
         make_generator(torch.device("cpu"), runner.seed, runner.i, 0)).module
-    # no terminal-enforcing ansatz here (build_network rejects them), so the
-    # terminal penalty always applies
-    terminal_weight = float(cfg.TRAIN.LOSS.beta)
+    # a terminal-enforcing ansatz needs no terminal penalty
+    terminal_weight = (0.0 if is_enforce_terminal(cfg)
+                       else float(cfg.TRAIN.LOSS.beta))
     optimizer = torch.optim.Adam(
         module.parameters(), lr=BASELINE_LR,
         capturable=runner.device.type == "cuda")

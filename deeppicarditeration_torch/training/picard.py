@@ -16,7 +16,8 @@ iteration.
 Random streams: the JAX package splits keys; here each stream is a
 ``torch.Generator`` seeded from ``derive_seed(SEED, iteration, purpose,
 ...)``. METHOD.cls Diffusion runs the D-DBSDE baseline
-(``training/baselines.py``) in place of the Picard steps. Not ported yet:
+(``training/baselines.py``) in place of the Picard steps; OptimalControl
+and DeepNesting run the Picard steps, as in the JAX runner. Not ported yet:
 RESUME, offline datasets and DATA.SAVE, the TwoLayer formula, the PINN and
 DBDP baselines, multi-device runs, plots.
 """
@@ -104,10 +105,16 @@ def gen_config_from_cfg(cfg) -> GenConfig:
     )
 
 
+# METHOD.cls values that run the Picard loop: the HJB recipes' "optimal
+# control" and "deep nesting" names have no solver of their own in the
+# JAX package either and fall through to it
+PICARD_METHODS = ("Picard", "OptimalControl", "DeepNesting")
+
+
 def _reject_unported(cfg) -> None:
     """Fail loudly on recipe features this slice of the port lacks."""
     checks = [
-        (cfg.METHOD.cls not in ("Picard", "Diffusion"),
+        (cfg.METHOD.cls not in PICARD_METHODS + ("Diffusion",),
          f"METHOD.cls {cfg.METHOD.cls!r}"),
         (cfg.PICARD.FORMULA is not None,
          f"PICARD.FORMULA {cfg.PICARD.FORMULA!r}"),
@@ -181,8 +188,9 @@ class PicardRunner:
         if prec in _MATMUL_PRECISION:
             torch.set_float32_matmul_precision(_MATMUL_PRECISION[prec])
         self.dtype = torch.float32
-        self.equation = make_equation(cfg.EQUATION.cls, run_seed=self.seed,
-                                      **(cfg.EQUATION.kwargs or {}))
+        self.equation = make_equation(
+            cfg.EQUATION.cls, run_seed=self.seed,
+            **(cfg.EQUATION.kwargs or {})).to(self.device)
         eq = self.equation
         self.supervise_gradient = bool(cfg.TRAIN.SUPERVISE_GRADIENT
                                        or eq.has_gradient_term)

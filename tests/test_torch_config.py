@@ -19,6 +19,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 W1 = ROOT / "configs/burgers/base_100d_T1.0_w1.0.yaml"
 BEST = ROOT / "configs/burgers/base_100d_T1.0_w1.0_best.yaml"
 DIFFUSION = ROOT / "configs/burgers/diffusion_100d_T1.0_beta10.0.yaml"
+HJB = ROOT / "configs/hjb/base_100d_T1.0_w0.1.yaml"
+HJB_DIFFUSION = ROOT / "configs/hjb/diffusion_100d_T1.0.yaml"
 
 
 def _without_device(d):
@@ -118,6 +120,62 @@ def test_chip_smoke_path_e_equals_the_diffusion_yaml():
         DIFFUSION, overrides).to_dict()
     cut = chip_smoke.diffusion_cfg(chip_smoke.DIFFUSION_EPOCHS).to_dict()
     assert cut["TRAIN"].pop("N_EPOCHS") == 3000
+    full = port.to_dict()
+    full["TRAIN"].pop("N_EPOCHS")
+    assert cut == full
+
+
+@pytest.mark.parametrize("name", ["base_100d_T1.0_w0.1.yaml",
+                                  "diffusion_100d_T1.0.yaml",
+                                  "hjb_control_100d_T1.0.yaml",
+                                  "hjb_nest_10d_T1.0_w1.0.yaml"])
+def test_load_cfg_matches_jax_on_the_hjb_recipes(name):
+    path = ROOT / "configs/hjb" / name
+    assert (_without_device(tconfig.load_cfg(path).to_dict())
+            == jax_load_cfg(path).to_dict())
+
+
+@pytest.mark.parametrize("path", ["H", "J"])
+def test_chip_smoke_hjb_recipes_equal_the_yaml(path):
+    """Path H is configs/hjb/base_100d_T1.0_w0.1.yaml as it stands (J with
+    bf16x3); both packages load it to the same tree and map its DATA.TPU
+    flags alike (PALLAS_PRECISION default)."""
+    import chip_smoke
+    from deeppicarditeration_torch.training.picard import (
+        gen_config_from_cfg,
+    )
+    from deeppicarditeration_tpu.training.picard import (
+        gen_config_from_cfg as jax_gen_config_from_cfg,
+    )
+
+    overrides = list(chip_smoke.PATHS[path][1])
+    port = tconfig.load_cfg(HJB, overrides)
+    assert chip_smoke.path_cfg(path, 40).to_dict() == port.to_dict()
+    jcfg = jax_load_cfg(HJB, overrides)
+    assert _without_device(port.to_dict()) == jcfg.to_dict()
+    gen, jgen = gen_config_from_cfg(port), jax_gen_config_from_cfg(jcfg, 1)
+    assert gen.pallas_precision == ("default" if path == "H" else "bf16x3")
+    for field in ("n_estimate_terminal", "n_estimate_integral",
+                  "pallas_generate", "pallas_precision", "chunk_elems",
+                  "antithetic"):
+        assert getattr(gen, field) == getattr(jgen, field), field
+
+
+def test_chip_smoke_path_i_equals_the_hjb_diffusion_yaml():
+    """Path I is configs/hjb/diffusion_100d_T1.0.yaml as it stands;
+    ``--hjb-epochs 15000`` gives the recipe's own budget."""
+    import chip_smoke
+
+    assert list(chip_smoke.PATHS["I"][1]) == []
+    port = tconfig.load_cfg(HJB_DIFFUSION)
+    assert chip_smoke.hjb_diffusion_cfg(15000).to_dict() == port.to_dict()
+    assert (port.METHOD.cls, port.METHOD.K, port.NETWORK.PISGRADNET) == (
+        "Diffusion", 50, False)
+    assert _without_device(port.to_dict()) == jax_load_cfg(
+        HJB_DIFFUSION).to_dict()
+    cut = chip_smoke.hjb_diffusion_cfg(
+        chip_smoke.HJB_DIFFUSION_EPOCHS).to_dict()
+    assert cut["TRAIN"].pop("N_EPOCHS") == 2000
     full = port.to_dict()
     full["TRAIN"].pop("N_EPOCHS")
     assert cut == full

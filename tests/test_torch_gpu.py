@@ -9,6 +9,8 @@ is installed:
 (``--noconftest``: the suite's conftest.py imports JAX.)
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -296,10 +298,11 @@ def test_split_route_launch_counts(cuda):
                         pallas_generate=False, tpu_prng=True,
                         chunk_elems=8 * 100 * 16)
     est.generate_with_gradients(5, eq, sol, tx, gen)
-    d = [lib.launches - c for lib, c in zip(kernels.ALL, c0)]
-    # GENERATE, TERMINAL, INTEGRAL, NORMALS (4 + 4 chunks of 16 samples),
-    # ROLLOUT, PROBE
-    assert d == [0, 1, 1, 8, 0, 0], d
+    d = {lib.source.stem: lib.launches - c
+         for lib, c in zip(kernels.ALL, c0)}
+    # the normals kernel: 4 + 4 chunks of 16 samples; no other kernel
+    assert d == {"generate": 0, "generate_pis": 0, "terminal": 1,
+                 "integral": 1, "normals": 8, "rollout": 0, "probe": 0}, d
 
 
 # ---- the tensor-core net pass (csrc/value_mlp_tc.cuh) -----------------------
@@ -616,3 +619,123 @@ def test_failed_capture_raises(cuda):
         step()
     assert step.graph is None and step.replays == 0
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the HJB instance of the merged kernel: OU + PISGradNet (generate_pis.cu)
+# ---------------------------------------------------------------------------
+
+# max |kernel - plain| over max |plain| (at least 1), for the value column
+# and for the gradient columns: f32 sums in another order, and under the
+# one-pass mode a bf16 rounding that an f32 difference can flip
+PIS_REL_TOL = {"bf16x3": 1e-4, "default": 1e-3}
+
+
+def pis_rel_err(out, ref):
+    """(value column, gradient columns) relative errors of PIS_REL_TOL."""
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
+
+    return rel(out[:, :1], ref[:, :1]), rel(out[:, 1:], ref[:, 1:])
+
+
+def _pis_problem(cuda, b, m, nx=100, net=True, seed=0, hidden=(512,) * 4):
+    from deeppicarditeration_torch.models.networks import PISGradNet
+
+    g = torch.Generator().manual_seed(seed)
+    eq = make_equation("OUProcessEquation", nx=nx, num_components=5,
+                       seed=seed).to(cuda)
+    sol = Solution.zero(nx)
+    if net:
+        mod = PISGradNet(nx, hidden, (eq.gmm_means, eq.gmm_vars,
+                                      eq.gmm_log_weights), generator=g)
+        with torch.no_grad():  # a phase and a gate away from their init
+            mod.timestep_phase.normal_(generator=g)
+        sol = Solution.from_net(mod.to(cuda), "Value", nx)
+    t = torch.rand((b, 1), generator=g) * 0.99
+    x = torch.randn((b, nx), generator=g) * (2.0 * (1.0 + t).sqrt())
+    tx = torch.cat([t, x], 1).to(cuda)
+    u01 = torch.rand((b, m, 1), generator=g).to(cuda)
+    nt = torch.randn((b, m, nx), generator=g).to(cuda)
+    ni = torch.randn((b, m, nx), generator=g).to(cuda)
+    return eq, sol, tx, u01, nt, ni
+
+
+@pytest.mark.parametrize("precision", ["default", "bf16x3"])
+@pytest.mark.parametrize("net,m,nx", [(True, 100, 100), (False, 64, 100),
+                                      (True, 64, 37)])
+def test_pis_kernel_matches_plain_at_full_width(cuda, precision, net, m,
+                                                nx):
+    """The PIS kernel on the 4x512 PISGradNet (and the zero iterate)
+    against the plain version in the same mode on the same noise, with a
+    ragged last tile (m = 100) and nx not a multiple of 16."""
+    eq, sol, tx, u01, nt, ni = _pis_problem(cuda, 8, m, nx, net)
+    n0 = kernels.GENERATE_PIS.launches
+    out = kernels.generate_pis_cuda(0, eq, sol, tx, m, u01, nt, ni,
+                                    precision=precision)
+    assert kernels.GENERATE_PIS.launches == n0 + 1
+    ref = kernels.generate_with_gradients_plain(0, eq, sol, tx, m, u01, nt,
+                                                ni, precision=precision)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    ev, eg = pis_rel_err(out, ref)
+    assert ev <= PIS_REL_TOL[precision] and eg <= PIS_REL_TOL[precision], \
+        (ev, eg)
+
+
+@pytest.mark.parametrize("precision", ["default", "bf16x3"])
+def test_pis_kernel_draws_equal_the_host_philox(cuda, precision):
+    """Its own draws equal the host Philox's (ops/philox.py): the kernel
+    on its draws against the plain version fed the host's, at the first
+    and last points; and it is deterministic."""
+    b, m, nx, seed = 16, 128, 100, (7 << 32) | 5
+    eq, sol, tx, *_ = _pis_problem(cuda, b, m, nx)
+    pts = [0, 1, b - 2, b - 1]
+
+    def host(a):
+        return torch.from_numpy(a).to(cuda)
+
+    u = host(philox.estimator_times(seed, pts, m))
+    nt = host(philox.estimator_normals(seed, pts, m, nx,
+                                       philox.STREAM_TERMINAL))
+    ni = host(philox.estimator_normals(seed, pts, m, nx,
+                                       philox.STREAM_INTEGRAL))
+    out = kernels.generate_pis_cuda(seed, eq, sol, tx, m,
+                                    precision=precision)
+    ref = kernels.generate_with_gradients_plain(0, eq, sol, tx[pts], m, u,
+                                                nt, ni, precision=precision)
+    torch.cuda.synchronize()
+    ev, eg = pis_rel_err(out[pts], ref)
+    assert ev <= PIS_REL_TOL[precision] and eg <= PIS_REL_TOL[precision], \
+        (ev, eg)
+    assert torch.equal(out, kernels.generate_pis_cuda(seed, eq, sol, tx, m,
+                                                      precision=precision))
+
+
+def test_pis_forced_merged_route_raises_where_the_kernel_does_not_cover(
+        cuda):
+    """A forced PALLAS_GENERATE: true raises on the card for "highest"
+    with a PISGradNet, other widths and antithetic pairing; "auto" takes
+    the split route for them (and the kernel where it covers)."""
+    eq, sol, tx, *_ = _pis_problem(cuda, 4, 64)
+    _, narrow, *_ = _pis_problem(cuda, 4, 64, hidden=(64,) * 4)
+    forced = est.GenConfig(n_estimate_terminal=64, n_estimate_integral=64,
+                           pallas_generate=True, pallas_precision="highest")
+    with pytest.raises(NotImplementedError, match="highest"):
+        est.generate_with_gradients(0, eq, sol, tx, forced)
+    for gen, s in ((dataclasses.replace(forced,
+                                            pallas_precision="default"),
+                    narrow),
+                   (dataclasses.replace(forced, antithetic=True,
+                                            pallas_precision="default"),
+                    sol)):
+        with pytest.raises(NotImplementedError):
+            est.generate_with_gradients(0, eq, s, tx, gen)
+        assert est.generation_route(
+            eq, s, dataclasses.replace(gen, pallas_generate="auto")) \
+            == est.SPLIT
+    auto = dataclasses.replace(forced, pallas_generate="auto",
+                                   pallas_precision="default")
+    n0 = kernels.GENERATE_PIS.launches
+    est.generate_with_gradients(0, eq, sol, tx, auto)
+    assert kernels.GENERATE_PIS.launches == n0 + 1

@@ -457,6 +457,46 @@ def test_auto_route_by_structure(nx, neurons):
     assert est.generation_route(teq, sol, gen) == want
 
 
+@pytest.mark.parametrize("case,want", [
+    ("zero nx100", est.MERGED), ("zero nx10", est.SPLIT),
+    ("pis512 default", est.MERGED), ("pis512 bf16x3", est.MERGED),
+    ("pis512 highest", est.SPLIT), ("pis64 default", est.SPLIT),
+    ("enforce default", est.SPLIT), ("mlp default", est.SPLIT),
+    ("pis512 antithetic", est.SPLIT)])
+def test_auto_route_by_structure_hjb(case, want, capsys, monkeypatch):
+    """The HJB cells of the route "auto" takes: the PIS kernel
+    (generate_pis.cu) for the OU equation with the zero iterate at
+    nx >= 32, or with a PISGradNet of width 512 in "default" or "bf16x3";
+    the split route, with its notice, for what it does not cover (other
+    PISGradNet widths, EnforceTerminal, plain MLPs, "highest" with a
+    PISGradNet, antithetic pairing); decided from the structure alone."""
+    from deeppicarditeration_torch.models.networks import (
+        EnforceTerminal,
+        PISGradNet,
+    )
+
+    kind, mode = case.split()
+    nx = 10 if kind == "zero" and mode == "nx10" else 100
+    teq = make_equation("OUProcessEquation", nx=nx, num_components=5)
+    gmm = (teq.gmm_means, teq.gmm_vars, teq.gmm_log_weights)
+    mods = {"pis512": lambda: PISGradNet(nx, (512,) * 4, gmm),
+            "pis64": lambda: PISGradNet(nx, (64,) * 4, gmm),
+            "enforce": lambda: EnforceTerminal(
+                MLP(1 + nx, (64,), ("ELU",), 1), teq.g),
+            "mlp": lambda: MLP(1 + nx, (64,), ("ELU",), 1)}
+    sol = (Solution.zero(nx) if kind == "zero"
+           else Solution.from_net(mods[kind](), "Value", nx))
+    gen = est.GenConfig(
+        n_estimate_terminal=64, n_estimate_integral=64,
+        antithetic=mode == "antithetic",
+        pallas_precision=("default" if mode in ("antithetic", "nx100",
+                                                "nx10") else mode))
+    monkeypatch.setattr(est, "_FALLBACK_NOTICED", set())
+    assert est.generation_route(teq, sol, gen) == want
+    noticed = "using the split estimators" in capsys.readouterr().out
+    assert noticed == (want == est.SPLIT and kind != "zero")
+
+
 def test_runner_maps_the_flags_and_counts_routes(tmp_path, capsys,
                                                  monkeypatch):
     (tmp_path / "tiny.yaml").write_text(TINY_SPLIT_YAML)
