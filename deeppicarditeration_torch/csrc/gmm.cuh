@@ -1,48 +1,55 @@
 // The OU equation's terminal -log of a diagonal Gaussian mixture, for one
-// point per warp: lane l holds dimensions 4l .. 4l + 3 (nx <= 128), the
-// component sums go through warp_sum. The counterpart of
-// deeppicarditeration_torch/distributions.py:DiagGaussianMixture (and of the
-// JAX package's), which the plain versions run:
+// point per 4 lanes: each lane adds a share of the point's dimensions, the
+// component sums go through two shuffles. The
+// counterpart of deeppicarditeration_torch/distributions.py:
+// DiagGaussianMixture (and of the JAX package's), which the plain versions
+// run:
 //   lp_k = log w_k - 0.5 (sum_j (y_j - m_kj)^2 / v_kj + n_k),
 //   n_k  = sum_j log v_kj + nx log 2 pi  (from the wrapper),
 //   g(y) = -logsumexp_k lp_k, grad g(y) = sum_k softmax(lp)_k (y - m_k) / v_k,
-// the logsumexp with its maximum subtracted, as torch.logsumexp does.
+// the logsumexp with its maximum subtracted, as torch.logsumexp does; the
+// divisions by v_kj are products with 1 / v_kj, inverted once per block.
 
 #pragma once
-
-#include "philox.cuh"
 
 namespace dpi {
 
 constexpr int GMM_MAX_COMPONENTS = 8;
 
-// The mixture in shared memory: means and variances (K x nx), then the
-// log-weights and the normalisers n (K each).
+// The mixture in shared memory: means and inverse variances (K x nx), then
+// the log-weights and the normalisers n (K each).
 struct Gmm {
   const float* means;
-  const float* vars;
+  const float* ivars;
   const float* lw;
   const float* norm;
   int K, nx;
 };
 
-// lp_k for k < g.K at the warp's point y (this lane's 4 dimensions q)
-__device__ __forceinline__ void gmm_logits(const Gmm& g, const float (&y)[4],
-                                           int q,
-                                           float (&lp)[GMM_MAX_COMPONENTS]) {
+// Coordinate j of a point at y, into the partial sums of its logits
+// (part[k] += (y - m_kj)^2 / v_kj)
+__device__ __forceinline__ void gmm_add(const Gmm& g, int j, float y,
+                                        float (&part)[GMM_MAX_COMPONENTS]) {
 #pragma unroll
   for (int k = 0; k < GMM_MAX_COMPONENTS; ++k) {
     if (k >= g.K) break;
-    float part = 0.0f;
+    const float d = y - g.means[k * g.nx + j];
+    part[k] = fmaf(d * d, g.ivars[k * g.nx + j], part[k]);
+  }
+}
+
+// The logits of a point whose coordinates 4 lanes (4 i .. 4 i + 3 of a
+// warp) have added to their partial sums: the 4 sums added (the same on
+// each lane), then lp_k.
+__device__ __forceinline__ void group_logits(
+    const Gmm& g, float (&part)[GMM_MAX_COMPONENTS],
+    float (&lp)[GMM_MAX_COMPONENTS]) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int j = 4 * q + r;
-      if (j < g.nx) {
-        const float d = y[r] - g.means[k * g.nx + j];
-        part += d * d / g.vars[k * g.nx + j];
-      }
-    }
-    lp[k] = g.lw[k] - 0.5f * (warp_sum(part) + g.norm[k]);
+  for (int k = 0; k < GMM_MAX_COMPONENTS; ++k) {
+    if (k >= g.K) break;
+    part[k] += __shfl_xor_sync(0xffffffffu, part[k], 1);
+    part[k] += __shfl_xor_sync(0xffffffffu, part[k], 2);
+    lp[k] = g.lw[k] - 0.5f * (part[k] + g.norm[k]);
   }
 }
 
@@ -83,13 +90,14 @@ __device__ __forceinline__ void gmm_resp(const Gmm& g,
 }
 
 // d/dy_j g(y) = sum_k r_k (y_j - m_kj) / v_kj
-__device__ __forceinline__ float gmm_grad(const Gmm& g, const float* r,
+__device__ __forceinline__ float gmm_grad(const Gmm& g,
+                                          const float (&r)[GMM_MAX_COMPONENTS],
                                           float yj, int j) {
   float s = 0.0f;
 #pragma unroll
   for (int k = 0; k < GMM_MAX_COMPONENTS; ++k)
-    if (k < g.K) s += r[k] * ((yj - g.means[k * g.nx + j]) /
-                              g.vars[k * g.nx + j]);
+    if (k < g.K) s += r[k] * ((yj - g.means[k * g.nx + j]) *
+                              g.ivars[k * g.nx + j]);
   return s;
 }
 

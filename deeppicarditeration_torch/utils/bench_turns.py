@@ -88,7 +88,7 @@ def report_builds(sources: Sequence[str], libs: Sequence, sass: Callable):
     power limit."""
     for lib, name in zip(libs, sources):
         info = [ln.strip() for ln in lib.build_log.splitlines()
-                if "registers" in ln or "spill" in ln]
+                if "registers" in ln or "spill" in ln or "wgmma" in ln]
         try:
             mix = sass(lib)
         except RuntimeError as e:

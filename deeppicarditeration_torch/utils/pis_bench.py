@@ -16,11 +16,19 @@ gradient columns). Prints one JSON line per source and mode, each build's
 ptxas lines and the counts of HGMMA (wgmma), STL and LDL (local-memory
 stores and loads: spills) in its SASS, and the card's name and power
 limit. Needs a CUDA card: there is no CPU mode.
+
+``--stamps``: for each build that exports ``dpi_generate_pis_stamps``
+(a variant with ``clock64()`` stamps, kept out of the repository), one
+launch per mode and the cycles of each stamped phase per 64-sample tile,
+summed over the grid's blocks (``dpi_generate_pis_stamp_names`` names
+them).
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
+import json
 import re
 
 import torch
@@ -48,16 +56,44 @@ def _rel(a, b) -> float:
 
 
 def sass_counts(lib: kernels.CudaLibrary) -> dict:
-    """HGMMA, STL and LDL instructions in the SASS of ``lib``'s kernels."""
+    """HGMMA, WARPGROUP.DEPBAR, STL and LDL instructions in the SASS of
+    ``lib``'s kernels."""
     sass = library_sass(lib)
-    return {op: len(re.findall(rf"\b{op}\b", sass))
-            for op in ("HGMMA", "STL", "LDL")}
+    return {op: len(re.findall(rf"\b{re.escape(op)}\b", sass))
+            for op in ("HGMMA", "WARPGROUP.DEPBAR", "STL", "LDL")}
+
+
+def stamps(name: str, mode: str, lib: kernels.CudaLibrary, call) -> None:
+    """One launch of ``call`` and the cycles per tile of each stamped
+    phase of ``lib``'s build, printed as one JSON line (nothing for a build
+    without stamps)."""
+    dll = lib.lib()
+    if not hasattr(dll, "dpi_generate_pis_stamps"):
+        return
+    dll.dpi_generate_pis_stamps.argtypes = [ctypes.c_void_p]
+    dll.dpi_generate_pis_stamp_names.restype = ctypes.c_char_p
+    names = dll.dpi_generate_pis_stamp_names().decode().split(",")
+    buf = (ctypes.c_ulonglong * len(names))()
+    for _ in range(2):  # the first clears what earlier launches left
+        if dll.dpi_generate_pis_stamps(buf):
+            raise RuntimeError("dpi_generate_pis_stamps failed")
+        call()
+    if dll.dpi_generate_pis_stamps(buf):
+        raise RuntimeError("dpi_generate_pis_stamps failed")
+    sums = dict(zip(names, buf))
+    tiles = max(sums.get("tiles", 0), 1)
+    print(json.dumps({"source": name, "precision": mode,
+                      "stamps_cycles_per_tile": {
+        k: round(v / tiles, 1) for k, v in sums.items() if k != "tiles"},
+        "tiles": tiles}), flush=True)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--source", nargs="*",
                     default=[str(kernels.GENERATE_PIS.source)])
+    ap.add_argument("--stamps", action="store_true",
+                    help="print the stamped builds' phases per tile")
     args = ap.parse_args(argv)
     libs = build_sources(args.source, kernels._declare_generate_pis)
     dev = torch.device("cuda")
@@ -77,6 +113,9 @@ def main(argv=None):
 
         calls = [lambda lib=lib, mode=mode: kernels.generate_pis_cuda(
             SEED, eq, sol, tx, M, precision=mode, lib=lib) for lib in libs]
+        if args.stamps:
+            for name, lib, call in zip(args.source, libs, calls):
+                stamps(name, mode, lib, call)
         results += in_turns({"precision": mode, "B": B, "M": M, "nx": NX},
                             args.source, calls, agree, REPS)
     report_builds(args.source, libs, sass_counts)

@@ -712,6 +712,51 @@ def test_pis_kernel_draws_equal_the_host_philox(cuda, precision):
                                                       precision=precision))
 
 
+@pytest.mark.parametrize("precision", ["default", "bf16x3"])
+@pytest.mark.parametrize("net,b,m,nx", [
+    (True, 3, 1, 1),      # one sample: a tile of one live row
+    (True, 5, 65, 16),    # a live row past the first tile
+    (True, 7, 130, 128),  # nx at its limit: the fewest ring stages
+    (True, 133, 33, 37),  # B past the grid, not a multiple of it
+    (False, 3, 100, 128),
+    (False, 133, 17, 1),
+])
+def test_pis_kernel_matches_plain_at_its_boundaries(cuda, precision, net, b,
+                                                    m, nx):
+    """The PIS kernel against the plain version in the same mode on the
+    same noise where its schedule has edges: M not a multiple of the
+    64-row tile, nx from 1 (one quad of one lane of a draw's four) to 128
+    (a lane's eight quads; the largest tiles and the fewest stages), B
+    below and past the persistent grid, and the zero iterate."""
+    eq, sol, tx, u01, nt, ni = _pis_problem(cuda, b, m, nx, net)
+    out = kernels.generate_pis_cuda(0, eq, sol, tx, m, u01, nt, ni,
+                                    precision=precision)
+    ref = kernels.generate_with_gradients_plain(0, eq, sol, tx, m, u01, nt,
+                                                ni, precision=precision)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    ev, eg = pis_rel_err(out, ref)
+    assert ev <= PIS_REL_TOL[precision] and eg <= PIS_REL_TOL[precision], \
+        (ev, eg)
+
+
+@pytest.mark.parametrize("precision", ["default", "bf16x3"])
+def test_pis_kernel_is_deterministic(cuda, precision):
+    """Two launches on its own draws are bit-equal, with two and three
+    points on a block and a ragged last tile: every sum over draws, rows
+    and warps runs in a fixed order."""
+    b, m = 300, 200
+    eq, sol, tx, *_ = _pis_problem(cuda, b, m)
+    seed = (3 << 32) | 11
+    first = kernels.generate_pis_cuda(seed, eq, sol, tx, m,
+                                      precision=precision)
+    second = kernels.generate_pis_cuda(seed, eq, sol, tx, m,
+                                       precision=precision)
+    torch.cuda.synchronize()
+    assert torch.isfinite(first).all()
+    assert torch.equal(first, second)
+
+
 def test_pis_forced_merged_route_raises_where_the_kernel_does_not_cover(
         cuda):
     """A forced PALLAS_GENERATE: true raises on the card for "highest"
