@@ -6,6 +6,8 @@
     python3 chip_smoke.py --iterations 100  # the DPI recipes' full budget
     python3 chip_smoke.py --epochs 35000    # the D-DBSDE recipe's full budget
     python3 chip_smoke.py --hjb-epochs 15000  # path I's full budget
+    python3 chip_smoke.py --fn-iterations 40  # path K's full budget
+    python3 chip_smoke.py --dbdp-sub-iter recipe  # paths M, N in full
 
 Paths (the Burgers 100-d w1.0 recipe through ``PicardRunner`` at full
 width: nx=100, 4x128 ELU net, B=4096 points from the path's sampler; A-D
@@ -37,13 +39,27 @@ TRAIN.FUSED's "auto"):
   J  H with PALLAS_PRECISION bf16x3;
   I  configs/hjb/diffusion_100d_T1.0.yaml, the D-DBSDE baseline on the OU
      equation (K=50, a plain 4x512 ELU net, beta 10): one rollout launch
-     per epoch; cut to 2000 of its 15 000 epochs (``--hjb-epochs``).
+     per epoch; cut to 2000 of its 15 000 epochs (``--hjb-epochs``);
+  K  configs/fully_nonlinear/base_100d_T1.0_w0.0_nov.yaml (the FN family:
+     GBMEquationComplexExact, B = 2048, M = 1024 + 1024, SDGD v = 100,
+     the 3x64 ELU net, HESSIAN_STORE bf16, the eval with the full Hessian):
+     the split route every call, the chunk estimators in plain PyTorch (no
+     kernel); cut to 3 iterations (``--fn-iterations``);
+  L  K with DATA.TPU.PRNG true: the chunks' normals from ``normals.cu``;
+     2 iterations;
+  M  configs/fully_nonlinear/fn_100d_T1.0.yaml, the DBDP baseline (K = 50
+     grid times, batch 512, a 3x64 value and gradient net a grid time):
+     one rollout launch a sub-iteration; every grid time's 150
+     sub-iterations cut to 10 (``--dbdp-sub-iter``);
+  N  configs/hjb/fn_100d_T1.0.yaml, DBDP on the OU equation (4x512 net
+     pairs, 125 sub-iterations cut to 10).
 Each path's kernel launch counts are read around its run (every count set
-to 0 just before) and checked against its generation calls (A-D, F, G; the
-net kernels' also by precision mode) or its epochs (E), and its CUDA-graph
-replays against its epochs (0 on A'). The rate probe's entry point
-(``python -m deeppicarditeration_torch.utils.probe_roofline``) is driven the
-same way.
+to 0 just before) and checked against its generation calls (A-D, F, G, K,
+L; the net kernels' also by precision mode), its epochs (E, I) or its
+sub-iterations (M, N: grid times x sub-iterations, plus the terminal
+pre-fit's), and its CUDA-graph replays against its epochs (0 on A'). The
+rate probe's entry point (``python -m
+deeppicarditeration_torch.utils.probe_roofline``) is driven the same way.
 
 Phases (each failure exits non-zero; the result line is printed last, and
 only when every phase passed):
@@ -114,12 +130,26 @@ only when every phase passed):
  14. path I, 2000 epochs (``--hjb-epochs``): one rollout launch and one
      graph replay per epoch, the final rRMSE under
      ``HJB_DIFFUSION_RRMSE_MAX``;
+ 15. paths K (3 iterations, its peak memory) and L (2): the split route
+     every call, no kernel on K, on L one normals launch per chunk (64 a
+     call), rRMSE at iterations 1-3 under ``FN_RRMSE_MAX``; the normals
+     kernel at their chunk shape (2048, 32, 100) against the host Philox
+     at both ends of the buffer, and its mean and variance;
+ 16. the rollout kernel at the DBDP recipes' shapes (K = 50, B = 512,
+     nx = 100): its draws against the host Philox, its paths against the
+     plain version on those draws;
+ 17. paths M and N (10 sub-iterations a grid time, ``--dbdp-sub-iter``):
+     the rollout launches, ms per sub-iteration, the final grid rRMSE under
+     ``DBDP_RRMSE_MAX`` (``DBDP_RRMSE_MAX_RECIPE`` at the recipes' own
+     budgets);
  11. kernel, plain-version and library times at the paths' shapes, and
      each kernel's bound, printed as one ``{"kernels": [...]}`` JSON line
      (the net kernels with a row per precision mode, timed in turns in
      this call; the terminal kernel with and without antithetic pairing,
      each against its own bound). A time below its bound fails the run:
-     the model counted too much.
+     the model counted too much; the normals kernel also at paths K/L's
+     chunk shape and the rollout kernel at M/N's, each with its launches
+     on those paths.
 Needs one NVIDIA H100 SXM card; imports nothing of JAX.
 """
 
@@ -219,6 +249,55 @@ HJB_DIFFUSION = {
     "EVAL": {"FREQ": 100},
 }
 
+# configs/fully_nonlinear/base_100d_T1.0_w0.0_nov.yaml (no BASE)
+FN_RECIPE = {
+    "NAME": "GBMOne_NoEnT_100D_T1.0_w0.0_nov_2048_1024",
+    "FORCE": True,
+    "EQUATION": {"cls": "GBMEquationComplexExact",
+                 "kwargs": {"nx": 100, "alpha": 1.0, "T": 1.0}},
+    "METHOD": {"cls": "Picard"},
+    "PICARD": {"N": 40},
+    "DATA": {"DATA_SIZE": 2048,
+             "kwargs": {"t_always_uniform": True,
+                        "n_estimate_terminal": 1024,
+                        "n_estimate_integral": 1024},
+             "CHUNK_ELEMS": 8388608,
+             "HESSIAN_APPROXIMATION": {"method": "SDGD",
+                                       "kwargs": {"v": 100}},
+             "TPU": {"HESSIAN_STORE": "bf16"}},
+    "TRAIN": {"N_EPOCHS": 16, "BATCH_SIZE": 512, "SUPERVISE_GRADIENT": True,
+              "SUPERVISE_HESSIAN": False,
+              "LOSS": {"beta": 0.0,
+                       "SCALER": {"cls": "FixedLossScaler",
+                                  "kwargs": {"fixed_weight": 0.0}}}},
+    "NETWORK": {"cls": "PicardSolution", "NEURONS": [64, 64, 64],
+                "ACTIVATIONS": ["ELU", "ELU", "ELU"], "BOUND": None,
+                "RELOAD": True},
+    "EVAL": {"L2_N_POINTS": 1000, "FREQ": 4, "TEST_GRAD": True,
+             "TEST_HESSIAN": True},
+}
+
+# configs/fully_nonlinear/fn_100d_T1.0.yaml on top of it (its BASE)
+FN_DBDP = {
+    "NAME": FN_RECIPE["NAME"] + "_FullyNonlinearSolver_0.02_150",
+    "METHOD": {"cls": "FullyNonlinearSolver", "dt": 0.02,
+               "num_sub_iter": 150},
+    "PICARD": {"N": 1},
+    "TRAIN": {"N_EPOCHS": 1, "LOSS": {"beta": 0.0}},
+    "EVAL": {"FREQ": 1},
+}
+
+# configs/hjb/fn_100d_T1.0.yaml on top of the HJB recipe (its BASE)
+HJB_DBDP = {
+    "NAME": HJB_RECIPE["NAME"] + "_FullyNonlinearSolver_0.02_125",
+    "METHOD": {"cls": "FullyNonlinearSolver", "dt": 0.02,
+               "num_sub_iter": 125},
+    "PICARD": {"N": 1},
+    "TRAIN": {"N_EPOCHS": 1, "LOSS": {"beta": 0.0}},
+    "NETWORK": {"PISGRADNET": False},
+    "EVAL": {"FREQ": 1},
+}
+
 # path -> (recipe layers, CLI-style overrides)
 PATHS = {
     "A": ((BURGERS_W1_RECIPE,), []),
@@ -240,6 +319,10 @@ PATHS = {
     "H": ((HJB_RECIPE,), []),
     "J": ((HJB_RECIPE,), ["DATA.TPU.PALLAS_PRECISION", "bf16x3"]),
     "I": ((HJB_RECIPE, HJB_DIFFUSION), []),
+    "K": ((FN_RECIPE,), []),
+    "L": ((FN_RECIPE,), ["DATA.TPU.PRNG", "true"]),
+    "M": ((FN_RECIPE, FN_DBDP), []),
+    "N": ((HJB_RECIPE, HJB_DBDP), []),
 }
 # the precision modes of the net kernels' rows, the main path's first
 MODES = ("bf16x3", "highest")
@@ -313,6 +396,29 @@ ELU_SUM_ULPS = 2 * (PROBE_ITERS + 32) + 16
 # sums depend on every iteration's draws and equal the plain version, so
 # they cannot be hoisted. No kernel, and no probe mode, may beat its bound.
 NORMALS_CHUNK = (4096, 64, 100)  # path C's per-chunk draw
+# The FN family (paths K, L, M, N), each limit fixed before the first run
+# of this code on the card (PERF.md, the FN prediction). Path K's rRMSE at
+# iterations 1, 2, 3 and after: about 1.3x the JAX record under
+# HESSIAN_STORE bf16 (0.4274, 0.3239, 0.2569; bench_results/
+# fn100d_tpu_hessbf16.jsonl); the port draws other streams.
+FN_RRMSE_MAX = (0.55, 0.42, 0.34)
+FN_ITERATIONS = 3  # path K's cut (the recipe's own: 40)
+FN_PRNG_ITERATIONS = 2  # path L's
+FN_CHUNK = (2048, 32, 100)  # paths K, L: B x gen.chunk x nx per chunk
+# Paths M and N: the DBDP recipes with every grid time's sub-iterations cut
+# to DBDP_SUB_ITER (the recipes' own: 150 and 125). The final grid rRMSE
+# (100 points a grid time, 51 grid times) at that cut, from
+# utils/dbdp_sweep.py on the card (PERF.md): M scores 0.14-0.20 over three
+# seeds at 10 sub-iterations and 0.25-0.45 at 1-5, so its limit parts the
+# two. N cannot be parted so: the terminal pre-fit alone scores ~0.09 (one
+# sub-iteration), the sweep's drift 0.15 at 10, and only the recipe's
+# budget falls below the pre-fit; its limit catches an untrained sweep
+# (~0.25). At the recipes' budgets: M 1.5x the JAX record 0.0278; N the
+# lesser of 1.5x the JAX 0.068 and a value below the pre-fit's 0.089.
+DBDP_SUB_ITER = 10
+DBDP_RRMSE_MAX = {"M": 0.23, "N": 0.20}
+DBDP_RRMSE_MAX_RECIPE = {"M": 0.042, "N": 0.085}
+DBDP_ROLLOUT = (50, 512, 100)  # K, B, nx of the DBDP recipes' paths
 
 # NVIDIA's data sheet for the H100 SXM (dense, at 700 W): FP32 FLOP/s
 # outside the tensor cores, and HBM3 bytes/s
@@ -860,6 +966,8 @@ def _rrmse_limit(path: str, i: int) -> float:
     """Path ``path``'s rRMSE limit at iteration i."""
     if path in ("H", "J"):
         return HJB_RRMSE_MAX[min(i, len(HJB_RRMSE_MAX)) - 1]
+    if path in ("K", "L"):
+        return FN_RRMSE_MAX[min(i, len(FN_RRMSE_MAX)) - 1]
     return RRMSE_MAX
 
 
@@ -908,26 +1016,19 @@ def _path_e_inputs(eq, b, K, dt, seed, device):
     return x0.contiguous(), rollout_dts(eq, t0, dt, K).sqrt().contiguous()
 
 
-def _check_rollout(cfg, device) -> float:
-    """Phase 8: the rollout kernel at path E's shapes; returns the max
-    |diff| against the host Philox's draws and the plain paths."""
+def _rollout_vs_host(x0, sdt, a: float, K: int):
+    """The rollout kernel's own draws against the host Philox, its paths
+    against the plain version fed those draws, and the increment relation;
+    returns (xs, xi, the largest |diff|)."""
     import torch
 
-    from deeppicarditeration_torch.equations import make_equation
     from deeppicarditeration_torch.ops import kernels, philox
 
-    K, b, dt = int(cfg.METHOD.K), int(cfg.TRAIN.BATCH_SIZE), float(
-        cfg.METHOD.dt)
-    eq = make_equation(cfg.EQUATION.cls, **cfg.EQUATION.kwargs)
-    nx, a = eq.nx, eq.alpha_sqrt
-    x0, sdt = _path_e_inputs(eq, b, K, dt, 21, device)
-    full_step = torch.full_like(sdt, dt).sqrt()
-    n_full = int((sdt == full_step).sum())
-    n_short = int((sdt < full_step).sum())
+    b, nx = x0.shape
     xs, xi = kernels.paths_cuda(EXACT_SEED, x0, sdt, a, K)
     torch.cuda.synchronize()
     host = torch.from_numpy(philox.path_normals(EXACT_SEED, K, b, nx)).to(
-        device)
+        x0.device)
     ref, _ = kernels.paths_plain(0, x0, sdt, a, K, host)
     steps = sdt[None] * a * xi
     errs = {"xi vs host Philox": (xi, host), "xs vs plain on the host "
@@ -941,6 +1042,146 @@ def _check_rollout(cfg, device) -> float:
         if not ok or not torch.isfinite(out).all():
             _fail(f"the rollout kernel disagrees ({label})")
         worst = max(worst, float(err.max()))
+    return xs, xi, worst
+
+
+def _dbdp_rollout_inputs(device, seed: int = 25):
+    """x0 (B, nx) ~ N(0, 4 I) (path N's law; path M starts at 0) and the
+    constant step sqrt(dt) of the DBDP recipes' paths."""
+    import torch
+
+    K, b, nx = DBDP_ROLLOUT
+    g = torch.Generator(device=device).manual_seed(seed)
+    x0 = 2.0 * torch.randn((b, nx), generator=g, device=device)
+    return x0, torch.full((b, 1), math.sqrt(0.02), device=device), K
+
+
+def _normals_vs_host(shape, device) -> float:
+    """The normals kernel at ``shape`` against the host Philox, value for
+    value, at the head and the end of the buffer, and its mean and variance
+    over the buffer (z-scores); returns the largest |diff|."""
+    import torch
+
+    from deeppicarditeration_torch.ops import kernels, philox
+
+    v = kernels.normals_cuda(EXACT_SEED, shape, device).reshape(-1)
+    n = v.numel()
+    worst = 0.0
+    for start in (0, n - NORMALS_CHECK):
+        ref = torch.from_numpy(philox.normals_flat(
+            EXACT_SEED, start, NORMALS_CHECK)).to(device)
+        err = (v[start:start + NORMALS_CHECK] - ref).abs()
+        ok = bool((err <= DRAW_TOL + DRAW_TOL * ref.abs()).all())
+        print(f"normals kernel at {tuple(shape)} vs host Philox at flat "
+              f"indices {start}-{start + NORMALS_CHECK - 1}: max |diff| "
+              f"{float(err.max()):.3e}, within rtol=atol={DRAW_TOL}: {ok}")
+        if not ok:
+            _fail("the normals kernel's values differ from the host "
+                  "Philox's")
+        worst = max(worst, float(err.max()))
+    x = v.double()
+    zm = float(x.mean()) * math.sqrt(n)
+    zv = (float(x.var()) - 1.0) / math.sqrt(2.0 / n)
+    print(f"normals kernel at {tuple(shape)}: mean z-score {zm:.2f}, "
+          f"variance z-score {zv:.2f} (bound {CLT_SIGMAS})")
+    if abs(zm) > CLT_SIGMAS or abs(zv) > CLT_SIGMAS or not torch.isfinite(
+            v).all():
+        _fail(f"the normals kernel's law at {tuple(shape)} is off")
+    return worst
+
+
+def _check_rollout_dbdp(device) -> float:
+    """Phase 16: the rollout kernel at the DBDP recipes' shapes (K = 50,
+    B = 512, nx = 100, one step size); returns the largest |diff|."""
+    import torch
+
+    x0, sdt, K = _dbdp_rollout_inputs(device)
+    xs, _, worst = _rollout_vs_host(x0, sdt, 1.0, K)
+    if not torch.equal(xs[0], x0):
+        _fail("rollout at DBDP's shapes: xs[0] != x0")
+    return worst
+
+
+def _run_dbdp(path: str, sub_iter):
+    """Phase 17: path M or N (the DBDP recipes) through the CLI's runner,
+    every grid time's sub-iterations cut to ``sub_iter`` ("recipe": the
+    recipe's own); returns (runner, launches, median ms per
+    sub-iteration, the final grid rRMSE)."""
+    import torch
+
+    from deeppicarditeration_torch.models.factory import is_enforce_terminal
+    from deeppicarditeration_torch.ops import kernels
+    from deeppicarditeration_torch.training.picard import PicardRunner
+
+    own = ([] if sub_iter == "recipe"
+           else ["METHOD.num_sub_iter", str(sub_iter)])
+    cfg = path_cfg(path, overrides=own)
+    n_sub = int(cfg.METHOD.num_sub_iter)
+    runner = PicardRunner(cfg, exp_root=ROOT / "build" / "chip_smoke_runs"
+                          / path)
+    for lib in kernels.ALL:
+        lib.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    runner.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    launches = {lib.source.stem: lib.launches for lib in kernels.ALL}
+    K = round(runner.equation.T / float(cfg.METHOD.dt))
+    prefit = not is_enforce_terminal(cfg)
+    want_roll = K * n_sub + (n_sub if prefit else 0)
+    want = {name: (want_roll if name == "rollout" else 0)
+            for name in launches}
+    if launches != want or runner.rollout_calls != want_roll:
+        _fail(f"path {path}: launches {launches}, rollouts "
+              f"{runner.rollout_calls}; want {want} (K={K} x {n_sub} "
+              f"sub-iterations{' + the terminal pre-fit' if prefit else ''})")
+    per_sub = [tm["ms"] / tm["sub_iters"] for tm in runner.timings
+               if tm["k"] <= K]
+    q = statistics.quantiles(per_sub, n=4)
+    rows = [json.loads(ln) for ln in
+            (runner.exp_dir / "metrics.jsonl").read_text().splitlines()]
+    evals = [r for r in rows if r["context"] == "eval"]
+    print(f"path {path}: K={K} x {n_sub} sub-iterations in {wall:.1f} s; "
+          f"launches {launches}; ms per sub-iteration (CUDA events per grid "
+          f"time) median {statistics.median(per_sub):.3f}, quartiles "
+          f"{q[0]:.3f}-{q[2]:.3f}, first grid time {per_sub[0]:.3f}; peak "
+          f"memory {peak:.2f} GiB above what was held before")
+    step = max(1, len(evals) // 10)
+    print(f"path {path} grid rRMSE by grid time k: " + ", ".join(
+        f"{K - j}: {r['rRMSE']:.4f}" for j, r in
+        list(enumerate(evals))[step - 1::step]))
+    r = evals[-1]["rRMSE"]
+    ref = "0.0278" if path == "M" else "0.068-0.0684"
+    print(f"path {path} final grid rRMSE {r} (the JAX records at the "
+          f"recipe's budget: {ref})")
+    limit = (DBDP_RRMSE_MAX_RECIPE if sub_iter == "recipe"
+             else DBDP_RRMSE_MAX)[path]
+    if r is None or not math.isfinite(r) or r > limit:
+        _fail(f"path {path} final grid rRMSE {r} (want finite and <= "
+              f"{limit})")
+    return runner, launches, statistics.median(per_sub), r
+
+
+def _check_rollout(cfg, device) -> float:
+    """Phase 8: the rollout kernel at path E's shapes; returns the max
+    |diff| against the host Philox's draws and the plain paths."""
+    import torch
+
+    from deeppicarditeration_torch.equations import make_equation
+    from deeppicarditeration_torch.ops import kernels
+
+    K, b, dt = int(cfg.METHOD.K), int(cfg.TRAIN.BATCH_SIZE), float(
+        cfg.METHOD.dt)
+    eq = make_equation(cfg.EQUATION.cls, **cfg.EQUATION.kwargs)
+    a = eq.alpha_sqrt
+    x0, sdt = _path_e_inputs(eq, b, K, dt, 21, device)
+    full_step = torch.full_like(sdt, dt).sqrt()
+    n_full = int((sdt == full_step).sum())
+    n_short = int((sdt < full_step).sum())
+    xs, xi, worst = _rollout_vs_host(x0, sdt, a, K)
     if not torch.equal(xs[0], x0) or not (n_full and n_short
                                           and n_full + n_short == b):
         _fail(f"rollout: xs[0] != x0, or not a mix of full and tail-shrunk "
@@ -1153,6 +1394,10 @@ def _probe_phase(dev):
     return worst, launches_probe, modes
 
 
+def _sub_iter(v: str):
+    return v if v == "recipe" else int(v)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iterations", type=int, default=3,
@@ -1163,6 +1408,14 @@ def main(argv=None) -> int:
     ap.add_argument("--hjb-epochs", type=int, default=HJB_DIFFUSION_EPOCHS,
                     help=f"epochs of path I (default {HJB_DIFFUSION_EPOCHS}; "
                          "the recipe's own is 15000)")
+    ap.add_argument("--fn-iterations", type=int, default=FN_ITERATIONS,
+                    help=f"Picard iterations of path K (default "
+                         f"{FN_ITERATIONS}; the recipe's own is 40); path L "
+                         f"runs at most {FN_PRNG_ITERATIONS}")
+    ap.add_argument("--dbdp-sub-iter", type=_sub_iter, default=DBDP_SUB_ITER,
+                    help=f"sub-iterations per grid time of paths M and N "
+                         f"(default {DBDP_SUB_ITER}; 'recipe': the recipes' "
+                         f"own, 150 and 125)")
     args = ap.parse_args(argv)
     import torch
 
@@ -1475,13 +1728,50 @@ def main(argv=None) -> int:
     # ---- 14. path I: the HJB D-DBSDE recipe -------------------------------
     runner_i, launches_i, ms_epoch_i = _run_diffusion(args.hjb_epochs, "I")
 
+    # ---- 15. paths K and L: the FN DPI recipe ------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    n_fn = args.fn_iterations
+    runner_k, launches_k, routes_k = _run_path("K", n_fn)
+    peak_k = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    _expect_launches("K", runner_k, launches_k, routes_k, {})
+    print(f"path K: peak device memory {peak_k:.2f} GiB above the "
+          f"{held / 2 ** 30:.2f} GiB held before it "
+          f"(torch.cuda.max_memory_allocated, the run and its final eval)")
+    n_l = min(n_fn, FN_PRNG_ITERATIONS)
+    runner_l2, launches_l2, routes_l2 = _run_path("L", n_l)
+    gen_l = gen_config_from_cfg(runner_l2.cfg)
+    nb_l, nx_l = int(runner_l2.cfg.DATA.DATA_SIZE), runner_l2.equation.nx
+    width_l = est._act_width(runner_l2.u_current)
+    chunks_l = (gen_l.n_estimate_terminal
+                // gen_l.chunk(gen_l.n_estimate_terminal, nb_l, nx_l)
+                + gen_l.n_estimate_integral
+                // gen_l.chunk(gen_l.n_estimate_integral, nb_l, nx_l,
+                              width_l))
+    print(f"path L: {chunks_l} normals launches per generation call "
+          f"(terminal + integral chunks of {FN_CHUNK[1]} samples)")
+    if (nb_l, gen_l.chunk(gen_l.n_estimate_integral, nb_l, nx_l, width_l),
+            nx_l) != FN_CHUNK:
+        _fail(f"path L's chunk is not {FN_CHUNK}")
+    _expect_launches("L", runner_l2, launches_l2, routes_l2,
+                     {"normals": chunks_l * runner_l2.generate_calls})
+    max_err["normals fn"] = _normals_vs_host(FN_CHUNK, dev)
+
+    # ---- 16. rollout kernel at the DBDP recipes' shapes --------------------
+    max_err["rollout dbdp"] = _check_rollout_dbdp(dev)
+
+    # ---- 17. paths M and N: the DBDP recipes -------------------------------
+    runner_m, launches_m, ms_sub_m, _ = _run_dbdp("M", args.dbdp_sub_iter)
+    runner_n, launches_n, ms_sub_n, _ = _run_dbdp("N", args.dbdp_sub_iter)
+
     # ---- 11. times and bounds at the paths' shapes -------------------------
     neurons = sol.module.neurons
     n_weights = sum(p.numel() for p in sol.module.parameters())
     rows = []
 
     def row(lib, stem, replaces, path, launches, n_calls, ms, plain_ms,
-            work, library_ms=None, shape="", extra=None, mode=None):
+            work, library_ms=None, shape="", extra=None, mode=None,
+            err_key=None):
         bound_ms, bound_by, pipe = _bound(work)
         name = lib if mode is None else f"{lib} {mode}"
         _not_below(name, ms, bound_ms)
@@ -1497,7 +1787,8 @@ def main(argv=None) -> int:
             "replaces": replaces, "path": path, "launches": launches,
             "launches_per_iteration": launches / n_iter,
             "launches_per_call": launches / max(n_calls, 1),
-            "max_abs_err": max_err[_err_key(stem, mode or "highest")],
+            "max_abs_err": max_err[err_key or _err_key(stem,
+                                                       mode or "highest")],
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bound_pipe": pipe,
             "library_ms": library_ms,
@@ -1628,6 +1919,49 @@ def main(argv=None) -> int:
             _pis_work(nb_h, mm_h, nx, hidden_h, ncomp, n_w_h, mode),
             shape=f"B={nb_h} M={mm_h} nx={nx}, 4x512 PISGradNet",
             mode=mode, extra={"instance": "OU + PISGradNet (HJB)"})
+    # the normals kernel at paths K/L's chunk shape, launched by path L
+    n_fn_chunk = math.prod(FN_CHUNK)
+    row("normals", "normals", f"{src}:71", "L", launches_l2["normals"],
+        runner_l2.generate_calls,
+        _time_ms(lambda: kernels.normals_cuda(5, FN_CHUNK, dev), 50),
+        _time_ms(lambda: kernels.normals_plain(5, FN_CHUNK, dev), 50),
+        _normals_work(n_fn_chunk),
+        library_ms=_time_ms(lambda: torch.randn(
+            FN_CHUNK, generator=cuda_gen, device=dev), 50),
+        shape=f"{FN_CHUNK}", err_key="normals fn",
+        extra={"launches_per_iteration": launches_l2["normals"] / n_l,
+               "instance": "FN chunk (path L)"})
+    # the rollout kernel at the DBDP recipes' shapes, launched by M and N
+    x0_d, sdt_d, K_d = _dbdp_rollout_inputs(dev, 26)
+
+    def launch_d():
+        return kernels.paths_cuda(5, x0_d, sdt_d, 1.0, K_d)
+
+    ms_roll_d = _time_ms(launch_d, 200)
+    dev_roll_d = _device_ms(launch_d, "paths_kernel", 200)
+    row("paths", "rollout", "deeppicarditeration_tpu/ops/rollout.py:98",
+        "M", launches_m["rollout"], runner_m.rollout_calls, ms_roll_d,
+        _time_ms(lambda: kernels.paths_plain(5, x0_d, sdt_d, 1.0, K_d), 200),
+        _rollout_work(*DBDP_ROLLOUT),
+        shape="K={} B={} nx={}".format(*DBDP_ROLLOUT), err_key="rollout dbdp",
+        extra={"instance": "DBDP (paths M, N)",
+               "launches_per_iteration": (launches_m["rollout"]
+                                          / int(runner_m.cfg.PICARD.N)),
+               "launches_per_sub_iteration": (launches_m["rollout"]
+                                              / runner_m.rollout_calls),
+               "launches_N": launches_n["rollout"], "device_ms": dev_roll_d,
+               "ms_per_sub_iteration": {"M": ms_sub_m, "N": ms_sub_n},
+               "share_of_sub_iteration": (
+                   None if dev_roll_d is None else
+                   {"M": dev_roll_d / ms_sub_m, "N": dev_roll_d / ms_sub_n})})
+    if dev_roll_d is not None:
+        _not_below("paths at DBDP's shapes (device time)", dev_roll_d,
+                   rows[-1]["bound_ms"])
+    print(f"paths M, N: the rollout kernel at K={K_d} B={DBDP_ROLLOUT[1]} "
+          f"takes {ms_roll_d:.4f} ms per call back to back, {dev_roll_d} ms "
+          f"of device time, of {ms_sub_m:.3f} / {ms_sub_n:.3f} ms per "
+          f"sub-iteration; {launches_m['rollout']} / "
+          f"{launches_n['rollout']} launches")
     per_i = [tm["interval_ms"] / tm["epochs"] for tm in runner_i.timings]
     print(f"path I: {ms_epoch_i:.3f} ms per epoch (median), "
           f"{launches_i['rollout']} rollout launches (K="

@@ -96,37 +96,6 @@ class DiagGaussianMixture:
         return self.means[idx] + torch.sqrt(self.vars[idx]) * z
 
 
-def _fma(a, b, c):
-    """f32 fused multiply-add (the product is exact in f64)."""
-    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
-            + np.asarray(c, np.float64)).astype(np.float32)
-
-
-def _xla_log_f32(v: np.ndarray) -> np.ndarray:
-    """log of positive f32 values as XLA computes it on the CPU (Cephes'
-    polynomial, its products fused as the compiled code fuses them), so
-    that the mixture's log-weights equal the JAX package's bit for bit;
-    numpy's log is 1 ulp off on about a fifth of the inputs."""
-    f = np.float32
-    x = np.maximum(np.asarray(v, f), f(1.17549435e-38))
-    bits = x.view(np.uint32)
-    e = f(1.0) + ((bits >> 23).astype(np.int32) - 127).astype(f)
-    m = ((bits & np.uint32(0x807FFFFF)) | np.uint32(0x3F000000)).view(f)
-    below = m < f(0.70710677)
-    x = (m - f(1.0)) + np.where(below, m, f(0.0))
-    e = e - np.where(below, f(1.0), f(0.0))
-    x2 = x * x
-    x3 = x2 * x
-    y1 = _fma(_fma(x, f(7.0376836e-2), f(-1.1514610e-1)), x, f(1.1676998e-1))
-    y2 = _fma(_fma(x, f(-1.2420141e-1), f(1.4249323e-1)), x,
-              f(-1.6668057e-1))
-    y3 = _fma(_fma(x, f(2.0000714e-1), f(-2.4999994e-1)), x,
-              f(3.3333331e-1))
-    y = _fma(_fma(_fma(y1, x3, y2), x3, y3), x3, f(-2.12194440e-4) * e)
-    out = ((x - f(0.5) * x2) + y) + f(0.693359375) * e
-    return np.where(np.asarray(v, f) == 0, f(-np.inf), out).astype(f)
-
-
 def make_random_gmm(key, nx: int, num_components: int, mean_scale: float,
                     var_scale: float) -> DiagGaussianMixture:
     """The JAX package's seeded mixture from a threefry ``key``
@@ -141,7 +110,7 @@ def make_random_gmm(key, nx: int, num_components: int, mean_scale: float,
     total = f32(0.0)
     for p in pi:  # in order, as XLA reduces a short vector
         total = f32(total + p)
-    log_weights = _xla_log_f32((pi / total).astype(f32))
+    log_weights = threefry.xla_log_f32((pi / total).astype(f32))
     return DiagGaussianMixture(torch.from_numpy(means.astype(f32)),
                                torch.from_numpy(vars_),
                                torch.from_numpy(log_weights))

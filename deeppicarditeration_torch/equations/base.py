@@ -33,8 +33,7 @@ def get_equation_cls(name: str):
     if name not in _EQUATION_REGISTRY:
         raise NotImplementedError(
             f"Equation {name!r} is not ported yet (known: "
-            f"{sorted(_EQUATION_REGISTRY)}); the FN family comes in a later "
-            "slice of the port")
+            f"{sorted(_EQUATION_REGISTRY)})")
     return _EQUATION_REGISTRY[name]
 
 
@@ -61,6 +60,8 @@ class EquationMethods:
     has_laplacian_term: bool = False
     has_hessian_term: bool = False
     has_exact_solution: bool = False
+    num_v_samples: int = 0
+    supported_approximate_methods = ()
     nu: int = 1
 
     @property
@@ -82,6 +83,19 @@ class EquationMethods:
         return self.fff(t, x, y, self.alpha_sqrt * w)
 
     def f(self, t, x, y):
+        """Nonlinearity when independent of the gradient."""
+        raise NotImplementedError
+
+    def ffl(self, t, x, y, w, laplacian):
+        """Nonlinearity with a Laplacian term."""
+        raise NotImplementedError
+
+    def ffh(self, t, x, y, w, hess):
+        """Nonlinearity with a full-Hessian term."""
+        raise NotImplementedError
+
+    def ffi(self, t, x, y, u_ii):
+        """Nonlinearity with sampled diagonal-Hessian entries (SDGD)."""
         raise NotImplementedError
 
     # --- forward SDE ------------------------------------------------------
@@ -122,8 +136,33 @@ class EquationMethods:
     def u_x(self, t, x):
         raise NotImplementedError
 
+    def u_t(self, t, x):
+        """d/dt of the exact solution via one batched reverse pass."""
+        with torch.enable_grad():
+            tt = t.detach().requires_grad_(True)
+            u = self.exact_solution(tt, x)
+            (ut,) = torch.autograd.grad(u, tt, torch.ones_like(u))
+        return ut
+
     def u_u_x(self, t, x):
         return self.exact_solution(t, x), self.u_x(t, x)
+
+    def u_hessian(self, t, x):
+        """Per-sample (nx, nx) Hessian of the exact solution at (B, 1) t
+        and (B, nx) x, by autodiff."""
+
+        def u_scalar(tt, xx):
+            return self.exact_solution(tt[None, :], xx[None, :])[0, 0]
+
+        return torch.func.vmap(torch.func.hessian(u_scalar, argnums=1))(t, x)
+
+    def laplacian(self, t, x):
+        """Trace of the exact solution's Hessian, (..., 1)."""
+        hess = self.u_hessian(t, x)
+        return torch.diagonal(hess, dim1=-2, dim2=-1).sum(-1, keepdim=True)
+
+    def u_u_x_u_hessian(self, t, x):
+        return self.exact_solution(t, x), self.u_x(t, x), self.u_hessian(t, x)
 
     @classmethod
     def create(cls, seed: int = 0, **kwargs):
@@ -139,3 +178,19 @@ class SimpleDiffusionWithZ(SimpleDiffusionMethods):
     """ff depends on z = sqrt(alpha) u_x."""
 
     has_gradient_term = True
+
+
+class SimpleDiffusionWithLaplacian(SimpleDiffusionMethods):
+    """ff depends on the Laplacian through ``ffl``, estimated by
+    Hutchinson probes (``num_v_samples``) or the exact trace."""
+
+    has_gradient_term = True
+    has_laplacian_term = True
+
+
+class SimpleDiffusionWithHessian(SimpleDiffusionMethods):
+    """ff depends on the Hessian (``ffh``, or ``ffi`` on sampled diagonal
+    entries)."""
+
+    has_gradient_term = True
+    has_hessian_term = True

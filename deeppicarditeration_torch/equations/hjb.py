@@ -108,6 +108,10 @@ class OUProcessEquation(SimpleDiffusionWithZ):
     def fff(self, t, x, y, z):
         return self.ff(t, x, y, z / self.alpha_sqrt)
 
+    def ffh(self, t, x, y, w, hess):
+        """ff: the equation has no Hessian term (DBDP passes one)."""
+        return self.ff(t, x, y, w)
+
     # --- terminal condition -------------------------------------------------
     def g(self, x):
         return -self.gmm_terminal.log_prob(x)

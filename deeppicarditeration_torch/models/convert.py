@@ -5,12 +5,13 @@ inner dict), so it needs no JAX import. A flax Dense kernel of shape (in,
 out) becomes the transposed ``Linear.weight`` of shape (out, in); the bias
 stays as it is. Trees: the ``MLP``'s ``Dense_i``; the ``PISGradNet``'s
 ``timestep_phase``, ``t_encoder_i``, ``smooth_net_i`` and ``nn_module_i``;
-``EnforceTerminal``'s ``inner`` (an MLP tree).
+``EnforceTerminal``'s ``inner`` (an MLP tree); DBDP's stacked per-grid-time
+(value, gradient) MLP trees, each leaf with a leading (K + 1,) axis.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -66,3 +67,25 @@ def enforce_terminal_state_dict_from_flax(
     tree = params.get("params", params)
     return {f"inner.{k}": v
             for k, v in mlp_state_dict_from_flax(tree["inner"]).items()}
+
+
+def dbdp_pair_state_dicts_from_flax(stacked) -> List[Tuple[dict, dict]]:
+    """[(u state_dict, g state_dict)] per grid time, for
+    ``training/baselines.py:DBDPNets.load_pairs``, from the JAX package's
+    stacked DBDP tree (a (u, g) pair of MLP trees whose leaves carry a
+    leading (K + 1,) axis)."""
+    u_tree, g_tree = stacked
+    n = len(np.asarray(_numbered_leaf(u_tree)))
+
+    def at(tree, k):
+        inner = tree.get("params", tree)
+        return {name: {leaf: np.asarray(v)[k] for leaf, v in d.items()}
+                for name, d in inner.items()}
+
+    return [(mlp_state_dict_from_flax(at(u_tree, k)),
+             mlp_state_dict_from_flax(at(g_tree, k))) for k in range(n)]
+
+
+def _numbered_leaf(tree):
+    inner = tree.get("params", tree)
+    return inner[_numbered(inner, "Dense")[0]]["bias"]

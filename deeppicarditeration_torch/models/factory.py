@@ -4,7 +4,8 @@ Counterpart of ``deeppicarditeration_tpu/models/factory.py``: the plain
 ``PicardSolution`` MLP, the terminal-enforcing
 ``PicardSolutionEnforceTerminal`` (u = g(x) + (T - t) net, Value type)
 and ``NETWORK.PISGRADNET`` (the HJB recipes' ``PISGradNet``, whose g0 is
-the OU equation's mixture terminal).
+the OU equation's mixture terminal), and DBDP's per-grid-time pair of
+x-only MLPs (``build_dbdp_pair``).
 """
 
 from __future__ import annotations
@@ -68,6 +69,20 @@ def build_network(cfg, eq, device, generator=None) -> torch.nn.Module:
                 "is not ported yet (only 'Value')")
         module = EnforceTerminal(module, eq.to(device).g, T=eq.T)
     return module.to(device)
+
+
+def build_dbdp_pair(cfg, eq, device, gen_u=None, gen_g=None):
+    """DBDP's (value, gradient) nets for one grid time: MLPs of x alone
+    with NETWORK.NEURONS/ACTIVATIONS/BOUND, out_dim 1 and nx, on
+    ``device``, initialized from ``gen_u`` and ``gen_g`` (the terminal
+    anchor is applied by the baseline)."""
+    neurons = tuple(cfg.NETWORK.NEURONS)
+    acts = tuple(cfg.NETWORK.ACTIVATIONS)
+    bound = cfg.NETWORK.BOUND
+    return (MLP(eq.nx, neurons, acts, 1, bound=bound,
+                generator=gen_u).to(device),
+            MLP(eq.nx, neurons, acts, eq.nx, bound=bound,
+                generator=gen_g).to(device))
 
 
 def init_solution(cfg, eq, device, generator=None) -> Solution:

@@ -20,8 +20,13 @@ Two routes compute it (``generate_with_gradients``):
     a loop over chunks of the M samples with Kahan accumulation whose
     normals come from the normals kernel under ``tpu_prng`` and from a
     torch.Generator otherwise.
-Antithetic pairing (``antithetic``) works on every route. Not yet ported
-(later slices): TD estimators, Hessian targets and SDGD, the two-layer
+Antithetic pairing (``antithetic``) works on every route. Equations with
+a Hessian term (the FN family) always take the split route with the chunk
+estimators, as in the JAX package: their nonlinearity reads the frozen
+net's Hessian diagonal at SDGD-sampled indices (``sdgd_v``), through the
+second-order backprop of ``ops/derivatives.py`` (``hess_store``). Not yet
+ported (later slices): TD estimators, Hessian targets (the
+``*_and_hessians`` estimators of TRAIN.SUPERVISE_HESSIAN), the two-layer
 formula and the value-only mode.
 """
 
@@ -40,7 +45,13 @@ from deeppicarditeration_torch.device import (
 from deeppicarditeration_torch.equations.burgers import Cha
 from deeppicarditeration_torch.equations.hjb import OUProcessEquation
 from deeppicarditeration_torch.models.solution import Solution
-from deeppicarditeration_torch.ops.derivatives import get_f
+from deeppicarditeration_torch.ops.derivatives import (
+    _mlp_fast_path,
+    diag_hessian_entries,
+    get_f,
+    mlp_hessian_diag,
+    sdgd_index_counts,
+)
 from deeppicarditeration_torch.ops.kernels import (
     check_precision,
     generate_pis_cuda,
@@ -116,9 +127,18 @@ class GenConfig:
     # pass) or "highest" (FP32 FMA). The chunk estimators, the fit and the
     # eval stay f32. DATA.TPU.PALLAS_PRECISION.
     pallas_precision: str = "bf16x3"
+    # SDGD: sampled diagonal entries per sample for Hessian equations
+    # (DATA.HESSIAN_APPROXIMATION SDGD, kwargs.v); None => the full Hessian
+    sdgd_v: Optional[int] = None
+    # storage of the second-order chain's (R, w, w) blocks: None (f32) or
+    # "bf16" (DATA.TPU.HESSIAN_STORE)
+    hess_store: Optional[str] = None
 
     def __post_init__(self):
         check_precision(self.pallas_precision)
+        if self.hess_store not in (None, "bf16"):
+            raise ValueError(f"hess_store must be None or 'bf16' (got "
+                             f"{self.hess_store!r})")
 
     def chunk(self, m: int, batch: int, nx: int, act_width: int = 0) -> int:
         """Largest divisor of m with batch * chunk * nx <= chunk_elems
@@ -195,6 +215,14 @@ def _chunk_rows(gen: GenConfig, mc: int, ck: int):
     return slice(ck * r, (ck + 1) * r)
 
 
+def _sdgd_indices(seed: int, shape, nx: int, device) -> torch.Tensor:
+    """SDGD indices, uniform in [0, nx) with replacement, from a
+    torch.Generator seeded with ``seed``."""
+    return torch.randint(0, nx, tuple(shape),
+                         generator=make_generator(device, seed),
+                         device=device)
+
+
 # ---------------------------------------------------------------------------
 # value + gradient estimators
 # ---------------------------------------------------------------------------
@@ -233,11 +261,52 @@ def estimate_terminal_with_gradients(seed: int, eq, tx: torch.Tensor,
     return torch.cat([mean[:, :1] + g0, mean[:, 1:]], dim=-1)
 
 
-def _baseline_f(eq, sol: Solution, t, x):
-    """f at the collocation point itself (the integral CV baseline). The
-    SDGD per-subset baselines come with the FN slice (get_f raises for
-    Hessian equations)."""
-    return get_f(eq, sol, t, x)
+def _sdgd_active(eq, gen: GenConfig) -> bool:
+    return bool(eq.has_hessian_term and gen.sdgd_v)
+
+
+def _probe_generator(eq, device, *path):
+    """The Hutchinson probes' generator for an equation that draws them
+    (a Laplacian term with num_v_samples > 0), else None."""
+    if eq.has_laplacian_term and eq.num_v_samples > 0:
+        return make_generator(device, *path)
+    return None
+
+
+def _baseline_f(eq, sol: Solution, t, x, seed: int, gen: GenConfig):
+    """f at the collocation point itself (the integral CV baseline):
+    (f0 (B, 1), None); under SDGD (None, d0) with d0 (B, nx) the full
+    Hessian diagonal at (t, x), from which ``_baseline_f_at_indices``
+    evaluates the baseline on each sample's index subset."""
+    if _sdgd_active(eq, gen):
+        if _mlp_fast_path(sol):
+            return None, mlp_hessian_diag(sol, t, x, store=gen.hess_store)
+        full_idx = torch.arange(x.shape[-1], device=x.device).expand(
+            x.shape)
+        return None, diag_hessian_entries(sol, t, x, full_idx,
+                                          store=gen.hess_store)
+    f0 = get_f(eq, sol, t, x,
+               hutchinson_generator=_probe_generator(eq, x.device, seed),
+               hess_store=gen.hess_store)
+    return f0, None
+
+
+def _baseline_f_at_indices(eq, t, x, d0, idx, u0):
+    """The SDGD baseline f0 on each sample's index subset, (B, mc, 1). With
+    ``ffi_stats`` the subset's statistics are multiplicity counts
+    contracted against the full diagonal d0 (a batched matvec, no
+    gather), and the source terms are evaluated once per point through the
+    (B, 1, .) singleton sample dim; ``u0`` = the value at (t, x)."""
+    v = idx.shape[-1]
+    if hasattr(eq, "ffi_stats"):
+        c = sdgd_index_counts(idx, x.shape[-1])  # (B, mc, nx)
+        m1 = torch.einsum("bmn,bn->bm", c, d0)[..., None] / v
+        m2 = torch.einsum("bmn,bn->bm", c, torch.abs(d0))[..., None] / v
+        return eq.ffi_stats(t[:, None, :], x[:, None, :], u0[:, None, :],
+                            m1, m2)
+    u_ii0 = torch.gather(d0[:, None, :].expand(idx.shape[:-1] + d0.shape[-1:]),
+                         -1, idx.long())
+    return eq.ffi(t[:, None, :], x[:, None, :], u0[:, None, :], u_ii0)
 
 
 def _integral_kernel_applies(eq) -> bool:
@@ -248,11 +317,15 @@ def _integral_kernel_applies(eq) -> bool:
 def estimate_integral_with_gradients(seed: int, eq, sol: Solution,
                                      tx: torch.Tensor, gen: GenConfig,
                                      u01: Optional[torch.Tensor] = None,
-                                     noise: Optional[torch.Tensor] = None):
+                                     noise: Optional[torch.Tensor] = None,
+                                     hess_idx: Optional[torch.Tensor] = None):
     """E[(T-t)(f - f0)(1, Ys)] + (f0 (T-t), 0); (B, 1 + nx).
 
     ``u01`` (B, rows, 1) and ``noise`` (B, rows, nx) replace the draws (the
-    test path); antithetic pairs share their time draw s."""
+    test path); antithetic pairs share their time draw s. Under SDGD each
+    sample draws ``gen.sdgd_v`` indices (``hess_idx`` (B, M, v) replaces
+    them) and the baseline f0 is evaluated on the sample's own subset; the
+    value slot then keeps that per-sample baseline, (T - t) f0_b."""
     m = gen.n_estimate_integral
     if gen.pallas_integral and _integral_kernel_applies(eq):
         return integral_with_gradients_cuda(seed, eq, sol, tx, m, u01, noise,
@@ -261,7 +334,9 @@ def estimate_integral_with_gradients(seed: int, eq, sol: Solution,
     t, x = tx[:, :1], tx[:, 1:]
     b, nx = x.shape
     mc = gen.chunk(m, b, nx, _act_width(sol))
-    f0 = _baseline_f(eq, sol, t, x)
+    f0, d0 = _baseline_f(eq, sol, t, x, derive_seed(seed, 3), gen)
+    sdgd = _sdgd_active(eq, gen)
+    u0 = sol.value(tx).detach() if sdgd else None  # chunk-invariant
     Tt = eq.T - t
 
     def chunk_sum(ck_seed, ck):
@@ -279,14 +354,31 @@ def estimate_integral_with_gradients(seed: int, eq, sol: Solution,
                               None if noise is None else noise[:, rows])
         st = s - t[:, None, :]
         Xs = x[:, None, :] + torch.sqrt(st) * eq.alpha_sqrt * dW
-        f = get_f(eq, sol, s, Xs)
-        diff = Tt[:, None, :] * (f - f0[:, None, :])  # (B, mc, 1)
+        idx = None
+        if sdgd:
+            idx = (_sdgd_indices(derive_seed(ck_seed, 2), (b, mc, gen.sdgd_v),
+                                 nx, x.device) if hess_idx is None
+                   else hess_idx[:, ck * mc:(ck + 1) * mc])
+        f = get_f(eq, sol, s, Xs, hess_indices=idx,
+                  hutchinson_generator=_probe_generator(eq, x.device,
+                                                        ck_seed, 3),
+                  hess_store=gen.hess_store)
+        if idx is not None:
+            f0_b = _baseline_f_at_indices(eq, t, x, d0, idx, u0)
+        else:
+            f0_b = f0[:, None, :]
+        diff = Tt[:, None, :] * (f - f0_b)  # (B, mc, 1)
         val = torch.sum(diff, dim=1)
+        if idx is not None:
+            # with a per-sample baseline the value slot keeps +f0_b (T-t)
+            val = val + torch.sum(Tt[:, None, :] * f0_b, dim=1)
         inv_y = 1.0 / (torch.sqrt(_safe(st)) * eq.alpha_sqrt)  # (B, mc, 1)
         grad = torch.einsum("bmo,bmn->bn", diff * inv_y, dW)
         return torch.cat([val, grad], dim=-1)
 
     mean = _scan_mean(seed, m, mc, (b, 1 + nx), chunk_sum, tx)
+    if f0 is None:
+        return mean
     return torch.cat([mean[:, :1] + f0 * Tt, mean[:, 1:]], dim=-1)
 
 
@@ -313,6 +405,9 @@ route_calls = {MERGED: 0, SPLIT: 0}
 def generation_route(eq, sol: Solution, gen: GenConfig) -> str:
     """MERGED or SPLIT, decided by the configuration and the structure of
     the equation and frozen net alone, before any launch:
+      * an equation without a gradient term, or with a Hessian or
+        Laplacian term (the FN family), => SPLIT, whatever the flags say
+        (the JAX package's merged kernel takes neither);
       * different terminal and integral M => SPLIT;
       * pallas_generate False => SPLIT, True => MERGED (the merged kernel
         raises on the card where it does not cover the net);
@@ -325,6 +420,8 @@ def generation_route(eq, sol: Solution, gen: GenConfig) -> str:
         OU); and SPLIT, silently, for the zero iterate at nx below
         ZERO_ITERATE_MIN_NX, where the chunk estimators are faster."""
     mode = gen.pallas_generate
+    if not _integral_kernel_applies(eq):
+        return SPLIT
     if gen.n_estimate_terminal != gen.n_estimate_integral or mode is False:
         return SPLIT
     if mode is True:
@@ -363,10 +460,6 @@ def generate_with_gradients(seed: int, eq, sol: Solution, tx: torch.Tensor,
         raise NotImplementedError(
             "DATA.ESTIMATE_DELTA_T > 0 (TD estimators) is not ported yet; "
             "it comes with the TD slice")
-    if not _integral_kernel_applies(eq):
-        raise NotImplementedError(
-            "only gradient-term equations are ported (Cha, the OU "
-            "equation)")
     route = generation_route(eq, sol, gen)
     route_calls[route] += 1
     if route == MERGED:

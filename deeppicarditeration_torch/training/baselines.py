@@ -1,8 +1,8 @@
-"""Baseline solvers: D-DBSDE (Diffusion) so far.
+"""Baseline solvers: D-DBSDE (Diffusion) and DBDP (FullyNonlinearSolver).
 
 Counterpart of ``deeppicarditeration_tpu/training/baselines.py``,
-dispatched by METHOD.cls from ``PicardRunner.run_one``. The PINN-HTE and
-DBDP (FullyNonlinearSolver) baselines come with later slices.
+dispatched by METHOD.cls from ``PicardRunner.run_one``. The PINN-HTE
+baseline comes with a later slice.
 
 The JAX package fuses each log interval of epochs into one ``lax.scan``
 dispatch, always. Here each D-DBSDE epoch's draws run eagerly (the
@@ -20,25 +20,36 @@ splits it four ways (t0, x0, paths, x_T); here each is a ``torch.Generator``
 seeded from ``derive_seed(SEED, iteration, epoch, purpose)``, and the
 rollout kernel takes a seed of the same form. RESUME stays rejected by the
 runner.
+
+DBDP (``train_dbdp``) sweeps the time grid backward with a value net and a
+gradient net per grid time, each pair with its own Adam kept across epochs;
+every sub-iteration draws fresh paths from the rollout kernel into static
+buffers and takes one eager Adam step (the JAX package scans a timestep's
+sub-iterations in one dispatch).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import time
 
 import torch
+from torch import nn
 
 from deeppicarditeration_torch.device import (
     Timer,
     derive_seed,
     make_generator,
 )
+from deeppicarditeration_torch.equations.base import EquationMethods
 from deeppicarditeration_torch.evaluation.evaluator import (
     eval_points,
     make_traced_eval,
 )
+from deeppicarditeration_torch.evaluation.metrics import value_metrics
 from deeppicarditeration_torch.models.factory import (
+    build_dbdp_pair,
     freeze,
     init_solution,
     is_enforce_terminal,
@@ -64,9 +75,7 @@ def run_baseline(runner):
             "the PINN baseline is not ported yet; it comes with the "
             "baselines slice")
     if method == "FullyNonlinearSolver":
-        raise NotImplementedError(
-            "the DBDP baseline (FullyNonlinearSolver) is not ported yet; it "
-            "comes with the FN slice")
+        return train_dbdp(runner)
     raise ValueError(f"Unknown baseline {method!r}")
 
 
@@ -190,6 +199,274 @@ def train_diffusion(runner):
 
     return _baseline_loop(runner, step, module, optimizer,
                           int(cfg.TRAIN.N_EPOCHS), "diffusion")
+
+
+# ---------------------------------------------------------------------------
+# DBDP / FullyNonlinearSolver (arXiv:1908.00412)
+# ---------------------------------------------------------------------------
+
+# derive_seed(SEED, iteration, INIT, k, net): grid time k's pair
+INIT, INIT_U, INIT_G = 1000, 0, 1
+# derive_seed(SEED, iteration, epoch, k, sub-iteration, purpose): a
+# sub-iteration's draws (k = K + 1: the terminal pre-fit's)
+DBDP_X0, DBDP_PATHS = 0, 1
+# derive_seed(SEED, iteration, epoch, k, DBDP_EVAL): the grid eval's points
+DBDP_EVAL = 777
+# points per grid time in the grid eval
+DBDP_EVAL_POINTS = 100
+
+
+def check_dbdp(eq) -> None:
+    """DBDP's loss reads the equation's ``ffh``: fail before the run where
+    the equation defines none (the JAX package fails at its first step)."""
+    if type(eq).ffh is EquationMethods.ffh:
+        raise NotImplementedError(
+            f"DBDP (METHOD.cls FullyNonlinearSolver) needs the equation's "
+            f"ffh; {type(eq).__name__} defines none")
+
+
+class DBDPNets(nn.Module):
+    """DBDP's K + 1 per-grid-time net pairs: ``u[k]`` and ``g[k]`` map x to
+    the value and the gradient corrections at t_k = k dt (``dbdp_u_at``,
+    ``dbdp_ux_at`` anchor them to the terminal condition). Its state_dict
+    is the checkpoint of the stacked nets."""
+
+    def __init__(self, pairs):
+        super().__init__()
+        pairs = list(pairs)
+        self.u = nn.ModuleList(p[0] for p in pairs)
+        self.g = nn.ModuleList(p[1] for p in pairs)
+
+    def pair(self, k: int):
+        return self.u[k], self.g[k]
+
+    def pair_parameters(self, k: int):
+        return list(self.u[k].parameters()) + list(self.g[k].parameters())
+
+    def copy_pair(self, src: int, dst: int) -> None:
+        """Pair ``dst`` takes pair ``src``'s parameters (the warm start;
+        the optimizer state stays ``dst``'s)."""
+        with torch.no_grad():
+            for a, b in zip(self.pair_parameters(dst),
+                            self.pair_parameters(src)):
+                a.copy_(b)
+
+    def load_pairs(self, pairs) -> None:
+        """Load a list of (u state_dict, g state_dict), one per grid time
+        (``models/convert.py:dbdp_pair_state_dicts_from_flax``)."""
+        for k, (us, gs) in enumerate(pairs):
+            self.u[k].load_state_dict(us)
+            self.g[k].load_state_dict(gs)
+
+
+def dbdp_u_at(eq, u_mod, t_k, x):
+    """The value at grid time t_k: g(x) + (T - t_k) u_k(x)."""
+    return eq.g(x) + (eq.T - t_k) * u_mod(x)
+
+
+def dbdp_ux_at(eq, g_mod, t_k, x):
+    """The gradient at grid time t_k: g_x(x) + (T - t_k) g_k(x)."""
+    return eq.g_x(x) + (eq.T - t_k) * g_mod(x)
+
+
+def dbdp_hessian(eq, g_mod, t_next, x_next, terminal: bool):
+    """(B, nx, nx): the per-sample Jacobian of the next gradient net (g_x
+    alone at the terminal step of a terminal-enforcing ansatz) at x_next,
+    by ``vmap(jacrev)``; no graph to the parameters."""
+
+    def gnet(xx, tt):
+        xx = xx[None]
+        if terminal:
+            return eq.g_x(xx)[0]
+        return dbdp_ux_at(eq, g_mod, tt, xx)[0]
+
+    with torch.no_grad():
+        return torch.func.vmap(torch.func.jacrev(gnet))(x_next, t_next)
+
+
+def dbdp_loss(eq, pair_prev, pair_next, t_prev, t_next, x, x_next, dW,
+              is_last: bool, enforce: bool, dt: float):
+    """One DBDP step's loss: mean((u_next - F)^2) with
+    F = u - ffh(t, x, u, u_x, Hess u_next(x_next)) dt + <u_x, sqrt(a) dW>;
+    u_next and the Hessian are held fixed. The Hessian is computed only
+    for an equation with a Hessian term: ``ffh`` of any other equation
+    does not read it (OU's is ``ff``), and the JAX package's compiled step
+    drops it there too."""
+    u_mod, g_mod = pair_prev
+    un_mod, gn_mod = pair_next
+    u = dbdp_u_at(eq, u_mod, t_prev, x)
+    u_x = dbdp_ux_at(eq, g_mod, t_prev, x)
+    with torch.no_grad():
+        if enforce and is_last:
+            u_next = eq.g(x_next)
+        else:
+            u_next = dbdp_u_at(eq, un_mod, t_next, x_next)
+    hess = (dbdp_hessian(eq, gn_mod, t_next, x_next, enforce and is_last)
+            if eq.has_hessian_term else None)
+    f_hat = eq.ffh(t_prev, x, u, u_x, hess)
+    F = (u - f_hat * dt
+         + torch.sum(u_x * eq.alpha_sqrt * dW, dim=-1, keepdim=True))
+    return torch.mean((u_next - F) ** 2)
+
+
+def dbdp_terminal_loss(eq, pair, t_K, x, dt: float):
+    """The terminal pre-fit's loss at grid time t_K on x = X_T:
+    mean((u - g)^2) + dt mean((u_x - g_x)^2)."""
+    u = dbdp_u_at(eq, pair[0], t_K, x)
+    u_x = dbdp_ux_at(eq, pair[1], t_K, x)
+    return (torch.mean((u - eq.g(x)) ** 2)
+            + dt * torch.mean((u_x - eq.g_x(x)) ** 2))
+
+
+class DBDPGridModule(nn.Module):
+    """u(t, x) over DBDP's grid nets: the value net of the nearest grid
+    time (round half to even, clipped to [0, K]) in its anchored form
+    g(x) + (T - t_k) u_k(x). Every grid net runs on every point and the
+    sample's row is gathered: an evaluation view, as the JAX package's."""
+
+    def __init__(self, u_nets: nn.ModuleList, ts_grid: torch.Tensor,
+                 K: int, dt: float, eq):
+        super().__init__()
+        self.u = u_nets
+        self.register_buffer("ts_grid", ts_grid, persistent=False)
+        self.K, self.dt, self.eq = int(K), float(dt), eq
+
+    def forward(self, tx):
+        t, x = tx[..., 0:1], tx[..., 1:]
+        kk = torch.clamp(torch.round(t / self.dt).long(), 0, self.K)
+        us = torch.stack([dbdp_u_at(self.eq, u, self.ts_grid[k], x)
+                          for k, u in enumerate(self.u)])
+        return torch.gather(us, 0, kk[None]).squeeze(0)
+
+
+def dbdp_grid_eval(eq, nets: DBDPNets, ts_grid, generator=None,
+                   n: int = DBDP_EVAL_POINTS, x_eval=None):
+    """Value metrics of the grid nets against the exact solution, over n
+    points x ~ law(X_{t_k}) at every grid time t_k (one draw for all from
+    ``generator``, or ``x_eval`` ((K + 1) n, nx), grid time by grid time)."""
+    t_eval = ts_grid.repeat_interleave(n)[:, None]
+    if x_eval is None:
+        x_eval = eq.sample_x(generator, t_eval)
+    with torch.no_grad():
+        us = torch.cat([dbdp_u_at(eq, nets.u[k], ts_grid[k],
+                                  x_eval[k * n:(k + 1) * n])
+                        for k in range(len(nets.u))])
+        return value_metrics(us, eq.exact_solution(t_eval, x_eval))
+
+
+def train_dbdp(runner):
+    """The backward DBDP sweep: per epoch, the terminal pre-fit (unless the
+    ansatz enforces the terminal condition), then for k = K .. 1 the warm
+    start pair_{k-1} <- pair_k (parameters only) and METHOD.num_sub_iter
+    Adam(1e-3) steps of pair k-1 on fresh paths; after each k, the grid
+    eval. One readback per epoch; a "dbdp" and an "eval" row per k; the
+    stacked nets saved every epoch and at the end; ``runner.u_current``
+    the grid view. ``runner.timings`` gets each k's sub-iterations' ms."""
+    cfg, eq, dev = runner.cfg, runner.equation, runner.device
+    K = round(eq.T / float(cfg.METHOD.dt))
+    dt = eq.T / K
+    num_sub_iter = int(cfg.METHOD.num_sub_iter)
+    bs, nx = int(cfg.TRAIN.BATCH_SIZE), eq.nx
+    enforce = is_enforce_terminal(cfg)
+    cpu = torch.device("cpu")
+    nets = DBDPNets(
+        build_dbdp_pair(cfg, eq, dev,
+                        make_generator(cpu, runner.seed, runner.i, INIT, kk,
+                                       INIT_U),
+                        make_generator(cpu, runner.seed, runner.i, INIT, kk,
+                                       INIT_G))
+        for kk in range(K + 1))
+    # one Adam per pair, kept across epochs
+    opts = [torch.optim.Adam(nets.pair_parameters(k), lr=BASELINE_LR)
+            for k in range(K + 1)]
+    ts_grid = torch.arange(K + 1, dtype=torch.float32, device=dev) * dt
+    xs_buf = torch.empty((K + 1, bs, nx), dtype=torch.float32, device=dev)
+    xi_buf = torch.empty((K, bs, nx), dtype=torch.float32, device=dev)
+    t0 = torch.zeros((bs, 1), dtype=torch.float32, device=dev)
+    dts = torch.full((bs, 1), dt, dtype=torch.float32, device=dev)
+    sqrt_dt = math.sqrt(dt)
+
+    def paths(epoch, kk, it):
+        """Fresh paths in the static buffers: xs (K+1, B, nx), dW (K, B,
+        nx) = xi sqrt(dt)."""
+        seed = derive_seed(runner.seed, runner.i, epoch, kk, it)
+        x0 = eq.sample_x0(make_generator(dev, seed, DBDP_X0), bs,
+                          torch.float32, dev)
+        brownian_paths(None, eq, t0, x0, dts, K, use_pallas=True,
+                       seed=derive_seed(seed, DBDP_PATHS),
+                       out=(xs_buf, xi_buf))
+        runner.rollout_calls += 1
+        return xs_buf, xi_buf * sqrt_dt
+
+    def step(opt, loss_fn):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn()
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    def timed(epoch, kk, body):
+        with Timer(dev) as tm:
+            for it in range(num_sub_iter):
+                loss = body(it)
+        runner.timings.append({"iter": runner.i, "epoch": epoch, "k": kk,
+                               "sub_iters": num_sub_iter, "ms": tm.ms})
+        return loss
+
+    state_path, _ = _baseline_state_paths(runner)
+    step_counter = 0
+    t_start = time.perf_counter()
+    wall0 = 0.0
+    for epoch in range(int(cfg.TRAIN.N_EPOCHS)):
+        if not enforce:
+            def prefit(it):
+                xs, _ = paths(epoch, K + 1, it)
+                return step(opts[K], lambda: dbdp_terminal_loss(
+                    eq, nets.pair(K), ts_grid[K], xs[K], dt))
+
+            timed(epoch, K + 1, prefit)
+        pending = []
+        for kk in range(K, 0, -1):
+            if kk < K:  # warm start from step k
+                nets.copy_pair(kk, kk - 1)
+            t_prev = ts_grid[kk - 1].expand(bs, 1)
+            t_next = ts_grid[kk].expand(bs, 1)
+
+            def sub(it, kk=kk, t_prev=t_prev, t_next=t_next):
+                xs, dW = paths(epoch, kk, it)
+                return step(opts[kk - 1], lambda: dbdp_loss(
+                    eq, nets.pair(kk - 1), nets.pair(kk), t_prev, t_next,
+                    xs[kk - 1], xs[kk], dW[kk - 1], kk == K, enforce, dt))
+
+            loss = timed(epoch, kk, sub)
+            step_counter += num_sub_iter
+            em = None
+            if eq.has_exact_solution:
+                em = dbdp_grid_eval(eq, nets, ts_grid, make_generator(
+                    dev, runner.seed, runner.i, epoch, kk, DBDP_EVAL))
+            pending.append((kk, step_counter, loss, em))
+        names = sorted(pending[0][3]) if pending[0][3] is not None else []
+        host = torch.stack([v for _, _, loss, em in pending
+                            for v in [loss] + [em[n] for n in names]]
+                           ).cpu().tolist()  # one readback per epoch
+        # per-k walls interpolated between the epoch's readbacks
+        wall1 = time.perf_counter() - t_start
+        width = 1 + len(names)
+        for j, (kk, sc, _, _) in enumerate(pending):
+            vals = host[j * width:(j + 1) * width]
+            wall = wall0 + (wall1 - wall0) * (j + 1) / len(pending)
+            runner.logger.log({"loss": vals[0], "k": kk, "epoch": epoch,
+                               "wall_time": wall}, sc, context="dbdp")
+            if names:
+                runner.logger.log(dict(zip(names, vals[1:])), sc,
+                                  context="eval")
+        wall0 = wall1
+        # the periodic save (never model_{i}: that marks a finished run)
+        ckpt.save_params(state_path, nets)
+    ckpt.save_params(ckpt.ckpt_path(runner.exp_dir, runner.i), nets)
+    runner.u_current = Solution.from_net(
+        freeze(DBDPGridModule(nets.u, ts_grid, K, dt, eq)), "Value", nx)
+    return nets
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 
 One ``model_{i}`` file per Picard iteration in the experiment directory
 (the JAX package's path layout; here a ``torch.save`` of the state_dict,
-not an orbax directory), and the baselines' periodic ``{model,
-optimizer}`` state. Saves are synchronous and atomic.
+not an orbax directory; for DBDP the stacked per-grid-time nets, a
+``training/baselines.py:DBDPNets`` state_dict), and the baselines'
+periodic ``{model, optimizer}`` state. Saves are synchronous and atomic.
 """
 
 from __future__ import annotations

@@ -17,9 +17,10 @@ Random streams: the JAX package splits keys; here each stream is a
 ``torch.Generator`` seeded from ``derive_seed(SEED, iteration, purpose,
 ...)``. METHOD.cls Diffusion runs the D-DBSDE baseline
 (``training/baselines.py``) in place of the Picard steps; OptimalControl
-and DeepNesting run the Picard steps, as in the JAX runner. Not ported yet:
-RESUME, offline datasets and DATA.SAVE, the TwoLayer formula, the PINN and
-DBDP baselines, multi-device runs, plots.
+and DeepNesting run the Picard steps, as in the JAX runner;
+FullyNonlinearSolver runs the DBDP baseline. Not ported yet: RESUME,
+offline datasets and DATA.SAVE, the TwoLayer formula, Hessian supervision,
+the PINN baseline, multi-device runs, plots.
 """
 
 from __future__ import annotations
@@ -77,12 +78,34 @@ def _tri_state(v):
     return bool(v)
 
 
+def _opt_str(v):
+    """Optional-string config value: None for every null-ish spelling
+    (None, False, "", "none"/"null"/"off"/"false"/"0"), else the lowercased
+    string."""
+    if v is None or v is False or v == "" or v == 0:
+        return None
+    s = str(v).strip().lower()
+    return None if s in ("none", "null", "off", "false", "0") else s
+
+
 def gen_config_from_cfg(cfg) -> GenConfig:
     d = cfg.DATA
     kwargs = d.kwargs or {}
-    if d.HESSIAN_APPROXIMATION.method is not None:
-        raise NotImplementedError(
-            "DATA.HESSIAN_APPROXIMATION is not ported yet (FN slice)")
+    hess = d.HESSIAN_APPROXIMATION
+    sdgd_v = None
+    if hess.method == "SDGD":
+        v = (hess.kwargs or {}).get("v")
+        if v is None:
+            raise ValueError(
+                "DATA.HESSIAN_APPROXIMATION.method is SDGD but "
+                "DATA.HESSIAN_APPROXIMATION.kwargs.v is not set")
+        sdgd_v = int(v)
+    hess_store = _opt_str(d.TPU.get("HESSIAN_STORE"))
+    if hess_store not in (None, "bf16"):
+        # a typo would otherwise silently run the f32 chain
+        raise ValueError(
+            f"DATA.TPU.HESSIAN_STORE must be null or 'bf16', got "
+            f"{d.TPU.HESSIAN_STORE!r}")
     eps = 0.0
     if ("ByGx" in (d.ESTIMATE_TERMINAL or "")
             or "Joint" in (d.ESTIMATE_INTEGRAL or "")):
@@ -102,6 +125,8 @@ def gen_config_from_cfg(cfg) -> GenConfig:
         pallas_integral=bool(d.TPU.PALLAS_INTEGRAL),
         pallas_generate=_tri_state(d.TPU.PALLAS_GENERATE),
         pallas_precision=str(d.TPU.get("PALLAS_PRECISION", "bf16x3")),
+        sdgd_v=sdgd_v,
+        hess_store=hess_store,
     )
 
 
@@ -109,12 +134,14 @@ def gen_config_from_cfg(cfg) -> GenConfig:
 # control" and "deep nesting" names have no solver of their own in the
 # JAX package either and fall through to it
 PICARD_METHODS = ("Picard", "OptimalControl", "DeepNesting")
+# the ported baselines (training/baselines.py)
+BASELINE_METHODS = ("Diffusion", "FullyNonlinearSolver")
 
 
 def _reject_unported(cfg) -> None:
     """Fail loudly on recipe features this slice of the port lacks."""
     checks = [
-        (cfg.METHOD.cls not in PICARD_METHODS + ("Diffusion",),
+        (cfg.METHOD.cls not in PICARD_METHODS + BASELINE_METHODS,
          f"METHOD.cls {cfg.METHOD.cls!r}"),
         (cfg.PICARD.FORMULA is not None,
          f"PICARD.FORMULA {cfg.PICARD.FORMULA!r}"),
@@ -192,6 +219,12 @@ class PicardRunner:
             cfg.EQUATION.cls, run_seed=self.seed,
             **(cfg.EQUATION.kwargs or {})).to(self.device)
         eq = self.equation
+        if cfg.METHOD.cls == "FullyNonlinearSolver":
+            from deeppicarditeration_torch.training.baselines import (
+                check_dbdp,
+            )
+
+            check_dbdp(eq)
         self.supervise_gradient = bool(cfg.TRAIN.SUPERVISE_GRADIENT
                                        or eq.has_gradient_term)
         self.net_type = cfg.NETWORK.TYPE

@@ -1,7 +1,9 @@
-"""torch.profiler traces of path A's fit and of path E's epochs on the card.
+"""torch.profiler traces of path A's fit, of path E's epochs, of the
+DBDP paths' sub-iterations and of path K's generation on the card.
 
     python -m deeppicarditeration_torch.utils.fit_trace [--epochs 100] \
-        [--fused auto|false] [--out build/traces]
+        [--fused auto|false] [--out build/traces] \
+        [--only fit|epochs|dbdp|generate]
 
 Run from a checkout's root: the paths are ``chip_smoke.py``'s (its
 ``PATHS`` recipes, imported from the working directory). Path A, the
@@ -12,7 +14,14 @@ CUDA events). Path E, the D-DBSDE recipe, runs 3 x ``--epochs`` epochs
 with one log interval per ``--epochs``; the second interval's epochs are
 traced (the eval and checkpoint between intervals are not), the third's
 timed untraced. The first iteration or interval pays the set-up (cuBLAS
-handles, a CUDA graph's capture), so neither is traced. The profiler
+handles, a CUDA graph's capture), so neither is traced. Paths M and N, the
+DBDP recipes, run their sweep with ``chip_smoke.DBDP_SUB_ITER``
+sub-iterations a grid time; the third grid time's sub-iterations are
+traced (the grid eval after each grid time is not), the fourth's timed
+untraced. Path K, the FN
+recipe, runs 3 Picard iterations; iteration 2's generation call (the SDGD
+chunk estimators through the frozen net's second-order chain) is traced,
+iteration 3's timed untraced. The profiler
 records device activity and the CUDA runtime calls only, to keep its cost
 on the host small.
 
@@ -183,22 +192,99 @@ def trace_epochs(epochs: int, out_dir: pathlib.Path) -> dict:
     return out
 
 
+def trace_dbdp(path: str, out_dir: pathlib.Path) -> dict:
+    import chip_smoke
+
+    from deeppicarditeration_torch.device import Timer
+    from deeppicarditeration_torch.training import baselines
+    from deeppicarditeration_torch.training.picard import PicardRunner
+
+    sub_iter = chip_smoke.DBDP_SUB_ITER
+    cfg = _cfg(path, ["METHOD.num_sub_iter", str(sub_iter)])
+    seen = {"n": 0}
+
+    class TracedGridTime(Timer):
+        """The DBDP sweep's per-grid-time timer; traces the third."""
+
+        def __enter__(self):
+            seen["n"] += 1
+            if seen["n"] == 3:
+                torch.cuda.synchronize()
+                self._prof = profile(activities=[ProfilerActivity.CUDA])
+                self._prof.__enter__()
+                self._t0_wall = time.perf_counter()
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            super().__exit__(*exc)
+            if seen["n"] == 3:
+                torch.cuda.synchronize()
+                seen["wall"] = (time.perf_counter() - self._t0_wall) * 1e3
+                self._prof.__exit__(*exc)
+                seen["prof"] = self._prof
+            return False
+
+    runner = PicardRunner(cfg, exp_root=out_dir / "runs" / path)
+    timer = baselines.Timer
+    baselines.Timer = TracedGridTime
+    try:
+        runner.run()
+    finally:
+        baselines.Timer = timer
+    out = summarize(seen["prof"], seen["wall"], sub_iter, "sub_iteration",
+                    f"dbdp_{path}", out_dir)
+    fourth = runner.timings[3]
+    out["untraced_ms_per_sub_iteration"] = fourth["ms"] / fourth["sub_iters"]
+    out["traced_grid_time"] = runner.timings[2]["k"]
+    return out
+
+
+def trace_generate(out_dir: pathlib.Path) -> dict:
+    from deeppicarditeration_torch.training.picard import PicardRunner
+
+    cfg = _cfg("K", ["PICARD.N", "3"])
+    runner = PicardRunner(cfg, exp_root=out_dir / "runs" / "K")
+    inner = runner._make_dataset
+    seen = {}
+
+    def make_dataset(*args, **kwargs):
+        if runner.i != 2:
+            return inner(*args, **kwargs)
+        out, seen["prof"], seen["wall"] = _traced(
+            lambda: inner(*args, **kwargs))
+        return out
+
+    runner._make_dataset = make_dataset
+    runner.run()
+    out = summarize(seen["prof"], seen["wall"], 1, "call", "generate_K",
+                    out_dir)
+    out["untraced_ms_per_call"] = runner.timings[-1]["generate_ms"]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--epochs", type=int, default=100)
     ap.add_argument("--fused", default="auto", choices=("auto", "false"))
     ap.add_argument("--out", type=pathlib.Path,
                     default=pathlib.Path("build") / "traces")
-    ap.add_argument("--only", choices=("fit", "epochs"), default=None)
+    ap.add_argument("--only", choices=("fit", "epochs", "dbdp", "generate"),
+                    default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("fit_trace: needs a CUDA card")
     sys.path.insert(0, os.getcwd())
     torch.backends.cuda.matmul.allow_tf32 = False
-    if args.only != "epochs":
+    if args.only in (None, "fit"):
         print(json.dumps(trace_fit(args.fused, args.out)), flush=True)
-    if args.only != "fit":
+    if args.only in (None, "epochs"):
         print(json.dumps(trace_epochs(args.epochs, args.out)), flush=True)
+    if args.only in (None, "dbdp"):
+        for path in ("M", "N"):
+            print(json.dumps(trace_dbdp(path, args.out)),
+                  flush=True)
+    if args.only in (None, "generate"):
+        print(json.dumps(trace_generate(args.out)), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())

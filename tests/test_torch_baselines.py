@@ -15,7 +15,9 @@
 * The port's CLI end to end on the CPU, with DATA.TPU.PALLAS_ROLLOUT true
   and false: files, metric rows, rRMSE falling. The port takes the rollout
   kernel whatever the flag says (its plain version on CPU tensors).
-* PINN and FullyNonlinearSolver are not ported: they raise.
+* PINN is not ported: it raises. FullyNonlinearSolver (DBDP) is ported
+  (tests/test_torch_fn.py) and raises on the Burgers equation, which has
+  no ``ffh``.
 """
 
 import json
@@ -289,8 +291,14 @@ def test_cli_diffusion_runs_the_same_with_and_without_the_rollout_flag_on_cpu(
 def test_unported_baselines_raise(tmp_path, method):
     cfg = load_cfg(ROOT / "configs/burgers/diffusion_100d_T1.0_beta10.0.yaml",
                    ["DEVICE", "cpu", "METHOD.cls", method])
-    with pytest.raises(NotImplementedError):
+    # DBDP is ported; the runner rejects it before any work where the
+    # equation has no ffh, which its loss reads (Cha defines none)
+    with pytest.raises(NotImplementedError,
+                       match="ffh" if method == "FullyNonlinearSolver"
+                       else None):
         PicardRunner(cfg, exp_root=tmp_path)
+    if method == "FullyNonlinearSolver":
+        return
 
     class Stub:
         pass

@@ -784,3 +784,80 @@ def test_pis_forced_merged_route_raises_where_the_kernel_does_not_cover(
     n0 = kernels.GENERATE_PIS.launches
     est.generate_with_gradients(0, eq, sol, tx, auto)
     assert kernels.GENERATE_PIS.launches == n0 + 1
+
+
+# ---- the FN family: the rollout kernel under DBDP, normals under SDGD -------
+
+def test_rollout_kernel_at_the_dbdp_shape(cuda):
+    """K = 50 steps of dt = 0.02 from x0 ~ N(0, 4 I), B = 512, nx = 100 (the
+    DBDP recipes' paths): the kernel's draws are the host Philox's, its
+    paths the plain version's on those draws."""
+    seed, K, b, nx = (9 << 32) | 3, 50, 512, 100
+    g = torch.Generator().manual_seed(1)
+    x0 = (2.0 * torch.randn((b, nx), generator=g)).to(cuda)
+    sdt = torch.full((b, 1), 0.02 ** 0.5, device=cuda)
+    xs, xi = kernels.paths_cuda(seed, x0, sdt, 1.0, K)
+    host = torch.from_numpy(philox.path_normals(seed, K, b, nx)).to(cuda)
+    torch.testing.assert_close(xi, host, rtol=PATH_TOL, atol=PATH_TOL)
+    ref, _ = kernels.paths_plain(0, x0, sdt, 1.0, K, host)
+    torch.testing.assert_close(xs, ref, rtol=PATH_TOL, atol=PATH_TOL)
+    assert torch.equal(xs[0], x0)
+
+
+def test_normals_kernel_at_the_fn_chunk_shape(cuda):
+    """The FN recipe's chunk draw (2048, 32, 100): the host Philox's values
+    at both ends of the buffer, and N(0, 1) moments."""
+    seed, shape = (7 << 32) | 5, (2048, 32, 100)
+    v = kernels.normals_cuda(seed, shape, cuda).reshape(-1)
+    n = v.numel()
+    for start in (0, n - 4099):
+        ref = torch.from_numpy(philox.normals_flat(seed, start, 4099))
+        torch.testing.assert_close(v[start:start + 4099].cpu(), ref,
+                                   rtol=1e-5, atol=1e-5)
+    x = v.double()
+    assert abs(float(x.mean())) < 5 / n ** 0.5
+    assert abs(float(x.var()) - 1.0) < 5 * (2 / n) ** 0.5
+
+
+@pytest.mark.parametrize("prng", [False, True])
+def test_fn_targets_on_the_card_agree_with_the_cpu_within_clt(cuda, prng):
+    """One FN generation call (GBM, SDGD v = nx, bf16 Hessian store, a
+    3x64 net) on the card (the normals kernel under DATA.TPU.PRNG) against
+    the same call on the CPU: each output within 5 standard errors of the
+    difference over 32 replicates of 8 points."""
+    nx, b, m, reps = 16, 8, 64, 32
+    eq = make_equation("GBMEquationComplexExact", nx=nx)
+    g = torch.Generator().manual_seed(2)
+    mod = MLP(1 + nx, (64,) * 3, ("ELU",) * 3, 1, generator=g)
+    t = torch.rand((b, 1), generator=g) * 0.98
+    x = 0.5 * torch.randn((b, nx), generator=g)
+    tx = torch.cat([t, x], 1).repeat(reps, 1)
+    gen = est.GenConfig(n_estimate_terminal=m, n_estimate_integral=m,
+                        chunk_elems=reps * b * nx * 16, sdgd_v=nx,
+                        hess_store="bf16", tpu_prng=prng)
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        sol = Solution.from_net(mod.to(dev), "Value", nx)
+        n0 = kernels.NORMALS.launches
+        outs[dev.type] = est.generate_with_gradients(
+            11, eq.to(dev), sol, tx.to(dev), gen).cpu().double().reshape(
+            reps, b, -1)
+        if dev.type == "cuda":
+            assert kernels.NORMALS.launches - n0 == (8 if prng else 0)
+    a, c = outs["cuda"], outs["cpu"]
+    se = ((a.var(0) + c.var(0)) / reps).sqrt().clamp(min=1e-12)
+    z = (a.mean(0) - c.mean(0)) / se
+    assert torch.isfinite(a).all()
+    assert float(z.abs().max()) < 5.0, float(z.abs().max())
+    assert 0.3 < float((z * z).mean()) < 3.0
+
+
+def test_forced_terminal_kernel_raises_on_gbm(cuda):
+    """The terminal kernel has Cha's g only: a forced PALLAS_TERMINAL on
+    the FN equation raises on the card, naming the equation."""
+    eq = make_equation("GBMEquationComplexExact", nx=8).to(cuda)
+    tx = torch.cat([torch.full((4, 1), 0.5), torch.zeros(4, 8)], 1).to(cuda)
+    gen = est.GenConfig(n_estimate_terminal=16, n_estimate_integral=16,
+                        pallas_terminal=True, sdgd_v=8)
+    with pytest.raises(NotImplementedError, match="GBMEquationComplexExact"):
+        est.estimate_terminal_with_gradients(0, eq, tx, gen)

@@ -497,6 +497,24 @@ def test_auto_route_by_structure_hjb(case, want, capsys, monkeypatch):
     assert noticed == (want == est.SPLIT and kind != "zero")
 
 
+@pytest.mark.parametrize("mode", [False, True, "auto"])
+@pytest.mark.parametrize("net", [False, True])
+def test_auto_route_by_structure_fn(mode, net, capsys, monkeypatch):
+    """The FN cells: an equation with a Hessian term (GBM) takes the split
+    route, the chunk estimators with SDGD, under every PALLAS_GENERATE
+    (the JAX merged kernel takes no Hessian equation), silently; decided
+    from the structure alone."""
+    nx = 100
+    teq = make_equation("GBMEquationComplexExact", nx=nx)
+    sol = (Solution.from_net(MLP(1 + nx, (64,) * 3, ("ELU",) * 3, 1),
+                             "Value", nx) if net else Solution.zero(nx))
+    gen = est.GenConfig(n_estimate_terminal=64, n_estimate_integral=64,
+                        pallas_generate=mode, sdgd_v=nx)
+    monkeypatch.setattr(est, "_FALLBACK_NOTICED", set())
+    assert est.generation_route(teq, sol, gen) == est.SPLIT
+    assert "using the split estimators" not in capsys.readouterr().out
+
+
 def test_runner_maps_the_flags_and_counts_routes(tmp_path, capsys,
                                                  monkeypatch):
     (tmp_path / "tiny.yaml").write_text(TINY_SPLIT_YAML)
