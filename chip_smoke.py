@@ -25,8 +25,10 @@ TRAIN.FUSED's "auto"):
      pairing, through the merged kernel;
   E  configs/burgers/diffusion_100d_T1.0_beta10.0.yaml, the D-DBSDE
      baseline (K=20 steps, batch 512, beta 10, the same 4x128 ELU net) as
-     the recipe stands: one rollout kernel launch (``csrc/rollout.cu``) per
-     epoch; cut to 3000 of its 35 000 epochs (``--epochs``);
+     the recipe stands: an epoch (its draws, the rollout kernel
+     ``csrc/rollout.cu`` with its seed from a device table, the loss, the
+     Adam step) is one graph replay; cut to 3000 of its 35 000 epochs
+     (``--epochs``);
   F  A with DATA.TPU.PALLAS_PRECISION highest: the merged kernel's FP32-FMA
      net pass;
   G  B with DATA.TPU.PALLAS_PRECISION highest: the integral kernel's
@@ -38,8 +40,9 @@ TRAIN.FUSED's "auto"):
      (``--iterations``);
   J  H with PALLAS_PRECISION bf16x3;
   I  configs/hjb/diffusion_100d_T1.0.yaml, the D-DBSDE baseline on the OU
-     equation (K=50, a plain 4x512 ELU net, beta 10): one rollout launch
-     per epoch; cut to 2000 of its 15 000 epochs (``--hjb-epochs``);
+     equation (K=50, a plain 4x512 ELU net, beta 10): one replay, with
+     the rollout inside, per epoch; cut to 2000 of its 15 000 epochs
+     (``--hjb-epochs``);
   K  configs/fully_nonlinear/base_100d_T1.0_w0.0_nov.yaml (the FN family:
      GBMEquationComplexExact, B = 2048, M = 1024 + 1024, SDGD v = 100,
      the 3x64 ELU net, HESSIAN_STORE bf16, the eval with the full Hessian):
@@ -48,16 +51,23 @@ TRAIN.FUSED's "auto"):
   L  K with DATA.TPU.PRNG true: the chunks' normals from ``normals.cu``;
      2 iterations;
   M  configs/fully_nonlinear/fn_100d_T1.0.yaml, the DBDP baseline (K = 50
-     grid times, batch 512, a 3x64 value and gradient net a grid time):
-     one rollout launch a sub-iteration; every grid time's 150
-     sub-iterations cut to 10 (``--dbdp-sub-iter``);
+     grid times, batch 512, a 3x64 value and gradient net a grid time): a
+     sub-iteration (x0, the rollout, the loss with its Hessian, backward,
+     Adam) is one graph replay over a static working pair; every grid
+     time's 150 sub-iterations cut to 10 (``--dbdp-sub-iter``);
   N  configs/hjb/fn_100d_T1.0.yaml, DBDP on the OU equation (4x512 net
      pairs, 125 sub-iterations cut to 10).
 Each path's kernel launch counts are read around its run (every count set
 to 0 just before) and checked against its generation calls (A-D, F, G, K,
 L; the net kernels' also by precision mode), its epochs (E, I) or its
 sub-iterations (M, N: grid times x sub-iterations, plus the terminal
-pre-fit's), and its CUDA-graph replays against its epochs (0 on A'). The
+pre-fit's), and its CUDA-graph replays against its epochs or
+sub-iterations (0 on A'). A wrapper counts only eager launches: on E, I, M
+and N the rollout runs inside each replay, where no wrapper runs, so its
+count is its graphs' capture warm-ups (WARMUP eager calls each), and its
+launches inside the replays are read from a torch.profiler trace of one
+timed block of the run (an eval interval of E and I, the third grid time
+of M and N): one kernel event per replay. The
 rate probe's entry point (``python -m
 deeppicarditeration_torch.utils.probe_roofline``) is driven the same way.
 
@@ -101,13 +111,18 @@ only when every phase passed):
      independence from the buffer's shape;
   7. paths B, C, D, F and G, 3 iterations each;
   8. the rollout kernel at path E's shapes (K=20, B=512, nx=100, the
-     baseline's mix of full and tail-shrunk steps): its draws against the
-     host Philox value for value, its paths against the plain version fed
-     those draws, the increment relation, xs[0] = x0, the same values at
-     another B, and the law of the endpoint over 2^16 x 100 paths;
-  9. path E, 3000 epochs (``--epochs``): one launch and one graph replay
-     per epoch, the final rRMSE under ``DIFFUSION_RRMSE_MAX`` (beside the
-     eager epoch's), ms per epoch and the kernel's share of it;
+     baseline's mix of full and tail-shrunk steps) and at B=511, nx=7:
+     its draws against the host Philox value for value, its paths against
+     the plain version fed those draws, the increment relation, xs[0] =
+     x0, the same values at another B, its seed from a device table in a
+     captured graph replayed 3 times (each replay at its entry's seed), and
+     the law of the endpoint over 2^16 x 100 paths; path E's epoch draws
+     in its graph against the eager draws, bit for bit;
+  9. path E, 3000 epochs (``--epochs``): one graph replay per epoch with
+     the rollout inside (no eager launch but the capture's warm-up; one
+     rollout kernel per replay in the traced interval), the
+     final rRMSE under ``DIFFUSION_RRMSE_MAX`` (beside the eager epoch's),
+     ms per epoch and the kernel's share of it;
  10. the probe kernel in each mode against its plain version at 2
      iterations, and in the elu mode also at the entry point's full size
      (1024 iterations); then the entry point at full size, its rates beside
@@ -127,35 +142,49 @@ only when every phase passed):
      host Philox at the first and last 8 points; its law against the
      plain version's on independent streams (a Bonferroni CLT bound, 64
      points);
- 14. path I, 2000 epochs (``--hjb-epochs``): one rollout launch and one
-     graph replay per epoch, the final rRMSE under
-     ``HJB_DIFFUSION_RRMSE_MAX``;
+ 14. path I's epoch draws in its graph against the eager draws; path I,
+     2000 epochs (``--hjb-epochs``): one graph replay per epoch with the
+     rollout inside, the final rRMSE under ``HJB_DIFFUSION_RRMSE_MAX``;
  15. paths K (3 iterations, its peak memory) and L (2): the split route
      every call, no kernel on K, on L one normals launch per chunk (64 a
      call), rRMSE at iterations 1-3 under ``FN_RRMSE_MAX``; the normals
      kernel at their chunk shape (2048, 32, 100) against the host Philox
      at both ends of the buffer, and its mean and variance;
  16. the rollout kernel at the DBDP recipes' shapes (K = 50, B = 512,
-     nx = 100): its draws against the host Philox, its paths against the
-     plain version on those draws;
+     nx = 100) and at B=511, nx=7: its draws against the host Philox, its
+     paths against the plain version on those draws, its seed table in a
+     captured graph;
  17. paths M and N (10 sub-iterations a grid time, ``--dbdp-sub-iter``):
-     the rollout launches, ms per sub-iteration, the final grid rRMSE under
-     ``DBDP_RRMSE_MAX`` (``DBDP_RRMSE_MAX_RECIPE`` at the recipes' own
-     budgets);
+     one graph replay per sub-iteration (two graphs: the pre-fit's and
+     the steps'), the rollout launches, ms per sub-iteration, the final
+     grid rRMSE under ``DBDP_RRMSE_MAX`` (``DBDP_RRMSE_MAX_RECIPE`` at the
+     recipes' own budgets);
+ 18. path M's captured sub-iterations against the eager per-pair loop on
+     the same seeds (pre-fit and 2 grid times, 10 sub-iterations each):
+     the pairs' parameters within ``DBDP_CAPTURED_REL`` (both with
+     capturable Adams: the step count on the card, the bias correction in
+     f32); beside it, measured and not gated, the difference from the
+     eager loop with the host's f64 bias correction;
  11. kernel, plain-version and library times at the paths' shapes, and
      each kernel's bound, printed as one ``{"kernels": [...]}`` JSON line
      (the net kernels with a row per precision mode, timed in turns in
      this call; the terminal kernel with and without antithetic pairing,
      each against its own bound). A time below its bound fails the run:
-     the model counted too much; the normals kernel also at paths K/L's
-     chunk shape and the rollout kernel at M/N's, each with its launches
-     on those paths.
+     the model counted too much (the model: FP32, INT32, SFU and TENSOR
+     pipes and an ISSUE limit on the instructions of the function's own
+     arithmetic, per-normal and per-unit counts read off the SASS; the
+     issue time of the SASS's whole loop, moves and branches included,
+     beside it as ``sass_issue_ms``); the normals kernel also at paths
+     K/L's chunk shape and the rollout kernel at M/N's, each with its
+     launches on those paths; the rollout timed writing four rotating
+     output buffers.
 Needs one NVIDIA H100 SXM card; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import pathlib
@@ -419,6 +448,12 @@ DBDP_SUB_ITER = 10
 DBDP_RRMSE_MAX = {"M": 0.23, "N": 0.20}
 DBDP_RRMSE_MAX_RECIPE = {"M": 0.042, "N": 0.085}
 DBDP_ROLLOUT = (50, 512, 100)  # K, B, nx of the DBDP recipes' paths
+# Captured DBDP against the eager loop (phase 18): the same kernels, both
+# with capturable Adams, replayed or launched one by one. (Against the
+# eager loop with the host's f64 bias correction the difference was
+# 1.147e-05 on an H100 at 700 W; Adam's arithmetic on the card is held to
+# optax's in tests/test_torch_gpu.py.)
+DBDP_CAPTURED_REL = 1e-5
 
 # NVIDIA's data sheet for the H100 SXM (dense, at 700 W): FP32 FLOP/s
 # outside the tensor cores, and HBM3 bytes/s
@@ -431,11 +466,22 @@ PEAK_BF16_TENSOR = 989e12
 # Per-SM issue rates per clock for compute capability 9.0 (CUDA C++
 # Programming Guide, arithmetic instruction throughput): 128 FP32
 # add/multiply/FMA, 64 32-bit integer add/logical/shift/multiply, 16
-# special functions (log2, exp2, sin, cos, rsqrt, rcp). The clock is the
+# special functions (log2, exp2, sin, cos, rsqrt, rcp); and four warp
+# schedulers that issue one warp instruction each a clock, 128 thread
+# instructions in all, whatever pipe runs them (ISSUE). The clock is the
 # one at which 128 FMA/SM give the data sheet's FP32 peak (~1.98 GHz).
 CLOCK_HZ = PEAK_FP32_FLOPS / (SMS * 128 * 2)
 PEAK_INT32_OPS = SMS * 64 * CLOCK_HZ
 PEAK_SFU_OPS = SMS * 16 * CLOCK_HZ
+PEAK_ISSUE = SMS * 128 * CLOCK_HZ
+# A work model is (FP32, INT32, SFU, bytes, bf16 tensor FLOPs, other
+# instructions). FP32 is in FLOPs of PEAK_FP32_FLOPS: an FMA counts 2, and
+# so does any other FP32 instruction counted in the SASS (it takes the FMA's
+# slot); FP32 / 2 + INT32 + SFU is the function's instructions, which the
+# ISSUE limit counts. Other (moves, branches, loop and address arithmetic
+# of one implementation) is left out of the bound and reported beside it
+# (``sass_issue_ms``).
+#
 # Integer work per draw, counted in the SASS of the rate probe's loops
 # (``cuobjdump -sass`` of csrc/probe.cu, printed by phase 10): a
 # Philox4x32-10 call is 33 integer instructions (a 32x32 product with both
@@ -444,16 +490,35 @@ PEAK_SFU_OPS = SMS * 16 * CLOCK_HZ
 # uniform's shift-or is one LEA.HI per word: 33 / 4 + 1 per 32-bit word.
 # Box-Muller's fast path adds 11 per pair: logf's exponent split 4, sqrtf's
 # range test 2, sincosf's quadrant 5 (its slow path, for arguments above
-# 105615, is never taken on (0, 2 pi]). Per normal, besides: half a
-# Box-Muller's log, sqrt, sin, cos (2 special functions) and 3 FP32 ops.
+# 105615, is never taken on (0, 2 pi]).
 INT_PER_WORD = 33 / 4 + 1
 INT_PER_NORMAL = INT_PER_WORD + 11 / 2
-SFU_PER_NORMAL, FP32_PER_NORMAL = 2, 3
-# per unit of the rate probe, on top of the draw: the uniform's subtract
-# (bits) and the accumulation (every mode); the ELU chain's shift, compare,
-# exp range reduction, subtract, select and product (~9 FP32 operations)
-# around one exp (one special function)
-PROBE_ELU_FP32, PROBE_ELU_SFU = 9, 1
+# Per normal, besides, from the SASS of the terminal kernel's draw loop on
+# its fast path (phase 1's "terminal kernel's SASS per normal", PR 9 and
+# PR 10 on CUDA 12.8: all 38.5, fp32 21.5, int 14.25, sfu 0.5, sts 0.25):
+# logf, sqrtf and sincosf are FP32 polynomials around one MUFU.RSQ a pair,
+# so 21.5 FP32 instructions (43 FLOPs of slots) and 0.5 special functions;
+# 38.5 instructions in all, of which 38.5 - 21.5 - INT_PER_NORMAL - 0.5 on
+# no counted pipe (moves, branches, the store).
+FP32_PER_NORMAL = 2 * 21.5
+SFU_PER_NORMAL = 0.5
+ISSUE_PER_NORMAL = 38.5
+OTHER_PER_NORMAL = ISSUE_PER_NORMAL - 21.5 - INT_PER_NORMAL - SFU_PER_NORMAL
+# Per unit of the rate probe, on top of nothing: its loops' SASS per unit
+# (phase 10's "the loop's SASS per unit", PR 9 and PR 10 on CUDA 12.8).
+# bits: all 12.0, fp32 2.03125 (the uniform's subtract, the accumulation),
+# int 9.25 (INT_PER_WORD); elu: all 18.1875, fp32 11.0625 (the ELU's
+# compare, selects, subtract, product, exp's range reduction and the
+# accumulation), int 2.03125, sfu 1.0 (the MUFU.EX2 of expf). The elu
+# loop's opcodes per unit (``cuobjdump -sass`` on CUDA 12.8): of its int,
+# expf's exponent shift (SHF.L.U32 or IMAD.SHL.U32, one) is the
+# function's; an IMAD.MOV.U32 (a move) and 1/32 ISETP (the loop's test)
+# are not; nor are its BSSY, BRA, BSYNC (a branch around the exp), MOV
+# and HFMA2.MMA (moves). The normals mode's loop holds sincosf's slow
+# path, so it is modelled per normal (above) plus the accumulation's add.
+PROBE_BITS_FP32, PROBE_BITS_ISSUE = 2 * 2.03125, 12.0
+PROBE_ELU_FP32, PROBE_ELU_INT, PROBE_ELU_SFU = 2 * 11.0625, 1, 1
+PROBE_ELU_ISSUE = 18.1875
 
 
 def path_cfg(path: str, n_iter: int = None, device: str = "cuda",
@@ -533,6 +598,49 @@ def _device_ms(fn, kernel: str, reps: int):
         if kernel in ev.key and ev.count and total:
             return total / ev.count / 1e3
     return None
+
+
+@contextlib.contextmanager
+def _traced_block(runner, nth: int):
+    """Traces the ``nth`` block that the baselines time
+    (``baselines.Timer``: an eval interval of D-DBSDE, a grid time of
+    DBDP) inside ``runner.run()`` (torch.profiler, CUDA activity). Yields
+    a dict that then holds the graph replays in that block (``replays``)
+    and the rollout kernel's device events in its trace (``launches``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeppicarditeration_torch.ops import kernels
+    from deeppicarditeration_torch.training import baselines
+
+    seen = {"n": 0, "replays": 0, "launches": 0}
+    timer = baselines.Timer
+
+    class Traced(timer):
+        def __enter__(self):
+            seen["n"] += 1
+            if seen["n"] == nth:
+                torch.cuda.synchronize()
+                self._prof = profile(activities=[ProfilerActivity.CUDA])
+                self._prof.__enter__()
+                self._replays = runner.graph_replays
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            super().__exit__(*exc)
+            if seen["n"] == nth:
+                torch.cuda.synchronize()
+                self._prof.__exit__(*exc)
+                seen["replays"] = runner.graph_replays - self._replays
+                seen["launches"] = kernels.trace_launches(
+                    self._prof, kernels.ROLLOUT_KERNEL)
+            return False
+
+    baselines.Timer = Traced
+    try:
+        yield seen
+    finally:
+        baselines.Timer = timer
 
 
 def _not_below(label: str, ms: float, bound_ms: float) -> None:
@@ -744,14 +852,14 @@ def _problem(b, m, nx, net, seed, device):
 # ---- work and bound models (per call, from the call's shapes) -------------
 
 def _terminal_work(b, m, nx, anti):
-    """(FP32 ops, INT32 ops, special functions, bytes, bf16 tensor FLOPs)
-    of one terminal estimator call: the normals, X_T and the sums (5 FP32
+    """The work model (FP32, INT32, SFU, bytes, bf16 tensor, other) of one
+    terminal estimator call: the normals, X_T and the sums (5 FP32 FLOPs
     per sample and dimension), the sigmoid per sample; t, x, g0 in,
     (B, 1 + nx) out."""
     n = b * (m // 2 if anti else m) * nx
     return (FP32_PER_NORMAL * n + 5 * b * m * nx + 4 * b * m,
             INT_PER_NORMAL * n, SFU_PER_NORMAL * n + 2 * b * m,
-            4 * (b * (2 + nx) + b * (1 + nx)), 0)
+            4 * (b * (2 + nx) + b * (1 + nx)), 0, OTHER_PER_NORMAL * n)
 
 
 def _net_work(nx, neurons, precision):
@@ -792,7 +900,7 @@ def _integral_work(b, m, nx, anti, neurons, n_weights, precision="highest"):
             INT_PER_NORMAL * n + INT_PER_WORD * n_u,
             SFU_PER_NORMAL * n + b * m * (2 + sum(neurons)),
             4 * (b * (2 + nx) + n_weights + b * (1 + nx)),
-            b * m * net_tensor)
+            b * m * net_tensor, OTHER_PER_NORMAL * n)
 
 
 def _merged_work(b, m, nx, anti, neurons, n_weights, precision="highest"):
@@ -822,6 +930,7 @@ def _pis_work(b, m, nx, hidden, ncomp, n_weights, precision):
     n, s = b * m * nx, b * m
     fp32 = FP32_PER_NORMAL * n + n * (4 + 3 * ncomp) + s * (2 * ncomp + 4)
     int_ops = INT_PER_NORMAL * n
+    other = OTHER_PER_NORMAL * n
     sfu = SFU_PER_NORMAL * n + n * ncomp + s * (ncomp + 1)
     tensor, w_bytes = 0, 0
     if hidden:
@@ -829,6 +938,7 @@ def _pis_work(b, m, nx, hidden, ncomp, n_weights, precision):
         fp32 += (FP32_PER_NORMAL * n + n * (10 + 6 * ncomp)
                  + s * (40 * c + 2 * ncomp + 10))
         int_ops += INT_PER_NORMAL * n + INT_PER_WORD * s
+        other += OTHER_PER_NORMAL * n
         sfu += (SFU_PER_NORMAL * n + 2 * n * ncomp
                 + s * (c * (len(hidden) + 2) + sum(hidden) + ncomp + 1))
         passes = 3 if precision == "bf16x3" else 1
@@ -836,20 +946,21 @@ def _pis_work(b, m, nx, hidden, ncomp, n_weights, precision):
         w_bytes = n_weights * (4 if precision == "bf16x3" else 2)
     return (fp32, int_ops, sfu,
             4 * (b * (4 + nx) + b * (1 + nx) + 2 * ncomp * (nx + 1))
-            + w_bytes, tensor)
+            + w_bytes, tensor, other)
 
 
 def _normals_work(n):
     return (FP32_PER_NORMAL * n, INT_PER_NORMAL * n, SFU_PER_NORMAL * n,
-            4 * n, 0)
+            4 * n, 0, OTHER_PER_NORMAL * n)
 
 
 def _rollout_work(K, b, nx):
     """One rollout: K B nx normals; per normal a product and two sums; x0
     (and the step scales) in, xs (K+1, B, nx) and xi (K, B, nx) out."""
     n = K * b * nx
-    return ((FP32_PER_NORMAL + 3) * n, INT_PER_NORMAL * n,
-            SFU_PER_NORMAL * n, 4 * ((2 * K + 1) * b * nx + b * nx + b), 0)
+    return ((FP32_PER_NORMAL + 2 * 3) * n, INT_PER_NORMAL * n,
+            SFU_PER_NORMAL * n, 4 * ((2 * K + 1) * b * nx + b * nx + b), 0,
+            OTHER_PER_NORMAL * n)
 
 
 def _probe_work(which, units, grid):
@@ -857,20 +968,43 @@ def _probe_work(which, units, grid):
     the accumulation; the (grid * 8, 128) partial sums out."""
     n_bytes = 4 * grid * 8 * 128
     if which == "bits":
-        return 2 * units, INT_PER_WORD * units, 0, n_bytes, 0
+        return (PROBE_BITS_FP32 * units, INT_PER_WORD * units, 0, n_bytes, 0,
+                (PROBE_BITS_ISSUE - PROBE_BITS_FP32 / 2 - INT_PER_WORD)
+                * units)
     if which == "normals":
-        return ((FP32_PER_NORMAL + 1) * units, INT_PER_NORMAL * units,
-                SFU_PER_NORMAL * units, n_bytes, 0)
-    return PROBE_ELU_FP32 * units, 0, PROBE_ELU_SFU * units, n_bytes, 0
+        return ((FP32_PER_NORMAL + 2) * units, INT_PER_NORMAL * units,
+                SFU_PER_NORMAL * units, n_bytes, 0, OTHER_PER_NORMAL * units)
+    return (PROBE_ELU_FP32 * units, PROBE_ELU_INT * units,
+            PROBE_ELU_SFU * units, n_bytes, 0,
+            (PROBE_ELU_ISSUE - PROBE_ELU_FP32 / 2 - PROBE_ELU_INT
+             - PROBE_ELU_SFU) * units)
+
+
+def _issue(work) -> float:
+    """Instructions of a work model that the ISSUE limit counts: the
+    function's own arithmetic on the FP32, INT32 and SFU pipes, without
+    the loop, address and move instructions of one implementation."""
+    fp32, int_ops, sfu = work[:3]
+    return fp32 / 2 + int_ops + sfu
+
+
+def _sass_issue_ms(work) -> float:
+    """ms that the schedulers take to issue every instruction of the
+    kernel's SASS in the work model, its overhead (``other``) included:
+    where the kernel stands against its own instruction stream."""
+    return (_issue(work) + work[5]) / PEAK_ISSUE * 1e3
 
 
 def _bound(work):
     """(bound ms, "bytes" | "operations", binding pipe): the larger of the
     bytes over HBM3's rate and the busiest pipe's operations over its
-    rate (the pipes run side by side; TENSOR: bf16 wgmma)."""
-    fp32, int_ops, sfu, n_bytes, tensor = work
+    rate (the pipes run side by side; TENSOR: bf16 wgmma; ISSUE: the
+    function's instructions on every pipe, ``_issue``, over the
+    schedulers' 128 a clock and SM)."""
+    fp32, int_ops, sfu, n_bytes, tensor, _ = work
     t = {"FP32": fp32 / PEAK_FP32_FLOPS, "INT32": int_ops / PEAK_INT32_OPS,
-         "SFU": sfu / PEAK_SFU_OPS, "TENSOR": tensor / PEAK_BF16_TENSOR}
+         "SFU": sfu / PEAK_SFU_OPS, "TENSOR": tensor / PEAK_BF16_TENSOR,
+         "ISSUE": _issue(work) / PEAK_ISSUE}
     pipe = max(t, key=t.get)
     t_bytes = n_bytes / PEAK_BYTES_S
     if t_bytes > t[pipe]:
@@ -1045,6 +1179,124 @@ def _rollout_vs_host(x0, sdt, a: float, K: int):
     return xs, xi, worst
 
 
+def _rollout_table_in_graph(x0, sdt, a: float, K: int) -> float:
+    """The rollout kernel with its seed from a ``SeedTable``, captured once
+    in a CUDA graph and replayed 3 times: each replay's draws against the
+    host Philox at that replay's seed, its paths against the plain version
+    on those draws; returns the largest |diff|."""
+    import torch
+
+    from deeppicarditeration_torch.ops import kernels, philox
+
+    b, nx = x0.shape
+    seeds = [EXACT_SEED, 20261017, (1 << 64) - 11]
+    table = kernels.SeedTable(len(seeds), x0.device)
+    table.fill(seeds)
+    kernels.paths_cuda(table, x0, sdt, a, K)  # eager: builds and warms
+    table.fill(seeds)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        xs, xi = kernels.paths_cuda(table, x0, sdt, a, K)
+    worst = 0.0
+    for i, seed in enumerate(seeds):
+        graph.replay()
+        torch.cuda.synchronize()
+        host = torch.from_numpy(philox.path_normals(seed, K, b, nx)).to(
+            x0.device)
+        ref, _ = kernels.paths_plain(0, x0, sdt, a, K, host)
+        for label, out, want in (("xi", xi, host), ("xs", xs, ref)):
+            err = (out - want).abs()
+            if not bool((err <= PATH_TOL + PATH_TOL * want.abs()).all()):
+                _fail(f"the rollout kernel in a graph, replay {i} (seed "
+                      f"table entry {i}): {label} off by "
+                      f"{float(err.max()):.3e}")
+            worst = max(worst, float(err.max()))
+    if int(table.index[0]) != len(seeds):
+        _fail(f"the seed table's index is {int(table.index[0])} after "
+              f"{len(seeds)} replays")
+    print(f"rollout kernel K={K} B={b} nx={nx}, seed from a table, one "
+          f"capture replayed {len(seeds)} times: each replay = the host "
+          f"Philox at its entry and the plain paths, max |diff| "
+          f"{worst:.3e}; the index advanced in the graph to "
+          f"{int(table.index[0])}")
+    return worst
+
+
+def _rollout_ragged(K: int, device, seed: int = 27) -> float:
+    """The rollout kernel at B = 511, nx = 7 (columns a multiple of neither
+    the 32-column tile nor 4: element stores) against the host Philox and
+    the plain version; returns the largest |diff|."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    x0 = torch.randn((511, 7), generator=g, device=device)
+    sdt = torch.rand((511, 1), generator=g, device=device) * 0.2
+    _, _, worst = _rollout_vs_host(x0, sdt.contiguous(), 1.3, K)
+    return worst
+
+
+def _rollout_times(x0, sdt, a: float, K: int):
+    """(back-to-back ms, device ms) per launch of the rollout kernel at
+    (K, B, nx), each launch writing the next of four output pairs, so that
+    it writes lines L2 does not hold (as after the rest of an epoch)."""
+    import torch
+
+    from deeppicarditeration_torch.ops import kernels
+
+    b, nx = x0.shape
+    outs = [(torch.empty((K + 1, b, nx), device=x0.device),
+             torch.empty((K, b, nx), device=x0.device)) for _ in range(4)]
+    turn = [0]
+
+    def launch():
+        turn[0] += 1
+        return kernels.paths_cuda(5, x0, sdt, a, K, out=outs[turn[0] % 4])
+
+    return _time_ms(launch, 200), _device_ms(launch, "paths_kernel", 200)
+
+
+def _check_epoch_draws(path: str, epochs: int = 3) -> None:
+    """The D-DBSDE epoch's draws as its graph takes them (t0, x0, xT from
+    the registered per-epoch generators, the paths from the seed table)
+    against the eager draws of the same epochs, bit for bit."""
+    import torch
+
+    from deeppicarditeration_torch.device import derive_seed
+    from deeppicarditeration_torch.ops import kernels
+    from deeppicarditeration_torch.training import baselines
+    from deeppicarditeration_torch.training.fused import FusedStep
+    from deeppicarditeration_torch.training.picard import PicardRunner
+    from deeppicarditeration_torch.training.trainer import reset_optimizer
+
+    runner = PicardRunner(path_cfg(path, epochs=epochs),
+                          exp_root=ROOT / "build" / "chip_smoke_runs"
+                          / f"{path}_draws")
+    runner.i = 1
+    tw = float(runner.cfg.TRAIN.LOSS.beta)
+    gens = baselines.epoch_generators(runner)
+    seeds = kernels.SeedTable(epochs, runner.device)
+    seeds.fill([derive_seed(runner.seed, 1, e, baselines.PATHS)
+                for e in range(epochs)])
+    mod = torch.nn.Linear(1, 1).to(runner.device)
+    opt = torch.optim.Adam(mod.parameters(), capturable=True)
+    reset_optimizer(opt)
+    step = FusedStep(lambda: [v.clone() for v in baselines.diffusion_inputs(
+        runner, gens, seeds, tw) if v is not None], {}, mod, opt,
+        generators=list(gens.values()), state=[seeds.index])
+    for epoch in range(epochs):
+        baselines.seed_epoch(runner, gens, epoch)
+        got = step()
+        want = [v for v in baselines.diffusion_draws(runner, epoch, tw)
+                if v is not None]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(got, want)):
+            _fail(f"path {path}: the epoch graph's draws differ from the "
+                  f"eager draws at epoch {epoch}")
+    print(f"path {path}: the epoch's draws in its graph (dts, ts, xs"
+          f"{', xT' if tw > 0 else ''}) = the eager draws, bit for bit, "
+          f"over {epochs} replays")
+
+
 def _dbdp_rollout_inputs(device, seed: int = 25):
     """x0 (B, nx) ~ N(0, 4 I) (path N's law; path M starts at 0) and the
     constant step sqrt(dt) of the DBDP recipes' paths."""
@@ -1099,7 +1351,63 @@ def _check_rollout_dbdp(device) -> float:
     xs, _, worst = _rollout_vs_host(x0, sdt, 1.0, K)
     if not torch.equal(xs[0], x0):
         _fail("rollout at DBDP's shapes: xs[0] != x0")
+    worst = max(worst, _rollout_ragged(K, device),
+                _rollout_table_in_graph(x0, sdt, 1.0, K))
     return worst
+
+
+def _captured_dbdp_vs_eager(path: str = "M", sub_iter: int = 10):
+    """Phase 18: path M's DBDP sub-iterations as graph replays of the
+    static working pair (``CapturedPairFit``) against the per-pair eager
+    loop (``EagerPairFit``) on the same seeds: the terminal pre-fit and
+    grid times K and K - 1 (the warm start between), ``sub_iter``
+    sub-iterations each, at the recipe's shapes. Every pair's parameters
+    within DBDP_CAPTURED_REL of the largest |parameter|. Returns that
+    relative difference and, measured only, the one from the eager loop
+    whose Adams keep the step count and bias correction on the host."""
+    import torch
+
+    from deeppicarditeration_torch.training import baselines
+    from deeppicarditeration_torch.training.picard import PicardRunner
+
+    cfg = path_cfg(path, overrides=["METHOD.num_sub_iter", str(sub_iter)])
+    nets = {}
+    for name, make in (
+            ("eager", baselines.EagerPairFit),
+            ("captured", baselines.CapturedPairFit),
+            ("eager, host bias correction",
+             lambda sw, nets: baselines.EagerPairFit(sw, nets, False))):
+        runner = PicardRunner(cfg, exp_root=ROOT / "build"
+                              / "chip_smoke_runs"
+                              / f"{path}_{name.split(',')[0]}")
+        runner.i = 1
+        sw = baselines.DBDPSweep(runner)
+        nets[name] = baselines.init_dbdp_nets(runner, sw.K)
+        fit = make(sw, nets[name])
+        for kk in (sw.K + 1, sw.K, sw.K - 1):
+            if kk < sw.K:
+                nets[name].copy_pair(kk, kk - 1)
+            fit(0, kk)
+        torch.cuda.synchronize()
+        if name == "captured" and runner.graph_replays != 3 * sub_iter:
+            _fail(f"captured DBDP: {runner.graph_replays} replays, want "
+                  f"{3 * sub_iter}")
+    with torch.no_grad():
+        flat = {name: torch.cat([p.reshape(-1) for p in n.parameters()])
+                for name, n in nets.items()}
+        b = flat["eager"]
+        rel = float((flat["captured"] - b).abs().max() / b.abs().max())
+        b = flat["eager, host bias correction"]
+        rel_host = float((flat["captured"] - b).abs().max() / b.abs().max())
+    print(f"path {path}: captured DBDP (pre-fit, grid times K, K - 1, "
+          f"{sub_iter} sub-iterations each, one replay each) vs the eager "
+          f"per-pair loop on the same seeds, both with capturable Adams: "
+          f"max |diff| / max |param| {rel:.3e} (limit {DBDP_CAPTURED_REL}); "
+          f"vs the eager loop with the host's f64 bias correction "
+          f"(measured, not gated): {rel_host:.3e}")
+    if not rel <= DBDP_CAPTURED_REL:
+        _fail(f"captured DBDP differs from the eager loop by {rel:.3e}")
+    return rel, rel_host
 
 
 def _run_dbdp(path: str, sub_iter):
@@ -1111,6 +1419,7 @@ def _run_dbdp(path: str, sub_iter):
 
     from deeppicarditeration_torch.models.factory import is_enforce_terminal
     from deeppicarditeration_torch.ops import kernels
+    from deeppicarditeration_torch.training.fused import WARMUP
     from deeppicarditeration_torch.training.picard import PicardRunner
 
     own = ([] if sub_iter == "recipe"
@@ -1124,7 +1433,8 @@ def _run_dbdp(path: str, sub_iter):
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    runner.run()
+    with _traced_block(runner, 3) as traced:
+        runner.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
@@ -1132,21 +1442,31 @@ def _run_dbdp(path: str, sub_iter):
     K = round(runner.equation.T / float(cfg.METHOD.dt))
     prefit = not is_enforce_terminal(cfg)
     want_roll = K * n_sub + (n_sub if prefit else 0)
-    want = {name: (want_roll if name == "rollout" else 0)
+    # a sub-iteration is one replay with the rollout inside; the wrapper
+    # counts only each graph's (the pre-fit's, the interior steps')
+    # WARMUP eager warm-up calls
+    graphs = len(runner.fused_steps)
+    want = {name: (WARMUP * graphs if name == "rollout" else 0)
             for name in launches}
-    if launches != want or runner.rollout_calls != want_roll:
+    if (launches != want or runner.rollout_calls != want_roll
+            or runner.graph_replays != want_roll
+            or graphs != (2 if prefit else 1)):
         _fail(f"path {path}: launches {launches}, rollouts "
-              f"{runner.rollout_calls}; want {want} (K={K} x {n_sub} "
-              f"sub-iterations{' + the terminal pre-fit' if prefit else ''})")
+              f"{runner.rollout_calls}, graph replays "
+              f"{runner.graph_replays} of {graphs} graphs; want {want} and "
+              f"{want_roll} replays (K={K} x {n_sub} sub-iterations"
+              f"{' + the terminal pre-fit' if prefit else ''})")
+    _one_per_replay(path, "the third grid time", traced, n_sub)
     per_sub = [tm["ms"] / tm["sub_iters"] for tm in runner.timings
                if tm["k"] <= K]
     q = statistics.quantiles(per_sub, n=4)
     rows = [json.loads(ln) for ln in
             (runner.exp_dir / "metrics.jsonl").read_text().splitlines()]
     evals = [r for r in rows if r["context"] == "eval"]
-    print(f"path {path}: K={K} x {n_sub} sub-iterations in {wall:.1f} s; "
-          f"launches {launches}; ms per sub-iteration (CUDA events per grid "
-          f"time) median {statistics.median(per_sub):.3f}, quartiles "
+    print(f"path {path}: K={K} x {n_sub} sub-iterations in {wall:.1f} s, "
+          f"{runner.graph_replays} graph replays of {graphs} graphs; "
+          f"eager launches {launches}; ms per sub-iteration (CUDA events "
+          f"per grid time, the third traced) median {statistics.median(per_sub):.3f}, quartiles "
           f"{q[0]:.3f}-{q[2]:.3f}, first grid time {per_sub[0]:.3f}; peak "
           f"memory {peak:.2f} GiB above what was held before")
     step = max(1, len(evals) // 10)
@@ -1162,7 +1482,19 @@ def _run_dbdp(path: str, sub_iter):
     if r is None or not math.isfinite(r) or r > limit:
         _fail(f"path {path} final grid rRMSE {r} (want finite and <= "
               f"{limit})")
-    return runner, launches, statistics.median(per_sub), r
+    return runner, launches, statistics.median(per_sub), r, traced
+
+
+def _one_per_replay(path: str, block: str, traced: dict, replays: int):
+    """Fail unless the traced block held ``replays`` graph replays and one
+    rollout kernel event in the trace for each."""
+    print(f"path {path}: {block} traced: {traced['replays']} graph "
+          f"replays, {traced['launches']} rollout kernel events "
+          f"(torch.profiler)")
+    if not traced["replays"] == traced["launches"] == replays:
+        _fail(f"path {path}: {block} held {traced['replays']} graph "
+              f"replays and {traced['launches']} rollout kernel events; "
+              f"want {replays} of each")
 
 
 def _check_rollout(cfg, device) -> float:
@@ -1193,6 +1525,8 @@ def _check_rollout(cfg, device) -> float:
         _fail("the rollout kernel's values depend on B")
     print(f"rollout kernel: xs[0] = x0; {n_full} rows with the full step, "
           f"{n_short} tail-shrunk; the same values at B=100 and B={b}")
+    worst = max(worst, _rollout_ragged(K, device),
+                _rollout_table_in_graph(x0, sdt, a, K))
     # the endpoint's law: (X_K - x0) / (sqrt(alpha) sqrt(K dt_b)) ~ N(0, 1)
     x0, sdt = _path_e_inputs(eq, LAW_ROWS, K, dt, 22, device)
     xs, _ = kernels.paths_cuda(23, x0, sdt, a, K)
@@ -1213,6 +1547,7 @@ def _run_diffusion(epochs: int, path: str = "E"):
     import torch
 
     from deeppicarditeration_torch.ops import kernels
+    from deeppicarditeration_torch.training.fused import WARMUP
     from deeppicarditeration_torch.training.picard import PicardRunner
 
     cfg = path_cfg(path, epochs=epochs)
@@ -1222,24 +1557,32 @@ def _run_diffusion(epochs: int, path: str = "E"):
     for lib in kernels.ALL:
         lib.launches = 0
     t0 = time.perf_counter()
-    runner.run()
+    with _traced_block(runner, 2) as traced:
+        runner.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {lib.source.stem: lib.launches for lib in kernels.ALL}
-    want = {name: (epochs if name == "rollout" else 0) for name in launches}
+    # the rollout inside the epoch's graph: the wrapper counts the
+    # capture's warm-up calls, the only eager launches
+    want = {name: (WARMUP if name == "rollout" else 0)
+            for name in launches}
     if (launches != want or runner.rollout_calls != epochs
-            or runner.graph_replays != epochs):
+            or runner.graph_replays != epochs
+            or len(runner.fused_steps) != 1):
         _fail(f"path {path}: launches {launches}, rollouts "
               f"{runner.rollout_calls}, graph replays "
-              f"{runner.graph_replays}; want {want} and {epochs} replays")
+              f"{runner.graph_replays}; want {want} and {epochs} replays of "
+              f"one graph")
+    _one_per_replay(path, "the second eval interval", traced,
+                    int(cfg.EVAL.FREQ))
     per_epoch = [tm["interval_ms"] / tm["epochs"] for tm in runner.timings]
     rows = [json.loads(ln) for ln in
             (runner.exp_dir / "metrics.jsonl").read_text().splitlines()]
     evals = [r for r in rows if r["context"] == "eval"]
     q = statistics.quantiles(per_epoch, n=4)
-    print(f"path {path}: {epochs} epochs in {wall:.1f} s; launches "
+    print(f"path {path}: {epochs} epochs in {wall:.1f} s; eager launches "
           f"{launches}; ms per epoch (CUDA events per {cfg.EVAL.FREQ}-epoch "
-          f"interval) median {statistics.median(per_epoch):.3f}, quartiles "
+          f"interval, the second traced) median {statistics.median(per_epoch):.3f}, quartiles "
           f"{q[0]:.3f}-{q[2]:.3f}, first interval {per_epoch[0]:.3f}; "
           f"epochs total {sum(tm['interval_ms'] for tm in runner.timings):.0f}"
           f" ms")
@@ -1256,7 +1599,7 @@ def _run_diffusion(epochs: int, path: str = "E"):
     r = last["rRMSE"]
     if r is None or not math.isfinite(r) or r > limit:
         _fail(f"path {path} final rRMSE {r} (want finite and <= {limit})")
-    return runner, launches, statistics.median(per_epoch)
+    return runner, launches, statistics.median(per_epoch), traced
 
 
 def _expect_launches(path, runner, launches, seen, want):
@@ -1362,13 +1705,14 @@ def _probe_phase(dev):
     if launches_probe != len(probes) * (1 + PROBE_REPEATS):
         _fail(f"the probe's entry point launched {launches_probe} times")
     peaks = {"FP32": PEAK_FP32_FLOPS, "INT32": PEAK_INT32_OPS,
-             "SFU": PEAK_SFU_OPS}
+             "SFU": PEAK_SFU_OPS, "ISSUE": PEAK_ISSUE}
     modes = {}
     for which, r in probes.items():
         work = _probe_work(which, r["units"], r["grid"])
         bms, _, pipe = _bound(work)
-        per_unit = dict(zip(("FP32", "INT32", "SFU"),
-                            (w / r["units"] for w in work[:3])))
+        per_unit = dict(zip(("FP32", "INT32", "SFU", "ISSUE"),
+                            (w / r["units"] for w in (*work[:3],
+                                                      _issue(work)))))
         implied = {p: r["units_per_s"] * per_unit[p] for p in peaks
                    if per_unit[p]}
         sass = r["sass_per_unit"]
@@ -1378,10 +1722,14 @@ def _probe_phase(dev):
               + ", ".join(f"{p} {v:.3e}/s = {v / peaks[p]:.2f} of the "
                           f"model's {peaks[p]:.3e}"
                           for p, v in implied.items())
-              + f"; bound {bms:.3f} ms ({pipe}); the loop's SASS per unit: "
+              + f"; bound {bms:.3f} ms ({pipe}), "
+              f"{100 * bms / (r['s_per_call'] * 1e3):.0f} % of it reached "
+              f"(issuing all its SASS: {_sass_issue_ms(work):.3f} ms); "
+              f"the loop's SASS per unit: "
               + ", ".join(f"{k} {v:.3f}" for k, v in sass.items())
-              + f" (model: FP32 {per_unit['FP32']}, INT32 "
-              f"{per_unit['INT32']}, SFU {per_unit['SFU']})")
+              + f" (model, instructions: FP32 {per_unit['FP32'] / 2}, INT32 "
+              f"{per_unit['INT32']}, SFU {per_unit['SFU']}, all "
+              f"{per_unit['ISSUE']})")
         if which == "elu" and sass["sfu"] != PROBE_ELU_SFU:
             _fail("the elu probe's exp left its loop (SASS special "
                   f"functions per unit {sass['sfu']})")
@@ -1389,7 +1737,9 @@ def _probe_phase(dev):
         modes[which] = {"units_per_s": r["units_per_s"],
                         "ms": r["s_per_call"] * 1e3, "units": r["units"],
                         "grid": r["grid"], "bound_ms": bms,
-                        "bound_pipe": pipe, "implied_ops_per_s": implied,
+                        "bound_pipe": pipe,
+                        "sass_issue_ms": _sass_issue_ms(work),
+                        "implied_ops_per_s": implied,
                         "sass_per_unit": sass}
     return worst, launches_probe, modes
 
@@ -1707,9 +2057,10 @@ def main(argv=None) -> int:
     # ---- 8. rollout kernel at path E's shapes -----------------------------
     cfg_e = diffusion_cfg(args.epochs)
     max_err["rollout"] = _check_rollout(cfg_e, dev)
+    _check_epoch_draws("E")
 
     # ---- 9. path E ---------------------------------------------------------
-    runner_e, launches_e, ms_epoch = _run_diffusion(args.epochs)
+    runner_e, launches_e, ms_epoch, traced_e = _run_diffusion(args.epochs)
 
     # ---- 10. rate probe ----------------------------------------------------
     max_err["probe"], launches_probe, modes = _probe_phase(dev)
@@ -1726,7 +2077,9 @@ def main(argv=None) -> int:
     eq_h, sol_h, tx_h, nb_h, mm_h = _check_pis(runner_h, n_iter, max_err)
 
     # ---- 14. path I: the HJB D-DBSDE recipe -------------------------------
-    runner_i, launches_i, ms_epoch_i = _run_diffusion(args.hjb_epochs, "I")
+    _check_epoch_draws("I")
+    runner_i, launches_i, ms_epoch_i, traced_i = _run_diffusion(
+        args.hjb_epochs, "I")
 
     # ---- 15. paths K and L: the FN DPI recipe ------------------------------
     torch.cuda.reset_peak_memory_stats()
@@ -1761,8 +2114,13 @@ def main(argv=None) -> int:
     max_err["rollout dbdp"] = _check_rollout_dbdp(dev)
 
     # ---- 17. paths M and N: the DBDP recipes -------------------------------
-    runner_m, launches_m, ms_sub_m, _ = _run_dbdp("M", args.dbdp_sub_iter)
-    runner_n, launches_n, ms_sub_n, _ = _run_dbdp("N", args.dbdp_sub_iter)
+    runner_m, launches_m, ms_sub_m, _, traced_m = _run_dbdp(
+        "M", args.dbdp_sub_iter)
+    runner_n, launches_n, ms_sub_n, _, traced_n = _run_dbdp(
+        "N", args.dbdp_sub_iter)
+
+    # ---- 18. captured DBDP against the eager loop -------------------------
+    dbdp_rel, dbdp_rel_host = _captured_dbdp_vs_eager("M")
 
     # ---- 11. times and bounds at the paths' shapes -------------------------
     neurons = sol.module.neurons
@@ -1780,7 +2138,9 @@ def main(argv=None) -> int:
               f"{bound_ms:.3f} ms ({bound_by}, {pipe}; FP32 {work[0]:.3e}, "
               f"INT32 {work[1]:.3e}, SFU {work[2]:.3e}, bytes "
               f"{work[3]:.3e}, bf16 tensor {work[4]:.3e}); "
-              f"{ms / bound_ms:.1f}x the bound")
+              f"{ms / bound_ms:.1f}x the bound; the SASS's every "
+              f"instruction would take {_sass_issue_ms(work):.3f} ms to "
+              f"issue")
         rows.append({
             "name": name, "route": "cuda",
             "source": f"deeppicarditeration_torch/csrc/{stem}.cu",
@@ -1791,7 +2151,7 @@ def main(argv=None) -> int:
                                                        mode or "highest")],
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bound_pipe": pipe,
-            "library_ms": library_ms,
+            "sass_issue_ms": _sass_issue_ms(work), "library_ms": library_ms,
             **({} if mode is None else {"precision": mode}), **(extra or {})})
 
     src = "deeppicarditeration_tpu/ops/pallas_kernels.py"
@@ -1867,11 +2227,8 @@ def main(argv=None) -> int:
     K_e, b_e = int(cfg_e.METHOD.K), int(cfg_e.TRAIN.BATCH_SIZE)
     eq_e = runner_e.equation
     x0, sdt = _path_e_inputs(eq_e, b_e, K_e, float(cfg_e.METHOD.dt), 24, dev)
-    def launch():
-        return kernels.paths_cuda(5, x0, sdt, eq_e.alpha_sqrt, K_e)
-
-    ms_roll = _time_ms(launch, 200)  # back to back, host overhead included
-    dev_roll = _device_ms(launch, "paths_kernel", 200)
+    # back to back (host overhead included) and device time
+    ms_roll, dev_roll = _rollout_times(x0, sdt, eq_e.alpha_sqrt, K_e)
     row("paths", "rollout", "deeppicarditeration_tpu/ops/rollout.py:98", "E",
         launches_e["rollout"], runner_e.rollout_calls, ms_roll,
         _time_ms(lambda: kernels.paths_plain(5, x0, sdt, eq_e.alpha_sqrt,
@@ -1879,7 +2236,9 @@ def main(argv=None) -> int:
         _rollout_work(K_e, b_e, eq_e.nx),
         shape=f"K={K_e} B={b_e} nx={eq_e.nx}",
         extra={"launches_per_iteration": launches_e["rollout"],
-               "launches_per_epoch": launches_e["rollout"] / args.epochs,
+               "graph_replays": runner_e.graph_replays,
+               "traced_replays": traced_e["replays"],
+               "traced_launches": traced_e["launches"],
                "device_ms": dev_roll, "ms_per_epoch": ms_epoch,
                "share_of_epoch": (None if dev_roll is None
                                   else dev_roll / ms_epoch)})
@@ -1933,12 +2292,7 @@ def main(argv=None) -> int:
                "instance": "FN chunk (path L)"})
     # the rollout kernel at the DBDP recipes' shapes, launched by M and N
     x0_d, sdt_d, K_d = _dbdp_rollout_inputs(dev, 26)
-
-    def launch_d():
-        return kernels.paths_cuda(5, x0_d, sdt_d, 1.0, K_d)
-
-    ms_roll_d = _time_ms(launch_d, 200)
-    dev_roll_d = _device_ms(launch_d, "paths_kernel", 200)
+    ms_roll_d, dev_roll_d = _rollout_times(x0_d, sdt_d, 1.0, K_d)
     row("paths", "rollout", "deeppicarditeration_tpu/ops/rollout.py:98",
         "M", launches_m["rollout"], runner_m.rollout_calls, ms_roll_d,
         _time_ms(lambda: kernels.paths_plain(5, x0_d, sdt_d, 1.0, K_d), 200),
@@ -1947,9 +2301,16 @@ def main(argv=None) -> int:
         extra={"instance": "DBDP (paths M, N)",
                "launches_per_iteration": (launches_m["rollout"]
                                           / int(runner_m.cfg.PICARD.N)),
-               "launches_per_sub_iteration": (launches_m["rollout"]
-                                              / runner_m.rollout_calls),
-               "launches_N": launches_n["rollout"], "device_ms": dev_roll_d,
+               "graph_replays": runner_m.graph_replays,
+               "traced_replays": traced_m["replays"],
+               "traced_launches": traced_m["launches"],
+               "launches_N": launches_n["rollout"],
+               "graph_replays_N": runner_n.graph_replays,
+               "traced_replays_N": traced_n["replays"],
+               "traced_launches_N": traced_n["launches"],
+               "device_ms": dev_roll_d,
+               "captured_vs_eager_rel": dbdp_rel,
+               "captured_vs_host_bias_correction_rel": dbdp_rel_host,
                "ms_per_sub_iteration": {"M": ms_sub_m, "N": ms_sub_n},
                "share_of_sub_iteration": (
                    None if dev_roll_d is None else
@@ -1961,10 +2322,14 @@ def main(argv=None) -> int:
           f"takes {ms_roll_d:.4f} ms per call back to back, {dev_roll_d} ms "
           f"of device time, of {ms_sub_m:.3f} / {ms_sub_n:.3f} ms per "
           f"sub-iteration; {launches_m['rollout']} / "
-          f"{launches_n['rollout']} launches")
+          f"{launches_n['rollout']} eager launches, one in each of "
+          f"{runner_m.graph_replays} / {runner_n.graph_replays} graph "
+          f"replays")
     per_i = [tm["interval_ms"] / tm["epochs"] for tm in runner_i.timings]
     print(f"path I: {ms_epoch_i:.3f} ms per epoch (median), "
-          f"{launches_i['rollout']} rollout launches (K="
+          f"{launches_i['rollout']} eager rollout launches and one in each "
+          f"of {runner_i.graph_replays} graph replays (traced: "
+          f"{traced_i['launches']} in {traced_i['replays']}; K="
           f"{int(runner_i.cfg.METHOD.K)}), first interval {per_i[0]:.3f} ms")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           f"card check")

@@ -63,8 +63,12 @@ class GBMEquationComplexExact(SimpleDiffusionWithHessian):
 
     # --- exact solution and derivatives (closed form) ---------------------
     def _tx(self, t, x):
-        t_b = torch.as_tensor(t, dtype=x.dtype, device=x.device).expand(
-            x[..., :1].shape)
+        if torch.is_tensor(t):
+            t_b = t.to(dtype=x.dtype, device=x.device).expand(
+                x[..., :1].shape)
+        else:  # a number (g's T): filled on the device, no host copy, so
+            # that DBDP's captured sub-iteration can call g
+            t_b = torch.full_like(x[..., :1], t)
         return torch.cat([t_b, x], dim=-1)
 
     def _arg(self, t, x):

@@ -40,7 +40,10 @@ missing ``nvcc`` or a failed build raises.
 Each wrapper (``*_cuda``) takes the plain PyTorch version (``*_plain``, same
 signature) for tensors on the CPU, and for CUDA tensors launches its kernel
 or raises: there is no fallback. Each library object counts its launches in
-``launches`` (a plain integer that only the launch site increments).
+``launches`` (a plain integer that only the launch site increments). A
+wrapper called while its stream captures a CUDA graph launches nothing, so
+it counts nothing; the graph's replays run no wrapper. Launches inside
+replays are read from a torch.profiler trace.
 """
 
 from __future__ import annotations
@@ -128,7 +131,11 @@ class CudaLibrary:
         os.replace(tmp, self.so_path)
 
     def count(self, mode: Optional[str] = None) -> None:
-        """One launch (of the kernel for ``mode``)."""
+        """One launch (of the kernel for ``mode``); nothing while the
+        current stream captures a graph (the call only records the
+        kernel)."""
+        if torch.cuda.is_current_stream_capturing():
+            return
         self.launches += 1
         if mode is not None:
             self.mode_launches[mode] = self.mode_launches.get(mode, 0) + 1
@@ -220,8 +227,11 @@ def _declare_normals(lib: ctypes.CDLL) -> None:
 
 
 def _declare_rollout(lib: ctypes.CDLL) -> None:
-    lib.dpi_paths.argtypes = [_P] * 4 + [_I] * 3 + [_U64, _F, _P]
+    lib.dpi_paths.argtypes = [_P] * 4 + [_I] * 3 + [_U64, _P, _P, _I64, _F,
+                                                     _P]
     lib.dpi_paths.restype = _I
+    lib.dpi_paths_smem_bytes.argtypes = [_I]
+    lib.dpi_paths_smem_bytes.restype = _I64
 
 
 def _declare_probe(lib: ctypes.CDLL) -> None:
@@ -259,6 +269,18 @@ NORMALS = CudaLibrary("normals.cu", _declare_normals)
 ROLLOUT = CudaLibrary("rollout.cu", _declare_rollout)
 PROBE = CudaLibrary("probe.cu", _declare_probe)
 ALL = (GENERATE, GENERATE_PIS, TERMINAL, INTEGRAL, NORMALS, ROLLOUT, PROBE)
+# the rollout's kernel function in csrc/rollout.cu, as a trace names it
+ROLLOUT_KERNEL = "paths_kernel"
+
+
+def trace_launches(prof, kernel: str) -> int:
+    """Launches of the kernels whose name contains ``kernel`` in a
+    finished ``torch.profiler.profile`` with CUDA activity: its device
+    events, eager launches and those inside graph replays alike."""
+    from torch.autograd import DeviceType
+
+    return sum(1 for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA and kernel in ev.name)
 
 
 # ---------------------------------------------------------------------------
@@ -1001,7 +1023,7 @@ def terminal_with_gradients_cuda(seed: int, eq, tx: torch.Tensor, m: int,
         float(eq.k), _stream(tx.device))
     if rc != 0:
         raise RuntimeError(f"dpi_terminal launch failed: CUDA error {rc}")
-    TERMINAL.launches += 1
+    TERMINAL.count()
     return out
 
 
@@ -1143,7 +1165,7 @@ def normals_cuda(seed: int, shape, device) -> torch.Tensor:
                          _stream(device))
     if rc != 0:
         raise RuntimeError(f"dpi_normals launch failed: CUDA error {rc}")
-    NORMALS.launches += 1
+    NORMALS.count()
     return out
 
 
@@ -1151,12 +1173,48 @@ def normals_cuda(seed: int, shape, device) -> torch.Tensor:
 # K-step Brownian paths (TPU: _paths_kernel in ops/rollout.py)
 # ---------------------------------------------------------------------------
 
-def paths_plain(seed: int, x0: torch.Tensor, sqrt_dts: torch.Tensor,
+class SeedTable:
+    """Seeds the rollout kernel reads from device memory, so that a launch
+    captured in a CUDA graph draws with a new seed at every replay:
+    ``table`` (capacity,) and ``index`` (1,), int64 on ``device``. ``fill``
+    copies a list of seeds in (one host-to-device copy) and sets the index
+    to 0; each launch with ``seed=`` this table draws with
+    ``table[index[0]]``, and the wrapper then advances the index by one
+    (an in-stream add, after the kernel)."""
+
+    def __init__(self, capacity: int, device):
+        self.table = torch.zeros((int(capacity),), dtype=torch.int64,
+                                 device=device)
+        self.index = torch.zeros((1,), dtype=torch.int64, device=device)
+
+    def fill(self, seeds) -> None:
+        seeds = [int(s) & 0xFFFFFFFFFFFFFFFF for s in seeds]
+        if not 0 < len(seeds) <= self.table.numel():
+            raise ValueError(f"{len(seeds)} seeds for a table of "
+                             f"{self.table.numel()}")
+        host = torch.tensor([s - (1 << 64) if s >= 1 << 63 else s
+                             for s in seeds], dtype=torch.int64)
+        self.table[:len(seeds)].copy_(host)
+        self.index.zero_()
+
+    def take(self) -> int:
+        """The plain version's read: the seed at the index (a host read),
+        then the index advances."""
+        seed = int(self.table[int(self.index[0])]) & 0xFFFFFFFFFFFFFFFF
+        self.index.add_(1)
+        return seed
+
+
+def paths_plain(seed, x0: torch.Tensor, sqrt_dts: torch.Tensor,
                 alpha_sqrt: float, K: int,
                 xi: Optional[torch.Tensor] = None):
     """Plain version of the rollout kernel: (xs (K+1, B, nx), xi (K, B,
     nx)) with xs = x0 + cumsum(sqrt_dts sqrt(alpha) xi) over the steps.
-    ``xi`` external, or drawn from a torch.Generator seeded with ``seed``."""
+    ``xi`` external, or drawn from a torch.Generator seeded with ``seed``:
+    an int, or a ``SeedTable``'s entry at its index (which then
+    advances)."""
+    if isinstance(seed, SeedTable):
+        seed = seed.take()
     if xi is None:
         gen = torch.Generator(device=x0.device)
         gen.manual_seed(int(seed))
@@ -1167,15 +1225,17 @@ def paths_plain(seed: int, x0: torch.Tensor, sqrt_dts: torch.Tensor,
     return xs, xi
 
 
-def paths_cuda(seed: int, x0: torch.Tensor, sqrt_dts: torch.Tensor,
+def paths_cuda(seed, x0: torch.Tensor, sqrt_dts: torch.Tensor,
                alpha_sqrt: float, K: int,
                out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Exact drift-free K-step paths from x0 (B, nx) with per-row step
     scale sqrt_dts (B, 1) * alpha_sqrt: (xs (K+1, B, nx), xi (K, B, nx))
     f32. The rollout kernel for CUDA tensors (xi[k, b, j] depends on
-    (seed, k, b, j) alone), the plain version for CPU tensors. ``out``:
-    f32 buffers (xs, xi) of those shapes to write into and return (the
-    D-DBSDE epoch's static inputs; the kernel writes them directly)."""
+    (seed, k, b, j) alone), the plain version for CPU tensors. ``seed``:
+    an int, or a ``SeedTable`` on x0's device, read by the kernel from
+    device memory (so the launch can be captured in a CUDA graph) and
+    advanced after it. ``out``: f32 buffers (xs, xi) of those shapes to
+    write into and return."""
     if x0.device.type == "cpu":
         xs, xi = paths_plain(seed, x0, sqrt_dts, alpha_sqrt, K)
         if out is None:
@@ -1192,6 +1252,10 @@ def paths_cuda(seed: int, x0: torch.Tensor, sqrt_dts: torch.Tensor,
     b, nx = x0.shape
     _check("x0", x0, (b, nx), x0.device)
     _check("sqrt_dts", sqrt_dts, (b, 1), x0.device)
+    table = seed if isinstance(seed, SeedTable) else None
+    if table is not None and not (table.table.device == x0.device
+                                  and table.index.device == x0.device):
+        raise ValueError(f"the seed table must be on {x0.device}")
     if out is None:
         xs = torch.empty((int(K) + 1, b, nx), dtype=torch.float32,
                          device=x0.device)
@@ -1202,12 +1266,22 @@ def paths_cuda(seed: int, x0: torch.Tensor, sqrt_dts: torch.Tensor,
         _check("xs", xs, (int(K) + 1, b, nx), x0.device)
         _check("xi", xi, (int(K), b, nx), x0.device)
     lib = ROLLOUT.lib()
+    smem = lib.dpi_paths_smem_bytes(int(K))
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"the rollout kernel needs {smem} bytes of shared "
+                         f"memory at K={K}, above the block limit of "
+                         f"{MAX_SMEM_BYTES}")
     rc = lib.dpi_paths(_ptr(x0), _ptr(sqrt_dts), _ptr(xs), _ptr(xi), b, nx,
-                       int(K), _seed(seed), float(alpha_sqrt),
-                       _stream(x0.device))
+                       int(K), _seed(0 if table is not None else seed),
+                       None if table is None else _ptr(table.table),
+                       None if table is None else _ptr(table.index),
+                       0 if table is None else table.table.numel(),
+                       float(alpha_sqrt), _stream(x0.device))
     if rc != 0:
         raise RuntimeError(f"dpi_paths launch failed: CUDA error {rc}")
-    ROLLOUT.launches += 1
+    ROLLOUT.count()
+    if table is not None:
+        table.index.add_(1)
     return xs, xi
 
 
@@ -1287,7 +1361,7 @@ def probe_cuda(which: str, seed: int, iters: int, device,
                                _seed(seed), _stream(device))
     if rc != 0:
         raise RuntimeError(f"dpi_probe launch failed: CUDA error {rc}")
-    PROBE.launches += 1
+    PROBE.count()
     return out
 
 

@@ -14,8 +14,9 @@ in-kernel and keeps the running sum in registers. An equation that overrides ``t
 takes a sequential loop through its own law instead.
 
 Random streams: a ``torch.Generator`` for the closed form and the loop, an
-integer seed for the kernel (its Philox draws depend on (seed, k, b, j)
-alone). The closed form also takes external ``xi``, so that tests can feed
+integer seed or a ``kernels.SeedTable`` for the kernel (its Philox draws
+depend on (seed, k, b, j) alone; a table's seed is read on the card, so
+the launch can be replayed in a CUDA graph). The closed form also takes external ``xi``, so that tests can feed
 it other draws.
 """
 
@@ -48,7 +49,7 @@ def closed_form_paths(generator: Optional[torch.Generator], eq,
 
 def brownian_paths(generator: Optional[torch.Generator], eq,
                    t0: torch.Tensor, x0: torch.Tensor, dts: torch.Tensor,
-                   K: int, use_pallas: bool = False, seed: int = 0,
+                   K: int, use_pallas: bool = False, seed=0,
                    xi: Optional[torch.Tensor] = None,
                    out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Exact K-step path from (t0, x0) with per-sample step dts.
@@ -56,13 +57,14 @@ def brownian_paths(generator: Optional[torch.Generator], eq,
     t0: (B, 1) start times, x0: (B, nx) start states, dts: (B, 1). Returns
     ts (K+1, B, 1) = t0 + k dts, xs (K+1, B, nx) the path states and xi
     (K, B, nx) the standardized N(0, I) increments. ``use_pallas`` takes
-    the rollout kernel, seeded with ``seed`` (on CPU tensors its plain
-    version, drawing from a torch.Generator seeded with ``seed``); else the
+    the rollout kernel, seeded with ``seed`` (an int or a
+    ``kernels.SeedTable``; on CPU tensors its plain version, drawing from a
+    torch.Generator seeded with that seed); else the
     closed form draws from ``generator`` or uses ``xi``. An equation that
     overrides ``transition`` (drift, state-dependent diffusion) takes a
     sequential loop through its own law, drawing from ``generator``.
     ``out``: buffers (xs, xi) that the rollout kernel writes into (the
-    D-DBSDE epoch's static inputs; ``use_pallas`` only)."""
+    DBDP sub-iteration's static inputs; ``use_pallas`` only)."""
     ks = torch.arange(K + 1, dtype=t0.dtype, device=t0.device)
     ts = t0[None] + dts[None] * ks[:, None, None]
     if out is not None and not (use_pallas and uses_base_transition(eq)):

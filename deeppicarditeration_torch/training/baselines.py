@@ -5,10 +5,10 @@ dispatched by METHOD.cls from ``PicardRunner.run_one``. The PINN-HTE
 baseline comes with a later slice.
 
 The JAX package fuses each log interval of epochs into one ``lax.scan``
-dispatch, always. Here each D-DBSDE epoch's draws run eagerly (the
-per-epoch generators and the rollout kernel with its host seed) into
-static buffers, and its loss, double backward and Adam step are one
-CUDA-graph replay (``training/fused.py``), whenever the baseline runs on
+dispatch, always. Here each D-DBSDE epoch (its draws from per-epoch
+generators registered with the graph, the rollout kernel with its seed
+from a device table, the loss, double backward and Adam step) is one
+CUDA-graph replay (``training/fused.py``) whenever the baseline runs on
 the card; on the CPU the same epoch runs eagerly. The log interval keeps
 the JAX semantics: a "diffusion" row (the interval's last loss) and an
 "eval" row per interval, read back once per interval, the periodic
@@ -18,21 +18,26 @@ params-only ``model_{i}``.
 Random streams: the JAX package folds the epoch into the iteration's key and
 splits it four ways (t0, x0, paths, x_T); here each is a ``torch.Generator``
 seeded from ``derive_seed(SEED, iteration, epoch, purpose)``, and the
-rollout kernel takes a seed of the same form. RESUME stays rejected by the
-runner.
+rollout kernel takes a seed of the same form (a ``kernels.SeedTable``
+filled with a log interval's seeds in one copy). RESUME stays rejected by
+the runner.
 
 DBDP (``train_dbdp``) sweeps the time grid backward with a value net and a
 gradient net per grid time, each pair with its own Adam kept across epochs;
-every sub-iteration draws fresh paths from the rollout kernel into static
-buffers and takes one eager Adam step (the JAX package scans a timestep's
-sub-iterations in one dispatch).
+every sub-iteration draws fresh paths from the rollout kernel and takes
+one Adam step, as one CUDA-graph replay over a static working pair
+(``CapturedPairFit``; the JAX package scans a timestep's sub-iterations in
+one dispatch). ``EagerPairFit``, the same steps launched one by one over
+the pairs themselves, is the reference the tests hold it to.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import time
+from typing import Optional
 
 import torch
 from torch import nn
@@ -55,6 +60,7 @@ from deeppicarditeration_torch.models.factory import (
     is_enforce_terminal,
 )
 from deeppicarditeration_torch.models.solution import Solution
+from deeppicarditeration_torch.ops import kernels
 from deeppicarditeration_torch.ops.rollout import brownian_paths
 from deeppicarditeration_torch.training import checkpoint as ckpt
 from deeppicarditeration_torch.training.fused import FusedStep
@@ -113,60 +119,56 @@ def diffusion_loss(sol: Solution, eq, ts: torch.Tensor, xs: torch.Tensor,
     return loss
 
 
-def diffusion_buffers(runner, terminal_weight: float) -> dict:
-    """Static buffers for ``diffusion_draws(..., out=)``: dts (B, 1), ts
-    (K+1, B, 1), xs (K+1, B, nx), the rollout's xi (K, B, nx) and, at a
-    positive terminal weight, xT (B, nx)."""
-    cfg, nx, dev = runner.cfg, runner.equation.nx, runner.device
-    K, bs = int(cfg.METHOD.K), int(cfg.TRAIN.BATCH_SIZE)
-    shapes = {"dts": (bs, 1), "ts": (K + 1, bs, 1), "xs": (K + 1, bs, nx),
-              "xi": (K, bs, nx)}
-    if terminal_weight > 0.0:
-        shapes["xT"] = (bs, nx)
-    return {k: torch.empty(v, dtype=torch.float32, device=dev)
-            for k, v in shapes.items()}
+def epoch_generators(runner) -> dict:
+    """The D-DBSDE epoch's generators on the runner's device, by purpose
+    (T0, X0, XT); ``seed_epoch`` seeds them for an epoch."""
+    return {p: torch.Generator(device=runner.device) for p in (T0, X0, XT)}
 
 
-def diffusion_draws(runner, epoch: int, terminal_weight: float,
-                    out: dict = None):
-    """The epoch's inputs (dts, ts, xs, xT). The paths always come from the
-    rollout kernel (its plain version on the CPU, which draws what the
-    closed form would from the same seed), whatever DATA.TPU.PALLAS_ROLLOUT
-    says: on the card the kernel is faster at every measured shape.
-    ``out`` (``diffusion_buffers``): written into and returned, the same
-    draws (the rollout kernel writes its paths there directly)."""
+def seed_epoch(runner, gens: dict, epoch: int) -> None:
+    for purpose, g in gens.items():
+        g.manual_seed(derive_seed(runner.seed, runner.i, epoch, purpose))
+
+
+def diffusion_inputs(runner, gens: dict, paths_seed, terminal_weight: float):
+    """The epoch's inputs (dts, ts, xs, xT): t0 ~ U(0, T) and x0 ~ law(X_t0)
+    from ``gens``, the paths from the rollout kernel seeded with
+    ``paths_seed`` (an int or a ``kernels.SeedTable``; on the CPU its plain
+    version, which draws what the closed form would from the same seed)
+    whatever DATA.TPU.PALLAS_ROLLOUT says (on the card the kernel is faster
+    at every measured shape), and at a positive terminal weight xT ~
+    law(X_T). Free of host syncs: the fused epoch runs it in its graph."""
     cfg, eq, dev = runner.cfg, runner.equation, runner.device
     K, dt, bs = int(cfg.METHOD.K), float(cfg.METHOD.dt), int(
         cfg.TRAIN.BATCH_SIZE)
-
-    def gen(purpose):
-        g = torch.Generator(device=dev)
-        g.manual_seed(derive_seed(runner.seed, runner.i, epoch, purpose))
-        return g
-
-    t0 = eq.T * torch.rand((bs, 1), generator=gen(T0), device=dev)
-    x0 = eq.sample_x(gen(X0), t0)
+    t0 = eq.T * torch.rand((bs, 1), generator=gens[T0], device=dev)
+    x0 = eq.sample_x(gens[X0], t0)
     dts = rollout_dts(eq, t0, dt, K)
-    ts, xs, _ = brownian_paths(
-        gen(PATHS), eq, t0, x0, dts, K, use_pallas=True,
-        seed=derive_seed(runner.seed, runner.i, epoch, PATHS),
-        out=None if out is None else (out["xs"], out["xi"]))
-    runner.rollout_calls += 1
+    ts, xs, _ = brownian_paths(None, eq, t0, x0, dts, K, use_pallas=True,
+                               seed=paths_seed)
     xT = None
     if terminal_weight > 0.0:
-        xT = eq.sample_x(gen(XT), torch.full((bs, 1), eq.T, device=dev))
-    if out is None:
-        return dts, ts, xs, xT
-    out["dts"].copy_(dts)
-    out["ts"].copy_(ts)
-    if xT is not None:
-        out["xT"].copy_(xT)
-    return out["dts"], out["ts"], out["xs"], out.get("xT")
+        xT = eq.sample_x(gens[XT], torch.full((bs, 1), eq.T, device=dev))
+    return dts, ts, xs, xT
+
+
+def diffusion_draws(runner, epoch: int, terminal_weight: float):
+    """The epoch's inputs (dts, ts, xs, xT), drawn eagerly: what the fused
+    epoch draws in its graph for the same epoch."""
+    gens = epoch_generators(runner)
+    seed_epoch(runner, gens, epoch)
+    runner.rollout_calls += 1
+    return diffusion_inputs(
+        runner, gens, derive_seed(runner.seed, runner.i, epoch, PATHS),
+        terminal_weight)
 
 
 def train_diffusion(runner):
     """K-step rollout + BSDE martingale-residual loss with Adam(1e-3),
-    whatever TRAIN.OPTIMIZER says, for TRAIN.N_EPOCHS epochs."""
+    whatever TRAIN.OPTIMIZER says, for TRAIN.N_EPOCHS epochs. An epoch is
+    one ``FusedStep``: its draws (the generators seeded for the epoch, the
+    rollout from a seed table filled once per log interval), loss, double
+    backward and Adam step, one graph replay on the card."""
     cfg, eq = runner.cfg, runner.equation
     module = init_solution(
         cfg, eq, runner.device,
@@ -179,26 +181,36 @@ def train_diffusion(runner):
         capturable=runner.device.type == "cuda")
     reset_optimizer(optimizer)
     sol = Solution.from_net(module, runner.net_type, eq.nx)
-    bufs = diffusion_buffers(runner, terminal_weight)
+    n_epochs = int(cfg.TRAIN.N_EPOCHS)
+    interval = _log_interval(cfg)
+    gens = epoch_generators(runner)
+    seeds = kernels.SeedTable(interval, runner.device)
 
-    def loss_step():
-        """The epoch on its drawn inputs: the graph's body."""
+    def body():
+        """The epoch: the graph's body."""
         optimizer.zero_grad(set_to_none=True)
-        loss = diffusion_loss(sol, eq, bufs["ts"], bufs["xs"], bufs["dts"],
-                              bufs.get("xT"), terminal_weight)
+        dts, ts, xs, xT = diffusion_inputs(runner, gens, seeds,
+                                           terminal_weight)
+        loss = diffusion_loss(sol, eq, ts, xs, dts, xT, terminal_weight)
         loss.backward()
         optimizer.step()
         return loss.detach()
 
-    fused = FusedStep(loss_step, bufs, module, optimizer)
+    fused = FusedStep(body, {}, module, optimizer,
+                      generators=list(gens.values()), state=[seeds.index])
     runner.fused_steps.append(fused)
 
     def step(epoch):
-        diffusion_draws(runner, epoch, terminal_weight, out=bufs)
+        if epoch % interval == 0:  # the interval's rollout seeds
+            seeds.fill([derive_seed(runner.seed, runner.i, e, PATHS)
+                        for e in range(epoch, min(epoch + interval,
+                                                  n_epochs))])
+        seed_epoch(runner, gens, epoch)
+        runner.rollout_calls += 1
         return fused()
 
-    return _baseline_loop(runner, step, module, optimizer,
-                          int(cfg.TRAIN.N_EPOCHS), "diffusion")
+    return _baseline_loop(runner, step, module, optimizer, n_epochs,
+                          "diffusion")
 
 
 # ---------------------------------------------------------------------------
@@ -354,61 +366,241 @@ def dbdp_grid_eval(eq, nets: DBDPNets, ts_grid, generator=None,
         return value_metrics(us, eq.exact_solution(t_eval, x_eval))
 
 
-def train_dbdp(runner):
-    """The backward DBDP sweep: per epoch, the terminal pre-fit (unless the
-    ansatz enforces the terminal condition), then for k = K .. 1 the warm
-    start pair_{k-1} <- pair_k (parameters only) and METHOD.num_sub_iter
-    Adam(1e-3) steps of pair k-1 on fresh paths; after each k, the grid
-    eval. One readback per epoch; a "dbdp" and an "eval" row per k; the
-    stacked nets saved every epoch and at the end; ``runner.u_current``
-    the grid view. ``runner.timings`` gets each k's sub-iterations' ms."""
-    cfg, eq, dev = runner.cfg, runner.equation, runner.device
-    K = round(eq.T / float(cfg.METHOD.dt))
-    dt = eq.T / K
-    num_sub_iter = int(cfg.METHOD.num_sub_iter)
-    bs, nx = int(cfg.TRAIN.BATCH_SIZE), eq.nx
-    enforce = is_enforce_terminal(cfg)
+class DBDPSweep:
+    """What DBDP's sub-iterations share: the runner (its seed, iteration,
+    counters), the equation, the grid (K steps of dt, ``ts_grid``), the
+    batch, the ansatz and the sub-iterations per grid time; the paths'
+    static buffers xs (K+1, B, nx), xi (K, B, nx), the start times t0 = 0
+    and steps dts = dt."""
+
+    def __init__(self, runner):
+        cfg, eq, dev = runner.cfg, runner.equation, runner.device
+        self.runner, self.eq, self.device = runner, eq, dev
+        self.K = round(eq.T / float(cfg.METHOD.dt))
+        self.dt = eq.T / self.K
+        self.num_sub_iter = int(cfg.METHOD.num_sub_iter)
+        self.bs, self.nx = int(cfg.TRAIN.BATCH_SIZE), eq.nx
+        self.enforce = is_enforce_terminal(cfg)
+        self.ts_grid = torch.arange(self.K + 1, dtype=torch.float32,
+                                    device=dev) * self.dt
+        self.xs = torch.empty((self.K + 1, self.bs, self.nx),
+                              dtype=torch.float32, device=dev)
+        self.xi = torch.empty((self.K, self.bs, self.nx), dtype=torch.float32,
+                              device=dev)
+        self.t0 = torch.zeros((self.bs, 1), dtype=torch.float32, device=dev)
+        self.dts = torch.full((self.bs, 1), self.dt, dtype=torch.float32,
+                              device=dev)
+
+    def seeds(self, epoch: int, kk: int):
+        """(x0 generator seed, rollout seed) of each sub-iteration of grid
+        time kk (K + 1: the terminal pre-fit) in ``epoch``."""
+        r = self.runner
+        out = []
+        for it in range(self.num_sub_iter):
+            seed = derive_seed(r.seed, r.i, epoch, kk, it)
+            out.append((derive_seed(seed, DBDP_X0),
+                        derive_seed(seed, DBDP_PATHS)))
+        return out
+
+    def draw(self, x0_gen, paths_seed):
+        """Fresh paths in the static buffers from x0 ~ the equation's start
+        law (``x0_gen``) and the rollout kernel (``paths_seed``: an int or
+        a ``kernels.SeedTable``); returns (xs, dW = xi sqrt(dt))."""
+        x0 = self.eq.sample_x0(x0_gen, self.bs, torch.float32, self.device)
+        brownian_paths(None, self.eq, self.t0, x0, self.dts, self.K,
+                       use_pallas=True, seed=paths_seed,
+                       out=(self.xs, self.xi))
+        return self.xs, self.xi * math.sqrt(self.dt)
+
+
+def _adam_step(opt, loss_fn):
+    opt.zero_grad(set_to_none=True)
+    loss = loss_fn()
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+class EagerPairFit:
+    """A grid time's sub-iterations as an eager loop over the pair itself,
+    one Adam per pair kept across epochs: the reference that
+    ``CapturedPairFit`` is held to. Its Adams are capturable on the card
+    too (the step count on the device, the bias correction in f32, as
+    optax's), so that the two differ by the capture alone; ``capturable``
+    False keeps the step count and the bias correction (f64) on the
+    host."""
+
+    def __init__(self, sweep: DBDPSweep, nets: DBDPNets,
+                 capturable: Optional[bool] = None):
+        self.sweep, self.nets = sweep, nets
+        if capturable is None:
+            capturable = sweep.device.type == "cuda"
+        self.opts = [torch.optim.Adam(nets.pair_parameters(k),
+                                      lr=BASELINE_LR, capturable=capturable)
+                     for k in range(sweep.K + 1)]
+
+    def __call__(self, epoch: int, kk: int):
+        """Grid time kk's sub-iterations (kk = K + 1: the terminal
+        pre-fit of pair K, else pair kk - 1 against pair kk); returns the
+        last loss."""
+        sw, nets, eq = self.sweep, self.nets, self.sweep.eq
+        K, dev = sw.K, sw.device
+        loss = None
+        for s_x0, s_paths in sw.seeds(epoch, kk):
+            g = torch.Generator(device=dev)
+            g.manual_seed(s_x0)
+            xs, dW = sw.draw(g, s_paths)
+            sw.runner.rollout_calls += 1
+            if kk == K + 1:
+                loss = _adam_step(self.opts[K], lambda: dbdp_terminal_loss(
+                    eq, nets.pair(K), sw.ts_grid[K], xs[K], sw.dt))
+                continue
+            t_prev = sw.ts_grid[kk - 1].expand(sw.bs, 1)
+            t_next = sw.ts_grid[kk].expand(sw.bs, 1)
+            loss = _adam_step(self.opts[kk - 1], lambda: dbdp_loss(
+                eq, nets.pair(kk - 1), nets.pair(kk), t_prev, t_next,
+                xs[kk - 1], xs[kk], dW[kk - 1], kk == K, sw.enforce, sw.dt))
+        return loss
+
+    def adam_state(self, k: int):
+        """Pair k's Adam state: (step, exp_avg, exp_avg_sq) per parameter,
+        in the order of ``DBDPNets.pair_parameters``."""
+        opt = self.opts[k]
+        return [opt.state[p][name] for p in self.nets.pair_parameters(k)
+                for name in ("step", "exp_avg", "exp_avg_sq")]
+
+
+class CapturedPairFit:
+    """A grid time's sub-iterations as CUDA-graph replays (``FusedStep``;
+    eagerly on the CPU) over static working modules: a trainable pair, a
+    frozen next pair, t_prev / t_next and the grid index as tensors, and
+    one Adam (capturable on the card) whose state is copied in from the
+    pair's own and back after the grid time. So each pair keeps its own
+    Adam across epochs, as the JAX package's stacked optimizer does, and
+    at most three graphs serve the whole sweep: the terminal pre-fit, the
+    last step of a terminal-enforcing ansatz, every other step. A
+    sub-iteration is one replay: x0, the rollout (its seed from a table
+    filled once per grid time), the loss with its Hessian, backward and
+    the Adam step."""
+
+    def __init__(self, sweep: DBDPSweep, nets: DBDPNets):
+        sw, dev = sweep, sweep.device
+        self.sweep, self.nets = sw, nets
+        self.work = DBDPNets(copy.deepcopy([nets.pair(0), nets.pair(1)]))
+        self.opt = torch.optim.Adam(self.work.pair_parameters(0),
+                                    lr=BASELINE_LR,
+                                    capturable=dev.type == "cuda")
+        reset_optimizer(self.opt)
+        self.opt_state = [self.opt.state[p][name]
+                          for p in self.work.pair_parameters(0)
+                          for name in ("step", "exp_avg", "exp_avg_sq")]
+        # each pair's Adam state as a fresh Adam starts it
+        self.stored = [[torch.zeros_like(t) for t in self.opt_state]
+                       for _ in range(sw.K + 1)]
+        self.t_prev = torch.zeros((sw.bs, 1), dtype=torch.float32,
+                                  device=dev)
+        self.t_next = torch.zeros_like(self.t_prev)
+        self.k_prev = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.k_next = torch.zeros_like(self.k_prev)
+        self.x0_gen = torch.Generator(device=dev)
+        self.seeds = kernels.SeedTable(sw.num_sub_iter, dev)
+        self.steps = {}
+
+    def _body(self, kind):
+        sw, eq, work = self.sweep, self.sweep.eq, self.work
+
+        def loss_fn():
+            xs, dW = sw.draw(self.x0_gen, self.seeds)
+            if kind == "prefit":
+                return dbdp_terminal_loss(eq, work.pair(0), self.t_prev,
+                                          xs[sw.K], sw.dt)
+            return dbdp_loss(
+                eq, work.pair(0), work.pair(1), self.t_prev, self.t_next,
+                xs.index_select(0, self.k_prev)[0],
+                xs.index_select(0, self.k_next)[0],
+                dW.index_select(0, self.k_prev)[0], kind == "last",
+                sw.enforce, sw.dt)
+
+        return lambda: _adam_step(self.opt, loss_fn)
+
+    def _step(self, kind) -> FusedStep:
+        if kind not in self.steps:
+            self.steps[kind] = FusedStep(
+                self._body(kind), {}, self.work, self.opt,
+                generators=[self.x0_gen],
+                state=[self.seeds.index])
+            self.sweep.runner.fused_steps.append(self.steps[kind])
+        return self.steps[kind]
+
+    def __call__(self, epoch: int, kk: int):
+        """As ``EagerPairFit.__call__``."""
+        sw, nets = self.sweep, self.nets
+        K = sw.K
+        k = K if kk == K + 1 else kk - 1
+        kind = ("prefit" if kk == K + 1
+                else "last" if sw.enforce and kk == K else "step")
+        seeds = sw.seeds(epoch, kk)
+        with torch.no_grad():
+            torch._foreach_copy_(self.work.pair_parameters(0),
+                                 nets.pair_parameters(k))
+            torch._foreach_copy_(self.opt_state, self.stored[k])
+            self.t_prev.fill_(sw.ts_grid[k])
+            if kind != "prefit":
+                torch._foreach_copy_(self.work.pair_parameters(1),
+                                     nets.pair_parameters(kk))
+                self.t_next.fill_(sw.ts_grid[kk])
+                self.k_prev.fill_(kk - 1)
+                self.k_next.fill_(kk)
+        self.seeds.fill([s for _, s in seeds])
+        step = self._step(kind)
+        loss = None
+        for s_x0, _ in seeds:
+            self.x0_gen.manual_seed(s_x0)
+            sw.runner.rollout_calls += 1
+            loss = step()
+        loss = loss.clone()  # the graph's output: the next replay rewrites it
+        with torch.no_grad():
+            torch._foreach_copy_(nets.pair_parameters(k),
+                                 self.work.pair_parameters(0))
+            torch._foreach_copy_(self.stored[k], self.opt_state)
+        return loss
+
+    def adam_state(self, k: int):
+        """As ``EagerPairFit.adam_state``."""
+        return self.stored[k]
+
+
+def init_dbdp_nets(runner, K: int) -> DBDPNets:
+    """The K + 1 pairs, each initialized from its own seeded generators."""
     cpu = torch.device("cpu")
-    nets = DBDPNets(
-        build_dbdp_pair(cfg, eq, dev,
+    return DBDPNets(
+        build_dbdp_pair(runner.cfg, runner.equation, runner.device,
                         make_generator(cpu, runner.seed, runner.i, INIT, kk,
                                        INIT_U),
                         make_generator(cpu, runner.seed, runner.i, INIT, kk,
                                        INIT_G))
         for kk in range(K + 1))
-    # one Adam per pair, kept across epochs
-    opts = [torch.optim.Adam(nets.pair_parameters(k), lr=BASELINE_LR)
-            for k in range(K + 1)]
-    ts_grid = torch.arange(K + 1, dtype=torch.float32, device=dev) * dt
-    xs_buf = torch.empty((K + 1, bs, nx), dtype=torch.float32, device=dev)
-    xi_buf = torch.empty((K, bs, nx), dtype=torch.float32, device=dev)
-    t0 = torch.zeros((bs, 1), dtype=torch.float32, device=dev)
-    dts = torch.full((bs, 1), dt, dtype=torch.float32, device=dev)
-    sqrt_dt = math.sqrt(dt)
 
-    def paths(epoch, kk, it):
-        """Fresh paths in the static buffers: xs (K+1, B, nx), dW (K, B,
-        nx) = xi sqrt(dt)."""
-        seed = derive_seed(runner.seed, runner.i, epoch, kk, it)
-        x0 = eq.sample_x0(make_generator(dev, seed, DBDP_X0), bs,
-                          torch.float32, dev)
-        brownian_paths(None, eq, t0, x0, dts, K, use_pallas=True,
-                       seed=derive_seed(seed, DBDP_PATHS),
-                       out=(xs_buf, xi_buf))
-        runner.rollout_calls += 1
-        return xs_buf, xi_buf * sqrt_dt
 
-    def step(opt, loss_fn):
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn()
-        loss.backward()
-        opt.step()
-        return loss.detach()
+def train_dbdp(runner):
+    """The backward DBDP sweep: per epoch, the terminal pre-fit (unless the
+    ansatz enforces the terminal condition), then for k = K .. 1 the warm
+    start pair_{k-1} <- pair_k (parameters only) and METHOD.num_sub_iter
+    Adam(1e-3) steps of pair k-1 on fresh paths (``CapturedPairFit``);
+    after each k, the grid eval. One readback per epoch; a "dbdp" and an "eval" row per
+    k; the stacked nets saved every epoch and at the end;
+    ``runner.u_current`` the grid view. ``runner.timings`` gets each k's
+    sub-iterations' ms."""
+    cfg, eq, dev = runner.cfg, runner.equation, runner.device
+    sw = DBDPSweep(runner)
+    K, num_sub_iter = sw.K, sw.num_sub_iter
+    nets = init_dbdp_nets(runner, K)
+    fit = CapturedPairFit(sw, nets)
+    ts_grid = sw.ts_grid
 
-    def timed(epoch, kk, body):
+    def timed(epoch, kk):
         with Timer(dev) as tm:
-            for it in range(num_sub_iter):
-                loss = body(it)
+            loss = fit(epoch, kk)
         runner.timings.append({"iter": runner.i, "epoch": epoch, "k": kk,
                                "sub_iters": num_sub_iter, "ms": tm.ms})
         return loss
@@ -418,27 +610,13 @@ def train_dbdp(runner):
     t_start = time.perf_counter()
     wall0 = 0.0
     for epoch in range(int(cfg.TRAIN.N_EPOCHS)):
-        if not enforce:
-            def prefit(it):
-                xs, _ = paths(epoch, K + 1, it)
-                return step(opts[K], lambda: dbdp_terminal_loss(
-                    eq, nets.pair(K), ts_grid[K], xs[K], dt))
-
-            timed(epoch, K + 1, prefit)
+        if not sw.enforce:
+            timed(epoch, K + 1)
         pending = []
         for kk in range(K, 0, -1):
             if kk < K:  # warm start from step k
                 nets.copy_pair(kk, kk - 1)
-            t_prev = ts_grid[kk - 1].expand(bs, 1)
-            t_next = ts_grid[kk].expand(bs, 1)
-
-            def sub(it, kk=kk, t_prev=t_prev, t_next=t_next):
-                xs, dW = paths(epoch, kk, it)
-                return step(opts[kk - 1], lambda: dbdp_loss(
-                    eq, nets.pair(kk - 1), nets.pair(kk), t_prev, t_next,
-                    xs[kk - 1], xs[kk], dW[kk - 1], kk == K, enforce, dt))
-
-            loss = timed(epoch, kk, sub)
+            loss = timed(epoch, kk)
             step_counter += num_sub_iter
             em = None
             if eq.has_exact_solution:
@@ -465,7 +643,8 @@ def train_dbdp(runner):
         ckpt.save_params(state_path, nets)
     ckpt.save_params(ckpt.ckpt_path(runner.exp_dir, runner.i), nets)
     runner.u_current = Solution.from_net(
-        freeze(DBDPGridModule(nets.u, ts_grid, K, dt, eq)), "Value", nx)
+        freeze(DBDPGridModule(nets.u, ts_grid, K, sw.dt, eq)), "Value",
+        sw.nx)
     return nets
 
 
@@ -480,6 +659,11 @@ def _baseline_state_paths(runner):
     return state_path, meta_path
 
 
+def _log_interval(cfg) -> int:
+    """Epochs per log interval: EVAL.FREQ, or 100."""
+    return int(cfg.EVAL.FREQ or 100)
+
+
 def _baseline_loop(runner, step, module, optimizer, n_epochs: int, tag: str):
     """Run ``step(epoch)`` for n_epochs; per log interval (EVAL.FREQ or 100
     epochs) one readback of the last loss and the eval, a ``tag`` row and
@@ -487,7 +671,7 @@ def _baseline_loop(runner, step, module, optimizer, n_epochs: int, tag: str):
     ``runner.u_current``. The interval's epochs are timed on the device
     (``runner.timings``: ``interval_ms`` over ``epochs``)."""
     cfg, eq = runner.cfg, runner.equation
-    log_interval = int(cfg.EVAL.FREQ or 100)
+    log_interval = _log_interval(cfg)
     state_path, meta_path = _baseline_state_paths(runner)
     names = eval_fn = None
     if eq.has_exact_solution:

@@ -843,6 +843,85 @@ def test_dbdp_grid_module_and_grid_eval_match_jax():
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), **NET_TOL)
 
 
+def _dbdp_fit(tmp_path, cls, overrides, sweeps):
+    """Pairs and fit after ``sweeps`` of (epoch, grid times kk) through the
+    fit class ``cls`` on DBDP_TINY, the warm start before every kk < K."""
+    cfg = default_cfg()
+    cfg.merge(DBDP_TINY)
+    cfg.merge({"DEVICE": "cpu", **overrides})
+    runner = PicardRunner(cfg.freeze(), exp_root=tmp_path / cls.__name__)
+    runner.i = 1
+    sw = baselines.DBDPSweep(runner)
+    nets = baselines.init_dbdp_nets(runner, sw.K)
+    fit = cls(sw, nets)
+    for epoch, kks in sweeps:
+        for kk in kks:
+            if kk < sw.K:
+                nets.copy_pair(kk, kk - 1)
+            fit(epoch, kk)
+    return nets, fit, runner
+
+
+@pytest.mark.parametrize("enforce", [False, True])
+def test_dbdp_working_pair_equals_the_per_pair_loop(tmp_path, enforce):
+    """The captured design's static working pair, with its Adam state
+    copied in and out per grid time (eagerly on the CPU), against the
+    per-pair loop on the same seeds: per epoch the terminal pre-fit (none
+    under a terminal-enforcing ansatz, whose k = K step takes the "last"
+    graph instead) and 2 grid times, 3 sub-iterations each, over 2 epochs,
+    so that a pair's Adam carries over. Pair parameters and Adam moments
+    agree to rtol 1e-6, atol 1e-7 (f32: the same operations in the same
+    order; equal to the bit here)."""
+    K = DBDP_K
+    kks = ([] if enforce else [K + 1]) + [K, K - 1]
+    over = ({"NETWORK": {"cls": "PicardSolutionEnforceTerminal"}}
+            if enforce else {})
+    runs = [_dbdp_fit(tmp_path, cls, over, [(0, kks), (1, kks)])
+            for cls in (baselines.EagerPairFit, baselines.CapturedPairFit)]
+    (n_e, f_e, r_e), (n_c, f_c, r_c) = runs
+    assert r_e.rollout_calls == r_c.rollout_calls == 2 * len(kks) * DBDP_SUB
+    for (name, a), b in zip(n_c.state_dict().items(),
+                            n_e.state_dict().values()):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7, msg=name)
+    trained = ([K] if not enforce else []) + [K - 1, K - 2]
+    for k in trained:
+        ours, ref = f_c.adam_state(k), f_e.adam_state(k)
+        assert len(ours) == len(ref) == 3 * len(n_e.pair_parameters(k))
+        for a, b in zip(ours, ref):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+    # the steps count both epochs' sub-iterations
+    assert float(f_c.adam_state(K - 1)[0]) == 2 * DBDP_SUB
+    # pairs no grid time reached keep their initialization
+    fresh = baselines.init_dbdp_nets(r_e, K)
+    assert all(torch.equal(a, b) for a, b in zip(
+        n_c.pair_parameters(0), fresh.pair_parameters(0)))
+
+
+def test_optax_adam_f32_reference_equals_optax():
+    """The numpy replica of optax.adam's arithmetic that the card test
+    holds DBDP's capturable Adam to (tests/test_torch_gpu.py) against
+    ``optax.adam(1e-3)``, the JAX package's DBDP optimizer, on the same
+    parameters and 30 gradients: parameters within 1e-7 and moments
+    within rtol 1e-6 (XLA's pow and fusion against numpy's: an ulp or two
+    a step)."""
+    from tests.test_torch_gpu import adam_case, optax_adam_f32
+
+    params, grads = adam_case()
+    want, mu, nu = optax_adam_f32(params, grads, 1e-3)
+    tx = optax.adam(1e-3)
+    ps = [jnp.asarray(p) for p in params]
+    state = tx.init(ps)
+    for gs in grads:
+        updates, state = tx.update([jnp.asarray(g) for g in gs], state, ps)
+        ps = optax.apply_updates(ps, updates)
+    for a, b in zip(ps, want):
+        np.testing.assert_allclose(np.asarray(a), b, rtol=0, atol=1e-7)
+    for a, b in zip(state[0].mu, mu):
+        np.testing.assert_allclose(np.asarray(a), b, rtol=1e-6, atol=1e-13)
+    for a, b in zip(state[0].nu, nu):
+        np.testing.assert_allclose(np.asarray(a), b, rtol=1e-6, atol=1e-19)
+
+
 def test_dbdp_rejects_an_equation_without_ffh():
     with pytest.raises(NotImplementedError, match="ffh"):
         baselines.check_dbdp(make_equation("Cha", nx=3))

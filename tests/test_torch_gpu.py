@@ -11,6 +11,7 @@ is installed:
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -19,6 +20,7 @@ from deeppicarditeration_torch.models.networks import MLP
 from deeppicarditeration_torch.models.solution import Solution
 from deeppicarditeration_torch.ops import estimators as est
 from deeppicarditeration_torch.ops import kernels, philox
+from deeppicarditeration_torch.training.fused import WARMUP
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
@@ -466,6 +468,77 @@ def test_rollout_kernel_equals_the_host_philox_and_the_plain_version(cuda):
     assert not torch.equal(other, xi)
 
 
+@pytest.mark.parametrize("K,b,nx", [(20, 511, 7), (50, 511, 7),
+                                     (70, 33, 100)])
+def test_rollout_kernel_at_ragged_shapes(cuda, K, b, nx):
+    """Columns B nx not a multiple of the 32-column tile (nor of 4: element
+    stores), and K = 70 in two step chunks: the host Philox's draws and the
+    plain version's paths on them."""
+    seed = (5 << 32) | 9
+    x0, sdt = _path_inputs(cuda, b, nx, seed=3)
+    xs, xi = kernels.paths_cuda(seed, x0, sdt, 1.3, K)
+    host = torch.from_numpy(philox.path_normals(seed, K, b, nx)).to(cuda)
+    torch.testing.assert_close(xi, host, rtol=PATH_TOL, atol=PATH_TOL)
+    ref, _ = kernels.paths_plain(0, x0, sdt, 1.3, K, host)
+    torch.testing.assert_close(xs, ref, rtol=PATH_TOL, atol=PATH_TOL)
+    assert torch.equal(xs[0], x0)
+
+
+def test_rollout_seed_table_in_a_captured_graph(cuda):
+    """The kernel reads its seed from a SeedTable and the wrapper advances
+    the index inside the graph: three replays of one capture draw the host
+    Philox's values at table entries 0, 1, 2."""
+    K, b, nx = 20, 512, 100
+    x0, sdt = _path_inputs(cuda, b, nx)
+    seeds = [(7 << 32) | 5, 12345, (1 << 64) - 7]
+    table = kernels.SeedTable(4, cuda)
+    table.fill(seeds)
+    kernels.paths_cuda(table, x0, sdt, 1.3, K)  # eager: entry 0
+    torch.cuda.synchronize()
+    assert int(table.index[0]) == 1
+    table.fill(seeds)
+    n0 = kernels.ROLLOUT.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        xs, xi = kernels.paths_cuda(table, x0, sdt, 1.3, K)
+    assert int(table.index[0]) == 0  # the capture ran nothing
+    assert kernels.ROLLOUT.launches == n0  # and counted nothing
+    for i, seed in enumerate(seeds):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(table.index[0]) == i + 1
+        host = torch.from_numpy(philox.path_normals(seed, K, b, nx)).to(cuda)
+        torch.testing.assert_close(xi, host, rtol=PATH_TOL, atol=PATH_TOL)
+        ref, _ = kernels.paths_plain(0, x0, sdt, 1.3, K, host)
+        torch.testing.assert_close(xs, ref, rtol=PATH_TOL, atol=PATH_TOL)
+    assert kernels.ROLLOUT.launches == n0  # a replay runs no wrapper
+
+
+def test_profiler_sees_the_rollout_kernel_once_per_replay(cuda):
+    """What chip_smoke reads for the launches inside graphs: a
+    torch.profiler trace of 4 replays of a captured rollout shows 4 device
+    events of the kernel, and the wrapper's count stays where it was."""
+    from torch.profiler import ProfilerActivity, profile
+
+    K, b, nx = 20, 64, 8
+    x0, sdt = _path_inputs(cuda, b, nx)
+    table = kernels.SeedTable(4, cuda)
+    table.fill([1, 2, 3, 4])
+    kernels.paths_cuda(table, x0, sdt, 1.0, K)  # builds and warms
+    table.fill([1, 2, 3, 4])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kernels.paths_cuda(table, x0, sdt, 1.0, K)
+    n0 = kernels.ROLLOUT.launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            graph.replay()
+        torch.cuda.synchronize()
+    assert kernels.ROLLOUT.launches == n0
+    assert kernels.trace_launches(prof, kernels.ROLLOUT_KERNEL) == 4
+
+
 def test_rollout_kernel_law_of_the_endpoint(cuda):
     """X_K ~ N(x0, alpha K dt) per element: mean and variance of the
     standardized endpoint within 5 standard errors."""
@@ -487,6 +560,77 @@ def test_rollout_wrapper_checks_its_inputs(cuda):
         kernels.paths_cuda(0, x0, sdt[:4].contiguous(), 1.0, 4)
     with pytest.raises(ValueError):
         kernels.paths_cuda(0, x0.double(), sdt, 1.0, 4)
+
+
+# ---- Adam on the card against optax's arithmetic -----------------------------
+
+def optax_adam_f32(params, grads, lr):
+    """``optax.adam(lr)``'s arithmetic in numpy float32 (``scale_by_adam``,
+    then ``scale(-lr)`` and the add): the moments' factors 1 - b1, 1 - b2
+    rounded from Python floats, the bias correction 1 - b ** count in f32,
+    eps 1e-8 outside the square root. ``params``: f32 arrays; ``grads``:
+    one list like ``params`` per step. Returns the parameters and the
+    moments (mu, nu) after the steps. Held to optax itself on the CPU in
+    tests/test_torch_fn.py; imports no JAX."""
+    f = np.float32
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    ps = [np.asarray(p, np.float32).copy() for p in params]
+    mu = [np.zeros_like(p) for p in ps]
+    nu = [np.zeros_like(p) for p in ps]
+    for count, gs in enumerate(grads, start=1):
+        bc1 = f(1) - f(b1) ** f(count)
+        bc2 = f(1) - f(b2) ** f(count)
+        for i, g in enumerate(gs):
+            g = np.asarray(g, np.float32)
+            mu[i] = f(1 - b1) * g + f(b1) * mu[i]
+            nu[i] = f(1 - b2) * (g * g) + f(b2) * nu[i]
+            u = (mu[i] / bc1) / (np.sqrt(nu[i] / bc2) + f(eps))
+            ps[i] = ps[i] + u * f(-lr)
+    return ps, mu, nu
+
+
+def adam_case(seed=0, steps=30):
+    """Parameters shaped as a DBDP pair's first layers (nx = 8, 32 hidden)
+    and ``steps`` gradients whose scales span 1e-6 to 1 (so eps matters
+    for some), made from ``seed`` with numpy."""
+    rng = np.random.default_rng(seed)
+    shapes = [(32, 9), (32,), (32, 32), (32,), (1, 32), (1,)]
+    params = [rng.standard_normal(sh).astype(np.float32) * 0.3
+              for sh in shapes]
+    grads = [[(rng.standard_normal(sh) * 10.0 ** rng.uniform(-6, 0, sh))
+              .astype(np.float32) for sh in shapes] for _ in range(steps)]
+    return params, grads
+
+
+def test_capturable_adam_matches_optax_arithmetic(cuda):
+    """DBDP's Adam on the card (``capturable``: the step count on the
+    device and the bias correction in f32, as ``CapturedPairFit`` and the
+    eager reference use it) against optax.adam's arithmetic
+    (``optax_adam_f32``), the JAX package's DBDP optimizer, on the same
+    parameters and 30 gradients: parameters within 1e-6 (a few f32 ulps
+    of values ~1, against steps of ~1e-3); moments within 1e-6 of each
+    tensor's largest (torch's lerp against optax's two products and a
+    sum: a few ulps of the terms, which may cancel to far smaller
+    values)."""
+    from deeppicarditeration_torch.training.baselines import BASELINE_LR
+
+    params, grads = adam_case()
+    ps = [torch.nn.Parameter(torch.from_numpy(p).to(cuda)) for p in params]
+    opt = torch.optim.Adam(ps, lr=BASELINE_LR, capturable=True)
+    for gs in grads:
+        for p, g in zip(ps, gs):
+            p.grad = torch.from_numpy(g).to(cuda)
+        opt.step()
+    want, mu, nu = optax_adam_f32(params, grads, BASELINE_LR)
+    for p, w, m, v in zip(ps, want, mu, nu):
+        st = opt.state[p]
+        torch.testing.assert_close(p.detach().cpu(), torch.from_numpy(w),
+                                   rtol=0, atol=1e-6)
+        for got, ref in ((st["exp_avg"], m), (st["exp_avg_sq"], v)):
+            ref = torch.from_numpy(ref)
+            torch.testing.assert_close(got.cpu(), ref, rtol=0,
+                                       atol=1e-6 * float(ref.abs().max()))
+        assert float(st["step"]) == len(grads)
 
 
 # ---- rate probe (csrc/probe.cu) ---------------------------------------------
@@ -532,12 +676,59 @@ def test_diffusion_baseline_runs_through_the_rollout_kernel(cuda, tmp_path):
     runner = PicardRunner(cfg.freeze(), exp_root=tmp_path)
     n0 = kernels.ROLLOUT.launches
     runner.run()
-    assert kernels.ROLLOUT.launches - n0 == runner.rollout_calls == 30
+    # the rollout inside the epoch's graph: the wrapper counts the
+    # capture's warm-up calls, the only eager launches
+    assert runner.rollout_calls == runner.graph_replays == 30
+    assert kernels.ROLLOUT.launches - n0 == WARMUP
     rows = [json.loads(ln) for ln in
             (runner.exp_dir / "metrics.jsonl").read_text().splitlines()]
     evals = [r["rRMSE"] for r in rows if r["context"] == "eval"]
     assert len(evals) == 3 and all(e is not None for e in evals)
     assert next(runner.u_current.module.parameters()).is_cuda
+
+
+def test_diffusion_epoch_graph_draws_the_eager_draws(cuda, tmp_path):
+    """The D-DBSDE epoch's draws inside a captured graph (t0, x0, xT from
+    registered generators seeded per epoch, the paths from the seed table)
+    equal the eager draws of the same epochs bit for bit, at every
+    replay."""
+    from deeppicarditeration_torch.config import default_cfg
+    from deeppicarditeration_torch.training import baselines
+    from deeppicarditeration_torch.training.fused import FusedStep
+    from deeppicarditeration_torch.training.picard import PicardRunner
+    from deeppicarditeration_torch.training.trainer import reset_optimizer
+
+    cfg = default_cfg()
+    cfg.merge({"NAME": "diff_draws", "FORCE": True,
+               "EQUATION": {"cls": "Cha", "kwargs": {"nx": 8, "alpha": 1.0,
+                                                     "k": 1.0, "T": 1.0}},
+               "METHOD": {"cls": "Diffusion", "K": 5, "dt": 0.2},
+               "TRAIN": {"BATCH_SIZE": 64, "LOSS": {"beta": 10.0}}},
+              allow_new=False)
+    runner = PicardRunner(cfg.freeze(), exp_root=tmp_path)
+    runner.i = 1
+    gens = baselines.epoch_generators(runner)
+    seeds = kernels.SeedTable(4, cuda)
+    seeds.fill([baselines.derive_seed(runner.seed, 1, e, baselines.PATHS)
+                for e in range(4)])
+    mod = torch.nn.Linear(1, 1).to(cuda)
+    opt = torch.optim.Adam(mod.parameters(), capturable=True)
+    reset_optimizer(opt)
+
+    def body():
+        return [v.clone() for v in baselines.diffusion_inputs(
+            runner, gens, seeds, 10.0)]
+
+    step = FusedStep(body, {}, mod, opt, generators=list(gens.values()),
+                     state=[seeds.index])
+    for epoch in range(4):
+        baselines.seed_epoch(runner, gens, epoch)
+        got = step()
+        want = baselines.diffusion_draws(runner, epoch, 10.0)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), epoch
+    assert step.replays == 4 and int(seeds.index[0]) == 4
 
 
 # ---- the fused fit as CUDA-graph replays ---------------------------------
@@ -861,3 +1052,63 @@ def test_forced_terminal_kernel_raises_on_gbm(cuda):
                         pallas_terminal=True, sdgd_v=8)
     with pytest.raises(NotImplementedError, match="GBMEquationComplexExact"):
         est.estimate_terminal_with_gradients(0, eq, tx, gen)
+
+
+# ---- DBDP's sub-iterations as CUDA-graph replays -----------------------------
+
+@pytest.mark.parametrize("eq_cls,enforce", [
+    ("GBMEquationComplexExact", False), ("GBMEquationComplexExact", True),
+    ("OUProcessEquation", False)])
+def test_captured_dbdp_grid_times_equal_the_eager_loop(cuda, tmp_path,
+                                                       eq_cls, enforce):
+    """The terminal pre-fit (or the enforcing ansatz's last step) and one
+    interior grid time, 5 sub-iterations each, as graph replays of the
+    static working pair against the per-pair eager loop on the same seeds
+    (nx = 8, B = 64, K = 4), both with capturable Adams: every pair's
+    parameters within 1e-5 of the largest |parameter| (graph replays and
+    eager launches of the same kernels). One replay per sub-iteration;
+    the wrapper counts each eager launch: every sub-iteration of the eager
+    loop, only each graph's warm-up of the captured one."""
+    from deeppicarditeration_torch.config import default_cfg
+    from deeppicarditeration_torch.training import baselines
+    from deeppicarditeration_torch.training.picard import PicardRunner
+
+    cfg = default_cfg()
+    cfg.merge({"NAME": "dbdp_gpu", "FORCE": True,
+               "EQUATION": {"cls": eq_cls,
+                            "kwargs": {"nx": 8, "alpha": 1.0, "T": 0.2}},
+               "METHOD": {"cls": "FullyNonlinearSolver", "dt": 0.05,
+                          "num_sub_iter": 5},
+               "TRAIN": {"BATCH_SIZE": 64},
+               "NETWORK": {"NEURONS": [32, 32],
+                           "ACTIVATIONS": ["ELU", "ELU"],
+                           **({"cls": "PicardSolutionEnforceTerminal"}
+                              if enforce else {})}},
+              allow_new=False)
+    nets = {}
+    for name, cls in (("eager", baselines.EagerPairFit),
+                      ("captured", baselines.CapturedPairFit)):
+        runner = PicardRunner(cfg.freeze(), exp_root=tmp_path / name)
+        runner.i = 1
+        sw = baselines.DBDPSweep(runner)
+        nets[name] = baselines.init_dbdp_nets(runner, sw.K)
+        fit = cls(sw, nets[name])
+        n0 = kernels.ROLLOUT.launches
+        kks = ([] if enforce else [sw.K + 1]) + [sw.K, sw.K - 1]
+        for kk in kks:
+            if kk < sw.K:
+                nets[name].copy_pair(kk, kk - 1)
+            fit(0, kk)
+        torch.cuda.synchronize()
+        subs = 5 * len(kks)
+        assert runner.rollout_calls == subs
+        if name == "captured":
+            assert runner.graph_replays == subs
+            assert kernels.ROLLOUT.launches - n0 == WARMUP * len(fit.steps)
+        else:
+            assert kernels.ROLLOUT.launches - n0 == subs
+    a = torch.cat([p.reshape(-1) for p in nets["captured"].parameters()])
+    b = torch.cat([p.reshape(-1) for p in nets["eager"].parameters()])
+    err = float((a - b).abs().max() / b.abs().max())
+    print(f"captured vs eager DBDP, max |diff| / max |param|: {err:.3e}")
+    assert err <= 1e-5
