@@ -1,5 +1,6 @@
 // The frozen value network's forward and backward pass on Hopper's tensor
-// cores, for the integral-chain kernels (generate.cu, integral.cu) under
+// cores, for the integral-chain kernels (integral.cu; generate.cu runs the
+// same pass on two warpgroups, with its own plan and draws) under
 // DATA.TPU.PALLAS_PRECISION "bf16x3" (the default) and "default". The
 // counterpart of the TPU kernels' in-kernel net dots under
 // pallas_kernels.py: bf16x3_dot_general (_split3, _bf16x3_bwd); the FP32-FMA
@@ -392,15 +393,25 @@ __device__ __forceinline__ void slab_retire(float (&acc)[NACC], Ring& ring,
   ring.release_slab(freed++);
 }
 
+// Turn-taking of warpgroups that share the tensor pipe: wait() before a
+// group of products is issued, pass() once it is. A lone warpgroup takes
+// every turn (NoTurn).
+struct NoTurn {
+  __device__ __forceinline__ void wait() const {}
+  __device__ __forceinline__ void pass() const {}
+};
+
 // A hidden layer: both slabs in flight together, then freed in order.
-template <int TRANS_B, bool X3>
+template <int TRANS_B, bool X3, class Turn>
 __device__ __forceinline__ void hidden_layer(float (&acc)[NACC],
                                              uint32_t (&ah)[KC][4],
                                              uint32_t (&al)[KC][4],
-                                             Ring& ring) {
+                                             Ring& ring, const Turn& turn) {
   int freed = ring.it;
+  turn.wait();
   slab_issue<TRANS_B, X3, 0>(acc, ah, al, ring);
   slab_issue<TRANS_B, X3, 4>(acc, ah, al, ring);
+  turn.pass();
   slab_retire<1>(acc, ring, freed);
   slab_retire<0>(acc, ring, freed);
 }
@@ -506,10 +517,12 @@ __device__ __forceinline__ void layer_out(const Params& p, const Tile& s,
 }
 
 // u and sum_j u_x_j of the frozen net at (s, X_s) for the tile's rows
-// (written to s.u, s.sux). All consumers, warp-uniformly.
-template <bool X3>
+// (written to s.u, s.sux). All consumers, warp-uniformly; each group of
+// products issued in its turn.
+template <bool X3, class Turn = NoTurn>
 __device__ __forceinline__ void net_pass(const Params& p, const Tile& s,
-                                         Ring& ring, int ctid) {
+                                         Ring& ring, int ctid,
+                                         const Turn& turn = Turn()) {
   const int warp = ctid >> 5, lane = ctid & 31, g = lane >> 2, t = lane & 3;
   const int r0 = 16 * warp + g, r1 = r0 + 8;
   const int L = p.L, nx = p.nx, n1 = k1_of(nx) / SLAB_K;
@@ -529,7 +542,9 @@ __device__ __forceinline__ void net_pass(const Params& p, const Tile& s,
                    al[kk][r]);
       }
     int freed = ring.it;
+    turn.wait();
     slab_issue<0, X3, 0>(acc, ah, al, ring);
+    turn.pass();
     slab_retire<0>(acc, ring, freed);
   }
   layer_out<X3>(p, s, acc, 1, ctid);
@@ -539,7 +554,7 @@ __device__ __forceinline__ void net_pass(const Params& p, const Tile& s,
     uint32_t ah[KC][4], al[KC][4];
     to_frags(acc, ah, al);
     zero(acc);
-    hidden_layer<0, X3>(acc, ah, al, ring);
+    hidden_layer<0, X3>(acc, ah, al, ring, turn);
     layer_out<X3>(p, s, acc, l, ctid);
   }
 
@@ -548,7 +563,7 @@ __device__ __forceinline__ void net_pass(const Params& p, const Tile& s,
     uint32_t ah[KC][4], al[KC][4];
     to_frags(acc, ah, al);
     zero(acc);
-    hidden_layer<1, X3>(acc, ah, al, ring);
+    hidden_layer<1, X3>(acc, ah, al, ring, turn);
     const float2* sv = s.save + (size_t)(l - 2) * 32 * CONSUMERS + ctid;
 #pragma unroll
     for (int q = 0; q < NACC / 2; ++q) {
@@ -582,10 +597,11 @@ __device__ __forceinline__ void net_pass(const Params& p, const Tile& s,
 }
 
 // The producer warp: every slab the consumers will take, in their order,
-// for each of this block's points and tiles.
+// for each of this block's points and tiles (each ring pass serving
+// `tiles_per_pass` tiles at once).
 __device__ __forceinline__ void produce(const Params& p, uint32_t ring,
                                         uint32_t full, uint32_t empty,
-                                        int lane) {
+                                        int lane, int tiles_per_pass = 1) {
   const int L = p.L, K1 = k1_of(p.nx);
   const int n1 = K1 / SLAB_K, nf = n1 + 2 * (L - 1);
   const int nslab = nf + 2 * (L - 1);
@@ -596,7 +612,7 @@ __device__ __forceinline__ void produce(const Params& p, uint32_t ring,
   const bool lo = lane >= 16;
   int it = 0;
   for (int b = blockIdx.x; b < p.B; b += gridDim.x)
-    for (int kb = 0; kb < ntile; ++kb)
+    for (int kb = 0; kb < ntile; kb += tiles_per_pass)
       for (int sl = 0; sl < nslab; ++sl, ++it) {
         const int st = it % p.stages, round = it / p.stages;
         if (round > 0) mbar_wait(empty + 8 * st, (uint32_t)((round - 1) & 1));
@@ -786,13 +802,15 @@ inline int launch_plan(int nx, int L, int has_net, int mode,
   return 0;
 }
 
-// set up the ring's barriers (thread 0), then the whole block syncs
+// set up the ring's barriers (thread 0; a stage is free once `consumers`
+// threads released it), then the whole block syncs
 __device__ __forceinline__ void init_ring(uint32_t full, uint32_t empty,
-                                          int stages) {
+                                          int stages,
+                                          int consumers = CONSUMERS) {
   if (threadIdx.x == 0) {
     for (int st = 0; st < stages; ++st) {
       mbar_init(full + 8 * st, 1);
-      mbar_init(empty + 8 * st, CONSUMERS);
+      mbar_init(empty + 8 * st, consumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }

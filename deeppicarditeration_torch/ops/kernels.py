@@ -187,6 +187,9 @@ def _declare_generate(lib: ctypes.CDLL) -> None:
     lib.dpi_generate.restype = _I
     _declare_net_limits(lib, "generate")
     _declare_tc(lib, "generate", 11)
+    if hasattr(lib, "dpi_generate_tc_plan"):  # not in earlier builds
+        lib.dpi_generate_tc_plan.argtypes = [_I, _I, _P]
+        lib.dpi_generate_tc_plan.restype = None
 
 
 def _declare_terminal(lib: ctypes.CDLL) -> None:
@@ -639,6 +642,51 @@ def _tc_net(mod: Optional[MLP], nx: int, scratch: int, device):
 # merged terminal + integral estimator (TPU: _generate_kernel)
 # ---------------------------------------------------------------------------
 
+# csrc/generate.cu's tensor-core kernel: its block's two consumer warpgroups
+# on 64-row tiles and a ring stage's bytes (value_mlp_tc.cuh: TILE,
+# STAGE_BYTES), which set the L2 traffic of ``generate_tc_l2_bytes``
+TC_TILE, TC_NWG, TC_STAGE_BYTES = 64, 2, 32768
+TC_SAVE_LAYER_FLOATS = TC_TILE * KERNEL_WIDTH
+
+
+def library_tc_plan(nx: int, n_hidden: int,
+                    lib: Optional[CudaLibrary] = None) -> Optional[dict]:
+    """The plan the built ``generate.cu`` (``lib``, default ``GENERATE``)
+    takes at (nx, hidden layers) (its choose_gplan): the ring's stages,
+    whether the saved ELU derivatives and the tiles' normals stay in
+    shared memory, the block's shared memory and the global scratch
+    floats it keeps. None where nothing fits."""
+    out = (ctypes.c_longlong * 5)()
+    (lib or GENERATE).lib().dpi_generate_tc_plan(nx, n_hidden, out)
+    if out[0] < 0:
+        return None
+    return {"stages": out[0], "save_smem": bool(out[1]),
+            "dw_smem": bool(out[2]), "smem_bytes": out[3],
+            "scratch_floats": out[4]}
+
+
+def generate_tc_l2_bytes(b: int, m: int, nx: int, n_hidden: int,
+                         precision: str, plan: dict) -> dict:
+    """Bytes one launch of the merged tensor-core kernel moves through L2
+    by ``plan`` (``library_tc_plan``'s): the weight slabs the producer
+    stages (each ring pass serves the two warpgroups' tiles of a point; hi
+    and lo images under bf16x3, hi alone under "default"), and the global
+    scratch: the saved
+    derivatives written and read once a tile, the tiles' normals written
+    once and read twice (layer 1's input, the sums) where the plan keeps
+    them there. A count of the plan, not a measurement."""
+    passes = -(-(-(-m // TC_TILE)) // TC_NWG)
+    slabs = tc_k1(nx) // TC_SLAB_K + 4 * (n_hidden - 1) if n_hidden else 0
+    slab = TC_STAGE_BYTES // (1 if precision == "bf16x3" else 2)
+    tiles = b * passes * TC_NWG
+    saves = (0 if plan["save_smem"] or n_hidden < 2 else
+             tiles * (n_hidden - 1) * TC_SAVE_LAYER_FLOATS * 4 * 2)
+    normals = 0 if plan["dw_smem"] else tiles * TC_TILE * nx * 4 * 3
+    weights = b * passes * slabs * slab
+    return {"weights": weights, "scratch": saves + normals,
+            "total": weights + saves + normals}
+
+
 def generate_with_gradients_plain(seed: int, eq, sol: Solution,
                                   tx: torch.Tensor, m: int,
                                   u01: Optional[torch.Tensor] = None,
@@ -688,7 +736,9 @@ def generate_with_gradients_cuda(seed: int, eq, sol: Solution,
                                  noise_t: Optional[torch.Tensor] = None,
                                  noise_i: Optional[torch.Tensor] = None, *,
                                  antithetic: bool = False,
-                                 precision: str = "highest") -> torch.Tensor:
+                                 precision: str = "highest",
+                                 lib: Optional[CudaLibrary] = None
+                                 ) -> torch.Tensor:
     """Merged terminal + integral estimator, (B, 1 + nx) f32.
 
     ``m`` is the shared per-point sample count of both chains. Without
@@ -698,7 +748,9 @@ def generate_with_gradients_cuda(seed: int, eq, sol: Solution,
     ``antithetic`` pairs each draw with its mirror: rows = m / 2.
     ``precision`` (``PRECISIONS``): "highest" launches the FP32-FMA kernel,
     "bf16x3" and "default" the tensor-core kernel. CPU tensors take
-    ``generate_with_gradients_plain``."""
+    ``generate_with_gradients_plain``. ``lib``: another build of
+    ``generate.cu`` (``utils/generate_bench.py``) in place of
+    ``GENERATE``."""
     check_precision(precision)
     if tx.device.type == "cpu":
         return generate_with_gradients_plain(seed, eq, sol, tx, m, u01,
@@ -716,8 +768,9 @@ def generate_with_gradients_cuda(seed: int, eq, sol: Solution,
         _check("u01", u01, (b, rows, 1), tx.device)
         _check("noise_t", noise_t, (b, rows, nx), tx.device)
         _check("noise_i", noise_i, (b, rows, nx), tx.device)
-    lib = GENERATE.lib()
-    mod, n_hidden, scratch = _net_for_launch(lib, "generate", sol, tx, nx,
+    lib = lib or GENERATE
+    dll = lib.lib()
+    mod, n_hidden, scratch = _net_for_launch(dll, "generate", sol, tx, nx,
                                              precision)
     t = tx[:, :1].contiguous()
     x = tx[:, 1:].contiguous()
@@ -729,19 +782,19 @@ def generate_with_gradients_cuda(seed: int, eq, sol: Solution,
                float(eq.ff_offset), _stream(tx.device))
     if precision == "highest":
         w = pack_mlp(mod) if mod is not None else None
-        rc = lib.dpi_generate(
+        rc = dll.dpi_generate(
             _ptr(t), _ptr(x), _ptr(g0), _ptr(f0), _ptr(w), _ptr(u01),
             _ptr(noise_t), _ptr(noise_i), _ptr(out), *shape, *scalars)
     else:
         img, vec, buf = _tc_net(mod, nx, scratch, tx.device)
-        rc = lib.dpi_generate_tc(
+        rc = dll.dpi_generate_tc(
             _ptr(t), _ptr(x), _ptr(g0), _ptr(f0), _ptr(img), _ptr(vec),
             _ptr(u01), _ptr(noise_t), _ptr(noise_i), _ptr(buf), _ptr(out),
             *shape, _TC_MODES[precision], *scalars)
     if rc != 0:
         raise RuntimeError(f"dpi_generate launch failed: error {rc} (CUDA's, "
                            f"or value_mlp_tc.cuh's ERR_* from 10001)")
-    GENERATE.count(precision)
+    lib.count(precision)
     return out
 
 
@@ -1148,24 +1201,28 @@ def normals_plain(seed: int, shape, device=None) -> torch.Tensor:
                        device=device)
 
 
-def normals_cuda(seed: int, shape, device) -> torch.Tensor:
+def normals_cuda(seed: int, shape, device,
+                 lib: Optional[CudaLibrary] = None) -> torch.Tensor:
     """N(0, 1) f32 buffer of ``shape`` on ``device``: the normals kernel on
     a CUDA device (the value at flat index i depends on (seed, i) alone),
-    the plain version on the CPU."""
-    device = torch.device(device)
+    the plain version on the CPU. ``lib``: another build of ``normals.cu``
+    (``utils/normals_bench.py``) in place of ``NORMALS``."""
+    if not isinstance(device, torch.device):
+        device = torch.device(device)
     if device.type == "cpu":
         return normals_plain(seed, shape, device)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    out = torch.empty(tuple(shape), dtype=torch.float32, device=device)
-    if out.data_ptr() % 16:
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    ptr = out.data_ptr()
+    if ptr % 16:
         raise ValueError("the normals kernel stores 16-byte vectors")
-    lib = NORMALS.lib()
-    rc = lib.dpi_normals(_ptr(out), out.numel(), _seed(seed),
-                         _stream(device))
+    lib = lib or NORMALS
+    rc = lib.lib().dpi_normals(ptr, out.numel(), _seed(seed),
+                               _stream(device))
     if rc != 0:
         raise RuntimeError(f"dpi_normals launch failed: CUDA error {rc}")
-    NORMALS.count()
+    lib.count()
     return out
 
 

@@ -11,6 +11,7 @@ b, a), each one's two turns averaged, while the SM clock is sampled
 
 from __future__ import annotations
 
+import ctypes
 import json
 import pathlib
 import subprocess
@@ -39,6 +40,24 @@ def _ms(fn, dev, reps: int) -> float:
         for _ in range(reps):
             fn()
     return tm.ms / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn``: the CUDA kernels' time in a
+    torch.profiler trace of ``reps`` calls (after a warm-up), summed and
+    divided by ``reps``; the host's launch overhead is left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA)
+    return us / reps / 1e3
 
 
 def in_turns(case: dict, sources: Sequence[str], calls: Sequence[Callable],
@@ -98,3 +117,30 @@ def report_builds(sources: Sequence[str], libs: Sequence, sass: Callable):
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
+
+
+def stamps(symbol: str, name: str, case: dict, lib, call) -> None:
+    """One launch of ``call`` and the cycles per tile of each stamped phase
+    of ``lib``'s build, printed as one JSON line (nothing for a build that
+    does not export ``{symbol}``, a variant with ``clock64()`` stamps kept
+    out of the repository; ``{symbol}_names`` names them, "tiles" counts
+    the tiles they cover)."""
+    dll = lib.lib()
+    if not hasattr(dll, symbol):
+        return
+    fn, names_fn = getattr(dll, symbol), getattr(dll, f"{symbol}_names")
+    fn.argtypes = [ctypes.c_void_p]
+    names_fn.restype = ctypes.c_char_p
+    names = names_fn().decode().split(",")
+    buf = (ctypes.c_ulonglong * len(names))()
+    for _ in range(2):  # the first clears what earlier launches left
+        if fn(buf):
+            raise RuntimeError(f"{symbol} failed")
+        call()
+    if fn(buf):
+        raise RuntimeError(f"{symbol} failed")
+    sums = dict(zip(names, buf))
+    tiles = max(sums.get("tiles", 0), 1)
+    print(json.dumps({"source": name, **case, "stamps_cycles_per_tile": {
+        k: round(v / tiles, 1) for k, v in sums.items() if k != "tiles"},
+        "tiles": tiles}), flush=True)

@@ -27,8 +27,6 @@ them).
 from __future__ import annotations
 
 import argparse
-import ctypes
-import json
 import re
 
 import torch
@@ -41,6 +39,7 @@ from deeppicarditeration_torch.utils.bench_turns import (
     build_sources,
     in_turns,
     report_builds,
+    stamps,
 )
 from deeppicarditeration_torch.utils.probe_roofline import library_sass
 
@@ -61,31 +60,6 @@ def sass_counts(lib: kernels.CudaLibrary) -> dict:
     sass = library_sass(lib)
     return {op: len(re.findall(rf"\b{re.escape(op)}\b", sass))
             for op in ("HGMMA", "WARPGROUP.DEPBAR", "STL", "LDL")}
-
-
-def stamps(name: str, mode: str, lib: kernels.CudaLibrary, call) -> None:
-    """One launch of ``call`` and the cycles per tile of each stamped
-    phase of ``lib``'s build, printed as one JSON line (nothing for a build
-    without stamps)."""
-    dll = lib.lib()
-    if not hasattr(dll, "dpi_generate_pis_stamps"):
-        return
-    dll.dpi_generate_pis_stamps.argtypes = [ctypes.c_void_p]
-    dll.dpi_generate_pis_stamp_names.restype = ctypes.c_char_p
-    names = dll.dpi_generate_pis_stamp_names().decode().split(",")
-    buf = (ctypes.c_ulonglong * len(names))()
-    for _ in range(2):  # the first clears what earlier launches left
-        if dll.dpi_generate_pis_stamps(buf):
-            raise RuntimeError("dpi_generate_pis_stamps failed")
-        call()
-    if dll.dpi_generate_pis_stamps(buf):
-        raise RuntimeError("dpi_generate_pis_stamps failed")
-    sums = dict(zip(names, buf))
-    tiles = max(sums.get("tiles", 0), 1)
-    print(json.dumps({"source": name, "precision": mode,
-                      "stamps_cycles_per_tile": {
-        k: round(v / tiles, 1) for k, v in sums.items() if k != "tiles"},
-        "tiles": tiles}), flush=True)
 
 
 def main(argv=None):
@@ -115,7 +89,8 @@ def main(argv=None):
             SEED, eq, sol, tx, M, precision=mode, lib=lib) for lib in libs]
         if args.stamps:
             for name, lib, call in zip(args.source, libs, calls):
-                stamps(name, mode, lib, call)
+                stamps("dpi_generate_pis_stamps", name,
+                       {"precision": mode}, lib, call)
         results += in_turns({"precision": mode, "B": B, "M": M, "nx": NX},
                             args.source, calls, agree, REPS)
     report_builds(args.source, libs, sass_counts)

@@ -1,0 +1,106 @@
+"""The L2 traffic of the merged tensor-core kernel as the Python side
+counts it from a launch plan, on the CPU.
+
+``ops/kernels.py:generate_tc_l2_bytes`` counts the bytes one launch moves
+through L2 from the plan the built ``csrc/generate.cu`` reports
+(``library_tc_plan``); chip_smoke.py prints that count. Also the benches'
+hooks that run here: the wrappers' ``lib`` argument on CPU tensors, and
+chip_smoke's timing in turns.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from deeppicarditeration_torch.equations import make_equation
+from deeppicarditeration_torch.models.networks import MLP
+from deeppicarditeration_torch.models.solution import Solution
+from deeppicarditeration_torch.ops import kernels
+
+torch.set_num_threads(1)
+
+# path A's plan (nx = 100, 4x128) as generate.cu takes it: the tiles'
+# normals in shared memory, a ring of 4 stages, the saved derivatives in
+# global scratch
+PATH_A_PLAN = {"stages": 4, "save_smem": False, "dw_smem": True,
+               "smem_bytes": 189152, "scratch_floats": 2 * 3 * 64 * 128}
+
+
+def _plan(save_smem, dw_smem):
+    return {**PATH_A_PLAN, "save_smem": save_smem, "dw_smem": dw_smem}
+
+
+@pytest.mark.parametrize("precision,slab", [("bf16x3", 32768),
+                                            ("default", 16384)])
+def test_l2_bytes_at_the_main_path(precision, slab):
+    """Path A: each ring pass (two warpgroups' tiles, 128 samples) stages
+    layer 1's 2 K-slabs and 4 slabs of each of the 3 hidden layers; the
+    derivatives of 3 layers are written and read once a tile."""
+    v = kernels.generate_tc_l2_bytes(4096, 4096, 100, 4, precision,
+                                     PATH_A_PLAN)
+    assert v["weights"] == 4096 * 32 * 14 * slab
+    assert v["scratch"] == 4096 * 64 * 3 * 64 * 128 * 4 * 2
+    assert v["total"] == v["weights"] + v["scratch"]
+
+
+def test_l2_bytes_count_the_empty_tile_of_an_odd_count():
+    """M = 4000: 63 tiles of a point, 32 ring passes (the second
+    warpgroup's last tile empty), the same traffic as M = 4096."""
+    plan = _plan(False, True)
+    assert (kernels.generate_tc_l2_bytes(131, 4000, 7, 4, "bf16x3", plan)
+            == kernels.generate_tc_l2_bytes(131, 4096, 7, 4, "bf16x3", plan))
+    assert kernels.generate_tc_l2_bytes(8, 64, 100, 0, "bf16x3", plan) == {
+        "weights": 0, "scratch": 0, "total": 0}
+
+
+@pytest.mark.parametrize("save_smem,dw_smem", [(False, False), (True, False),
+                                               (False, True), (True, True)])
+@pytest.mark.parametrize("n_hidden", [1, 4])
+def test_l2_bytes_leave_out_what_the_plan_keeps_on_chip(save_smem, dw_smem,
+                                                        n_hidden):
+    """nx = 511, one 64-sample point: the scratch traffic holds the saved
+    derivatives (written and read once a tile) unless the plan keeps them
+    in shared memory, and the tiles' normals (written once, read twice)
+    unless it keeps those there; a single hidden layer saves none."""
+    v = kernels.generate_tc_l2_bytes(8, 64, 511, n_hidden, "bf16x3",
+                                     _plan(save_smem, dw_smem))
+    assert v["weights"] == 8 * 1 * (512 // 64 + 4 * (n_hidden - 1)) * 32768
+    saves = 0 if save_smem else (n_hidden - 1) * 64 * 128 * 4 * 2
+    normals = 0 if dw_smem else 64 * 511 * 4 * 3
+    assert v["scratch"] == 8 * 2 * (saves + normals)
+    assert v["total"] == v["weights"] + v["scratch"]
+
+
+def test_wrappers_take_another_build_only_on_the_card():
+    """The benches' ``lib`` argument: on CPU tensors the wrappers return the
+    plain version, whatever library is named."""
+    other = kernels.CudaLibrary("generate.cu", lambda lib: None)
+    nx, b, m = 5, 3, 24
+    eq = make_equation("Cha", nx=nx, alpha=1.0, k=1.0, T=1.0)
+    sol = Solution.from_net(MLP(1 + nx, (8,), ("ELU",), 1), "Value", nx)
+    rng = np.random.default_rng(0)
+    tx = torch.from_numpy(np.concatenate(
+        [rng.uniform(0, 0.9, (b, 1)), rng.normal(size=(b, nx))],
+        1).astype(np.float32))
+    out = kernels.generate_with_gradients_cuda(3, eq, sol, tx, m,
+                                               precision="bf16x3", lib=other)
+    ref = kernels.generate_with_gradients_plain(3, eq, sol, tx, m,
+                                                precision="bf16x3")
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert torch.equal(kernels.normals_cuda(4, (7, 3), "cpu", lib=other),
+                       kernels.normals_plain(4, (7, 3)))
+    assert other.launches == 0 and other._lib is None
+
+
+def test_chip_smoke_times_versions_in_turns(monkeypatch):
+    """chip_smoke._in_turns: a, b, c, c, b, a, each version's two turns
+    averaged."""
+    import chip_smoke
+
+    seen, ms = [], iter([1.0, 2.0, 3.0, 5.0, 4.0, 7.0])
+    monkeypatch.setattr(chip_smoke, "_time_ms",
+                        lambda fn, reps: (seen.append(fn()), next(ms))[1])
+    got = chip_smoke._in_turns({"a": lambda: "a", "b": lambda: "b",
+                                "c": lambda: "c"}, 3)
+    assert seen == ["a", "b", "c", "c", "b", "a"]
+    assert got == {"a": 4.0, "b": 3.0, "c": 4.0}

@@ -32,6 +32,11 @@ RTOL = ATOL = 5e-5
 # of one activation or gradient in a sample (2^-8 of it, where bf16x3's
 # residual keeps 2^-16): 7.8e-5 seen at m = 50 on an H100, so 5e-4.
 ONE_PASS_TOL = 5e-4
+# ... and the merged kernel's with a net over more than 256 points, where
+# the max runs further into a flip's tail (chip_smoke.py:
+# ONE_PASS_WIDE_TOL, set from the plain version's own distance under
+# permuted hidden units)
+ONE_PASS_WIDE_TOL = 1.5e-3
 
 
 @pytest.fixture
@@ -286,6 +291,17 @@ def test_normals_kernel_moments_and_layout(cuda):
     w = kernels.normals_cuda(7, (1001, 3), cuda)
     assert torch.equal(w.reshape(-1), v.reshape(-1)[:3003])
     assert not torch.equal(kernels.normals_cuda(8, (1001, 3), cuda), w)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 1001, 4 * 270337 + 3])
+def test_normals_kernel_at_tiny_and_ragged_lengths(cuda, n):
+    """A buffer of a few values, and one whose length is not a multiple of
+    the kernel's quads (its last quad stored value by value): every value
+    is the host Philox's."""
+    seed = (7 << 32) | 5
+    v = kernels.normals_cuda(seed, (n,), cuda)
+    ref = torch.from_numpy(philox.normals_flat(seed, 0, n))
+    torch.testing.assert_close(v.cpu(), ref, rtol=1e-5, atol=1e-5)
 
 
 def test_split_route_launch_counts(cuda):
@@ -1112,3 +1128,79 @@ def test_captured_dbdp_grid_times_equal_the_eager_loop(cuda, tmp_path,
     err = float((a - b).abs().max() / b.abs().max())
     print(f"captured vs eager DBDP, max |diff| / max |param|: {err:.3e}")
     assert err <= 1e-5
+
+
+# ---- the merged tensor-core kernel at ragged shapes (csrc/generate.cu) ------
+
+# B off the grid, M off the 128 rows a ring pass serves (63 tiles: the second
+# warpgroup's last tile empty), nx = 7 and 100
+RAGGED = [(131, 4000, 7), (4095, 1000, 100)]
+
+
+@pytest.mark.parametrize("b,m,nx", RAGGED)
+@pytest.mark.parametrize("precision", ["bf16x3", "default"])
+@pytest.mark.parametrize("anti", [False, True])
+def test_merged_kernel_matches_plain_at_ragged_shapes(cuda, b, m, nx,
+                                                      precision, anti):
+    eq, sol, tx, *_ = _problem(cuda, b, 1, nx)
+    rows = m // 2 if anti else m
+    g = torch.Generator(device=cuda).manual_seed(3)
+    u01 = torch.rand((b, rows, 1), generator=g, device=cuda)
+    nt = torch.randn((b, rows, nx), generator=g, device=cuda)
+    ni = torch.randn((b, rows, nx), generator=g, device=cuda)
+    kw = dict(antithetic=anti, precision=precision)
+    out = kernels.generate_with_gradients_cuda(0, eq, sol, tx, m, u01, nt,
+                                               ni, **kw)
+    ref = kernels.generate_with_gradients_plain(0, eq, sol, tx, m, u01, nt,
+                                                ni, **kw)
+    torch.cuda.synchronize()
+    tol = (RTOL if precision == "bf16x3" else
+           ONE_PASS_TOL if b <= 256 else ONE_PASS_WIDE_TOL)
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,m,nx", RAGGED)
+@pytest.mark.parametrize("precision", ["bf16x3", "default"])
+@pytest.mark.parametrize("anti", [False, True])
+def test_merged_kernel_draws_equal_the_host_philox_at_ragged_shapes(
+        cuda, b, m, nx, precision, anti):
+    """Its own draws at the first and last points (keyed by their rows in
+    the launch) equal the host Philox's fed to the plain version."""
+    seed = (7 << 32) | 5
+    eq, sol, tx, *_ = _problem(cuda, b, 1, nx)
+    rows = m // 2 if anti else m
+    pts = [0, 1, b - 2, b - 1]
+
+    def host(a):
+        return torch.from_numpy(a).to(cuda)
+
+    u = host(philox.estimator_times(seed, pts, rows))
+    nt = host(philox.estimator_normals(seed, pts, rows, nx,
+                                       philox.STREAM_TERMINAL))
+    ni = host(philox.estimator_normals(seed, pts, rows, nx,
+                                       philox.STREAM_INTEGRAL))
+    kw = dict(antithetic=anti, precision=precision)
+    out = kernels.generate_with_gradients_cuda(seed, eq, sol, tx, m, **kw)
+    ref = kernels.generate_with_gradients_plain(0, eq, sol, tx[pts], m, u,
+                                                nt, ni, **kw)
+    torch.cuda.synchronize()
+    tol = RTOL if precision == "bf16x3" else ONE_PASS_TOL
+    torch.testing.assert_close(out[pts], ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("n_hidden", [0, 1, 2, 4, 6])
+def test_merged_kernel_has_a_plan_at_every_nx(cuda, n_hidden):
+    """The built merged tensor-core kernel has a launch plan within a
+    block's shared memory at every nx the wrapper covers (up to 511), with
+    a ring of 2 to 4 stages where there is a net; at path A's (nx = 100,
+    4x128) it is the plan whose L2 traffic the CPU tests count
+    (tests/test_torch_generate_plan.py: PATH_A_PLAN)."""
+    for nx in range(1, 512):
+        plan = kernels.library_tc_plan(nx, n_hidden)
+        assert plan is not None and plan["smem_bytes"] <= 232448, nx
+        assert (2 <= plan["stages"] <= 4) if n_hidden else (
+            plan["stages"] == 0), nx
+    if n_hidden == 4:
+        assert kernels.library_tc_plan(100, 4) == {
+            "stages": 4, "save_smem": False, "dw_smem": True,
+            "smem_bytes": 189152, "scratch_floats": 2 * 3 * 64 * 128}

@@ -308,13 +308,17 @@ def host_kernel(tmp_path_factory):
          "float* smem = g_smem;"),
         ("terminal_kernel<QPL><<<p.B, warps * 32, smem, stream>>>(p);",
          "host_launch(terminal_kernel<QPL>, p.B, warps * 32, p);"),
-        ('asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(s));',
-         "y = 1.0f / std::sqrt(s);"),
         ("check_draws_kernel<<<(1 << 23) / 256, 256, 0, "
          "(cudaStream_t)stream>>>(bad);", "(void)bad;")]
     for old, new in swaps:
         assert old in src, old
         src = src.replace(old, new)
+    # the fast draws' header, its rsqrt swapped; found before csrc's copy
+    draws = (pathlib.Path(kernels.CSRC_DIR) / "draws.cuh").read_text()
+    rsqrt = 'asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(s));'
+    assert rsqrt in draws
+    (d / "draws.cuh").write_text(
+        draws.replace(rsqrt, "y = 1.0f / std::sqrt(s);"))
     (d / "cuda_runtime.h").write_text(_HOST_RUNTIME)
     (d / "terminal_host.cu").write_text(src)
     (d / "main.cpp").write_text(_HOST_MAIN)
