@@ -19,6 +19,8 @@ TRAIN.FUSED's "auto"):
   B  DATA.TPU.PALLAS_GENERATE false, PALLAS_TERMINAL and PALLAS_INTEGRAL
      true: the standalone terminal and integral kernels (``terminal.cu``,
      ``integral.cu``);
+  B' B with DATA.TPU.PALLAS_PRECISION default: the integral kernel in one
+     bf16 pass;
   C  PALLAS_GENERATE false, PRNG true: the chunk estimators (64 chunks of
      64 samples each, Kahan over chunks), normals from ``normals.cu``;
   D  configs/burgers/base_100d_T1.0_w1.0_best.yaml: M=8192 with antithetic
@@ -31,8 +33,8 @@ TRAIN.FUSED's "auto"):
      (``--epochs``);
   F  A with DATA.TPU.PALLAS_PRECISION highest: the merged kernel's FP32-FMA
      net pass;
-  G  B with DATA.TPU.PALLAS_PRECISION highest: the integral kernel's
-     FP32-FMA net pass;
+  G  B with DATA.TPU.PALLAS_PRECISION highest: the integral kernel in six
+     bf16 passes (the f32 product on the tensor cores);
   H  configs/hjb/base_100d_T1.0_w0.1.yaml (the HJB family: the OU equation
      with a 5-component mixture terminal, the 4x512 PISGradNet, B = M =
      4096, PALLAS_PRECISION default): the merged kernel's HJB instance
@@ -75,8 +77,10 @@ Phases (each failure exits non-zero; the result line is printed last, and
 only when every phase passed):
   1. build the seven CUDA kernels from ``deeppicarditeration_torch/csrc``
      (one nvcc each, all started together); the tensor-core kernels of
-     ``generate.cu``, ``integral.cu`` and ``generate_pis.cu`` must hold
-     HGMMA (wgmma) in their SASS; the instructions per normal, by pipe,
+     ``generate.cu``, ``integral.cu`` (each of its three instances, one a
+     precision mode) and ``generate_pis.cu`` must hold HGMMA (wgmma) in
+     their SASS, and no more STL and LDL (spills) than ``SPILLS_MAX``; the
+     instructions per normal, by pipe,
      that the terminal kernel's draw loop issues at nx = 100
      (``utils/probe_roofline.py:sass_mix``);
   2. the merged kernel against its plain PyTorch version on the same
@@ -102,18 +106,23 @@ only when every phase passed):
      outputs);
   6. at the same shapes: the terminal and integral kernels against their
      plain versions on the same noise, with and without antithetic
-     pairing (the integral with the zero and the trained iterate, in both
-     modes); the in-kernel draws of the merged, terminal and integral
-     kernels against the host Philox of ``ops/philox.py``, value for value
-     (each kernel with its own draws equals its plain version fed the
-     host's draws, at the first and last 8 points; the net kernels in both
-     modes); the terminal kernel's Box-Muller against philox.cuh's, bit
+     pairing (the integral with the zero and the trained iterate, in its
+     three modes, "default" gated as the merged kernel's; and at the
+     ragged shapes of phase 2); every wide "default" check under half the
+     plain version's distance from its bf16x3 (``ONE_PASS_CONTROL``), the
+     integral kernel's "highest" under half its bf16x3's distance from the
+     plain version in f64 (``HIGHEST_CONTROL``); the in-kernel draws of the merged,
+     terminal and integral kernels against the host Philox of
+     ``ops/philox.py``, value for value (each kernel with its own draws
+     equals its plain version fed the host's draws, at the first and last
+     8 points; the net kernels in every mode); the terminal kernel's
+     Box-Muller against philox.cuh's, bit
      for bit, at all 2^23 uniforms; the normals kernel's values against
      the host Philox at the head and the end of a 2^28 buffer, its
      moments over 2^30 draws, its lag 1-8 correlations, its
      independence from the buffer's shape, and every value of tiny and
      ragged buffers (``NORMALS_RAGGED``);
-  7. paths B, C, D, F and G, 3 iterations each;
+  7. paths B, B', C, D, F and G, 3 iterations each;
   8. the rollout kernel at path E's shapes (K=20, B=512, nx=100, the
      baseline's mix of full and tail-shrunk steps) and at B=511, nx=7:
      its draws against the host Philox value for value, its paths against
@@ -172,7 +181,8 @@ only when every phase passed):
  11. kernel, plain-version and library times at the paths' shapes, and
      each kernel's bound, printed as one ``{"kernels": [...]}`` JSON line
      (the net kernels with a row per precision mode, timed in turns in
-     this call, the merged kernel's "default" beside its bf16x3 row; the
+     this call, the merged kernel's "default" beside its bf16x3 row, the
+     integral kernel a row per mode, each on its path (B, B', G); the
      terminal kernel with and without antithetic pairing, each against
      its own bound; the normals kernel in turns with ``torch.randn`` at
      both chunk shapes); on a line of its own, the L2 bytes of the merged
@@ -345,6 +355,11 @@ PATHS = {
           ["DATA.TPU.PALLAS_GENERATE", "false",
            "DATA.TPU.PALLAS_TERMINAL", "true",
            "DATA.TPU.PALLAS_INTEGRAL", "true"]),
+    "B'": ((BURGERS_W1_RECIPE,),
+           ["DATA.TPU.PALLAS_GENERATE", "false",
+            "DATA.TPU.PALLAS_TERMINAL", "true",
+            "DATA.TPU.PALLAS_INTEGRAL", "true",
+            "DATA.TPU.PALLAS_PRECISION", "default"]),
     "C": ((BURGERS_W1_RECIPE,),
           ["DATA.TPU.PALLAS_GENERATE", "false", "DATA.TPU.PRNG", "true"]),
     "D": ((BURGERS_W1_RECIPE, BURGERS_W1_BEST), []),
@@ -365,8 +380,11 @@ PATHS = {
 }
 # the precision modes of the net kernels' rows, the main path's first
 MODES = ("bf16x3", "highest")
-# the merged kernel's modes: its tensor-core kernel also in one bf16 pass
+# the merged and the integral kernel's modes: their tensor-core kernels
+# also in one bf16 pass
 GEN_MODES = ("bf16x3", "default", "highest")
+# the path that runs the integral kernel in each mode
+INTEGRAL_PATHS = {"bf16x3": "B", "default": "B'", "highest": "G"}
 
 TOL = 5e-5  # kernel vs plain on the same noise: rtol = atol
 # the one-pass "default" mode against its plain version: the sums' order
@@ -383,6 +401,33 @@ ONE_PASS_TOL = 5e-4
 # own distance, a third of a lower precision's. Every point is gated.
 ONE_PASS_WIDE_TOL = 1.5e-3
 ONE_PASS_B = 256
+# ... set at M = ONE_PASS_M samples a point (ONE_PASS_M_ANTI with
+# antithetic pairing: path D's M): a flipped rounding in one sample moves a
+# point's mean by its weight over M, so the integral kernel's checks at
+# fewer samples scale the gate by ONE_PASS_M / M, at most by
+# ONE_PASS_SCALE_CAP: with antithetic pairing at M = 4096 the kernel read
+# 1.640e-3 (2x the merged kernel's 8.196e-4 at M = 8192), at the ragged
+# M = 1000 2.729e-4 and 4.425e-4 (antithetic), the plain version 2.110e-4
+# and 4.402e-4 from itself under permuted hidden units (H100; PERF.md §6).
+ONE_PASS_M, ONE_PASS_M_ANTI = 4096, 8192
+ONE_PASS_SCALE_CAP = 2.0
+# Every wide "default" check also holds the kernel under ONE_PASS_CONTROL of
+# the plain version's distance from its own bf16x3 on the same inputs: a
+# kernel that ran the other mode, or any error of that size, fails it.
+ONE_PASS_CONTROL = 0.5
+# The "highest" instance of the integral kernel against its bf16x3 one on
+# the same inputs: each one's distance from the plain version run in f64,
+# on the value column (the mean of Tt (f - f0): the net's u and sum_j u_x_j
+# enter f, weighted by Tt alone) at HIGHEST_CONTROL_M samples a point. The
+# six-pass instance must lie under HIGHEST_CONTROL of the three-pass one's
+# distance; one that drops a cross term, reads one image for another, or
+# sums all six products in one accumulator (which the tensor cores cut
+# toward zero at every wgmma: 0.4-0.8 of bf16x3's distance, H100) fails.
+# Over all columns the check cannot tell them apart: the gradient columns
+# weigh a sample by dW / sqrt(s - t), up to ~1e3, which lifts f32-level
+# differences of f to bf16x3's size.
+HIGHEST_CONTROL_M = 128
+HIGHEST_CONTROL = 0.5
 # the merged kernel's ragged cases (B, M, nx): B not a multiple of the
 # grid, M not a multiple of the two warpgroups' 128 rows (and an odd tile
 # count at 4000), nx not a multiple of 4 or of a k-slab
@@ -702,20 +747,73 @@ def _mode_tol(mode: str) -> float:
     return ONE_PASS_TOL if mode == "default" else TOL
 
 
-def _same_mode(label, mode, out, ref, plain_perm=None) -> float:
+def _same_mode(label, mode, out, ref, plain_as=None, m=None,
+               anti=False) -> float:
     """``_same`` in ``mode`` at every point; under "default" with a net
-    (``plain_perm``: the plain version with the net's hidden units
-    permuted) over more than ONE_PASS_B points at ONE_PASS_WIDE_TOL, with
-    the plain version's own distance under the permutation printed
-    beside."""
-    if mode != "default" or plain_perm is None or out.shape[0] <= ONE_PASS_B:
+    (``plain_as(permuted, precision)``: the plain version on the same
+    inputs, its net's hidden units permuted or not) over more than
+    ONE_PASS_B points at ONE_PASS_WIDE_TOL (where ``m`` is given, times
+    ONE_PASS_M / m, or ONE_PASS_M_ANTI / m with ``anti``, below those
+    counts, at most ONE_PASS_SCALE_CAP times), and under ONE_PASS_CONTROL
+    of the plain version's distance from its bf16x3; the plain version's
+    own distance under the permutation printed before."""
+    if mode != "default" or plain_as is None or out.shape[0] <= ONE_PASS_B:
         return _same(label, out, ref, _mode_tol(mode))
-    err = _same(label, out, ref, ONE_PASS_WIDE_TOL)
-    perm = plain_perm()
+    perm = plain_as(True, "default")
     print(f"plain vs plain with the net's hidden units permuted ({label}, "
           f"measured, not gated): max |diff| "
           f"{float((perm - ref).abs().max()):.3e}")
-    return err
+    del perm
+    x3 = plain_as(False, "bf16x3")
+    control = float((x3 - ref).abs().max())
+    del x3
+    m_ref = ONE_PASS_M_ANTI if anti else ONE_PASS_M
+    scale = min(max(1.0, m_ref / (m or m_ref)), ONE_PASS_SCALE_CAP)
+    tol = min(ONE_PASS_WIDE_TOL * scale, ONE_PASS_CONTROL * control)
+    print(f"control ({label}): plain one pass vs plain bf16x3 max |diff| "
+          f"{control:.3e}; the gate {tol:.3e} (ONE_PASS_WIDE_TOL x {scale:g}"
+          f", at most {ONE_PASS_CONTROL} of the control)")
+    return _same(label, out, ref, tol)
+
+
+def _highest_control(label, eq, sol, tx, anti, dev) -> None:
+    """The integral kernel's six-pass instance ("highest") and its
+    three-pass one (bf16x3) on the same inputs, HIGHEST_CONTROL_M samples a
+    point of ``tx``, against the plain version in f64 on the value column:
+    fails unless the six-pass instance lies under HIGHEST_CONTROL of the
+    three-pass instance's distance."""
+    import copy
+
+    import torch
+
+    from deeppicarditeration_torch.models.solution import Solution
+    from deeppicarditeration_torch.ops import kernels
+
+    m = HIGHEST_CONTROL_M
+    b, nx = tx.shape[0], tx.shape[1] - 1
+    rows = m // 2 if anti else m
+    g = torch.Generator(device=dev).manual_seed(11)
+    u01 = torch.rand((b, rows, 1), generator=g, device=dev)
+    ni = torch.randn((b, rows, nx), generator=g, device=dev)
+    s64 = Solution.from_net(copy.deepcopy(sol.module).double(), sol.net_type,
+                            sol.nx)
+    ref = kernels.integral_with_gradients_plain(
+        0, eq, s64, tx.double(), m, u01.double(), ni.double(),
+        antithetic=anti)[:, 0]
+
+    def dist(precision):
+        out = kernels.integral_with_gradients_cuda(
+            0, eq, sol, tx, m, u01, ni, antithetic=anti, precision=precision)
+        return float((out[:, 0].double() - ref).abs().max())
+
+    d6, d3 = dist("highest"), dist("bf16x3")
+    ok = d6 < HIGHEST_CONTROL * d3
+    print(f"control ({label}, M={m}): max |diff| of the value column from "
+          f"the plain version in f64, six-pass instance {d6:.3e}, three-pass "
+          f"one {d3:.3e}; under {HIGHEST_CONTROL} of it: {ok}")
+    if not ok:
+        _fail(f"the integral kernel's highest is not closer to f64 than its "
+              f"bf16x3 by HIGHEST_CONTROL ({label})")
 
 
 def _clt(label, out, ref, var, m, bound) -> None:
@@ -967,8 +1065,9 @@ def _problem(b, m, nx, net, seed, device):
     return eq, sol, torch.cat([t, x], 1).to(device)
 
 
-def _check_ragged(max_err: dict, dev) -> None:
-    """Phase 2's ragged cases (RAGGED): the merged kernel against its plain
+def _check_ragged(max_err: dict, dev, stem: str = "generate") -> None:
+    """The ragged cases (RAGGED) of the merged kernel (phase 2) or of the
+    integral kernel (``stem`` "integral", phase 6): against its plain
     version on the same noise in every mode, with and without antithetic
     pairing, and its own draws against the host Philox at the first and
     last points (the tensor-core modes)."""
@@ -987,30 +1086,47 @@ def _check_ragged(max_err: dict, dev) -> None:
             u01 = torch.rand((rb, rows, 1), generator=g, device=dev)
             nt = torch.randn((rb, rows, rnx), generator=g, device=dev)
             ni = torch.randn((rb, rows, rnx), generator=g, device=dev)
+            if stem == "generate":
+                def run(s, seed, *noise, **kw):
+                    return kernels.generate_with_gradients_cuda(
+                        seed, eq, s, tx, rm, *noise, **kw)
+
+                def plain(s, txs, *noise, **kw):
+                    return kernels.generate_with_gradients_plain(
+                        0, eq, s, txs, rm, *noise, **kw)
+                own_modes = ("bf16x3", "default")
+            else:
+                def run(s, seed, *noise, **kw):
+                    return kernels.integral_with_gradients_cuda(
+                        seed, eq, s, tx, rm, *noise[::2], **kw)
+
+                def plain(s, txs, *noise, **kw):
+                    return kernels.integral_with_gradients_plain(
+                        0, eq, s, txs, rm, *noise[::2], **kw)
+                own_modes = GEN_MODES
+            name = "merged" if stem == "generate" else stem
             for mode in GEN_MODES:
                 kw = dict(antithetic=anti, precision=mode)
-                key = _err_key("generate", mode)
+                key = _err_key(stem, mode)
                 max_err[key] = max(max_err[key], _same_mode(
-                    f"merged {mode}{tag}", mode,
-                    kernels.generate_with_gradients_cuda(
-                        0, eq, sol, tx, rm, u01, nt, ni, **kw),
-                    kernels.generate_with_gradients_plain(
-                        0, eq, sol, tx, rm, u01, nt, ni, **kw),
-                    lambda kw=kw: kernels.generate_with_gradients_plain(
-                        0, eq, _permuted(sol, 10), tx, rm, u01, nt, ni,
-                        **kw)))
+                    f"{name} {mode}{tag}", mode,
+                    run(sol, 0, u01, nt, ni, **kw),
+                    plain(sol, tx, u01, nt, ni, **kw),
+                    lambda perm, prec: plain(
+                        _permuted(sol, 10) if perm else sol, tx, u01, nt, ni,
+                        antithetic=anti, precision=prec),
+                    None if stem == "generate" else rm, anti))
             del u01, nt, ni
+            if stem == "integral":
+                _highest_control(f"integral{tag}", eq, sol, tx, anti, dev)
             u_h, nt_h, ni_h = _host_draws(EXACT_SEED, pts, rows, rnx, dev)
-            for mode in ("bf16x3", "default"):
+            for mode in own_modes:
                 kw = dict(antithetic=anti, precision=mode)
-                key = _err_key("generate", mode)
+                key = _err_key(stem, mode)
                 max_err[key] = max(max_err[key], _same(
-                    f"merged {mode}{tag}, own draws vs host Philox at "
-                    f"points {pts}",
-                    kernels.generate_with_gradients_cuda(
-                        EXACT_SEED, eq, sol, tx, rm, **kw)[pts],
-                    kernels.generate_with_gradients_plain(
-                        0, eq, sol, tx[pts], rm, u_h, nt_h, ni_h, **kw),
+                    f"{name} {mode}{tag}, own draws vs host Philox at "
+                    f"points {pts}", run(sol, EXACT_SEED, **kw)[pts],
+                    plain(sol, tx[pts], u_h, nt_h, ni_h, **kw),
                     _mode_tol(mode)))
             del u_h, nt_h, ni_h
 
@@ -1029,13 +1145,15 @@ def _terminal_work(b, m, nx, anti):
 
 
 def _net_work(nx, neurons, precision):
-    """(FP32, bf16 tensor) FLOPs of the frozen net's pass per sample.
-    "highest": all of ``generate_flops_per_sample`` on the FP32 pipe.
-    bf16x3 / "default": the layers' products (layer 1 forward and each
-    hidden layer forward and backward) on the tensor pipe, 3 passes or 1;
-    on the FP32 pipe the head, its gradient and the contraction with W1's
-    column sums in as many products, one subtract per split A element, 3
-    operations per hidden unit for bias and ELU, 1 for elu'(z) backward."""
+    """(FP32, bf16 tensor) FLOPs of the frozen net's pass per sample: the
+    layers' products (layer 1 forward and each hidden layer forward and
+    backward) on the tensor pipe, 3 bf16 passes (bf16x3), 1 ("default")
+    or 6 ("highest": the f32 product in bf16 pieces, the least time the
+    card takes for f32-accurate products); on the FP32 pipe the head, its
+    gradient and the contraction with W1's column sums in as many products
+    (f32, once, under "highest"), one subtract per split A element (two
+    under "highest": three pieces), 3 operations per hidden unit for bias
+    and ELU, 1 for elu'(z) backward."""
     from deeppicarditeration_torch.ops.kernels import (
         generate_flops_per_sample,
     )
@@ -1043,13 +1161,13 @@ def _net_work(nx, neurons, precision):
     if not neurons:
         return 0, 0
     net = generate_flops_per_sample(nx, neurons)
-    if precision == "highest":
-        return net, 0
-    passes = 3 if precision == "bf16x3" else 1
+    passes = {"bf16x3": 3, "default": 1, "highest": 6}[precision]
     hidden = sum(a * c for a, c in zip(neurons, neurons[1:]))
     mm = 2 * ((1 + nx) * neurons[0] + 2 * hidden)
     split = (1 + nx) + 2 * sum(neurons[1:])
     epilogue = 3 * sum(neurons) + sum(neurons[:-1])
+    if precision == "highest":
+        return (net - mm) + 2 * split + epilogue, passes * mm
     return passes * (net - mm) + split + epilogue, passes * mm
 
 
@@ -1791,25 +1909,42 @@ def _expect_launches(path, runner, launches, seen, want):
               f"{want_routes}")
 
 
+# STL and LDL (local-memory stores and loads: spills) in the SASS of each
+# tensor-core kernel as the tree stands (H100, CUDA 12.8; PERF.md §6): a
+# build that spills more fails phase 1. The integral kernel's instances
+# are to reach none (ROADMAP §B).
+SPILLS_MAX = {"generate_tc_kernel": (20, 24),
+              "generate_pis_kernel": (216, 262),
+              "integral_tc_kernel<bf16x3>": (7, 11),
+              "integral_tc_kernel<default>": (1, 1),
+              "integral_tc_kernel<highest>": (28, 32)}
+# the integral kernel's instances by mode: integral_tc_kernel<P>, P passes
+INTEGRAL_INSTANCES = {"bf16x3": "integral_tc_kernelILi3E",
+                      "default": "integral_tc_kernelILi1E",
+                      "highest": "integral_tc_kernelILi6E"}
+
+
 def _hgmma_counts():
-    """(HGMMA, WARPGROUP.DEPBAR) instructions in the SASS of the
-    tensor-core kernels (``cuobjdump -sass`` of the built libraries, all
-    instantiations), by kernel. A DEPBAR waits for wgmma to finish: one
-    per slab group is the design, one per HGMMA a serialised pass."""
-    import re
-
+    """(HGMMA, WARPGROUP.DEPBAR, STL, LDL) instructions in the SASS of the
+    tensor-core kernels (``cuobjdump -sass`` of the built libraries), by
+    kernel: the merged and the HJB kernel over all their instantiations,
+    the integral kernel's three instances apart. A DEPBAR waits for wgmma
+    to finish: one per slab group is the design, one per HGMMA a
+    serialised pass; STL and LDL are spills."""
     from deeppicarditeration_torch.ops import kernels
-    from deeppicarditeration_torch.utils.probe_roofline import library_sass
+    from deeppicarditeration_torch.utils.pis_bench import function_counts
 
+    ops = ("HGMMA", "WARPGROUP.DEPBAR", "STL", "LDL")
     out = {}
     for lib, fn in ((kernels.GENERATE, "generate_tc_kernel"),
-                    (kernels.INTEGRAL, "integral_tc_kernel"),
                     (kernels.GENERATE_PIS, "generate_pis_kernel")):
-        sass = library_sass(lib)
-        body = [part for part in re.split(r"\n\s*Function : ", sass)
-                if part.split("\n", 1)[0].find(fn) >= 0]
-        out[fn] = (sum(part.count("HGMMA") for part in body),
-                   sum(part.count("WARPGROUP.DEPBAR") for part in body))
+        counts = function_counts(lib, fn).values()
+        out[fn] = tuple(sum(c[op] for c in counts) for op in ops)
+    found = function_counts(kernels.INTEGRAL, "integral_tc_kernel")
+    for mode, inst in INTEGRAL_INSTANCES.items():
+        counts = [c for name, c in found.items() if inst in name]
+        out[f"integral_tc_kernel<{mode}>"] = tuple(
+            sum(c[op] for c in counts) for op in ops)
     return out
 
 
@@ -1979,9 +2114,15 @@ def main(argv=None) -> int:
               + " | ".join(info))
     hgmma = _hgmma_counts()
     print("tensor-core kernels' SASS: " + ", ".join(
-        f"{k} HGMMA {h}, WARPGROUP.DEPBAR {d}" for k, (h, d) in hgmma.items()))
-    if not all(h for h, _ in hgmma.values()):
-        _fail("a tensor-core kernel holds no HGMMA in its SASS")
+        f"{k} HGMMA {h}, WARPGROUP.DEPBAR {d}, STL {stl}, LDL {ldl}"
+        for k, (h, d, stl, ldl) in hgmma.items()))
+    if not all(v[0] for v in hgmma.values()):
+        _fail("a tensor-core kernel (or an integral kernel's instance) "
+              "holds no HGMMA in its SASS")
+    more = {k: v[2:] for k, v in hgmma.items()
+            if any(a > b for a, b in zip(v[2:], SPILLS_MAX[k]))}
+    if more:
+        _fail(f"spills (STL, LDL) above SPILLS_MAX: {more}")
     terminal_sass = probe_roofline.sass_mix(
         probe_roofline.library_sass(kernels.TERMINAL))
     print("terminal kernel's SASS per normal at nx=100 (the draw loop's "
@@ -2050,9 +2191,9 @@ def main(argv=None) -> int:
                 kernels.generate_with_gradients_plain(
                     0, eq, s, tx, mm, u01, nt, ni, precision=mode),
                 None if s.kind != "net" else
-                lambda s=s, mode=mode: kernels.generate_with_gradients_plain(
-                    0, eq, _permuted(s, 10), tx, mm, u01, nt, ni,
-                    precision=mode)))
+                lambda perm, prec, s=s: kernels.generate_with_gradients_plain(
+                    0, eq, _permuted(s, 10) if perm else s, tx, mm, u01, nt,
+                    ni, precision=prec)))
         delta = float((outs["bf16x3"] - outs["highest"]).abs().max())
         print(f"merged kernel, {label}, B={nb} M={mm}: max |bf16x3 - "
               f"highest| {delta:.3e} (the JAX package measured ~2e-5 on the "
@@ -2070,9 +2211,9 @@ def main(argv=None) -> int:
             kernels.generate_with_gradients_plain(
                 0, eq, sol, tx, 2 * mm, u01, nt, ni, antithetic=True,
                 precision=mode),
-            lambda mode=mode: kernels.generate_with_gradients_plain(
-                0, eq, _permuted(sol, 10), tx, 2 * mm, u01, nt, ni,
-                antithetic=True, precision=mode)))
+            lambda perm, prec: kernels.generate_with_gradients_plain(
+                0, eq, _permuted(sol, 10) if perm else sol, tx, 2 * mm, u01,
+                nt, ni, antithetic=True, precision=prec)))
     bound_z = _bonferroni(nb * (1 + nx))
     out = kernels.generate_with_gradients_cuda(5, eq, sol, tx, mm,
                                                precision=MODES[0])
@@ -2094,19 +2235,29 @@ def main(argv=None) -> int:
         cases = [("zero iterate", zero), (f"iterate {n_iter}", sol)]
         for label, s in (cases if not anti else cases[1:]):
             u, n = u01[:, :rows].contiguous(), ni[:, :rows].contiguous()
-            for mode in MODES:
+            for mode in GEN_MODES:
+                kw = dict(antithetic=anti, precision=mode)
                 key = _err_key("integral", mode)
-                max_err[key] = max(max_err[key], _same(
+                max_err[key] = max(max_err[key], _same_mode(
                     f"integral {mode}{' antithetic' if anti else ''}, "
-                    f"{label}, B={nb} M={mm}",
+                    f"{label}, B={nb} M={mm}", mode,
                     kernels.integral_with_gradients_cuda(
-                        0, eq, s, tx, mm, u, n, antithetic=anti,
-                        precision=mode),
+                        0, eq, s, tx, mm, u, n, **kw),
                     kernels.integral_with_gradients_plain(
-                        0, eq, s, tx, mm, u, n, antithetic=anti,
-                        precision=mode)))
+                        0, eq, s, tx, mm, u, n, **kw),
+                    None if s.kind != "net" else
+                    lambda perm, prec, s=s: kernels
+                    .integral_with_gradients_plain(
+                        0, eq, _permuted(s, 10) if perm else s, tx, mm, u, n,
+                        antithetic=anti, precision=prec),
+                    mm, anti))
+            if s.kind == "net":
+                _highest_control(
+                    f"integral{' antithetic' if anti else ''}, {label}, "
+                    f"B={nb}", eq, s, tx, anti, dev)
             del u, n
     del u01, nt, ni
+    _check_ragged(max_err, dev, "integral")
     # each estimator kernel with its own draws at all nb points, against
     # its plain version fed the host Philox's draws at the first and last
     # EDGE points (whose keys are their rows in the launch)
@@ -2132,13 +2283,12 @@ def main(argv=None) -> int:
                      EXACT_SEED, eq, sol, tx, mm, **kw),
                  kernels.generate_with_gradients_plain(
                      0, eq, sol, txp, mm, u, a, c, **kw)))
-            if mode in MODES:
-                checks.append(
-                    ("integral", mode,
-                     kernels.integral_with_gradients_cuda(
-                         EXACT_SEED, eq, sol, tx, mm, **kw),
-                     kernels.integral_with_gradients_plain(
-                         0, eq, sol, txp, mm, u, c, **kw)))
+            checks.append(
+                ("integral", mode,
+                 kernels.integral_with_gradients_cuda(
+                     EXACT_SEED, eq, sol, tx, mm, **kw),
+                 kernels.integral_with_gradients_plain(
+                     0, eq, sol, txp, mm, u, c, **kw)))
         for stem, mode, out, ref in checks:
             key = _err_key(stem, mode)
             max_err[key] = max(max_err[key], _same(
@@ -2222,6 +2372,10 @@ def main(argv=None) -> int:
     runner_b, launches_b, routes_b = _run_path("B", n_iter)
     calls = runner_b.generate_calls
     _expect_launches("B", runner_b, launches_b, routes_b,
+                     {"terminal": calls, "integral": calls})
+    runner_b1, launches_b1, routes_b1 = _run_path("B'", n_iter)
+    calls = runner_b1.generate_calls
+    _expect_launches("B'", runner_b1, launches_b1, routes_b1,
                      {"terminal": calls, "integral": calls})
     runner_c, launches_c, routes_c = _run_path("C", n_iter)
     gen_c = gen_config_from_cfg(path_cfg("C", n_iter))
@@ -2345,8 +2499,8 @@ def main(argv=None) -> int:
 
     src = "deeppicarditeration_tpu/ops/pallas_kernels.py"
     shape = f"B={nb} M={mm} nx={nx}, {len(neurons)}x128 net"
-    # the net kernels in both modes, timed in turns (bf16x3, highest,
-    # highest, bf16x3), with their plain versions
+    # the net kernels in every mode, timed in turns (bf16x3, default,
+    # highest, highest, default, bf16x3), with their plain versions
     gen_ms = _in_turns({mode: (lambda mode=mode: kernels.
                                generate_with_gradients_cuda(
                                    5, eq, sol, tx, mm, precision=mode))
@@ -2354,7 +2508,7 @@ def main(argv=None) -> int:
     int_ms = _in_turns({mode: (lambda mode=mode: kernels.
                                integral_with_gradients_cuda(
                                    5, eq, sol, tx, mm, precision=mode))
-                        for mode in MODES}, 3)
+                        for mode in GEN_MODES}, 3)
     tc_plan = kernels.library_tc_plan(nx, len(neurons))
     for mode in ("bf16x3", "default"):
         # a count from the built kernel's plan, not a measurement: printed
@@ -2419,8 +2573,10 @@ def main(argv=None) -> int:
         extra={"antithetic": {"ms": ms_ta, "bound_ms": bd_ta[0],
                               "bound_pipe": bd_ta[2]},
                "sass_per_normal": terminal_sass})
-    for mode, (path, runner, launches) in zip(MODES, (
-            ("B", runner_b, launches_b), ("G", runner_g, launches_g))):
+    for mode, (runner, launches) in zip(GEN_MODES, (
+            (runner_b, launches_b), (runner_b1, launches_b1),
+            (runner_g, launches_g))):
+        path = INTEGRAL_PATHS[mode]
         row("integral_with_gradients", "integral", f"{src}:690", path,
             launches["integral"], runner.generate_calls, int_ms[mode],
             _time_ms(lambda: kernels.integral_with_gradients_plain(

@@ -21,8 +21,10 @@
 // Two kernels, by the precision of the net's dots (the TPU kernel's
 // mxu_precision, DATA.TPU.PALLAS_PRECISION):
 //   * "bf16x3" (the default) and "default": generate_tc_kernel, the net on
-//     the tensor cores (value_mlp_tc.cuh's pass). Its bound is the tensor
-//     pipe (3 x 111.5 k bf16 multiply-adds per sample under bf16x3). What
+//     the tensor cores (net_pass_n128 below; the block layout and the
+//     plan are value_mlp_tc.cuh's, shared with integral.cu). Its bound is
+//     the tensor pipe (3 x 111.5 k bf16 multiply-adds per sample under
+//     bf16x3). What
 //     held the first tensor-core design (one warpgroup of consumers, two
 //     blocks an SM) at 5.7x that bound, and what this one does about it:
 //       - the terminal chain ran on the consumers between the products, a
@@ -276,121 +278,319 @@ __device__ __forceinline__ float g_cha(float T, float k, float sum_x) {
 
 // ---- the tensor-core kernel ---------------------------------------------
 
-constexpr int WG = tc::CONSUMERS;              // a warpgroup: 128 threads
-constexpr int NWG = 2;                         // consumer warpgroups
-constexpr int TC_CONSUMERS = NWG * WG;
-constexpr int TC_THREADS = TC_CONSUMERS + WG;  // and the producer warpgroup
-constexpr int TERM_WARPS = 3;                  // the producer warpgroup's others
-constexpr int TERM_THREADS = 32 * TERM_WARPS;
-// registers per thread after setmaxnreg (from the 168 a thread launches
-// with): what the producer warpgroup frees covers what the consumers take,
-// 128 (168 - 88) = 256 (208 - 168)
-constexpr int PRODUCER_REGS = 88, CONSUMER_REGS = 208;
-// named barriers besides __syncthreads' 0: the 256 consumers, each
-// consumer warpgroup's 128, and the terminal sums of a point handed to the
-// consumers (FULL: written; FREE: read)
-constexpr int BAR_CONSUMERS = 1, BAR_WG = 2, BAR_TERM_FULL = 4,
-              BAR_TERM_FREE = 5, BAR_TURN = 6;
-constexpr int TERM_BAR_THREADS = TC_CONSUMERS + TERM_THREADS;
-constexpr int TC_MAX_NX = MAXJ * WG - 1;  // a warpgroup's 4 outputs a thread
+using tc::AUX_THREADS;
+using tc::AUX_WARPS;
+using tc::BAR_CONSUMERS;
+using tc::BAR_TERM_FREE;
+using tc::BAR_TERM_FULL;
+using tc::BAR_WG;
+using tc::NWG;
+using tc::TC_CONSUMERS;
+using tc::TC_THREADS;
+constexpr int WG = tc::CONSUMERS;  // a warpgroup: 128 threads
+// the consumers and the terminal warps (the producer warpgroup's others)
+constexpr int TERM_BAR_THREADS = TC_CONSUMERS + AUX_THREADS;
 
-__device__ __forceinline__ void named_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+// The merged kernel's shared memory beside the ring: each consumer
+// warpgroup's tile of normals (rows of nx), the terminal warps' sums, 32 KB
+// stages (hi and lo images). ops/kernels.py:library_tc_plan reads the plan.
+__host__ __device__ inline tc::Layout gen_layout(int nx) {
+  return tc::Layout{1, 1, nx, 2 * tc::IMAGE_BYTES};
 }
 
-// The two consumer warpgroups issue their groups of products in turns
-// (warpgroup 0 first; named barriers BAR_TURN + wg): while one runs its
-// products on the tensor pipe, the other runs its epilogue.
-struct PingPong {
-  int wg;
-  __device__ __forceinline__ void wait() const {
-    named_sync(BAR_TURN + wg, TC_CONSUMERS);
+}  // namespace
+
+// generate.cu's own pass, in the shared pass's namespace
+namespace dpi {
+namespace tc {
+
+// ---- the merged kernel's own pass (one m64n128 group per K-slab) ------
+// In turns at path A's shapes (PERF.md §6), value_mlp_tc.cuh's net_pass
+// (the same groups, its epilogues: the biases and saved derivatives
+// loaded ahead, the head and column sums summed inside them) made this
+// kernel spill 220 bytes a thread at the 208 registers its consumers get
+// beside the terminal warps' 88 and ran 15 % slower in bf16x3; its
+// products with this pass's epilogues, 2.2 % slower (1.4 % antithetic).
+
+template <int N>
+__device__ __forceinline__ void fence_frags2(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[k][r])::"memory");
+}
+
+// d (64 x 128, f32) += A (64 x 16 bf16, registers) B (16 x 128 bf16,
+// shared memory at desc_b; TRANS_B = 1: read MN-major)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma128(float (&d)[NACC],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(TRANS_B));
+}
+
+// a, b -> their bf16 hi parts and bf16-rounded residuals, packed in pairs
+// (the lower column in the low half, as a wgmma A fragment holds them)
+__device__ __forceinline__ void split_hi_lo(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat16 ha = __float2bfloat16_rn(a);
+  const __nv_bfloat16 hb = __float2bfloat16_rn(b);
+  __nv_bfloat162 h;
+  h.x = ha;
+  h.y = hb;
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - __bfloat162float(ha),
+                                                 b - __bfloat162float(hb));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+__device__ __forceinline__ void to_frags(const float (&acc)[NACC],
+                                         uint32_t (&ah)[KC][4],
+                                         uint32_t (&al)[KC][4]) {
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split_hi_lo(acc[8 * kc + 2 * r], acc[8 * kc + 2 * r + 1], ah[kc][r],
+                 al[kc][r]);
+}
+
+// One k-chunk of a staged slab: hi*hi (+ lo*hi + hi*lo under bf16x3).
+// Forward slabs are K-major (column slab of W: 16 core rows of 8 cores),
+// backward slabs MN-major (row slab of W: 8 core rows of 16 cores). The
+// mode is a template parameter: a branch between two wgmma makes ptxas
+// wait for the first to finish.
+template <int TRANS_B, bool X3>
+__device__ __forceinline__ void mma_chunk128(float (&acc)[NACC],
+                                          const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4],
+                                          uint32_t stage, int kk) {
+  const uint32_t b = stage + (TRANS_B ? kk * 4096 : kk * 256);
+  const uint32_t lbo = TRANS_B ? 2048 : 128, sbo = TRANS_B ? 128 : 1024;
+  const uint64_t bh = gmma_desc(b, lbo, sbo);
+  wgmma128<TRANS_B>(acc, ah, bh);
+  if (X3) {
+    wgmma128<TRANS_B>(acc, al, bh);
+    wgmma128<TRANS_B>(acc, ah, gmma_desc(b + IMAGE_BYTES, lbo, sbo));
   }
-  __device__ __forceinline__ void pass() const {
-    named_arrive(BAR_TURN + (wg ^ 1), TC_CONSUMERS);
-  }
-};
-
-__host__ __device__ inline size_t dw_bytes(int nx) {
-  return tc::align16((size_t)tc::TILE * nx * 4);
 }
 
-// Byte offsets of the tensor-core kernel's dynamic shared memory; where the
-// saved ELU derivatives (save_smem) and the tiles' integral normals
-// (dw_smem) do not fit, they live in the block's global scratch.
-struct GPlan {
-  int stages, save_smem, dw_smem;
-  size_t ring, save, dw, xrow, rows, tacc, tred, red, bars, total;
-};
-
-__host__ __device__ inline GPlan gplan(int nx, int L, int stages,
-                                      int save_smem, int dw_smem) {
-  GPlan p;
-  p.stages = stages;
-  p.save_smem = save_smem;
-  p.dw_smem = dw_smem;
-  size_t o = 0;
-  p.ring = o;
-  o += (size_t)stages * tc::STAGE_BYTES;
-  p.save = o;
-  if (save_smem && L > 1)
-    o += (size_t)NWG * (L - 1) * tc::SAVE_LAYER_FLOATS * 4;
-  p.dw = o;
-  if (dw_smem) o += NWG * dw_bytes(nx);
-  p.xrow = o;
-  o += tc::align16((size_t)nx * 4);
-  p.rows = o;
-  o += (size_t)NWG * tc::NROWS * tc::TILE * 4;
-  p.tacc = o;
-  o += (size_t)TERM_WARPS * tc::align16((size_t)nx * 4);
-  p.tred = o;
-  o += tc::align16((size_t)TERM_WARPS * (1 + nx) * 4);
-  p.red = o;
-  o += tc::align16((size_t)(1 + nx) * 4);
-  p.bars = o;
-  o += (size_t)2 * tc::MAX_STAGES * 8;
-  p.total = o;
-  return p;
+// Issue acc += A's k-chunks K0 .. K0 + 3 (ah, al: N chunks) times the
+// next staged slab, as one wgmma group.
+template <int TRANS_B, bool X3, int K0, int N>
+__device__ __forceinline__ void slab_issue(float (&acc)[NACC],
+                                           uint32_t (&ah)[N][4],
+                                           uint32_t (&al)[N][4],
+                                           Ring& ring) {
+  const uint32_t stage = ring.acquire();
+  fence_acc(acc);
+  fence_frags2(ah);
+  fence_frags2(al);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < SLAB_K / 16; ++kk)
+    mma_chunk128<TRANS_B, X3>(acc, ah[K0 + kk], al[K0 + kk], stage, kk);
+  wgmma_commit();
 }
 
-// The plan at (nx, L): the tiles' normals in shared memory where a ring of
-// 2 stages fits beside them, the deepest ring of 2..MAX_STAGES stages, and
-// the saved derivatives in shared memory where they fit beside that ring;
-// stages = -1 where nothing fits (no ring without a net).
-// ops/kernels.py:generate_tc_plan mirrors it.
-__host__ __device__ inline GPlan choose_gplan(int nx, int L) {
-  for (int dw = 1; dw >= 0; --dw) {
-    if (L == 0) {
-      const GPlan p = gplan(nx, 0, 0, 0, dw);
-      if (p.total <= tc::SMEM_LIMIT) return p;
-      continue;
+// Wait until at most PENDING groups are in flight, then free the oldest
+// slab taken and not yet freed.
+template <int PENDING>
+__device__ __forceinline__ void slab_retire(float (&acc)[NACC], Ring& ring,
+                                            int& freed) {
+  wgmma_wait<PENDING>();
+  fence_acc(acc);
+  ring.release_slab(freed++);
+}
+
+// A hidden layer: both slabs in flight together, then freed in order.
+template <int TRANS_B, bool X3, class Turn>
+__device__ __forceinline__ void hidden_layer128(float (&acc)[NACC],
+                                             uint32_t (&ah)[KC][4],
+                                             uint32_t (&al)[KC][4],
+                                             Ring& ring, const Turn& turn) {
+  int freed = ring.it;
+  turn.wait();
+  slab_issue<TRANS_B, X3, 0>(acc, ah, al, ring);
+  slab_issue<TRANS_B, X3, 4>(acc, ah, al, ring);
+  turn.pass();
+  slab_retire<1>(acc, ring, freed);
+  slab_retire<0>(acc, ring, freed);
+}
+
+// Bias and ELU of layer l's accumulator. Below the last layer the
+// activation stays in acc and elu'(z) is saved; at the last layer the head
+// gives u (rows written by lanes t = 0) and acc becomes the head's gradient
+// times elu'(z).
+template <bool X3>
+__device__ __forceinline__ void layer_out(const Params& p, const Tile& s,
+                                          float (&acc)[NACC], int l,
+                                          int ctid) {
+  const int warp = ctid >> 5, lane = ctid & 31, g = lane >> 2, t = lane & 3;
+  const float* bias = p.vec + (size_t)(l - 1) * H;
+  if (l < p.L) {
+    float2* sv = s.save + (size_t)(l - 1) * 32 * CONSUMERS + ctid;
+#pragma unroll
+    for (int q = 0; q < NACC / 2; ++q) {
+      float d[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 2 * q + e;
+        const float z = acc[i] + __ldg(bias + acc_col(i, t));
+        const float ez = expf(fminf(z, 0.0f));
+        acc[i] = z > 0.0f ? z : ez - 1.0f;
+        d[e] = z > 0.0f ? 1.0f : ez;
+      }
+      sv[(size_t)q * CONSUMERS] = make_float2(d[0], d[1]);
     }
-    for (int st = tc::MAX_STAGES; st >= 2; --st) {
-      const GPlan p0 = gplan(nx, L, st, 0, dw);
-      if (p0.total > tc::SMEM_LIMIT) continue;
-      const GPlan p1 = gplan(nx, L, st, 1, dw);
-      return L > 1 && p1.total <= tc::SMEM_LIMIT ? p1 : p0;
-    }
+    return;
   }
-  GPlan bad = gplan(nx, L, 0, 0, 0);
-  bad.stages = -1;
-  return bad;
+  const float* w_out = p.vec + (size_t)p.L * H;
+  float u[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) {
+    const int col = acc_col(i, t);
+    const float z = acc[i] + __ldg(bias + col);
+    const float ez = expf(fminf(z, 0.0f));
+    const float h = z > 0.0f ? z : ez - 1.0f;
+    const float w = __ldg(w_out + col);
+    const float wh = bf16_round(w), hh = bf16_round(h);
+    float term = hh * wh, gw = wh;
+    if (X3) {
+      const float wl = bf16_round(w - wh);
+      term += bf16_round(h - hh) * wh + hh * wl;
+      gw += wl;
+    }
+    u[(i >> 1) & 1] += term;
+    acc[i] = gw * (z > 0.0f ? 1.0f : ez);
+  }
+  const float b_out = __ldg(p.vec + (size_t)(p.L + 3) * H);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    u[r] += __shfl_xor_sync(0xffffffffu, u[r], 1);
+    u[r] += __shfl_xor_sync(0xffffffffu, u[r], 2);
+  }
+  if (t == 0) {
+    s.u[16 * warp + g] = u[0] + b_out;
+    s.u[16 * warp + g + 8] = u[1] + b_out;
+  }
 }
 
-// floats of global scratch a block keeps: the consumers' saved derivatives
-// (each warpgroup's L - 1 layers), then their tiles' normals, where they
-// are not in shared memory
-__host__ __device__ inline size_t scratch_floats(const GPlan& pl, int nx,
-                                                 int L) {
-  size_t f = 0;
-  if (!pl.save_smem && L > 1)
-    f += (size_t)NWG * (L - 1) * tc::SAVE_LAYER_FLOATS;
-  if (!pl.dw_smem) f += (size_t)NWG * tc::TILE * nx;
-  return f;
+// u and sum_j u_x_j of the frozen net at (s, X_s) for the tile's rows
+// (written to s.u, s.sux). All consumers, warp-uniformly; each group of
+// products issued in its turn.
+template <bool X3, class Turn>
+__device__ __forceinline__ void net_pass_n128(const Params& p, const Tile& s,
+                                         Ring& ring, int ctid,
+                                         const Turn& turn) {
+  const int warp = ctid >> 5, lane = ctid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + g, r1 = r0 + 8;
+  const int L = p.L, nx = p.nx, n1 = k1_of(nx) / SLAB_K;
+  float acc[NACC];
+
+  // layer 1: [X_s, s] W1p^T in K-slabs, A split from the tile's normals
+  zero(acc);
+  for (int sb = 0; sb < n1; ++sb) {
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = (r & 1) ? r1 : r0;
+        const int col = SLAB_K * sb + 16 * kk + 2 * t + 8 * (r >> 1);
+        split_hi_lo(s.a1(row, col, nx), s.a1(row, col + 1, nx), ah[kk][r],
+                   al[kk][r]);
+      }
+    int freed = ring.it;
+    turn.wait();
+    slab_issue<0, X3, 0>(acc, ah, al, ring);
+    turn.pass();
+    slab_retire<0>(acc, ring, freed);
+  }
+  layer_out<X3>(p, s, acc, 1, ctid);
+
+  // hidden layers 2..L forward
+  for (int l = 2; l <= L; ++l) {
+    uint32_t ah[KC][4], al[KC][4];
+    to_frags(acc, ah, al);
+    zero(acc);
+    hidden_layer128<0, X3>(acc, ah, al, ring, turn);
+    layer_out<X3>(p, s, acc, l, ctid);
+  }
+
+  // backward through hidden layers L..2: g_{l-1} = (g_l W_l) elu'(z_{l-1})
+  for (int l = L; l >= 2; --l) {
+    uint32_t ah[KC][4], al[KC][4];
+    to_frags(acc, ah, al);
+    zero(acc);
+    hidden_layer128<1, X3>(acc, ah, al, ring, turn);
+    const float2* sv = s.save + (size_t)(l - 2) * 32 * CONSUMERS + ctid;
+#pragma unroll
+    for (int q = 0; q < NACC / 2; ++q) {
+      const float2 d = sv[(size_t)q * CONSUMERS];
+      acc[2 * q] *= d.x;
+      acc[2 * q + 1] *= d.y;
+    }
+  }
+
+  // sum_j u_x_j = sum_n g1_n sum_j W1[n, 1 + j], with _split3's products
+  const float* wc_hi = p.vec + (size_t)(L + 1) * H;
+  const float* wc_lo = p.vec + (size_t)(L + 2) * H;
+  float sx[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) {
+    const int col = acc_col(i, t);
+    const float gh = bf16_round(acc[i]), ch = __ldg(wc_hi + col);
+    float term = gh * ch;
+    if (X3) term += gh * __ldg(wc_lo + col) + bf16_round(acc[i] - gh) * ch;
+    sx[(i >> 1) & 1] += term;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sx[r] += __shfl_xor_sync(0xffffffffu, sx[r], 1);
+    sx[r] += __shfl_xor_sync(0xffffffffu, sx[r], 2);
+  }
+  if (t == 0) {
+    s.sux[r0] = sx[0];
+    s.sux[r1] = sx[1];
+  }
 }
+
+}  // namespace tc
+}  // namespace dpi
+
+namespace {
+
+using namespace dpi;
 
 __device__ __forceinline__ float quad_sum(float4 v) {
   return (v.x + v.y) + (v.z + v.w);
@@ -473,7 +673,7 @@ __device__ __forceinline__ void terminal_warps(const tc::Params& p,
     }
     sx = warp_sum(sx);
     float acc_v = 0.0f;
-    for (int kd0 = 32 * tw; kd0 < Md; kd0 += TERM_THREADS) {
+    for (int kd0 = 32 * tw; kd0 < Md; kd0 += AUX_THREADS) {
       const int kd = kd0 + lane;
       const bool live = kd < Md;
       const float* row =
@@ -512,29 +712,30 @@ __device__ __forceinline__ void terminal_warps(const tc::Params& p,
       }
     }
     acc_v = warp_sum(acc_v);
-    if (!first) named_sync(BAR_TERM_FREE, TERM_BAR_THREADS);
+    if (!first) tc::named_sync(BAR_TERM_FREE, TERM_BAR_THREADS);
     first = false;
     float* out = tred + tw * (1 + nx);
     if (lane == 0) out[0] = acc_v;
     for (int j = lane; j < nx; j += 32) out[1 + j] = sums[j];
-    named_arrive(BAR_TERM_FULL, TERM_BAR_THREADS);
+    tc::named_arrive(BAR_TERM_FULL, TERM_BAR_THREADS);
   }
 }
 
-// X3: bf16x3, else one bf16 pass. A block: two consumer warpgroups, each
-// on its own 64-row tile (tiles 2 i and 2 i + 1 of a point; the second
-// warpgroup takes an empty tile past the last when a point's tiles are
-// odd, to keep the ring's pace), both reading every weight stage; the
-// producer warpgroup: one warp streaming the stages, three running the
-// terminal chain.
-template <bool X3>
+// P: the net's passes (3: bf16x3, 1: one bf16 pass). A block: two
+// consumer warpgroups, each on its own 64-row tile (tiles 2 i and 2 i + 1
+// of a point; the second warpgroup takes an empty tile past the last when a
+// point's tiles are odd, to keep the ring's pace), both reading every
+// weight stage; the producer warpgroup: one warp streaming the stages,
+// three running the terminal chain.
+template <int P>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 generate_tc_kernel(const tc::Params p) {
   using namespace tc;
   extern __shared__ __align__(128) unsigned char smem_tc[];
   unsigned char* smem = smem_tc;
   const int nx = p.nx, L = p.has_net ? p.L : 0;
-  const GPlan pl = choose_gplan(nx, L);
+  const Layout& lay = p.lay;
+  const GPlan& pl = p.plan;
   const uint32_t full = smem_u32(smem + pl.bars);
   const uint32_t empty = full + 8 * MAX_STAGES;
   init_ring(full, empty, pl.stages, TC_CONSUMERS);
@@ -543,7 +744,9 @@ generate_tc_kernel(const tc::Params p) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     const int pw = (threadIdx.x - TC_CONSUMERS) >> 5, lane = threadIdx.x & 31;
     if (pw == 0) {
-      if (L > 0) produce(p, smem_u32(smem + pl.ring), full, empty, lane, NWG);
+      if (L > 0)
+        produce(p, smem_u32(smem + pl.ring), full, empty, lane, pl.stages,
+                lay.stage_bytes, pieces(P), packed(P));
     } else {
       terminal_warps(p, reinterpret_cast<float*>(smem + pl.tacc), tred,
                      pw - 1, lane);
@@ -554,29 +757,10 @@ generate_tc_kernel(const tc::Params p) {
 
   const int wg = threadIdx.x / WG, wtid = threadIdx.x % WG;
   // this warpgroup's tile: its rows, normals and saved derivatives
-  Tile s;
-  float* rows = reinterpret_cast<float*>(smem + pl.rows) + wg * NROWS * TILE;
-  s.s_val = rows;
-  s.sig = rows + TILE;
-  s.iys = rows + 2 * TILE;
-  s.c_i = rows + 3 * TILE;
-  s.c_iy = rows + 4 * TILE;
-  s.u = rows + 5 * TILE;
-  s.sux = rows + 6 * TILE;
-  s.xrow = reinterpret_cast<float*>(smem + pl.xrow);
-  const size_t n_save = (size_t)(L > 1 ? L - 1 : 0) * SAVE_LAYER_FLOATS;
-  float* scr = pl.save_smem && pl.dw_smem
-                   ? nullptr
-                   : p.scratch + blockIdx.x * scratch_floats(pl, nx, L);
-  s.save = reinterpret_cast<float2*>(
-      pl.save_smem ? reinterpret_cast<float*>(smem + pl.save) + wg * n_save
-                   : scr + wg * n_save);
-  s.dw = pl.dw_smem
-             ? reinterpret_cast<float*>(smem + pl.dw + wg * dw_bytes(nx))
-             : scr + (pl.save_smem ? 0 : NWG * n_save) +
-                   (size_t)wg * TILE * nx;
+  const Tile s = tile_of(smem, pl, lay, p, 0, wg);
   float* red = reinterpret_cast<float*>(smem + pl.red);
-  Ring ring{smem_u32(smem + pl.ring), full, empty, pl.stages, 0};
+  Ring ring{smem_u32(smem + pl.ring), full, empty, pl.stages,
+            lay.stage_bytes, 0};
   const PingPong turn{wg};
   if (wg == 1 && L > 0) turn.pass();  // warpgroup 0 takes the first turn
   const int ntile = (p.M + TILE - 1) / TILE;
@@ -597,7 +781,7 @@ generate_tc_kernel(const tc::Params p) {
       draw_normals(p, s, b, kb, key, wtid);
       named_sync(BAR_WG + wg, WG);
       if (L > 0) {
-        net_pass<X3>(p, s, ring, wtid, turn);
+        net_pass_n128<P == 3>(p, s, ring, wtid, turn);
       } else if (wtid < TILE) {
         s.u[wtid] = 0.0f;
         s.sux[wtid] = 0.0f;
@@ -626,7 +810,7 @@ generate_tc_kernel(const tc::Params p) {
         if (j <= nx) {
           float sum_t = 0.0f;
 #pragma unroll
-          for (int w = 0; w < TERM_WARPS; ++w) sum_t += tred[w * (1 + nx) + j];
+          for (int w = 0; w < AUX_WARPS; ++w) sum_t += tred[w * (1 + nx) + j];
           const float a = acc[r] + red[j];
           out[j] = j == 0 ? (sum_t + a) * inv_m + g0 + f0 * Tt
                           : (sum_t * inv_yT + a) * inv_m;
@@ -642,26 +826,8 @@ generate_tc_kernel(const tc::Params p) {
 // the tensor-core kernel for a mode
 using TcKernel = void (*)(const tc::Params);
 TcKernel tc_kernel(int mode) {
-  return mode == tc::MODE_BF16X3 ? generate_tc_kernel<true>
-                                 : generate_tc_kernel<false>;
-}
-
-// blocks of the persistent grid (the card's SMs, one block each where the
-// plan's shared memory allows), at most B; -1 if none
-int tc_grid(TcKernel kernel, size_t smem, int B) {
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      cudaFuncSetAttribute(kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                    TC_THREADS, smem) !=
-          cudaSuccess ||
-      per_sm < 1)
-    return -1;
-  return B < sms * per_sm ? B : sms * per_sm;
+  return mode == tc::MODE_BF16X3 ? generate_tc_kernel<3>
+                                 : generate_tc_kernel<1>;
 }
 
 }  // namespace
@@ -702,13 +868,14 @@ int dpi_generate(const float* t, const float* x, const float* g0,
 // saved derivatives and tiles' normals its plan keeps out of shared memory
 // (0: none; -1: no plan)
 long long dpi_generate_tc_scratch_bytes(int nx, int L) {
-  const GPlan pl = choose_gplan(nx, L);
-  if (pl.stages < 0 || nx < 1 || nx > TC_MAX_NX) return -1;
-  const size_t f = scratch_floats(pl, nx, L);
+  const tc::Layout lay = gen_layout(nx);
+  const tc::GPlan pl = tc::choose_gplan(nx, L, lay);
+  if (pl.stages < 0 || nx < 1 || nx > tc::TC_MAX_NX) return -1;
+  const size_t f = tc::scratch_floats(pl, lay, L);
   if (f == 0) return 0;
   long long most = 0;
   for (int mode = tc::MODE_BF16X3; mode <= tc::MODE_ONE_PASS; ++mode) {
-    const int grid = tc_grid(tc_kernel(mode), pl.total, 1 << 30);
+    const int grid = tc::persistent_grid(tc_kernel(mode), pl.total, 1 << 30);
     if (grid < 0) return -1;
     const long long b = (long long)grid * f * 4;
     most = b > most ? b : most;
@@ -718,14 +885,15 @@ long long dpi_generate_tc_scratch_bytes(int nx, int L) {
 
 // the plan at (nx, L) into out[5]: stages (-1: none), saved derivatives in
 // shared memory, tiles' normals in shared memory, shared memory bytes,
-// global scratch floats per block (ops/kernels.py:generate_tc_plan)
+// global scratch floats per block (ops/kernels.py:library_tc_plan)
 void dpi_generate_tc_plan(int nx, int L, long long* out) {
-  const GPlan pl = choose_gplan(nx, L);
+  const tc::Layout lay = gen_layout(nx);
+  const tc::GPlan pl = tc::choose_gplan(nx, L, lay);
   out[0] = pl.stages;
   out[1] = pl.save_smem;
   out[2] = pl.dw_smem;
   out[3] = (long long)pl.total;
-  out[4] = (long long)scratch_floats(pl, nx, L);
+  out[4] = (long long)tc::scratch_floats(pl, lay, L);
 }
 
 // The tensor-core kernel (mode 1: bf16x3, 2: one bf16 pass); `img`, `vec`
@@ -742,11 +910,12 @@ int dpi_generate_tc(const float* t, const float* x, const float* g0,
   if (mode != MODE_BF16X3 && mode != MODE_ONE_PASS) return ERR_BAD_MODE;
   if ((has_net && L < 1) || nx < 1 || nx > TC_MAX_NX) return ERR_NO_PLAN;
   const int Ln = has_net ? L : 0;
-  const GPlan pl = choose_gplan(nx, Ln);
+  const Layout lay = gen_layout(nx);
+  const GPlan pl = choose_gplan(nx, Ln, lay);
   if (pl.stages < 0) return ERR_NO_PLAN;
-  if (scratch_floats(pl, nx, Ln) > 0 && !scratch) return ERR_NO_SCRATCH;
+  if (scratch_floats(pl, lay, Ln) > 0 && !scratch) return ERR_NO_SCRATCH;
   auto* kernel = tc_kernel(mode);
-  const int grid = tc_grid(kernel, pl.total, B);
+  const int grid = persistent_grid(kernel, pl.total, B);
   if (grid < 1) return ERR_GRID;
   dpi::tc::Params p;
   p.t = t; p.x = x; p.g0 = g0; p.f0 = f0;
@@ -755,7 +924,7 @@ int dpi_generate_tc(const float* t, const float* x, const float* g0,
   p.scratch = scratch; p.out = out;
   p.B = B; p.M = M; p.nx = nx; p.L = Ln; p.has_net = has_net;
   p.anti = anti; p.mode = mode;
-  p.stages = pl.stages; p.save_smem = pl.save_smem;
+  p.lay = lay; p.plan = pl;
   p.seed_lo = (uint32_t)(seed & 0xFFFFFFFFull);
   p.seed_hi = (uint32_t)(seed >> 32);
   p.T = T; p.alpha_sqrt = alpha_sqrt; p.k = k; p.c0 = c0;

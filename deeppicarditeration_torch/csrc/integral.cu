@@ -17,266 +17,249 @@
 // time u, the second with the increment negated; external noise then has
 // M / 2 rows.
 //
-// Two kernels, by the precision of the net's dots (the TPU kernel's
-// mxu_precision, DATA.TPU.PALLAS_PRECISION):
-//   * "bf16x3" (the default) and "default": integral_tc_kernel, the net on
-//     the tensor cores (value_mlp_tc.cuh). Its bound is the tensor pipe
-//     (3 x 111.5 k bf16 multiply-adds per sample under bf16x3), but what
-//     holds it back is the work each block does in turn around the
-//     products: the ELU epilogues and hi/lo splits of every layer and the
-//     Philox draws, latency-bound at 4-8 warps per SM. The design: one
-//     warpgroup walks the point's M samples in tiles of 64 rows, each layer
-//     one wgmma m64n128 product per k16 chunk with A split into bf16 hi
-//     and lo in registers; a producer warp stages the weights in 32 KB
-//     slabs with cp.async.bulk and mbarriers, so each weight byte serves 64
-//     samples; two blocks per SM (where their shared memory fits), so that
-//     one block's epilogues and draws overlap the other's products; the
-//     1 + nx sums are reduced in row order by the thread that owns each
-//     output (deterministic); a persistent grid.
-//   * "highest": integral_kernel, the FP32-FMA design
-//     (value_mlp.cuh), one block per point, inner blocks of S = 32
-//     samples, 8 per warp through the whole net, weights through L1/L2;
-//     bound by the FP32 pipe (~112 k multiply-adds per sample).
-// Both draw Philox counted by (sample, quad, stream 1) and (sample,
-// stream 2) for the time, so their draws agree value for value.
+// One kernel, integral_tc_kernel<P>, for the three precisions of the net's
+// dots (the TPU kernel's mxu_precision, DATA.TPU.PALLAS_PRECISION): P = 3
+// passes of bf16 products ("bf16x3", the default), 1 ("default") and 6
+// ("highest", the MXU's f32 product), on the tensor cores
+// (value_mlp_tc.cuh: net_pass). Its bound is the tensor pipe (P x 111.5 k
+// bf16 multiply-adds per sample at nx = 100). The one-warpgroup design
+// before it ran each 64-sample tile's draws, net pass, weights and sums
+// one after another, and "highest" on the FP32 pipe (FMA, 4x the tensor
+// bound of bf16x3). This one:
+//   - three warps of the producer warpgroup draw the next tile pair's
+//     times and normals (draws.cuh's guard-free Box-Muller, lane = draw,
+//     the quads dealt over the warps, a lean counter that fits the 56
+//     registers those warps keep) into one of two buffers, handed over by
+//     mbarriers (full: drawn; empty: both consumer warpgroups read it);
+//   - two consumer warpgroups on tiles 2 i and 2 i + 1 read every weight
+//     stage (a staged byte serves 128 samples), issue their products in
+//     turns, one m64n128 group a K-slab;
+//   - "highest" is the same pass with P = 6, three images of each W, one
+//     K-slab at a time, the five smaller products of each in an
+//     accumulator of their own (the tensor cores cut each wgmma's sum
+//     toward zero).
+// What binds after it (PERF.md §6): the epilogues (bias, ELU, the
+// saved derivatives), latency-bound on two consumer warps a scheduler.
+// The draws take Philox counted by (sample, quad, stream 1) and (sample,
+// stream 2) for the time (philox.cuh), so they do not depend on the launch
+// shape; the integral sums are reduced in row order by the thread that
+// owns each output (deterministic); a persistent grid.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "draws.cuh"
 #include "philox.cuh"
-#include "value_mlp.cuh"
 #include "value_mlp_tc.cuh"
 
 namespace {
 
 using namespace dpi;
+using tc::AUX_THREADS;
+using tc::AUX_WARPS;
+using tc::NWG;
+using tc::TILE;
 
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int S = WARPS * SPW;      // samples per inner block
-constexpr int MAXJ = 4;             // accumulator slots per thread
+constexpr int PAIR = NWG * TILE;  // rows of a tile pair: a buffer
+// registers a thread after setmaxnreg: the draw warps' lean counter leaves
+// the producer warpgroup 56, the consumers take what that frees, 128 (168
+// - 56) = 256 (224 - 168); at 208, bf16x3's pass spilled
+constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;
 
-struct Params {
-  const float* t;      // (B, 1)
-  const float* x;      // (B, nx)
-  const float* f0;     // (B, 1)  get_f(t, x)
-  const float* w;      // packed net (see pack order in ops/kernels.py)
-  const float* u01;    // (B, Md) or null: in-kernel draws
-  const float* noise;  // (B, Md, nx) or null
-  float* out;          // (B, 1 + nx)
-  int B, M, nx, L, has_net, anti;  // Md = anti ? M / 2 : M
-  uint32_t seed_lo, seed_hi;
-  float T, alpha_sqrt, k, c0;
-};
-
-__host__ __device__ constexpr size_t smem_floats(int nx, int L) {
-  return (size_t)L * S * H + 2 * (size_t)S * nx + nx + H + 4 * S;
+// The integral kernel's shared memory beside the ring: two buffers of a
+// tile pair's normals (rows padded to whole quads), times and x; a stage
+// holds the images the mode reads.
+__host__ __device__ inline tc::Layout integral_layout(int nx, int P) {
+  return tc::Layout{2, 0, (nx + 3) / 4 * 4, tc::pieces(P) * tc::IMAGE_BYTES};
 }
 
-__global__ void __launch_bounds__(THREADS)
-integral_kernel(const Params p) {
-  extern __shared__ __align__(16) float smem[];
-  const int nx = p.nx, L = p.has_net ? p.L : 0;
-  const int Md = p.anti ? p.M / 2 : p.M;
-  float* hbuf = smem;                       // L x S x H activations/grads
-  float* xs = hbuf + (size_t)L * S * H;     // S x nx  X_s
-  float* dwi = xs + S * nx;                 // S x nx  normals
-  float* xrow = dwi + S * nx;               // nx      the point's x
-  float* wcol = xrow + nx;                  // H       sum_j W1[n, 1 + j]
-  float* s_val = wcol + H;                  // S       s
-  float* sig = s_val + S;                   // S       sqrt(s - t) sqrt(a)
-  float* c_i = sig + S;                     // S       Tt (f - f0)
-  float* c_iy = c_i + S;                    // S       1/ys, then c_i / ys
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const float t = p.t[b], f0 = p.f0[b];
-  const float Tt = p.T - t;
-  const uint2 key = make_uint2(p.seed_lo, (uint32_t)b);
-  const ValueMlp net = value_mlp(p.w, nx, L);
-
-  for (int j = tid; j < nx; j += THREADS) xrow[j] = p.x[(size_t)b * nx + j];
-  if (p.has_net) column_sums(net, nx, wcol, tid, THREADS);
-  float acc_v[MAXJ];
-#pragma unroll
-  for (int r = 0; r < MAXJ; ++r) acc_v[r] = 0.0f;
-  __syncthreads();
-
-  const int nblk = (p.M + S - 1) / S;
-  const int Q = (nx + 3) / 4;
-  const int s0 = warp * SPW;  // this warp's first sample slot
-  for (int kb = 0; kb < nblk; ++kb) {
-    // ---- per-sample time draws: lanes 0..SPW-1 -------------------------
-    if (lane < SPW) {
-      const int sl = s0 + lane;
-      const int k = kb * S + sl;
+// The draws of this block's tile pairs on the producer warpgroup's other
+// warps (dt: 0 .. AUX_THREADS - 1), pair n into buffer n % 2 once both
+// consumer warpgroups have read pair n - 2 from it: the point's x, each
+// row's time (s, the X_s scale, the likelihood weight) and normals. Own
+// draws: lane = draw, each warp drawing every AUX_WARPS-th quad of it from
+// the draw's counter, one 16-byte store a quad (rows of ld floats, ld a
+// multiple of 4: the quad past nx writes padding nothing reads).
+__device__ __forceinline__ void draw_warps(const tc::Params& p,
+                                           unsigned char* smem,
+                                           const tc::GPlan& pl,
+                                           uint32_t dfull, uint32_t dempty,
+                                           int dt) {
+  const int nx = p.nx, Q = (nx + 3) / 4;
+  const tc::Layout& lay = p.lay;
+  const int ld = lay.ld, Md = p.Md;
+  const int w = dt >> 5, lane = dt & 31;
+  const int ndraw = p.anti ? PAIR / 2 : PAIR;
+  // one counter over this block's tile pairs, the point and the pair worked
+  // out from it and the launch's constants: little state lives across a
+  // pair, in the 56 registers these warps keep
+  for (int n = 0;; ++n) {
+    const int i = n % p.npair, b = blockIdx.x + (n / p.npair) * gridDim.x;
+    if (b >= p.B) break;
+    const uint2 key = make_uint2(p.seed_lo, (uint32_t)b);
+    const int buf = n & 1;
+    if (n >= 2)
+      tc::mbar_wait(dempty + 8 * buf, (uint32_t)(((n >> 1) - 1) & 1));
+    const tc::Tile s = tc::tile_of(smem, pl, lay, p, buf, 0);
+    for (int j = dt; j < nx; j += AUX_THREADS)
+      s.xrow[j] = p.x[(size_t)b * nx + j];
+    for (int r = dt; r < PAIR; r += AUX_THREADS) {
+      const int k = i * PAIR + r;
+      const float t = p.t[b], Tt = p.T - t;
       float u = 0.0f;
       if (k < p.M) {
         const int kd = p.anti ? k >> 1 : k;
-        u = p.u01 ? p.u01[(size_t)b * Md + kd] : time_uniform(kd, p.seed_hi, key);
+        u = p.u01 ? p.u01[(size_t)b * Md + kd]
+                  : time_uniform(kd, p.seed_hi, key);
       }
-      const float s = t + u * Tt;
-      const float st = s - t;
-      s_val[sl] = s;
-      sig[sl] = sqrtf(st) * p.alpha_sqrt;
-      c_iy[sl] = 1.0f / (sqrtf(fmaxf(st, ST_FLOOR)) * p.alpha_sqrt);
+      const float sv = t + u * Tt;
+      const float st = sv - t;
+      // warpgroup r / TILE's rows (tile_of: NROWS arrays of TILE)
+      float* rows = s.s_val + (r / TILE) * tc::NROWS * TILE + r % TILE;
+      rows[0] = sv;
+      rows[TILE] = sqrtf(st) * p.alpha_sqrt;
+      rows[2 * TILE] = 1.0f / (sqrtf(fmaxf(st, ST_FLOOR)) * p.alpha_sqrt);
     }
-    __syncwarp();
-
-    // ---- normals and X_s -------------------------------------------------
-    if (p.noise) {
-      for (int e = lane; e < SPW * nx; e += 32) {
-        const int i = e / nx, j = e - i * nx, sl = s0 + i;
-        const int k = kb * S + sl;
+    // the pair's rows are the two tiles' (contiguous: dw_bytes is TILE ld
+    // floats)
+    float* dw = s.dw;
+    if (p.noise_i) {
+      for (int e = dt; e < PAIR * nx; e += AUX_THREADS) {
+        const int row = e / nx, j = e - row * nx, k = i * PAIR + row;
         float c = 0.0f;
         if (k < p.M) {
           const int kd = p.anti ? k >> 1 : k;
           const float sg = (p.anti && (k & 1)) ? -1.0f : 1.0f;
-          c = sg * p.noise[((size_t)b * Md + kd) * nx + j];
+          c = sg * p.noise_i[((size_t)b * Md + kd) * nx + j];
         }
-        dwi[sl * nx + j] = c;
-        xs[sl * nx + j] = xrow[j] + sig[sl] * c;
+        dw[row * ld + j] = c;
       }
     } else {
-      for (int e = lane; e < SPW * Q; e += 32) {
-        const int i = e / Q, q = e - i * Q, sl = s0 + i;
-        const int k = kb * S + sl;
-        float ni[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        if (k < p.M) {
-          const int kd = p.anti ? k >> 1 : k;
-          const float sg = (p.anti && (k & 1)) ? -1.0f : 1.0f;
-          normals4(kd, q, STREAM_INTEGRAL, p.seed_hi, key, ni);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) ni[r] *= sg;
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int j = 4 * q + r;
-          if (j < nx) {
-            dwi[sl * nx + j] = ni[r];
-            xs[sl * nx + j] = xrow[j] + sig[sl] * ni[r];
-          }
+      for (int d0 = 0; d0 < ndraw; d0 += 32) {
+        const int d = d0 + lane;
+        const int row = p.anti ? 2 * d : d, k = i * PAIR + row;
+        const bool live = k < p.M;
+        const LeanDrawCounter dc((uint32_t)(p.anti ? k >> 1 : k),
+                                 p.seed_hi, key, STREAM_INTEGRAL);
+        float* o = dw + (size_t)row * ld;
+        for (int q = w; q < Q; q += AUX_WARPS) {
+          float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if (live) v = quad_normals(dc, (uint32_t)q);
+          *reinterpret_cast<float4*>(o + 4 * q) = v;
+          if (p.anti)
+            *reinterpret_cast<float4*>(o + ld + 4 * q) =
+                make_float4(-v.x, -v.y, -v.z, -v.w);
         }
       }
     }
-    __syncwarp();
-
-    // ---- (u, sum_j u_x_j) of the frozen net at (s, X_s) -----------------
-    float u[SPW], sux[SPW];
-#pragma unroll
-    for (int i = 0; i < SPW; ++i) u[i] = sux[i] = 0.0f;
-    if (p.has_net)
-      value_and_grad_sum(net, nx, S, s0, lane, xs, s_val, hbuf, wcol, u, sux);
-
-    // ---- f = ff(s, X_s, u, u_x) for Cha, and the per-sample weights -----
-    if (lane == 0) {
-#pragma unroll
-      for (int i = 0; i < SPW; ++i) {
-        const int sl = s0 + i;
-        const bool valid = kb * S + sl < p.M;
-        const float coef = p.k * u[i] - p.c0;
-        const float f = p.alpha_sqrt * coef * (p.alpha_sqrt * sux[i]);
-        const float di = valid ? Tt * (f - f0) : 0.0f;
-        c_i[sl] = di;
-        c_iy[sl] = di * c_iy[sl];
-      }
-    }
-    __syncthreads();
-
-    // ---- accumulate the point's 1 + nx sums (slot 0: value) -------------
-#pragma unroll
-    for (int r = 0; r < MAXJ; ++r) {
-      const int j = tid + r * THREADS;
-      if (j == 0) {
-        for (int sl = 0; sl < S; ++sl) acc_v[r] += c_i[sl];
-      } else if (j <= nx) {
-        const float* di = dwi + (j - 1);
-        for (int sl = 0; sl < S; ++sl)
-          acc_v[r] = fmaf(c_iy[sl], di[sl * nx], acc_v[r]);
-      }
-    }
-    __syncthreads();
-  }
-
-  const float inv_m = 1.0f / (float)p.M;
-  float* out = p.out + (size_t)b * (1 + nx);
-#pragma unroll
-  for (int r = 0; r < MAXJ; ++r) {
-    const int j = tid + r * THREADS;
-    if (j == 0) {
-      out[0] = acc_v[r] * inv_m + f0 * Tt;
-    } else if (j <= nx) {
-      out[j] = acc_v[r] * inv_m;
-    }
+    tc::mbar_arrive(dfull + 8 * buf);
   }
 }
 
-// X3: bf16x3, else one bf16 pass; MINB: blocks per SM (value_mlp_tc.cuh:
-// launch_plan_for)
-template <bool X3, int MINB>
-__global__ void __launch_bounds__(tc::THREADS, MINB)
+// P: the net's passes (1, 3 or 6). A block: two consumer warpgroups, each
+// on its own 64-row tile (tiles 2 i and 2 i + 1 of a point; the second
+// takes an empty tile past the last when a point's tiles are odd, to keep
+// the ring's pace), both reading every weight stage and the pair's buffer;
+// the producer warpgroup: one warp streaming the stages, three drawing.
+template <int P>
+__global__ void __launch_bounds__(tc::TC_THREADS, 1)
 integral_tc_kernel(const tc::Params p) {
   using namespace tc;
   extern __shared__ __align__(128) unsigned char smem_tc[];
   unsigned char* smem = smem_tc;
   const int nx = p.nx, L = p.has_net ? p.L : 0;
-  const Plan pl = make_plan(nx, L, p.stages, p.save_smem);
-  const Tile s = carve(smem, pl, p);
+  const Layout& lay = p.lay;
+  const GPlan& pl = p.plan;
   const uint32_t full = smem_u32(smem + pl.bars);
   const uint32_t empty = full + 8 * MAX_STAGES;
-  init_ring(full, empty, p.stages);
-  if (threadIdx.x >= CONSUMERS) {  // the producer warp
-    if (L > 0) produce(p, smem_u32(smem + pl.ring), full, empty,
-                       threadIdx.x & 31);
+  const uint32_t dfull = empty + 8 * MAX_STAGES, dempty = dfull + 16;
+  init_ring(full, empty, pl.stages, TC_CONSUMERS, dfull);
+  if (threadIdx.x >= TC_CONSUMERS) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    const int dt = threadIdx.x - TC_CONSUMERS - 32;
+    if (dt < 0) {
+      if (L > 0)
+        produce(p, smem_u32(smem + pl.ring), full, empty, threadIdx.x & 31,
+                pl.stages, lay.stage_bytes, pieces(P), packed(P));
+    } else {
+      draw_warps(p, smem, pl, dfull, dempty, dt);
+    }
     return;
   }
-  const int ctid = threadIdx.x;
-  Ring ring{smem_u32(smem + pl.ring), full, empty, p.stages, 0};
-  const int ntile = (p.M + TILE - 1) / TILE;
-  const float inv_m = 1.0f / (float)p.M;
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+
+  const int wg = threadIdx.x / CONSUMERS, wtid = threadIdx.x % CONSUMERS;
+  float* red = reinterpret_cast<float*>(smem + pl.red);
+  Ring ring{smem_u32(smem + pl.ring), full, empty, pl.stages,
+            lay.stage_bytes, 0};
+  const PingPong turn{wg};
+  if (wg == 1 && L > 0) turn.pass();  // warpgroup 0 takes the first turn
+  // a thread's integral sums wait in shared memory while the pass runs, and
+  // the tile's pointers are computed again after it: nothing of the point
+  // lives in registers across the pass (ptxas spilled it there)
+  float* sums = reinterpret_cast<float*>(smem + pl.sums) + threadIdx.x;
+  int n = 0;
   for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
-    const float t = p.t[b], f0 = p.f0[b];
-    const float Tt = p.T - t;
-    const uint2 key = make_uint2(p.seed_lo, (uint32_t)b);
-    for (int j = ctid; j < nx; j += CONSUMERS)
-      s.xrow[j] = p.x[(size_t)b * nx + j];
-    float acc[MAXJ] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int kb = 0; kb < ntile; ++kb) {
-      draw_times(p, s, b, kb, t, Tt, key, ctid);
-      draw_normals(p, s, b, kb, key, ctid);
-      consumers_sync();
-      if (L > 0) {
-        net_pass<X3>(p, s, ring, ctid);
-      } else if (ctid < TILE) {
-        s.u[ctid] = 0.0f;
-        s.sux[ctid] = 0.0f;
-      }
-      consumers_sync();
-      sample_weights(p, s, kb, Tt, f0, ctid);
-      consumers_sync();
-      accumulate(s, nx, ctid, acc);
-      consumers_sync();
-    }
-    float* out = p.out + (size_t)b * (1 + nx);
 #pragma unroll
-    for (int r = 0; r < MAXJ; ++r) {
-      const int j = ctid + r * CONSUMERS;
-      if (j == 0) {
-        out[0] = acc[r] * inv_m + f0 * Tt;
-      } else if (j <= nx) {
-        out[j] = acc[r] * inv_m;
+    for (int r = 0; r < MAXJ; ++r) sums[r * TC_CONSUMERS] = 0.0f;
+    for (int i = 0; i < p.npair; ++i, ++n) {
+      int buf = n & 1;
+      mbar_wait(dfull + 8 * buf, (uint32_t)((n >> 1) & 1));
+      if (L > 0) {
+        net_pass<P>(p, tile_of(smem, pl, lay, p, buf, wg), ring, wtid, turn);
+      } else if (wtid < TILE) {
+        const Tile s = tile_of(smem, pl, lay, p, buf, wg);
+        s.u[wtid] = 0.0f;
+        s.sux[wtid] = 0.0f;
+      }
+      asm volatile("" : "+r"(buf));
+      const Tile s = tile_of(smem, pl, lay, p, buf, wg);
+      named_sync(BAR_WG + wg, CONSUMERS);
+      sample_weights(p, s, NWG * i + wg, p.T - p.t[b], p.f0[b], wtid);
+      named_sync(BAR_WG + wg, CONSUMERS);
+      float acc[MAXJ];
+#pragma unroll
+      for (int r = 0; r < MAXJ; ++r) acc[r] = sums[r * TC_CONSUMERS];
+      accumulate(s, nx, wtid, acc);
+#pragma unroll
+      for (int r = 0; r < MAXJ; ++r) sums[r * TC_CONSUMERS] = acc[r];
+      mbar_arrive(dempty + 8 * buf);
+    }
+
+    // the second warpgroup's sums to red; the first adds them and stores
+    if (wg == 1)
+#pragma unroll
+      for (int r = 0; r < MAXJ; ++r) {
+        const int j = wtid + r * CONSUMERS;
+        if (j <= nx) red[j] = sums[r * TC_CONSUMERS];
+      }
+    named_sync(BAR_CONSUMERS, TC_CONSUMERS);
+    if (wg == 0) {
+      const float inv_m = 1.0f / (float)p.M;
+      const float f0Tt = p.f0[b] * (p.T - p.t[b]);
+      float* out = p.out + (size_t)b * (1 + nx);
+#pragma unroll
+      for (int r = 0; r < MAXJ; ++r) {
+        const int j = wtid + r * CONSUMERS;
+        if (j <= nx) {
+          const float a = (sums[r * TC_CONSUMERS] + red[j]) * inv_m;
+          out[j] = j == 0 ? a + f0Tt : a;
+        }
       }
     }
+    named_sync(BAR_CONSUMERS, TC_CONSUMERS);
   }
+  if (wg == 0 && L > 0) turn.wait();  // the second warpgroup's last pass
 }
 
-// the tensor-core kernel for a mode and blocks per SM
 using TcKernel = void (*)(const tc::Params);
-TcKernel tc_kernel(int mode, int two) {
-  const bool x3 = mode == tc::MODE_BF16X3;
-  if (two)
-    return x3 ? integral_tc_kernel<true, 2> : integral_tc_kernel<false, 2>;
-  return x3 ? integral_tc_kernel<true, 1> : integral_tc_kernel<false, 1>;
+
+// the kernel of a mode (1: bf16x3, 2: one bf16 pass, 3: highest), or null
+TcKernel tc_kernel(int mode) {
+  return mode == tc::MODE_BF16X3    ? integral_tc_kernel<3>
+         : mode == tc::MODE_ONE_PASS ? integral_tc_kernel<1>
+         : mode == tc::MODE_HIGHEST  ? integral_tc_kernel<6>
+                                     : nullptr;
 }
 
 }  // namespace
@@ -285,42 +268,44 @@ extern "C" {
 
 // limits the Python wrapper checks before a launch
 int dpi_integral_hidden_width() { return H; }
-int dpi_integral_max_nx() { return MAXJ * THREADS - 1; }
-long long dpi_integral_smem_bytes(int nx, int L) {
-  return (long long)(smem_floats(nx, L) * sizeof(float));
+int dpi_integral_max_nx() { return tc::TC_MAX_NX; }
+
+// the plan of mode `mode` at (nx, L) into out[5]: stages (-1: none), saved
+// derivatives in shared memory, normals in shared memory, shared memory
+// bytes, global scratch floats per block
+void dpi_integral_tc_plan(int nx, int L, int mode, long long* out) {
+  const tc::Layout lay = integral_layout(nx, tc::passes_of(mode));
+  const tc::GPlan pl = tc::choose_gplan(nx, L, lay);
+  out[0] = pl.stages;
+  out[1] = pl.save_smem;
+  out[2] = pl.dw_smem;
+  out[3] = (long long)pl.total;
+  out[4] = (long long)tc::scratch_floats(pl, lay, L);
 }
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
-int dpi_integral(const float* t, const float* x, const float* f0,
-                 const float* w, const float* u01, const float* noise,
-                 float* out, int B, int M, int nx, int L, int has_net,
-                 int anti, unsigned long long seed, float T,
-                 float alpha_sqrt, float k, float c0, void* stream) {
-  const size_t smem = smem_floats(nx, has_net ? L : 0) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      integral_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  Params p;
-  p.t = t; p.x = x; p.f0 = f0; p.w = w; p.u01 = u01; p.noise = noise;
-  p.out = out;
-  p.B = B; p.M = M; p.nx = nx; p.L = L; p.has_net = has_net; p.anti = anti;
-  p.seed_lo = (uint32_t)(seed & 0xFFFFFFFFull);
-  p.seed_hi = (uint32_t)(seed >> 32);
-  p.T = T; p.alpha_sqrt = alpha_sqrt; p.k = k; p.c0 = c0;
-  integral_kernel<<<B, THREADS, smem, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
-// global scratch (bytes) dpi_integral_tc needs for the net's saved
-// derivatives (0: they fit in shared memory; -1: no plan)
+// global scratch (bytes) dpi_integral_tc needs at any B and mode: the saved
+// derivatives and normals its plans keep out of shared memory (0: none;
+// -1: no plan)
 long long dpi_integral_tc_scratch_bytes(int nx, int L) {
-  return dpi::tc::scratch_bytes(tc_kernel, nx, L);
+  if (nx < 1 || nx > tc::TC_MAX_NX) return -1;
+  long long most = 0;
+  for (int mode = tc::MODE_BF16X3; mode <= tc::MODE_HIGHEST; ++mode) {
+    const tc::Layout lay = integral_layout(nx, tc::passes_of(mode));
+    const tc::GPlan pl = tc::choose_gplan(nx, L, lay);
+    if (pl.stages < 0) return -1;
+    const size_t f = tc::scratch_floats(pl, lay, L);
+    if (f == 0) continue;
+    const int grid = tc::persistent_grid(tc_kernel(mode), pl.total, 1 << 30);
+    if (grid < 0) return -1;
+    const long long b = (long long)grid * f * 4;
+    most = b > most ? b : most;
+  }
+  return most;
 }
 
-// The tensor-core kernel (mode 1: bf16x3, 2: one bf16 pass); `img`, `vec`
-// from ops/kernels.py:pack_mlp_tc. Launches on `stream`; returns 0, a CUDA
-// error or one of dpi::tc::ERR_*.
+// The kernel (mode 1: bf16x3, 2: one bf16 pass, 3: highest); `img`, `vec`
+// from ops/kernels.py:pack_mlp_tc (three pieces under highest). Launches on
+// `stream`; returns 0, a CUDA error or one of dpi::tc::ERR_*.
 int dpi_integral_tc(const float* t, const float* x, const float* f0,
                     const void* img, const float* vec, const float* u01,
                     const float* noise, float* scratch, float* out, int B,
@@ -328,11 +313,14 @@ int dpi_integral_tc(const float* t, const float* x, const float* f0,
                     unsigned long long seed, float T, float alpha_sqrt,
                     float k, float c0, void* stream) {
   using namespace dpi::tc;
-  Plan pl;
-  int two;
-  const int bad = launch_plan(nx, L, has_net, mode, scratch, &pl, &two);
-  if (bad) return bad;
-  auto* kernel = tc_kernel(mode, two);
+  auto* kernel = tc_kernel(mode);
+  if (!kernel) return ERR_BAD_MODE;
+  if ((has_net && L < 1) || nx < 1 || nx > TC_MAX_NX) return ERR_NO_PLAN;
+  const int Ln = has_net ? L : 0;
+  const Layout lay = integral_layout(nx, passes_of(mode));
+  const GPlan pl = choose_gplan(nx, Ln, lay);
+  if (pl.stages < 0) return ERR_NO_PLAN;
+  if (scratch_floats(pl, lay, Ln) > 0 && !scratch) return ERR_NO_SCRATCH;
   const int grid = persistent_grid(kernel, pl.total, B);
   if (grid < 1) return ERR_GRID;
   dpi::tc::Params p;
@@ -340,13 +328,15 @@ int dpi_integral_tc(const float* t, const float* x, const float* f0,
   p.img = static_cast<const __nv_bfloat16*>(img); p.vec = vec;
   p.u01 = u01; p.noise_t = nullptr; p.noise_i = noise;
   p.scratch = scratch; p.out = out;
-  p.B = B; p.M = M; p.nx = nx; p.L = has_net ? L : 0; p.has_net = has_net;
+  p.B = B; p.M = M; p.nx = nx; p.L = Ln; p.has_net = has_net;
   p.anti = anti; p.mode = mode;
-  p.stages = pl.stages; p.save_smem = pl.save_smem;
+  p.Md = anti ? M / 2 : M;
+  p.npair = ((M + TILE - 1) / TILE + 1) / 2;
+  p.lay = lay; p.plan = pl;
   p.seed_lo = (uint32_t)(seed & 0xFFFFFFFFull);
   p.seed_hi = (uint32_t)(seed >> 32);
   p.T = T; p.alpha_sqrt = alpha_sqrt; p.k = k; p.c0 = c0;
-  kernel<<<grid, dpi::tc::THREADS, pl.total, (cudaStream_t)stream>>>(p);
+  kernel<<<grid, TC_THREADS, pl.total, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 

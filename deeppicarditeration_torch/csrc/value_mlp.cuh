@@ -1,5 +1,5 @@
-// The frozen value network inside the integral-chain kernels (generate.cu,
-// integral.cu): forward pass to u and backward pass to sum_j u_x_j for one
+// The frozen value network inside the merged estimator's "highest" kernel
+// (generate.cu): forward pass to u and backward pass to sum_j u_x_j for one
 // warp's SPW samples. Counterpart of the frozen-net get_f the TPU kernels
 // trace into their bodies (pallas_kernels.py: f_of).
 //

@@ -19,17 +19,21 @@ probe                       csrc/probe.cu         _probe_kernel
 ==========================  ====================  ==========================
 
 Shared device code: ``csrc/philox.cuh`` (Philox4x32-10, Box-Muller),
-``csrc/value_mlp.cuh`` (the frozen value net's forward and backward pass in
-FP32 FMA), ``csrc/value_mlp_tc.cuh`` (the same pass on the tensor cores)
-and ``csrc/gmm.cuh`` (the OU equation's mixture terminal).
+``csrc/draws.cuh`` (its fast draws), ``csrc/value_mlp.cuh`` (the frozen
+value net's forward and backward pass in FP32 FMA), ``csrc/value_mlp_tc.cuh``
+(the same pass on the tensor cores, and the block layout around it) and
+``csrc/gmm.cuh`` (the OU equation's mixture terminal).
 
 Precision (``DATA.TPU.PALLAS_PRECISION``, the TPU kernels'
 ``mxu_precision``) of the frozen-net dots in the merged and the integral
 estimator: ``"bf16x3"`` splits each f32 operand into a bf16 hi part and a
 bf16-rounded residual lo and sums hi*hi + lo*hi + hi*lo (``_split3`` in the
 JAX package; the kernels run it on the tensor cores with ``wgmma``),
-``"default"`` is the single hi*hi pass, ``"highest"`` full f32 (the FP32-FMA
-pass). The plain versions compute the same products (``precision_dot``).
+``"default"`` is the single hi*hi pass, ``"highest"`` full f32: the merged
+kernel's FP32-FMA pass, the integral kernel's six bf16 passes over three
+pieces of each operand (``six_pass_dot``), the MXU's f32 product. The plain
+versions compute the same products (``precision_dot``; "highest" the f32
+matmul).
 
 Build: at first use, ``nvcc`` compiles each ``csrc/*.cu`` source for
 ``sm_90a`` into a shared library with a plain C interface under
@@ -104,8 +108,9 @@ class CudaLibrary:
 
     @property
     def so_path(self) -> pathlib.Path:
+        # the headers beside the source: a variant's own (the benches')
         h = hashlib.sha256(self.source.read_bytes())
-        for header in sorted(CSRC_DIR.glob("*.cuh")):
+        for header in sorted(self.source.parent.glob("*.cuh")):
             h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.source.stem}_{h.hexdigest()[:16]}.so"
@@ -205,11 +210,14 @@ def _declare_terminal(lib: ctypes.CDLL) -> None:
 
 
 def _declare_integral(lib: ctypes.CDLL) -> None:
-    lib.dpi_integral.argtypes = [_P] * 7 + [_I] * 6 + [_U64] + [_F] * 4 \
-        + [_P]
-    lib.dpi_integral.restype = _I
-    _declare_net_limits(lib, "integral")
+    for name in ("hidden_width", "max_nx"):
+        fn = getattr(lib, f"dpi_integral_{name}")
+        fn.argtypes = []
+        fn.restype = _I
     _declare_tc(lib, "integral", 9)
+    if hasattr(lib, "dpi_integral_tc_plan"):
+        lib.dpi_integral_tc_plan.argtypes = [_I, _I, _I, _P]
+        lib.dpi_integral_tc_plan.restype = None
 
 
 def _declare_tc(lib: ctypes.CDLL, name: str, n_ptr: int) -> None:
@@ -463,8 +471,10 @@ def pack_mlp(mod: MLP) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 PRECISIONS = ("bf16x3", "highest", "default")
-# the tensor-core kernels' mode argument
+# the tensor-core kernels' mode argument (the integral kernel's also
+# "highest": six passes)
 _TC_MODES = {"bf16x3": 1, "default": 2}
+_INTEGRAL_MODES = {**_TC_MODES, "highest": 3}
 # K-extent of the tensor-core pass's weight slabs (value_mlp_tc.cuh: SLAB_K)
 TC_SLAB_K = 64
 
@@ -516,6 +526,27 @@ class _PrecisionDot(torch.autograd.Function):
         return da, db, None
 
 
+def bf16_pieces(a: torch.Tensor, n: int) -> list:
+    """a as n bf16 pieces (f32 tensors): a0 = bf16(a), a1 = bf16(a - a0),
+    a2 = bf16(a - a0 - a1); each residual is exact in f32."""
+    out, r = [], a
+    for _ in range(n):
+        out.append(_bf16(r))
+        r = r - out[-1]
+    return out
+
+
+def six_pass_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the integral kernel's "highest" computes it on the tensor
+    cores (the MXU's six-pass f32 product): three bf16 pieces of each
+    operand, a0 b0 + a0 b1 + a1 b0 + a0 b2 + a1 b1 + a2 b0, each product of
+    bf16-exact operands, summed in f32. An emulation for the tests: the
+    plain versions compute "highest" as the f32 matmul."""
+    a0, a1, a2 = bf16_pieces(a, 3)
+    b0, b1, b2 = bf16_pieces(b, 3)
+    return (a0 @ b0 + a0 @ b1 + a1 @ b0 + a0 @ b2 + a1 @ b1 + a2 @ b0)
+
+
 def precision_dot(a: torch.Tensor, b: torch.Tensor,
                   precision: str) -> torch.Tensor:
     """The dense contraction a (..., K) @ b (K, N) in ``precision``
@@ -564,43 +595,41 @@ def tc_k1(nx: int) -> int:
     return -(-(1 + nx) // TC_SLAB_K) * TC_SLAB_K
 
 
-def pack_mlp_tc(mod: MLP, nx: int):
+def pack_mlp_tc(mod: MLP, nx: int, pieces: int = 2):
     """The tensor-core kernels' net: (bf16 images, f32 vectors).
 
-    Images, in ``_core_tiles`` layout, hi = bf16(W) then lo = bf16(W - hi)
-    of W1 (its input columns reordered to x_1..x_nx, s, zero padding to
+    Images, in ``_core_tiles`` layout, the ``pieces`` bf16 pieces of W
+    (``bf16_pieces``: hi = bf16(W), lo = bf16(W - hi), and under the
+    integral kernel's "highest" a third, bf16(W - hi - lo)) of W1 (its
+    input columns reordered to x_1..x_nx, s, zero padding to
     ``tc_k1(nx)``, so that the draws' quads align with the k-chunks), then
     of each hidden layer's W (out, in); the forward pass reads W K-major
     and the backward pass the same bytes through the B transpose.
     Vectors: the L biases (H each), the head's weight row (H), the column
-    sums over x of hi(W1) and of lo(W1) (H each), the head's bias."""
-    def hi_lo(w):
-        hi = w.to(torch.bfloat16)
-        return hi, (w - hi.float()).to(torch.bfloat16)
-
+    sums over x of each piece of W1 (H each), the head's bias."""
     lin = list(mod.layers)
     w1 = lin[0].weight.detach()
-    w1_hi, w1_lo = hi_lo(torch.cat(
+    w1p = bf16_pieces(torch.cat(
         [w1[:, 1:], w1[:, :1],
-         w1.new_zeros((w1.shape[0], tc_k1(nx) - 1 - nx))], dim=1))
-    images = [_core_tiles(w1_hi), _core_tiles(w1_lo)]
+         w1.new_zeros((w1.shape[0], tc_k1(nx) - 1 - nx))], dim=1), pieces)
+    images = [_core_tiles(w.to(torch.bfloat16)) for w in w1p]
     for layer in lin[1:-1]:
-        images += [_core_tiles(w) for w in hi_lo(layer.weight.detach())]
+        images += [_core_tiles(w.to(torch.bfloat16))
+                   for w in bf16_pieces(layer.weight.detach(), pieces)]
     vec = [layer.bias.detach() for layer in lin[:-1]]
-    vec += [lin[-1].weight.detach().reshape(-1),
-            w1_hi[:, :nx].float().sum(dim=1),
-            w1_lo[:, :nx].float().sum(dim=1),
-            lin[-1].bias.detach().reshape(-1)]
+    vec += [lin[-1].weight.detach().reshape(-1)]
+    vec += [w[:, :nx].sum(dim=1) for w in w1p]
+    vec += [lin[-1].bias.detach().reshape(-1)]
     return (torch.cat(images).contiguous(),
             torch.cat([v.float() for v in vec]).contiguous())
 
 
 def _net_for_launch(lib: ctypes.CDLL, name: str, sol: Solution,
-                    tx: torch.Tensor, nx: int, precision: str):
+                    tx: torch.Tensor, nx: int, tensor_cores: bool):
     """(module or None, hidden layers, scratch bytes) after the net
-    kernels' limits: the FP32-FMA kernel's shared memory under "highest",
-    the tensor-core kernel's plan (0 or the global bytes its backward
-    pass keeps when they do not fit in shared memory) otherwise."""
+    kernels' limits: the tensor-core kernel's plan (0 or the global bytes
+    its backward pass keeps when they do not fit in shared memory), or the
+    FP32-FMA kernel's shared memory."""
     if nx > getattr(lib, f"dpi_{name}_max_nx")():
         raise NotImplementedError(
             f"nx={nx} exceeds the {name} kernel's "
@@ -608,7 +637,7 @@ def _net_for_launch(lib: ctypes.CDLL, name: str, sol: Solution,
     mod = kernel_net(sol, nx, getattr(lib, f"dpi_{name}_hidden_width")())
     n_hidden = len(mod.neurons) if mod is not None else 0
     scratch = 0
-    if precision == "highest":
+    if not tensor_cores:
         smem = getattr(lib, f"dpi_{name}_smem_bytes")(nx, n_hidden)
         if smem > MAX_SMEM_BYTES:
             raise NotImplementedError(
@@ -627,12 +656,13 @@ def _net_for_launch(lib: ctypes.CDLL, name: str, sol: Solution,
     return mod, n_hidden, scratch
 
 
-def _tc_net(mod: Optional[MLP], nx: int, scratch: int, device):
+def _tc_net(mod: Optional[MLP], nx: int, scratch: int, device,
+            pieces: int = 2):
     """The tensor-core launch's net buffers and scratch (None where
     unused)."""
     img = vec = None
     if mod is not None:
-        img, vec = pack_mlp_tc(mod, nx)
+        img, vec = pack_mlp_tc(mod, nx, pieces)
     buf = (torch.empty(scratch // 4, dtype=torch.float32, device=device)
            if scratch > 0 else None)
     return img, vec, buf
@@ -771,7 +801,7 @@ def generate_with_gradients_cuda(seed: int, eq, sol: Solution,
     lib = lib or GENERATE
     dll = lib.lib()
     mod, n_hidden, scratch = _net_for_launch(dll, "generate", sol, tx, nx,
-                                             precision)
+                                             precision != "highest")
     t = tx[:, :1].contiguous()
     x = tx[:, 1:].contiguous()
     g0 = eq.g(x).contiguous()
@@ -1135,13 +1165,15 @@ def integral_with_gradients_cuda(seed: int, eq, sol: Solution,
                                  noise: Optional[torch.Tensor] = None, *,
                                  antithetic: bool = False,
                                  f0: Optional[torch.Tensor] = None,
-                                 precision: str = "highest"
+                                 precision: str = "highest",
+                                 lib: Optional[CudaLibrary] = None
                                  ) -> torch.Tensor:
     """Integral CV estimator, (B, 1 + nx) f32: the integral kernel for CUDA
     tensors (in-kernel Philox draws, or external ``u01`` (B, rows, 1) and
-    ``noise`` (B, rows, nx); the FP32-FMA kernel under ``precision``
-    "highest", the tensor-core kernel under "bf16x3" and "default"), the
-    plain version for CPU tensors."""
+    ``noise`` (B, rows, nx); the tensor-core kernel in every ``precision``,
+    "highest" in six passes), the plain version for CPU tensors. ``lib``:
+    another build of ``integral.cu`` (``utils/generate_bench.py``) in place
+    of ``INTEGRAL``."""
     check_precision(precision)
     if tx.device.type == "cpu":
         return integral_with_gradients_plain(seed, eq, sol, tx, m, u01,
@@ -1156,9 +1188,10 @@ def integral_with_gradients_cuda(seed: int, eq, sol: Solution,
     if noise is not None:
         _check("u01", u01, (b, rows, 1), tx.device)
         _check("noise", noise, (b, rows, nx), tx.device)
-    lib = INTEGRAL.lib()
-    mod, n_hidden, scratch = _net_for_launch(lib, "integral", sol, tx, nx,
-                                             precision)
+    lib = lib or INTEGRAL
+    dll = lib.lib()
+    mod, n_hidden, scratch = _net_for_launch(dll, "integral", sol, tx, nx,
+                                             True)
     t = tx[:, :1].contiguous()
     x = tx[:, 1:].contiguous()
     if f0 is None:
@@ -1169,22 +1202,32 @@ def integral_with_gradients_cuda(seed: int, eq, sol: Solution,
     shape = (b, int(m), nx, n_hidden, int(mod is not None), int(antithetic))
     scalars = (_seed(seed), float(eq.T), float(eq.alpha_sqrt), float(eq.k),
                float(eq.ff_offset), _stream(tx.device))
-    if precision == "highest":
-        w = pack_mlp(mod) if mod is not None else None
-        rc = lib.dpi_integral(
-            _ptr(t), _ptr(x), _ptr(f0), _ptr(w), _ptr(u01), _ptr(noise),
-            _ptr(out), *shape, *scalars)
-    else:
-        img, vec, buf = _tc_net(mod, nx, scratch, tx.device)
-        rc = lib.dpi_integral_tc(
-            _ptr(t), _ptr(x), _ptr(f0), _ptr(img), _ptr(vec), _ptr(u01),
-            _ptr(noise), _ptr(buf), _ptr(out), *shape, _TC_MODES[precision],
-            *scalars)
+    img, vec, buf = _tc_net(mod, nx, scratch, tx.device,
+                            3 if precision == "highest" else 2)
+    rc = dll.dpi_integral_tc(
+        _ptr(t), _ptr(x), _ptr(f0), _ptr(img), _ptr(vec), _ptr(u01),
+        _ptr(noise), _ptr(buf), _ptr(out), *shape,
+        _INTEGRAL_MODES[precision], *scalars)
     if rc != 0:
         raise RuntimeError(f"dpi_integral launch failed: error {rc} (CUDA's, "
                            f"or value_mlp_tc.cuh's ERR_* from 10001)")
-    INTEGRAL.count(precision)
+    lib.count(precision)
     return out
+
+
+def integral_tc_plan(nx: int, n_hidden: int, precision: str,
+                     lib: Optional[CudaLibrary] = None) -> Optional[dict]:
+    """The plan the built ``integral.cu`` (``lib``, default ``INTEGRAL``)
+    takes at (nx, hidden layers) in ``precision``: as
+    ``library_tc_plan``'s. None where nothing fits."""
+    out = (ctypes.c_longlong * 5)()
+    (lib or INTEGRAL).lib().dpi_integral_tc_plan(
+        nx, n_hidden, _INTEGRAL_MODES[check_precision(precision)], out)
+    if out[0] < 0:
+        return None
+    return {"stages": out[0], "save_smem": bool(out[1]),
+            "dw_smem": bool(out[2]), "smem_bytes": out[3],
+            "scratch_floats": out[4]}
 
 
 # ---------------------------------------------------------------------------

@@ -1,38 +1,48 @@
-"""Time builds of the merged estimator kernel (``csrc/generate.cu``) in
-turns.
+"""Time builds of the merged estimator kernel (``csrc/generate.cu``) or of
+the integral kernel (``csrc/integral.cu``) in turns.
 
-    python -m deeppicarditeration_torch.utils.generate_bench [--source PATH ...]
+    python -m deeppicarditeration_torch.utils.generate_bench [--kernel integral] [--source PATH ...]
 
-Each ``--source`` (default: the package's ``csrc/generate.cu``; another
-build, such as an earlier commit's file unpacked by ``git archive``, with
-its headers beside it) is launched through
-``ops/kernels.py:generate_with_gradients_cuda`` (its ``lib`` argument)
-with its own Philox draws at path A's shapes (B = M = 4096, nx = 100, a
-random 4x128 ELU net) under bf16x3 and "default", and with antithetic
-pairing at path D's M = 8192 under bf16x3, and checked and timed by
-``utils/bench_turns.py`` (3 launches a turn). The builds must agree within
-chip_smoke.py's tolerance (rtol = atol = 5e-5; 5e-4 under "default",
-whose one bf16 pass can round an activation the other way when the sums
-run in another order). Prints one JSON line per source and case, each
-build's ptxas lines and the counts of HGMMA (wgmma), WARPGROUP.DEPBAR, STL
-and LDL (local-memory stores and loads: spills) in its SASS, and the
-card's name and power limit. Needs a CUDA card: there is no CPU mode.
+Each ``--source`` (default: the package's ``csrc/generate.cu``, or
+``csrc/integral.cu`` under ``--kernel integral``; another build, such as
+an earlier commit's file unpacked by ``git archive``, with its headers
+beside it) is launched through ``ops/kernels.py``'s
+``generate_with_gradients_cuda`` or ``integral_with_gradients_cuda`` (their
+``lib`` argument) with its own Philox draws at path A's shapes (B = M =
+4096, nx = 100, a random 4x128 ELU net: path B's for the integral kernel)
+under bf16x3 and "default" (the integral kernel also "highest"), and with
+antithetic pairing at path D's M = 8192 under bf16x3, and checked and
+timed by ``utils/bench_turns.py`` (3 launches a turn). The builds must
+agree within chip_smoke.py's tolerance (rtol = atol = 5e-5; 5e-4 under
+"default" for the merged kernel, whose one bf16 pass can round an
+activation the other way when the sums run in another order, and 1.5e-3,
+chip_smoke's ONE_PASS_WIDE_TOL, for the integral kernel, whose builds take
+their products in another shape). Prints one JSON line per source and
+case, each build's ptxas lines and the counts of HGMMA (wgmma),
+WARPGROUP.DEPBAR, STL and LDL (local-memory stores and loads: spills) in
+the SASS of each instantiation of its tensor-core kernel, and the card's
+name and power limit. Needs a CUDA card: there is no CPU mode.
 
 ``--time-only``: time variants whose output is wrong by design (a part
 of the kernel taken out, to see what it costs): each must still give the
 same output twice, and its distance from the first source is printed
 but not checked.
 
-``--stamps``: for each build that exports ``dpi_generate_tc_stamps`` (a
-variant with ``clock64()`` stamps, kept out of the repository), one
-launch per case and the cycles of each stamped phase per 64-sample tile,
-summed over the grid's blocks (``dpi_generate_tc_stamps_names`` names
-them).
+A build of ``integral.cu`` from before its six-pass instance runs its
+"highest" on its FP32-FMA kernel (``dpi_integral``), launched here as its
+wrapper did (``_integral``); the package's wrapper has one launch path.
+
+``--stamps``: for each build that exports ``dpi_generate_tc_stamps`` (or
+``dpi_integral_tc_stamps``; a variant with ``clock64()`` stamps, kept out
+of the repository), one launch per case and the cycles of each stamped
+phase per 64-sample tile, summed over the grid's blocks (the symbol's
+``_names`` names them).
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 
 import torch
 
@@ -46,24 +56,80 @@ from deeppicarditeration_torch.utils.bench_turns import (
     report_builds,
     stamps,
 )
-from deeppicarditeration_torch.utils.pis_bench import sass_counts
+from deeppicarditeration_torch.utils.pis_bench import function_counts
 
 B, M, NX, REPS, SEED = 4096, 4096, 100, 3, (7 << 32) | 5
-TOL = {"bf16x3": 5e-5, "default": 5e-4}
-# (precision, antithetic, M): paths A (both modes) and D
-CASES = (("bf16x3", False, M), ("default", False, M), ("bf16x3", True, 2 * M))
+
+
+def _declare_integral(lib: ctypes.CDLL) -> None:
+    """``kernels._declare_integral``, and an earlier build's FP32-FMA
+    kernel (``dpi_integral``) where the build has one."""
+    kernels._declare_integral(lib)
+    if hasattr(lib, "dpi_integral"):
+        lib.dpi_integral.argtypes = [ctypes.c_void_p] * 7 + \
+            [ctypes.c_int] * 6 + [ctypes.c_ulonglong] + [ctypes.c_float] * 4 \
+            + [ctypes.c_void_p]
+        lib.dpi_integral.restype = ctypes.c_int
+
+
+def _integral(seed, eq, sol, tx, m, *, antithetic, precision, lib):
+    """``integral_with_gradients_cuda`` with its own draws; an earlier
+    build's "highest" on its FP32-FMA kernel (a net of at least one hidden
+    layer)."""
+    dll = lib.lib()
+    if precision != "highest" or not hasattr(dll, "dpi_integral"):
+        return kernels.integral_with_gradients_cuda(
+            seed, eq, sol, tx, m, antithetic=antithetic,
+            precision=precision, lib=lib)
+    nx = tx.shape[1] - 1
+    mod = kernels.kernel_net(sol, nx, dll.dpi_integral_hidden_width())
+    t, x = tx[:, :1].contiguous(), tx[:, 1:].contiguous()
+    f0 = kernels.get_f(eq, sol, t, x).contiguous()
+    w = kernels.pack_mlp(mod)
+    out = torch.empty((tx.shape[0], 1 + nx), dtype=torch.float32,
+                      device=tx.device)
+    rc = dll.dpi_integral(
+        t.data_ptr(), x.data_ptr(), f0.data_ptr(), w.data_ptr(), None, None,
+        out.data_ptr(), tx.shape[0], int(m), nx, len(mod.neurons), 1,
+        int(antithetic), kernels._seed(seed), float(eq.T),
+        float(eq.alpha_sqrt), float(eq.k), float(eq.ff_offset),
+        kernels._stream(tx.device))
+    if rc != 0:
+        raise RuntimeError(f"dpi_integral launch failed: error {rc}")
+    return out
+
+# kernel -> (its wrapper, its declaration, the tensor-core kernel's name,
+# the stamps' symbol, tolerance by mode, cases (precision, antithetic, M):
+# paths A or B in each mode, and D's pairing)
+KERNELS = {
+    "generate": (kernels.generate_with_gradients_cuda,
+                 kernels._declare_generate, "generate_tc_kernel",
+                 "dpi_generate_tc_stamps",
+                 {"bf16x3": 5e-5, "default": 5e-4},
+                 (("bf16x3", False, M), ("default", False, M),
+                  ("bf16x3", True, 2 * M))),
+    "integral": (_integral, _declare_integral, "integral",
+                 "dpi_integral_tc_stamps",
+                 {"bf16x3": 5e-5, "default": 1.5e-3, "highest": 5e-5},
+                 (("bf16x3", False, M), ("default", False, M),
+                  ("highest", False, M), ("bf16x3", True, 2 * M))),
+}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--source", nargs="*",
-                    default=[str(kernels.GENERATE.source)])
+    ap.add_argument("--kernel", choices=tuple(KERNELS), default="generate")
+    ap.add_argument("--source", nargs="*", default=None)
     ap.add_argument("--stamps", action="store_true",
                     help="print the stamped builds' phases per tile")
     ap.add_argument("--time-only", action="store_true",
                     help="do not hold the builds to the first's output")
     args = ap.parse_args(argv)
-    libs = build_sources(args.source, kernels._declare_generate)
+    run, declare, fn, symbol, tol, cases = KERNELS[args.kernel]
+    sources = args.source or [str(
+        (kernels.GENERATE if args.kernel == "generate"
+         else kernels.INTEGRAL).source)]
+    libs = build_sources(sources, declare)
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(4)
     eq = make_equation("Cha", nx=NX, alpha=1.0, k=5.0, T=1.0)
@@ -73,23 +139,22 @@ def main(argv=None):
     x = torch.randn((B, NX), generator=g) * t.sqrt()
     tx = torch.cat([t, x], 1).to(dev)
     results = []
-    for mode, anti, m in CASES:
+    for mode, anti, m in cases:
         def agree(a, ref, mode=mode):
             d = (a - ref).abs()
-            ok = bool((d <= TOL[mode] + TOL[mode] * ref.abs()).all())
+            ok = bool((d <= tol[mode] + tol[mode] * ref.abs()).all())
             return ok or args.time_only, float(d.max())
 
         calls = [lambda lib=lib, mode=mode, anti=anti, m=m:
-                 kernels.generate_with_gradients_cuda(
-                     SEED, eq, sol, tx, m, antithetic=anti, precision=mode,
+                 run(SEED, eq, sol, tx, m, antithetic=anti, precision=mode,
                      lib=lib) for lib in libs]
-        case = {"precision": mode, "antithetic": anti, "B": B, "M": m,
-                "nx": NX}
+        case = {"kernel": args.kernel, "precision": mode,
+                "antithetic": anti, "B": B, "M": m, "nx": NX}
         if args.stamps:
-            for name, lib, call in zip(args.source, libs, calls):
-                stamps("dpi_generate_tc_stamps", name, case, lib, call)
-        results += in_turns(case, args.source, calls, agree, REPS)
-    report_builds(args.source, libs, sass_counts)
+            for name, lib, call in zip(sources, libs, calls):
+                stamps(symbol, name, case, lib, call)
+        results += in_turns(case, sources, calls, agree, REPS)
+    report_builds(sources, libs, lambda lib: function_counts(lib, fn))
     return results
 
 

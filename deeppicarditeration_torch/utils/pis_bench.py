@@ -62,6 +62,19 @@ def sass_counts(lib: kernels.CudaLibrary) -> dict:
             for op in ("HGMMA", "WARPGROUP.DEPBAR", "STL", "LDL")}
 
 
+def function_counts(lib: kernels.CudaLibrary, name: str) -> dict:
+    """HGMMA, WARPGROUP.DEPBAR, STL and LDL instructions in the SASS of each
+    function of ``lib`` whose mangled name holds ``name`` (each
+    instantiation of a kernel template apart), by mangled name."""
+    out = {}
+    for body in library_sass(lib).split("Function : ")[1:]:
+        fn = body.split("\n", 1)[0].strip()
+        if name in fn:
+            out[fn] = {op: len(re.findall(rf"\b{re.escape(op)}\b", body))
+                       for op in ("HGMMA", "WARPGROUP.DEPBAR", "STL", "LDL")}
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--source", nargs="*",

@@ -79,9 +79,9 @@ def test_chip_smoke_recipe_equals_the_yaml_chain():
             == tconfig.load_cfg(W1).to_dict())
 
 
-@pytest.mark.parametrize("path", ["B", "C", "D", "F", "G"])
+@pytest.mark.parametrize("path", ["B", "B'", "C", "D", "F", "G"])
 def test_chip_smoke_path_recipes_equal_the_yaml(path):
-    """Paths B, C, F and G are the w1.0 YAML with chip_smoke's overrides;
+    """Paths B, B', C, F and G are the w1.0 YAML with chip_smoke's overrides;
     path D is configs/burgers/base_100d_T1.0_w1.0_best.yaml. Both packages
     load them to the same tree and map the DATA.TPU flags alike."""
     import chip_smoke

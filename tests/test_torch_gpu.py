@@ -9,6 +9,7 @@ is installed:
 (``--noconftest``: the suite's conftest.py imports JAX.)
 """
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -37,6 +38,16 @@ ONE_PASS_TOL = 5e-4
 # ONE_PASS_WIDE_TOL, set from the plain version's own distance under
 # permuted hidden units)
 ONE_PASS_WIDE_TOL = 1.5e-3
+# chip_smoke.py's ONE_PASS_SCALE_CAP, ONE_PASS_CONTROL, HIGHEST_CONTROL_M
+# and HIGHEST_CONTROL: the integral kernel's wide "default" gate scaled by
+# 4096 / m (8192 / m antithetic) at most twice, and under half the plain
+# version's distance from its bf16x3; its "highest" under half its bf16x3's
+# distance from the plain version in f64 on the value column at 128 samples
+# a point
+ONE_PASS_SCALE_CAP = 2.0
+ONE_PASS_CONTROL = 0.5
+HIGHEST_CONTROL_M = 128
+HIGHEST_CONTROL = 0.5
 
 
 @pytest.fixture
@@ -408,24 +419,27 @@ def test_tensor_core_draws_equal_the_host_philox(cuda, which, anti):
                                         (100, (128,)), (511, (128,) * 2),
                                         (200, (128,) * 2)])
 def test_tensor_core_kernels_cover_deep_and_wide_nets(cuda, nx, neurons):
-    """Every launch plan (value_mlp_tc.cuh: launch_plan_for): two blocks
-    per SM with the saved derivatives in global scratch (nx = 100), one
-    block with them in global scratch (nx = 300, 511) or in shared memory
-    (nx = 200); layer 1 in several K-slabs; a single hidden layer."""
+    """Every launch plan (value_mlp_tc.cuh: choose_gplan): the saved
+    derivatives in global scratch (nx = 100, 300, 511) or in shared memory
+    (nx = 200), the tiles' normals in scratch (the integral kernel at nx =
+    511); layer 1 in several K-slabs; a single hidden layer. The integral
+    kernel in its three modes."""
     m = 64
     eq, _, tx, u01, nt, ni = _problem(cuda, 8, m, nx, net=False)
     sol = _deep(cuda, nx, neurons)
-    for run, plain, args in (
+    for run, plain, args, modes in (
             (kernels.generate_with_gradients_cuda,
              kernels.generate_with_gradients_plain,
-             (0, eq, sol, tx, m, u01, nt, ni)),
+             (0, eq, sol, tx, m, u01, nt, ni), ("bf16x3",)),
             (kernels.integral_with_gradients_cuda,
              kernels.integral_with_gradients_plain,
-             (0, eq, sol, tx, m, u01, ni))):
-        out = run(*args, precision="bf16x3")
-        ref = plain(*args, precision="bf16x3")
-        torch.cuda.synchronize()
-        torch.testing.assert_close(out, ref, rtol=RTOL, atol=ATOL)
+             (0, eq, sol, tx, m, u01, ni), kernels.PRECISIONS)):
+        for precision in modes:
+            out = run(*args, precision=precision)
+            ref = plain(*args, precision=precision)
+            torch.cuda.synchronize()
+            tol = ONE_PASS_TOL if precision == "default" else RTOL
+            torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
 
 
 def test_dispatch_takes_the_tensor_cores_by_default(cuda):
@@ -1186,6 +1200,109 @@ def test_merged_kernel_draws_equal_the_host_philox_at_ragged_shapes(
     torch.cuda.synchronize()
     tol = RTOL if precision == "bf16x3" else ONE_PASS_TOL
     torch.testing.assert_close(out[pts], ref, rtol=tol, atol=tol)
+
+
+# the integral kernel's ragged cases: B off the grid, an odd tile count
+# (4000: 63 tiles, the second warpgroup's last tile empty; 192: 3), nx = 7,
+# 100 and 511 (its normals in global scratch)
+INTEGRAL_RAGGED = [(131, 4000, 7), (4095, 1000, 100), (37, 192, 511)]
+
+
+@pytest.mark.parametrize("b,m,nx", INTEGRAL_RAGGED)
+@pytest.mark.parametrize("precision", kernels.PRECISIONS)
+@pytest.mark.parametrize("anti", [False, True])
+def test_integral_kernel_matches_plain_at_ragged_shapes(cuda, b, m, nx,
+                                                        precision, anti):
+    """The integral kernel in each mode against its plain version on the
+    same noise ("default" at chip_smoke's gates), and its "highest"
+    instance against its bf16x3 one (chip_smoke's HIGHEST_CONTROL)."""
+    eq, sol, tx, *_ = _problem(cuda, b, 1, nx)
+    rows = m // 2 if anti else m
+    g = torch.Generator(device=cuda).manual_seed(3)
+    u01 = torch.rand((b, rows, 1), generator=g, device=cuda)
+    ni = torch.randn((b, rows, nx), generator=g, device=cuda)
+    kw = dict(antithetic=anti, precision=precision)
+    n0 = kernels.INTEGRAL.mode_launches.get(precision, 0)
+    out = kernels.integral_with_gradients_cuda(0, eq, sol, tx, m, u01, ni,
+                                               **kw)
+    assert kernels.INTEGRAL.mode_launches[precision] == n0 + 1
+    ref = kernels.integral_with_gradients_plain(0, eq, sol, tx, m, u01, ni,
+                                                **kw)
+    torch.cuda.synchronize()
+    tol = RTOL if precision != "default" else ONE_PASS_TOL
+    if precision == "default" and b > 256:
+        # chip_smoke's wide gate: ONE_PASS_WIDE_TOL scaled by 4096 / m
+        # (8192 / m antithetic) at most ONE_PASS_SCALE_CAP times, and under
+        # ONE_PASS_CONTROL of the plain version's distance from its bf16x3
+        x3 = kernels.integral_with_gradients_plain(
+            0, eq, sol, tx, m, u01, ni, antithetic=anti, precision="bf16x3")
+        scale = min(max(1.0, (8192 if anti else 4096) / m),
+                    ONE_PASS_SCALE_CAP)
+        tol = min(ONE_PASS_WIDE_TOL * scale,
+                  ONE_PASS_CONTROL * float((x3 - ref).abs().max()))
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+    if precision == "highest":
+        # the six-pass instance against the three-pass one on the value
+        # column (weighted by Tt alone) at a short sum of samples, where the
+        # net's precision shows above the f32 sums, from the plain version
+        # in f64
+        rows = HIGHEST_CONTROL_M // 2 if anti else HIGHEST_CONTROL_M
+        u01, ni = u01[:, :rows].contiguous(), ni[:, :rows].contiguous()
+        s64 = Solution.from_net(copy.deepcopy(sol.module).double(), "Value",
+                                nx)
+        ref = kernels.integral_with_gradients_plain(
+            0, eq, s64, tx.double(), HIGHEST_CONTROL_M, u01.double(),
+            ni.double(), antithetic=anti)[:, 0]
+        d6, d3 = (float((kernels.integral_with_gradients_cuda(
+            0, eq, sol, tx, HIGHEST_CONTROL_M, u01, ni, antithetic=anti,
+            precision=mode)[:, 0].double() - ref).abs().max())
+            for mode in ("highest", "bf16x3"))
+        assert d6 < HIGHEST_CONTROL * d3, (d6, d3)
+
+
+@pytest.mark.parametrize("b,m,nx", INTEGRAL_RAGGED)
+@pytest.mark.parametrize("precision", kernels.PRECISIONS)
+@pytest.mark.parametrize("anti", [False, True])
+def test_integral_kernel_draws_equal_the_host_philox_at_ragged_shapes(
+        cuda, b, m, nx, precision, anti):
+    """Its own draws (the draw warps') at the first and last points equal
+    the host Philox's fed to the plain version, and the kernel gives the
+    same output twice."""
+    seed = (7 << 32) | 5
+    eq, sol, tx, *_ = _problem(cuda, b, 1, nx)
+    rows = m // 2 if anti else m
+    pts = [0, 1, b - 2, b - 1]
+
+    def host(a):
+        return torch.from_numpy(a).to(cuda)
+
+    u = host(philox.estimator_times(seed, pts, rows))
+    ni = host(philox.estimator_normals(seed, pts, rows, nx,
+                                       philox.STREAM_INTEGRAL))
+    kw = dict(antithetic=anti, precision=precision)
+    out = kernels.integral_with_gradients_cuda(seed, eq, sol, tx, m, **kw)
+    ref = kernels.integral_with_gradients_plain(0, eq, sol, tx[pts], m, u,
+                                                ni, **kw)
+    torch.cuda.synchronize()
+    tol = RTOL if precision != "default" else ONE_PASS_TOL
+    torch.testing.assert_close(out[pts], ref, rtol=tol, atol=tol)
+    assert torch.equal(out, kernels.integral_with_gradients_cuda(
+        seed, eq, sol, tx, m, **kw))
+
+
+@pytest.mark.parametrize("n_hidden", [0, 1, 4, 6])
+@pytest.mark.parametrize("precision", kernels.PRECISIONS)
+def test_integral_kernel_has_a_plan_at_every_nx(cuda, n_hidden, precision):
+    """The built integral kernel has a launch plan within a block's shared
+    memory at every nx the wrapper covers (up to 511) in every mode, with a
+    ring of 2 to 4 stages where there is a net and both buffers of normals
+    in shared memory at path B's nx = 100."""
+    for nx in range(1, 512):
+        plan = kernels.integral_tc_plan(nx, n_hidden, precision)
+        assert plan is not None and plan["smem_bytes"] <= 232448, nx
+        assert (2 <= plan["stages"] <= 4) if n_hidden else (
+            plan["stages"] == 0), nx
+    assert kernels.integral_tc_plan(100, n_hidden, precision)["dw_smem"]
 
 
 @pytest.mark.parametrize("n_hidden", [0, 1, 2, 4, 6])
