@@ -8,6 +8,8 @@
     python3 chip_smoke.py --hjb-epochs 15000  # path I's full budget
     python3 chip_smoke.py --fn-iterations 40  # path K's full budget
     python3 chip_smoke.py --dbdp-sub-iter recipe  # paths M, N in full
+    python3 chip_smoke.py --pinn-epochs 30000  # path O's full budget (also
+                                            # --hjb-pinn-epochs, --fn-pinn-epochs)
 
 Paths (the Burgers 100-d w1.0 recipe through ``PicardRunner`` at full
 width: nx=100, 4x128 ELU net, B=4096 points from the path's sampler; A-D
@@ -58,7 +60,19 @@ TRAIN.FUSED's "auto"):
      Adam) is one graph replay over a static working pair; every grid
      time's 150 sub-iterations cut to 10 (``--dbdp-sub-iter``);
   N  configs/hjb/fn_100d_T1.0.yaml, DBDP on the OU equation (4x512 net
-     pairs, 125 sub-iterations cut to 10).
+     pairs, 125 sub-iterations cut to 10);
+  O  configs/burgers/pinn_100d_T1.0_v16_beta10.0.yaml, the PINN-HTE
+     baseline (Hutchinson v = 16, beta 10, the 4x128 ELU net, B = 512),
+     read from configs/ by the port's YAML reader, as every PINN path: an
+     epoch (t, x, the probes and x_T drawn in the graph, the residual, a
+     third-order backward, Adam) is one graph replay; 3000 of its 30 000
+     epochs (``--pinn-epochs``);
+  P  configs/hjb/pinn_100d_T1.0_v16.yaml (the OU equation, the 4x512
+     PISGradNet enforcing the terminal value, Hutchinson v = 16): 500 of
+     20 000 epochs (``--hjb-pinn-epochs``);
+  Q  configs/fully_nonlinear/pinn_100d_T1.0_v16_beta10.0.yaml (GBM, SDGD
+     v = 100 drawn without replacement, the 3x64 net, beta 10): 1000 of
+     10 000 epochs (``--fn-pinn-epochs``).
 Each path's kernel launch counts are read around its run (every count set
 to 0 just before) and checked against its generation calls (A-D, F, G, K,
 L; the net kernels' also by precision mode), its epochs (E, I) or its
@@ -178,6 +192,23 @@ only when every phase passed):
      capturable Adams: the step count on the card, the bias correction in
      f32); beside it, measured and not gated, the difference from the
      eager loop with the host's f64 bias correction;
+ 19. paths O, P and Q: one graph replay per epoch, no eager launch of
+     any kernel of the port (none runs on them, as in the JAX package) and
+     no rollout event in the traced second interval; ms per epoch, the
+     traced interval's device idle share, peak device memory; the final
+     rRMSE under 1.5x the JAX package's own at the same cut on the CPU
+     (``PINN_PATHS``); 3 captured epochs against the same epochs run
+     eagerly on the same seeds, within 1e-5 of the parameters;
+ 20. RESUME: path E at 3 log intervals killed after the first and
+     continued with RESUME true, path A at 3 iterations stopped after the
+     second and continued: the final parameters within 1e-6 of an
+     uninterrupted run's;
+ 21. ``cli evaluate`` on path A's experiment dir: the 10^6-sample MC
+     self-consistency check at (0, 0) for iterations 0-3, and its L2
+     sweeps (``plots=False``); iteration 0 (the zero or g ansatz) of paths
+     A, H and K within 5 sqrt(2) of the record's standard error from the
+     JAX package's records (``MC_RECORDS``), H's u_net(0, 0) = g(0) the
+     record's; no kernel launched;
  11. kernel, plain-version and library times at the paths' shapes, and
      each kernel's bound, printed as one ``{"kernels": [...]}`` JSON line
      (the net kernels with a row per precision mode, timed in turns in
@@ -531,6 +562,38 @@ DBDP_ROLLOUT = (50, 512, 100)  # K, B, nx of the DBDP recipes' paths
 # 1.147e-05 on an H100 at 700 W; Adam's arithmetic on the card is held to
 # optax's in tests/test_torch_gpu.py.)
 DBDP_CAPTURED_REL = 1e-5
+# Paths O, P, Q: the three PINN-HTE recipes, read from configs/ by the
+# port's YAML reader, cut in epochs (--pinn-epochs, --hjb-pinn-epochs,
+# --fn-pinn-epochs). Each final rRMSE limit, fixed before the paths' first
+# run on the card, is PINN_RRMSE_FACTOR times the JAX package's own last
+# eval rRMSE at the same cut on the CPU (JAX_PLATFORMS=cpu python -m
+# deeppicarditeration_tpu.cli train <recipe> TRAIN.N_EPOCHS <cut>; one run
+# each, seed 0): path -> (recipe, epochs, the JAX CPU rRMSE).
+PINN_PATHS = {
+    "O": ("configs/burgers/pinn_100d_T1.0_v16_beta10.0.yaml", 3000,
+          0.11758634448051453),
+    "P": ("configs/hjb/pinn_100d_T1.0_v16.yaml", 500, 0.35542911291122437),
+    "Q": ("configs/fully_nonlinear/pinn_100d_T1.0_v16_beta10.0.yaml", 1000,
+          0.0588320828974247),
+}
+PINN_RRMSE_FACTOR = 1.5
+# captured PINN epochs against the same epochs run eagerly on the card
+# (the same kernels), both with capturable Adams, on the parameters
+PINN_CAPTURED_REL = 1e-5
+PINN_CAPTURED_EPOCHS = 3
+# a run stopped and continued under RESUME against an uninterrupted one,
+# on the final parameters (phase 20)
+RESUME_REL = 1e-6
+# Phase 21: iteration 0 (the zero or g ansatz: no trained net) of the
+# 10^6-sample MC self-consistency check at (0, 0) against the JAX
+# package's records of the same protocol (scripts/run_mc_eval.py, the
+# flagship recipes of paths A, H and K at seed 0; their standard error
+# from 16 replicas), within MC_SIGMAS of the record's SE
+MC_RECORDS = {"A": "bench_results/burgers100d_w1_mc_at_zero.jsonl",
+              "H": "bench_results/hjb100d_w0.1_mc_at_zero.jsonl",
+              "K": "bench_results/fn100d_case1_mc_at_zero.jsonl"}
+MC_N = 10 ** 6
+MC_SIGMAS = 5 * math.sqrt(2)
 
 # NVIDIA's data sheet for the H100 SXM (dense, at 700 W): FP32 FLOP/s
 # outside the tensor cores, and HBM3 bytes/s
@@ -678,17 +741,21 @@ def _device_ms(fn, kernel: str, reps: int):
 
 
 @contextlib.contextmanager
-def _traced_block(runner, nth: int):
+def _traced_block(runner, nth: int, summary=None):
     """Traces the ``nth`` block that the baselines time
-    (``baselines.Timer``: an eval interval of D-DBSDE, a grid time of
-    DBDP) inside ``runner.run()`` (torch.profiler, CUDA activity). Yields
-    a dict that then holds the graph replays in that block (``replays``)
-    and the rollout kernel's device events in its trace (``launches``)."""
+    (``baselines.Timer``: an eval interval of D-DBSDE and PINN, a grid time
+    of DBDP) inside ``runner.run()`` (torch.profiler, CUDA activity).
+    Yields a dict that then holds the graph replays in that block
+    (``replays``) and the rollout kernel's device events in its trace
+    (``launches``); with ``summary`` = (name, units) also
+    ``utils/fit_trace.py:summarize``'s reading of the block (device busy
+    ms, idle share, kernels) per unit (an epoch)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from deeppicarditeration_torch.ops import kernels
     from deeppicarditeration_torch.training import baselines
+    from deeppicarditeration_torch.utils import fit_trace
 
     seen = {"n": 0, "replays": 0, "launches": 0}
     timer = baselines.Timer
@@ -711,6 +778,11 @@ def _traced_block(runner, nth: int):
                 seen["replays"] = runner.graph_replays - self._replays
                 seen["launches"] = kernels.trace_launches(
                     self._prof, kernels.ROLLOUT_KERNEL)
+                if summary is not None:
+                    seen["summary"] = fit_trace.summarize(
+                        self._prof, self.ms, summary[1], "epoch",
+                        summary[0], ROOT / "build" / "chip_smoke_runs"
+                        / "traces")
             return False
 
     baselines.Timer = Traced
@@ -1886,6 +1958,282 @@ def _run_diffusion(epochs: int, path: str = "E"):
     return runner, launches, statistics.median(per_epoch), traced
 
 
+def pinn_cfg(path: str, epochs: int = None, overrides=()):
+    """Path O, P or Q: its recipe read from configs/ by the port's own YAML
+    reader (``config.load_cfg``), cut to ``epochs`` (default: the path's)."""
+    from deeppicarditeration_torch.config import load_cfg
+
+    recipe, cut, _ = PINN_PATHS[path]
+    return load_cfg(ROOT / recipe, ["TRAIN.N_EPOCHS", str(epochs or cut)]
+                    + list(overrides))
+
+
+def pinn_captured_vs_eager(runner, epochs: int = PINN_CAPTURED_EPOCHS):
+    """Max over the parameters of |captured - eager| / max |eager| after
+    ``epochs`` PINN epochs from the same weights and seeds: one through the
+    epoch's graph (``FusedStep``), one running its body eagerly, both with
+    capturable Adams. ``runner``: a PicardRunner on the card."""
+    import copy
+
+    import torch
+
+    from deeppicarditeration_torch.models.factory import init_solution
+    from deeppicarditeration_torch.training import baselines
+
+    runner.i = 1
+    module = init_solution(runner.cfg, runner.equation, runner.device,
+                           torch.Generator().manual_seed(0)).module
+    twin = copy.deepcopy(module)
+    out = []
+    for mod, replay in ((module, True), (twin, False)):
+        opt = baselines.pinn_optimizer(runner, mod)
+        fused, gens = baselines.pinn_fused_step(runner, mod, opt)
+        for epoch in range(epochs):
+            baselines.seed_epoch(runner, gens, epoch)
+            if replay:
+                fused()
+            else:
+                fused.body()
+        if fused.replays != (epochs if replay else 0):
+            _fail(f"PINN captured vs eager: {fused.replays} replays")
+        out.append([p.detach().clone() for p in mod.parameters()])
+    torch.cuda.synchronize()
+    return max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+               for a, b in zip(*out))
+
+
+def _run_pinn(path: str, epochs: int):
+    """Phase 19: path O, P or Q through the CLI's runner, its recipe read
+    from configs/; returns (runner, median ms per epoch, final rRMSE, peak
+    GiB, the traced interval's summary)."""
+    import torch
+
+    from deeppicarditeration_torch.ops import kernels
+    from deeppicarditeration_torch.training.picard import PicardRunner
+
+    cfg = pinn_cfg(path, epochs)
+    freq = int(cfg.EVAL.FREQ)
+    runner = PicardRunner(cfg, exp_root=ROOT / "build" / "chip_smoke_runs"
+                          / path)
+    for lib in kernels.ALL:
+        lib.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with _traced_block(runner, 2, (f"pinn_{path}", freq)) as traced:
+        runner.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    launches = {lib.source.stem: lib.launches for lib in kernels.ALL}
+    if (any(launches.values()) or runner.graph_replays != epochs
+            or len(runner.fused_steps) != 1 or traced["launches"]):
+        _fail(f"path {path}: eager launches {launches}, rollout events "
+              f"{traced['launches']}, {runner.graph_replays} graph replays "
+              f"of {len(runner.fused_steps)} graphs; want none, none and "
+              f"{epochs} of one")
+    if traced["replays"] != freq:
+        _fail(f"path {path}: the second eval interval held "
+              f"{traced['replays']} graph replays, want {freq}")
+    per_epoch = [tm["interval_ms"] / tm["epochs"] for tm in runner.timings]
+    q = statistics.quantiles(per_epoch, n=4)
+    sm = traced["summary"]
+    rows = [json.loads(ln) for ln in
+            (runner.exp_dir / "metrics.jsonl").read_text().splitlines()]
+    evals = [r for r in rows if r["context"] == "eval"]
+    step = max(1, len(evals) // 10)
+    print(f"path {path} ({PINN_PATHS[path][0]}, read by the port's YAML "
+          f"reader): {epochs} epochs in {wall:.1f} s, one graph replay per "
+          f"epoch ({runner.graph_replays}), no eager kernel launch "
+          f"({launches}); ms per epoch (CUDA events per {freq}-epoch "
+          f"interval) median {statistics.median(per_epoch):.3f}, quartiles "
+          f"{q[0]:.3f}-{q[2]:.3f}, first interval {per_epoch[0]:.3f}; the "
+          f"second interval traced: {sm['kernels_per_epoch']:.0f} kernels, "
+          f"{sm['device_ms_per_epoch']:.3f} device ms and "
+          f"{sm['host_ms_per_epoch']:.3f} host ms per epoch, device idle "
+          f"{sm['device_idle_share']:.1%}; peak device memory {peak:.2f} "
+          f"GiB above the {held / 2 ** 30:.2f} GiB held before it")
+    print(f"path {path} rRMSE by epoch: " + ", ".join(
+        f"{r['step'] + 1}: {r['rRMSE']:.4f}" for r in evals[step - 1::step]))
+    r = evals[-1]["rRMSE"]
+    jax_cpu = PINN_PATHS[path][2]
+    limit = PINN_RRMSE_FACTOR * jax_cpu
+    print(f"path {path} final rRMSE {r}, rRMSEg {evals[-1].get('rRMSEg')} "
+          f"(the JAX package on the CPU at this cut: {jax_cpu}; limit "
+          f"{limit:.6f})")
+    if r is None or not math.isfinite(r) or r > limit:
+        _fail(f"path {path} final rRMSE {r} (want finite and <= {limit})")
+    rel = pinn_captured_vs_eager(PicardRunner(
+        cfg, exp_root=ROOT / "build" / "chip_smoke_runs" / f"{path}_eager"))
+    print(f"path {path}: {PINN_CAPTURED_EPOCHS} captured epochs against "
+          f"the same epochs run eagerly: max relative difference of the "
+          f"parameters {rel:.3e} (limit {PINN_CAPTURED_REL})")
+    if not rel <= PINN_CAPTURED_REL:
+        _fail(f"path {path}: captured epochs differ from eager ones by "
+              f"{rel:.3e}")
+    return runner, statistics.median(per_epoch), r, peak, sm
+
+
+class _Stop(Exception):
+    """A run's kill, for the RESUME phase."""
+
+
+@contextlib.contextmanager
+def _killed_after(intervals: int):
+    """A baseline run killed in the periodic save after ``intervals`` log
+    intervals: the state and meta on disk are then that interval's."""
+    from deeppicarditeration_torch.training import checkpoint
+
+    real, calls = checkpoint.save_state, []
+
+    def save_state(*args):
+        calls.append(1)
+        if len(calls) > intervals:
+            raise _Stop
+        real(*args)
+
+    checkpoint.save_state = save_state
+    try:
+        yield
+    finally:
+        checkpoint.save_state = real
+
+
+def _rel_params(a_path, b_path) -> float:
+    """Max over the tensors of two ``model_{i}`` files of |a - b| / max|a|."""
+    from deeppicarditeration_torch.training import checkpoint
+
+    a, b = checkpoint.read(a_path), checkpoint.read(b_path)
+    if a.keys() != b.keys():
+        _fail(f"{a_path} and {b_path} hold different tensors")
+    return max(float((a[k] - b[k]).abs().max()
+                     / a[k].abs().max().clamp_min(1e-30)) for k in a)
+
+
+def _resume_phase(runner_a, n_iter: int) -> dict:
+    """Phase 20: RESUME on the card. Path E at 3 log intervals, killed after
+    the first and continued with RESUME true, against an uninterrupted
+    run; path A at 3 iterations, stopped after the second and continued,
+    against phase 4's run (or an uninterrupted one where it ran fewer
+    iterations). Returns the two distances."""
+    from deeppicarditeration_torch.training.picard import PicardRunner
+
+    root = ROOT / "build" / "chip_smoke_runs" / "resume"
+    epochs = 3 * int(path_cfg("E").EVAL.FREQ)
+    whole = PicardRunner(path_cfg("E", epochs=epochs),
+                         exp_root=root / "E_whole")
+    whole.run()
+    try:
+        with _killed_after(1):
+            PicardRunner(path_cfg("E", epochs=epochs),
+                         exp_root=root / "E").run()
+        _fail("RESUME phase: the killed run of path E was not killed")
+    except _Stop:
+        pass
+    resumed = PicardRunner(path_cfg("E", epochs=epochs,
+                                    overrides=["RESUME", "true"]),
+                           exp_root=root / "E")
+    resumed.run()
+    dist = {"E": _rel_params(whole.exp_dir / "model_1",
+                             resumed.exp_dir / "model_1")}
+    replays_e = resumed.graph_replays
+    ref = runner_a
+    if n_iter < 3:
+        ref = PicardRunner(path_cfg("A", 3), exp_root=root / "A_whole")
+        ref.run()
+    cut = PicardRunner(path_cfg("A", 3), exp_root=root / "A")
+    cut.run_one()
+    cut.run_one()
+    cut.logger.close()
+    resumed = PicardRunner(path_cfg("A", 3, overrides=["RESUME", "true"]),
+                           exp_root=root / "A")
+    start = resumed.i
+    resumed.run()
+    dist["A"] = _rel_params(ref.exp_dir / "model_3",
+                            resumed.exp_dir / "model_3")
+    print(f"RESUME: path E ({epochs} epochs, killed after the first "
+          f"{epochs // 3}-epoch interval, continued with {replays_e} graph "
+          f"replays): final parameters {dist['E']:.3e} from an "
+          f"uninterrupted run; path A (3 iterations, stopped after 2, "
+          f"continued from iteration {start}): {dist['A']:.3e} (limit "
+          f"{RESUME_REL})")
+    if replays_e != epochs - epochs // 3 or start != 2:
+        _fail(f"RESUME: path E continued with {replays_e} replays, path A "
+              f"from iteration {start}")
+    if not max(dist.values()) <= RESUME_REL:
+        _fail(f"RESUME: a continued run differs from an uninterrupted one "
+              f"by {dist}")
+    return dist
+
+
+def _mc_record(path: str) -> dict:
+    """Iteration 0's row of the JAX package's MC record of path's recipe."""
+    with open(ROOT / MC_RECORDS[path]) as f:
+        return next(r for r in map(json.loads, f) if r["iter"] == 0)
+
+
+def _evaluate_phase(runners: dict, n_iter: int) -> dict:
+    """Phase 21: ``cli evaluate`` on path A's experiment dir (the 10^6-sample
+    MC check at (0, 0), iterations 0..n_iter) and its L2 sweeps
+    (``l2(..., plots=False)``: no matplotlib on the card); iteration 0 of
+    paths A, H and K against the JAX package's records. Returns
+    {path: (u_mc_at_zero, its distance from the record in record SEs)}."""
+    from deeppicarditeration_torch import cli
+    from deeppicarditeration_torch.evaluation.experiment import (
+        ExperimentEvaluator,
+    )
+    from deeppicarditeration_torch.ops import kernels
+
+    for lib in kernels.ALL:
+        lib.launches = 0
+    out = ROOT / "build" / "chip_smoke_runs" / "evaluate.jsonl"
+    out.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    rc = cli.main(["evaluate", str(runners["A"].exp_dir), "--n-estimate",
+                   str(MC_N), "--out", str(out)])
+    t_mc = time.perf_counter() - t0
+    recs = [json.loads(ln) for ln in out.read_text().splitlines()]
+    if rc != 0 or [r["iter"] for r in recs] != list(range(n_iter + 1)) or \
+            not all(math.isfinite(r["u_mc_at_zero"]) for r in recs):
+        _fail(f"cli evaluate on path A: rc {rc}, records {recs}")
+    print(f"cli evaluate, path A ({MC_N} samples, iterations 0-{n_iter}, "
+          f"{t_mc:.1f} s): " + ", ".join(
+              f"{r['iter']}: u_net {r['u_net_at_zero']:.6f}, MC "
+              f"{r['u_mc_at_zero']:.6f}" for r in recs))
+    t0 = time.perf_counter()
+    l2 = ExperimentEvaluator(runners["A"].exp_dir, MC_N, MC_N).l2(
+        FINAL_EVAL_POINTS, plots=False)
+    if not all(math.isfinite(r["l2_td"]) and math.isfinite(r["l2_t0"])
+               for r in l2):
+        _fail(f"evaluate's L2 sweeps on path A: {l2}")
+    print(f"L2 sweeps, path A ({FINAL_EVAL_POINTS} points, "
+          f"{time.perf_counter() - t0:.1f} s): {l2}")
+    zero = {"A": recs[0]}
+    for p in ("H", "K"):
+        zero[p] = ExperimentEvaluator(runners[p].exp_dir, MC_N, MC_N) \
+            .monte_carlo_at_zero([0])[0]
+    result = {}
+    for p, rec in zero.items():
+        want = _mc_record(p)
+        se = want["mc_se_at_zero"]
+        z = abs(rec["u_mc_at_zero"] - want["u_mc_at_zero"]) / se
+        net_ok = abs(rec["u_net_at_zero"] - want["u_net_at_zero"]) <= \
+            1e-5 * max(1.0, abs(want["u_net_at_zero"]))
+        print(f"evaluate, path {p} iteration 0: u_net(0,0) "
+              f"{rec['u_net_at_zero']:.6f} (record "
+              f"{want['u_net_at_zero']:.6f}), MC {rec['u_mc_at_zero']:.6f} "
+              f"against the record's {want['u_mc_at_zero']:.6f} "
+              f"({MC_RECORDS[p]}): {z:.2f} record SEs (limit "
+              f"{MC_SIGMAS:.2f})")
+        if not (z <= MC_SIGMAS and net_ok):
+            _fail(f"evaluate, path {p} iteration 0 off the JAX record")
+        result[p] = (rec["u_mc_at_zero"], z)
+    launches = {lib.source.stem: lib.launches for lib in kernels.ALL}
+    if any(launches.values()):
+        _fail(f"the evaluate phase launched kernels: {launches}")
+    return result
+
+
 def _expect_launches(path, runner, launches, seen, want):
     """Fail unless every kernel launched exactly ``want`` times (0 where not
     named), the net kernels all in the path's precision mode, and the
@@ -2067,6 +2415,13 @@ def main(argv=None) -> int:
                     help=f"sub-iterations per grid time of paths M and N "
                          f"(default {DBDP_SUB_ITER}; 'recipe': the recipes' "
                          f"own, 150 and 125)")
+    for flag, path, own in (("--pinn-epochs", "O", 30000),
+                            ("--hjb-pinn-epochs", "P", 20000),
+                            ("--fn-pinn-epochs", "Q", 10000)):
+        ap.add_argument(flag, type=int, default=PINN_PATHS[path][1],
+                        help=f"epochs of path {path} (default "
+                             f"{PINN_PATHS[path][1]}, at which its rRMSE "
+                             f"limit was set; the recipe's own is {own})")
     args = ap.parse_args(argv)
     import torch
 
@@ -2465,6 +2820,17 @@ def main(argv=None) -> int:
     # ---- 18. captured DBDP against the eager loop -------------------------
     dbdp_rel, dbdp_rel_host = _captured_dbdp_vs_eager("M")
 
+    # ---- 19. paths O, P, Q: the PINN-HTE recipes, read from configs/ ------
+    pinn = {p: _run_pinn(p, n) for p, n in (("O", args.pinn_epochs),
+                                            ("P", args.hjb_pinn_epochs),
+                                            ("Q", args.fn_pinn_epochs))}
+
+    # ---- 20. RESUME on the card --------------------------------------------
+    _resume_phase(runner_a, n_iter)
+
+    # ---- 21. cli evaluate on the card ---------------------------------------
+    _evaluate_phase({"A": runner_a, "H": runner_h, "K": runner_k}, n_iter)
+
     # ---- 11. times and bounds at the paths' shapes -------------------------
     neurons = sol.module.neurons
     n_weights = sum(p.numel() for p in sol.module.parameters())
@@ -2715,6 +3081,10 @@ def main(argv=None) -> int:
           f"of {runner_i.graph_replays} graph replays (traced: "
           f"{traced_i['launches']} in {traced_i['replays']}; K="
           f"{int(runner_i.cfg.METHOD.K)}), first interval {per_i[0]:.3f} ms")
+    print("paths O, P, Q (PINN): " + "; ".join(
+        f"{p} {ms:.3f} ms per epoch, idle {sm['device_idle_share']:.1%}, "
+        f"peak {peak:.2f} GiB, rRMSE {r:.4f}"
+        for p, (_, ms, r, peak, sm) in pinn.items()))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           f"card check")
     print(json.dumps({"kernels": rows}))

@@ -2,9 +2,11 @@
 
 The port's own copy of ``deeppicarditeration_tpu/config.py`` (the port
 imports nothing of the JAX package). It loads the same recipe files to the
-same tree, plus one port key, ``DEVICE`` (default ``"cuda"``). PyYAML is
-imported inside ``load_cfg`` only, so a config built in code needs no YAML
-package; ``Config.dump`` writes JSON, which YAML reads.
+same tree, plus one port key, ``DEVICE`` (default ``"cuda"``). The files
+are read by the port's own reader of their YAML subset
+(``yaml_subset.py``, what ``yaml.safe_load`` returns on them), so no YAML
+package is needed; ``Config.dump`` writes JSON, which that reader and
+YAML read.
 
 Semantics (as in the JAX package): configs may point at a parent file via
 ``BASE:``; chains are resolved deep -> shallow; ``NAME`` fields are
@@ -25,6 +27,8 @@ import copy
 import json
 import pathlib
 from typing import Any, Dict, List, Optional
+
+from deeppicarditeration_torch import yaml_subset
 
 
 class FrozenConfigError(AttributeError):
@@ -189,7 +193,7 @@ def default_cfg() -> Config:
     c = Config()
     c.BASE = None
     c.FORCE = False
-    c.RESUME = False  # continue from the latest model_{i} (not ported yet)
+    c.RESUME = False  # continue from the latest model_{i}
     c.NAME = "exp"
     c.SEED = 0
     # Port-only key: the torch device entry points run on ("cuda" | "cpu").
@@ -373,10 +377,8 @@ def _normalize_none(obj):
 
 
 def _read_yaml(path: pathlib.Path) -> Dict[str, Any]:
-    import yaml  # here, not at module level: the card's machine lacks it
-
-    with open(path) as f:
-        return _normalize_none(yaml.safe_load(f) or {})
+    return _normalize_none(
+        yaml_subset.safe_load(pathlib.Path(path).read_text()) or {})
 
 
 def load_cfg(cfg_file, override: Optional[List[str]] = None) -> Config:

@@ -98,6 +98,12 @@ class EquationMethods:
         """Nonlinearity with sampled diagonal-Hessian entries (SDGD)."""
         raise NotImplementedError
 
+    def pinn_function(self, t, x, u, u_t, u_x, u_xx):
+        """The PINN residual u_t + alpha/2 Lap u + ff(t, x, u, u_x), with
+        ``u_xx`` the (estimated) Laplacian; the fully nonlinear equations
+        override it with their SDGD form."""
+        return u_t + 0.5 * self.alpha * u_xx + self.ff(t, x, u, u_x)
+
     # --- forward SDE ------------------------------------------------------
     def transition(self, generator: torch.Generator, t, s, x):
         """X_s = x + sqrt(s-t) sqrt(a) dW with dW ~ N(0, I); returns

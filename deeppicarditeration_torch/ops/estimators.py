@@ -26,8 +26,10 @@ estimators, as in the JAX package: their nonlinearity reads the frozen
 net's Hessian diagonal at SDGD-sampled indices (``sdgd_v``), through the
 second-order backprop of ``ops/derivatives.py`` (``hess_store``). Not yet
 ported (later slices): TD estimators, Hessian targets (the
-``*_and_hessians`` estimators of TRAIN.SUPERVISE_HESSIAN), the two-layer
-formula and the value-only mode.
+``*_and_hessians`` estimators of TRAIN.SUPERVISE_HESSIAN) and the two-layer
+formula. The value-only estimators (``estimate_terminal``,
+``estimate_integral``, ``generate_values``) serve the Monte-Carlo
+self-consistency evaluator; generation in value mode is not wired yet.
 """
 
 from __future__ import annotations
@@ -63,10 +65,7 @@ from deeppicarditeration_torch.ops.kernels import (
     pis_covers,
     terminal_with_gradients_cuda,
 )
-from deeppicarditeration_torch.ops.samplers import (
-    sample_t_picard,
-    sample_t_uniform,
-)
+from deeppicarditeration_torch.ops.samplers import sample_t_uniform
 from deeppicarditeration_torch.ops.summation import KahanAcc
 
 # Floor on (s - t) wherever it appears under 1/sqrt: in f32 the uniform
@@ -221,6 +220,80 @@ def _sdgd_indices(seed: int, shape, nx: int, device) -> torch.Tensor:
     return torch.randint(0, nx, tuple(shape),
                          generator=make_generator(device, seed),
                          device=device)
+
+
+# ---------------------------------------------------------------------------
+# value-only estimators (the Monte-Carlo self-consistency evaluator's)
+# ---------------------------------------------------------------------------
+
+def estimate_terminal(seed: int, eq, tx: torch.Tensor, gen: GenConfig,
+                      noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """E g(X_T) per point, (B, 1): chunks of the M samples, Kahan over the
+    chunks; dW from ``_draw_normals`` (``noise`` (B, M, nx) replaces the
+    draws). No antithetic pairing and no control variate, as in the JAX
+    package's value mode."""
+    t, x = tx[:, :1], tx[:, 1:]
+    b, nx = x.shape
+    m = gen.n_estimate_terminal
+    mc = gen.chunk(m, b, nx)
+    sqrt_Tt = torch.sqrt(eq.T - t)
+
+    def chunk_sum(ck_seed, ck):
+        dW = (_draw_normals(gen, ck_seed, (b, mc, nx), tx.device)
+              if noise is None else noise[:, ck * mc:(ck + 1) * mc])
+        XT = x[:, None, :] + sqrt_Tt[:, None, :] * eq.alpha_sqrt * dW
+        return torch.sum(eq.g(XT), dim=1)
+
+    return _scan_mean(seed, m, mc, (b, 1), chunk_sum, tx)
+
+
+def estimate_integral(seed: int, eq, sol: Solution, tx: torch.Tensor,
+                      gen: GenConfig, u01: Optional[torch.Tensor] = None,
+                      noise: Optional[torch.Tensor] = None,
+                      hess_idx: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """E (T - t) f(s, X_s, u_k(s, X_s), ...), s ~ U[t, T], per point,
+    (B, 1), with f from ``get_f`` (so every family works: SDGD indices,
+    with replacement, under ``gen.sdgd_v``; Hutchinson probes for a
+    Laplacian term). ``u01`` (B, M, 1), ``noise`` (B, M, nx) and
+    ``hess_idx`` (B, M, v) replace the draws. No 1/sqrt(s - t) weight
+    here, so no ``_ST_FLOOR``: sqrt(s - t) is 0 at s = t, as in the JAX
+    package."""
+    t, x = tx[:, :1], tx[:, 1:]
+    b, nx = x.shape
+    m = gen.n_estimate_integral
+    mc = gen.chunk(m, b, nx, _act_width(sol))
+    Tt = eq.T - t
+
+    def chunk_sum(ck_seed, ck):
+        rows = slice(ck * mc, (ck + 1) * mc)
+        uh = (torch.rand((b, mc, 1), dtype=x.dtype, device=x.device,
+                         generator=make_generator(x.device, ck_seed, 0))
+              if u01 is None else u01[:, rows])
+        s = t[:, None, :] + uh * Tt[:, None, :]
+        dW = (_draw_normals(gen, derive_seed(ck_seed, 1), (b, mc, nx),
+                            x.device) if noise is None else noise[:, rows])
+        Xs = x[:, None, :] + torch.sqrt(s - t[:, None, :]) * eq.alpha_sqrt * dW
+        idx = None
+        if _sdgd_active(eq, gen):
+            idx = (_sdgd_indices(derive_seed(ck_seed, 2), (b, mc, gen.sdgd_v),
+                                 nx, x.device) if hess_idx is None
+                   else hess_idx[:, rows])
+        f = get_f(eq, sol, s, Xs, hess_indices=idx,
+                  hutchinson_generator=_probe_generator(eq, x.device,
+                                                        ck_seed, 3),
+                  hess_store=gen.hess_store)
+        return torch.sum(Tt[:, None, :] * f, dim=1)
+
+    return _scan_mean(seed, m, mc, (b, 1), chunk_sum, tx)
+
+
+def generate_values(seed: int, eq, sol: Solution, tx: torch.Tensor,
+                    gen: GenConfig) -> torch.Tensor:
+    """(B, 1) value targets of the frozen iterate ``sol``: the terminal and
+    integral estimates from derive_seed(seed, 1) and (seed, 2)."""
+    return (estimate_terminal(derive_seed(seed, 1), eq, tx, gen)
+            + estimate_integral(derive_seed(seed, 2), eq, sol, tx, gen))
 
 
 # ---------------------------------------------------------------------------
@@ -483,7 +556,9 @@ def sample_tx(generator: torch.Generator, eq, n_batch: int, gen: GenConfig,
         t = sample_t_uniform(generator, n_batch, eq.T, gen.t_uniform_eps,
                              dtype, device)
     else:
-        t = sample_t_picard()
+        raise NotImplementedError(
+            "generation with DATA.kwargs.t_always_uniform false (the Picard "
+            "power law at the iteration's factor count) is not ported yet")
     x = eq.sample_x(generator, t)
     return torch.cat([t, x], dim=-1)
 

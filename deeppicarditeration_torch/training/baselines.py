@@ -1,8 +1,13 @@
-"""Baseline solvers: D-DBSDE (Diffusion) and DBDP (FullyNonlinearSolver).
+"""Baseline solvers: PINN-HTE (PINN), D-DBSDE (Diffusion) and DBDP
+(FullyNonlinearSolver).
 
 Counterpart of ``deeppicarditeration_tpu/training/baselines.py``,
-dispatched by METHOD.cls from ``PicardRunner.run_one``. The PINN-HTE
-baseline comes with a later slice.
+dispatched by METHOD.cls from ``PicardRunner.run_one``.
+
+A PINN epoch (t, x, the Hutchinson probes or the SDGD indices and x_T from
+per-epoch generators, the residual through second-order operators that
+keep the graph to the parameters, a third-order backward, the Adam step)
+is one CUDA-graph replay on the card, as a D-DBSDE epoch is.
 
 The JAX package fuses each log interval of epochs into one ``lax.scan``
 dispatch, always. Here each D-DBSDE epoch (its draws from per-epoch
@@ -19,8 +24,9 @@ Random streams: the JAX package folds the epoch into the iteration's key and
 splits it four ways (t0, x0, paths, x_T); here each is a ``torch.Generator``
 seeded from ``derive_seed(SEED, iteration, epoch, purpose)``, and the
 rollout kernel takes a seed of the same form (a ``kernels.SeedTable``
-filled with a log interval's seeds in one copy). RESUME stays rejected by
-the runner.
+filled with a log interval's seeds in one copy). So a run continued under
+RESUME from its periodic ``{model, optimizer}`` state draws what an
+uninterrupted run draws (``_baseline_loop``).
 
 DBDP (``train_dbdp``) sweeps the time grid backward with a value net and a
 gradient net per grid time, each pair with its own Adam kept across epochs;
@@ -61,12 +67,20 @@ from deeppicarditeration_torch.models.factory import (
 )
 from deeppicarditeration_torch.models.solution import Solution
 from deeppicarditeration_torch.ops import kernels
+from deeppicarditeration_torch.ops.derivatives import (
+    diag_hessian_entries,
+    exact_laplacian,
+    full_hessian,
+    hutchinson_laplacian,
+    rademacher_probes,
+)
 from deeppicarditeration_torch.ops.rollout import brownian_paths
 from deeppicarditeration_torch.training import checkpoint as ckpt
 from deeppicarditeration_torch.training.fused import FusedStep
 from deeppicarditeration_torch.training.trainer import reset_optimizer
 
-# derive_seed(SEED, iteration, epoch, purpose): the epoch's draws
+# derive_seed(SEED, iteration, epoch, purpose): the epoch's draws (PINN's
+# Hutchinson probes or SDGD indices under PATHS)
 T0, X0, PATHS, XT, EVAL = range(5)
 # the baselines' fixed optimizer, optax.adam(1e-3) in the JAX package
 BASELINE_LR = 1e-3
@@ -77,12 +91,154 @@ def run_baseline(runner):
     if method == "Diffusion":
         return train_diffusion(runner)
     if method == "PINN":
-        raise NotImplementedError(
-            "the PINN baseline is not ported yet; it comes with the "
-            "baselines slice")
+        return train_pinn(runner)
     if method == "FullyNonlinearSolver":
         return train_dbdp(runner)
     raise ValueError(f"Unknown baseline {method!r}")
+
+
+# ---------------------------------------------------------------------------
+# PINN-HTE
+# ---------------------------------------------------------------------------
+
+def sdgd_without_replacement(generator: torch.Generator, b: int, nx: int,
+                             v: int, device) -> torch.Tensor:
+    """(b, v) distinct indices in [0, nx) per row, uniform: the first v
+    of a uniform random permutation (the argsort of uniforms), which a
+    CUDA graph can hold (``torch.randperm`` is not batched)."""
+    u = torch.rand((b, nx), generator=generator, device=device)
+    return torch.argsort(u, dim=-1)[:, :v]
+
+
+def pinn_residual(eq, sol: Solution, t, x, indices=None, probes=None):
+    """The PDE residual at (t, x), on the graph to the parameters: the value
+    and its (t, x) gradient, then for an equation with a Hessian term the
+    diagonal entries at ``indices`` (b, v) (SDGD) or the full Hessian's
+    diagonal, else the Hutchinson Laplacian over ``probes`` (v, b, nx) or
+    the exact one (``probes`` None)."""
+    tx = torch.cat([t, x], dim=-1)
+    u, g_tx = sol.value_and_grad_tx(tx, create_graph=True)
+    u_t, u_x = g_tx[:, 0:1], g_tx[:, 1:]
+    if eq.has_hessian_term:
+        if indices is not None:
+            u_ii = diag_hessian_entries(sol, t, x, indices, create_graph=True)
+        else:
+            u_ii = torch.diagonal(full_hessian(sol, t, x, create_graph=True),
+                                  dim1=-2, dim2=-1)
+        return eq.pinn_function(t, x, u, u_t, u_x, u_ii)
+    if probes is not None:
+        lap = hutchinson_laplacian(None, sol, t, x, probes.shape[0],
+                                   probes=probes, create_graph=True)
+    else:
+        lap = exact_laplacian(sol, t, x, create_graph=True)
+    return eq.pinn_function(t, x, u, u_t, u_x, lap)
+
+
+def pinn_loss(sol: Solution, eq, t, x, xT, terminal_weight: float,
+              indices=None, probes=None):
+    """mean(residual^2) + ``terminal_weight`` * mean((u(T, x_T) - g(x_T))^2)
+    (``xT`` unused at weight 0)."""
+    res = pinn_residual(eq, sol, t, x, indices, probes)
+    loss = torch.mean(res ** 2)
+    if terminal_weight > 0.0:
+        T = torch.full_like(xT[:, :1], eq.T)
+        uT = sol.value(torch.cat([T, xT], dim=-1))
+        loss = loss + terminal_weight * torch.mean((uT - eq.g(xT)) ** 2)
+    return loss
+
+
+def pinn_generators(runner, sdgd_v, num_v: int) -> dict:
+    """The PINN epoch's generators on the runner's device, by purpose: t
+    (T0), x (X0), x_T (XT) and, where drawn, the SDGD indices or the
+    Hutchinson probes (PATHS); ``seed_epoch`` seeds them for an epoch."""
+    purposes = [T0, X0, XT]
+    if (sdgd_v if runner.equation.has_hessian_term else num_v > 0):
+        purposes.append(PATHS)
+    return {p: torch.Generator(device=runner.device) for p in purposes}
+
+
+def pinn_inputs(runner, gens: dict, sdgd_v, num_v: int,
+                terminal_weight: float):
+    """The epoch's draws (t, x, xT, indices, probes): t ~ U(0, T), x ~
+    law(X_t), the SDGD indices without replacement or the Rademacher
+    probes (None where not drawn), and at a positive terminal weight x_T ~
+    law(X_T). Free of host syncs: the fused epoch draws them in its
+    graph."""
+    cfg, eq, dev = runner.cfg, runner.equation, runner.device
+    bs = int(cfg.TRAIN.BATCH_SIZE)
+    t = eq.T * torch.rand((bs, 1), generator=gens[T0], device=dev)
+    x = eq.sample_x(gens[X0], t)
+    indices = probes = None
+    if PATHS in gens:
+        if eq.has_hessian_term:
+            indices = sdgd_without_replacement(gens[PATHS], bs, eq.nx,
+                                               sdgd_v, dev)
+        else:
+            probes = rademacher_probes(gens[PATHS], num_v, x)
+    xT = None
+    if terminal_weight > 0.0:
+        xT = eq.sample_x(gens[XT], torch.full((bs, 1), eq.T, device=dev))
+    return t, x, xT, indices, probes
+
+
+def pinn_optimizer(runner, module) -> torch.optim.Adam:
+    """The baseline's Adam(1e-3), capturable on the card, its state
+    created."""
+    optimizer = torch.optim.Adam(
+        module.parameters(), lr=BASELINE_LR,
+        capturable=runner.device.type == "cuda")
+    reset_optimizer(optimizer)
+    return optimizer
+
+
+def pinn_fused_step(runner, module, optimizer):
+    """(the PINN epoch as a ``FusedStep`` over ``module`` and ``optimizer``,
+    its generators): ``seed_epoch`` then a call runs an epoch (a graph
+    replay on the card), its ``body`` the same epoch eagerly."""
+    cfg, eq = runner.cfg, runner.equation
+    terminal_weight = (0.0 if is_enforce_terminal(cfg)
+                       else float(cfg.TRAIN.LOSS.beta))
+    from deeppicarditeration_torch.training.picard import sdgd_v_from_cfg
+
+    sdgd_v = sdgd_v_from_cfg(cfg)
+    num_v = int(cfg.METHOD.num_v_samples)
+    sol = Solution.from_net(module, runner.net_type, eq.nx)
+    gens = pinn_generators(runner, sdgd_v, num_v)
+
+    def body():
+        """The epoch: the graph's body."""
+        optimizer.zero_grad(set_to_none=True)
+        t, x, xT, indices, probes = pinn_inputs(runner, gens, sdgd_v, num_v,
+                                                terminal_weight)
+        loss = pinn_loss(sol, eq, t, x, xT, terminal_weight, indices, probes)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return FusedStep(body, {}, module, optimizer,
+                     generators=list(gens.values())), gens
+
+
+def train_pinn(runner):
+    """PINN with Hutchinson-trace or SDGD Hessian sampling, Adam(1e-3)
+    whatever TRAIN.OPTIMIZER says, for TRAIN.N_EPOCHS epochs; a terminal
+    penalty TRAIN.LOSS.beta unless the ansatz enforces the terminal value.
+    An epoch is one ``FusedStep``: its draws, the residual, the loss's
+    backward and the Adam step, one graph replay on the card."""
+    cfg, eq = runner.cfg, runner.equation
+    module = init_solution(
+        cfg, eq, runner.device,
+        make_generator(torch.device("cpu"), runner.seed, runner.i, 0)).module
+    optimizer = pinn_optimizer(runner, module)
+    fused, gens = pinn_fused_step(runner, module, optimizer)
+    runner.fused_steps.append(fused)
+
+    def step(epoch):
+        seed_epoch(runner, gens, epoch)
+        return fused()
+
+    return _baseline_loop(runner, step, module, optimizer,
+                          int(cfg.TRAIN.N_EPOCHS), "pinn")
 
 
 # ---------------------------------------------------------------------------
@@ -664,21 +820,57 @@ def _log_interval(cfg) -> int:
     return int(cfg.EVAL.FREQ or 100)
 
 
+def _resume_epoch(runner, module, optimizer, tag: str):
+    """(first epoch, wall time so far) of a RESUME run from the periodic
+    state: (0, 0.0) without RESUME or a meta sidecar, and, with a note,
+    where the sidecar or the state file is torn or missing. The sidecar is
+    read before the state is touched, so that nothing is half restored. A
+    readable state that does not match the model or the optimizer raises:
+    starting afresh would hide a change of code or config."""
+    state_path, meta_path = _baseline_state_paths(runner)
+    if not (runner.cfg.RESUME and meta_path.exists()):
+        return 0, 0.0
+    try:
+        meta = json.loads(meta_path.read_text())
+        start, wall = int(meta["epoch"]), float(meta.get("wall_time", 0.0))
+    except Exception as e:
+        print(f"RESUME: periodic {tag} meta unusable ({e!r}); starting "
+              "fresh")
+        return 0, 0.0
+    try:
+        ckpt.restore_state(ckpt.read(state_path), module, optimizer)
+    except Exception as e:
+        if ckpt.is_readable(state_path):
+            raise RuntimeError(
+                f"RESUME: periodic {tag} state at {state_path} does not "
+                "match the current model/optimizer (code or config changed "
+                "since it was written); delete it to start fresh") from e
+        print(f"RESUME: periodic {tag} state unusable ({e!r}); starting "
+              "fresh")
+        return 0, 0.0
+    print(f"RESUME: {tag} baseline from epoch {start} ({runner.exp_dir})")
+    return start, wall
+
+
 def _baseline_loop(runner, step, module, optimizer, n_epochs: int, tag: str):
     """Run ``step(epoch)`` for n_epochs; per log interval (EVAL.FREQ or 100
     epochs) one readback of the last loss and the eval, a ``tag`` row and
     an "eval" row, and the periodic state. Then the final ``model_{i}`` and
     ``runner.u_current``. The interval's epochs are timed on the device
-    (``runner.timings``: ``interval_ms`` over ``epochs``)."""
+    (``runner.timings``: ``interval_ms`` over ``epochs``). Under RESUME the
+    loop first restores the periodic state (``_resume_epoch``, before the
+    first ``step``: a fused step takes its snapshot at its first call) and
+    carries on from its epoch with its wall time."""
     cfg, eq = runner.cfg, runner.equation
     log_interval = _log_interval(cfg)
     state_path, meta_path = _baseline_state_paths(runner)
+    start, wall_base = _resume_epoch(runner, module, optimizer, tag)
     names = eval_fn = None
     if eq.has_exact_solution:
         names, eval_fn = make_traced_eval(bool(cfg.EVAL.TEST_GRAD), False)
     sol = Solution.from_net(module, runner.net_type, eq.nx)
     t_start = time.perf_counter()
-    for e0 in range(0, n_epochs, log_interval):
+    for e0 in range(start, n_epochs, log_interval):
         n = min(log_interval, n_epochs - e0)
         with Timer(runner.device) as tm:
             for e in range(e0, e0 + n):
@@ -691,7 +883,7 @@ def _baseline_loop(runner, step, module, optimizer, n_epochs: int, tag: str):
             t, x = eval_points(g, eq, int(cfg.EVAL.L2_N_POINTS))
             vals.append(eval_fn(sol, eq, t, x))
         host = torch.cat(vals).cpu().tolist()  # one readback per interval
-        wall = time.perf_counter() - t_start
+        wall = wall_base + time.perf_counter() - t_start
         runner.logger.log({"loss": host[0], "epoch": epoch,
                            "wall_time": wall}, epoch, context=tag)
         ckpt.save_state(state_path, module, optimizer)

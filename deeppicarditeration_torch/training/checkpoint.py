@@ -4,7 +4,9 @@ One ``model_{i}`` file per Picard iteration in the experiment directory
 (the JAX package's path layout; here a ``torch.save`` of the state_dict,
 not an orbax directory; for DBDP the stacked per-grid-time nets, a
 ``training/baselines.py:DBDPNets`` state_dict), and the baselines'
-periodic ``{model, optimizer}`` state. Saves are synchronous and atomic.
+periodic ``{model, optimizer}`` state. Saves are synchronous and atomic;
+RESUME reads them back (``training/picard.py:_maybe_resume``,
+``training/baselines.py:_baseline_loop``).
 """
 
 from __future__ import annotations
@@ -37,13 +39,45 @@ def save_state(path: pathlib.Path, module: torch.nn.Module,
                         "optimizer": optimizer.state_dict()})
 
 
+def read(path: pathlib.Path):
+    """A saved file's contents, on the host; raises where the file is
+    missing or torn."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def is_readable(path: pathlib.Path) -> bool:
+    """Does ``path`` hold a whole file that ``read`` loads?"""
+    try:
+        read(path)
+    except Exception:
+        return False
+    return True
+
+
+def restore_state(state, module: torch.nn.Module,
+                  optimizer: torch.optim.Optimizer) -> None:
+    """Load a ``save_state`` file's contents (``read``) into ``module`` and
+    ``optimizer`` (strict: raises where they do not match). The optimizer
+    keeps its own ``capturable`` setting, whatever the saving run's was:
+    Adam's step counts go to the parameters' device when capturable (a
+    captured step reads them there), else to the host."""
+    module.load_state_dict(state["model"])
+    capturable = [bool(g.get("capturable", False))
+                  for g in optimizer.param_groups]
+    optimizer.load_state_dict(state["optimizer"])
+    for group, cap in zip(optimizer.param_groups, capturable):
+        group["capturable"] = cap
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            if "step" in st:
+                st["step"] = st["step"].to(
+                    dtype=torch.float32, device=p.device if cap else "cpu")
+
+
 def load_state(path: pathlib.Path, module: torch.nn.Module,
                optimizer: torch.optim.Optimizer) -> None:
     """Restore a ``save_state`` file into ``module`` and ``optimizer``."""
-    device = next(module.parameters()).device
-    state = torch.load(path, map_location=device, weights_only=True)
-    module.load_state_dict(state["model"])
-    optimizer.load_state_dict(state["optimizer"])
+    restore_state(read(path), module, optimizer)
 
 
 def load_params(path: pathlib.Path, module: torch.nn.Module) -> None:

@@ -15,12 +15,13 @@ iteration.
 
 Random streams: the JAX package splits keys; here each stream is a
 ``torch.Generator`` seeded from ``derive_seed(SEED, iteration, purpose,
-...)``. METHOD.cls Diffusion runs the D-DBSDE baseline
-(``training/baselines.py``) in place of the Picard steps; OptimalControl
-and DeepNesting run the Picard steps, as in the JAX runner;
-FullyNonlinearSolver runs the DBDP baseline. Not ported yet: RESUME,
-offline datasets and DATA.SAVE, the TwoLayer formula, Hessian supervision,
-the PINN baseline, multi-device runs, plots.
+...)``. METHOD.cls PINN, Diffusion and FullyNonlinearSolver run the
+PINN-HTE, D-DBSDE and DBDP baselines (``training/baselines.py``) in place
+of the Picard steps; OptimalControl and DeepNesting run the Picard steps,
+as in the JAX runner. RESUME continues a run from its latest ``model_{i}``
+(``_maybe_resume``) and a baseline from its periodic state. Not ported
+yet: offline datasets and DATA.SAVE (with it RESUME from a saved dataset),
+the TwoLayer formula, Hessian supervision, multi-device runs, plots.
 """
 
 from __future__ import annotations
@@ -88,18 +89,24 @@ def _opt_str(v):
     return None if s in ("none", "null", "off", "false", "0") else s
 
 
+def sdgd_v_from_cfg(cfg) -> Optional[int]:
+    """SDGD's sampled diagonal entries per point (DATA.HESSIAN_APPROXIMATION
+    method SDGD, kwargs.v), or None."""
+    hess = cfg.DATA.HESSIAN_APPROXIMATION
+    if hess.method != "SDGD":
+        return None
+    v = (hess.kwargs or {}).get("v")
+    if v is None:
+        raise ValueError(
+            "DATA.HESSIAN_APPROXIMATION.method is SDGD but "
+            "DATA.HESSIAN_APPROXIMATION.kwargs.v is not set")
+    return int(v)
+
+
 def gen_config_from_cfg(cfg) -> GenConfig:
     d = cfg.DATA
     kwargs = d.kwargs or {}
-    hess = d.HESSIAN_APPROXIMATION
-    sdgd_v = None
-    if hess.method == "SDGD":
-        v = (hess.kwargs or {}).get("v")
-        if v is None:
-            raise ValueError(
-                "DATA.HESSIAN_APPROXIMATION.method is SDGD but "
-                "DATA.HESSIAN_APPROXIMATION.kwargs.v is not set")
-        sdgd_v = int(v)
+    sdgd_v = sdgd_v_from_cfg(cfg)
     hess_store = _opt_str(d.TPU.get("HESSIAN_STORE"))
     if hess_store not in (None, "bf16"):
         # a typo would otherwise silently run the f32 chain
@@ -135,7 +142,7 @@ def gen_config_from_cfg(cfg) -> GenConfig:
 # JAX package either and fall through to it
 PICARD_METHODS = ("Picard", "OptimalControl", "DeepNesting")
 # the ported baselines (training/baselines.py)
-BASELINE_METHODS = ("Diffusion", "FullyNonlinearSolver")
+BASELINE_METHODS = ("PINN", "Diffusion", "FullyNonlinearSolver")
 
 
 def _reject_unported(cfg) -> None:
@@ -145,9 +152,10 @@ def _reject_unported(cfg) -> None:
          f"METHOD.cls {cfg.METHOD.cls!r}"),
         (cfg.PICARD.FORMULA is not None,
          f"PICARD.FORMULA {cfg.PICARD.FORMULA!r}"),
-        (bool(cfg.RESUME), "RESUME"),
         (not cfg.DATA.ONLINE, "DATA.ONLINE: false (offline datasets)"),
-        (bool(cfg.DATA.SAVE), "DATA.SAVE"),
+        (bool(cfg.DATA.SAVE),
+         "DATA.SAVE (and RESUME from a saved dataset)"
+         if cfg.RESUME else "DATA.SAVE"),
         (bool(cfg.DATA.EXACT), "DATA.EXACT"),
         (bool(cfg.TRAIN.SUPERVISE_HESSIAN), "TRAIN.SUPERVISE_HESSIAN"),
         (cfg.NETWORK.PRETRAIN_PATH is not None, "NETWORK.PRETRAIN_PATH"),
@@ -244,14 +252,20 @@ class PicardRunner:
         self._fused = None
         # every FusedStep of the run (the fit's, the baseline's)
         self.fused_steps: List[FusedStep] = []
+        if cfg.RESUME:
+            self._maybe_resume()
 
     # ------------------------------------------------------------------
     def _prepare_exp_dir(self):
-        """Create/wipe the experiment dir and dump the config (FORCE)."""
+        """Create/wipe the experiment dir and dump the config (FORCE);
+        under RESUME its checkpoints stay."""
         cfg_file = self.exp_dir / "config.yaml"
         if self.exp_dir.exists() and any(self.exp_dir.iterdir()):
             contents = list(self.exp_dir.iterdir())
-            if not (len(contents) == 1 and contents[0].name == cfg_file.name):
+            if self.cfg.RESUME:
+                pass  # _maybe_resume picks up from the checkpoints
+            elif not (len(contents) == 1
+                      and contents[0].name == cfg_file.name):
                 if not self.cfg.FORCE:
                     raise FileExistsError(
                         f"Experiment directory {self.exp_dir} already "
@@ -259,6 +273,32 @@ class PicardRunner:
                 shutil.rmtree(self.exp_dir)
         self.exp_dir.mkdir(parents=True, exist_ok=True)
         cfg_file.write_text(self.cfg.dump())
+
+    def _maybe_resume(self):
+        """Continue from the latest ``model_{i}`` in the experiment dir: it
+        becomes ``u_current``, so that iteration i + 1 generates its
+        targets from the network an uninterrupted run would use. DBDP's
+        ``model_{i}`` holds the stacked grid nets: its completed iterations
+        are skipped, nothing is loaded. A baseline's unfinished iteration
+        continues from its periodic state (``baselines._baseline_loop``)."""
+        latest = 0
+        while ckpt.ckpt_path(self.exp_dir, latest + 1).exists():
+            latest += 1
+        if latest == 0:
+            return
+        if self.cfg.METHOD.cls == "FullyNonlinearSolver":
+            self.i = latest
+            print(f"RESUME: DBDP iterations 1..{latest} already complete "
+                  f"({self.exp_dir}); skipping them")
+            return
+        module = init_solution(self.cfg, self.equation, self.device).module
+        ckpt.load_params(ckpt.ckpt_path(self.exp_dir, latest), module)
+        self.u_current = Solution.from_net(freeze(module), self.net_type,
+                                           self.equation.nx)
+        self.u_history.append(self.u_current)
+        self.i = latest
+        print(f"RESUME: continuing from iteration {latest} "
+              f"({self.exp_dir})")
 
     @property
     def graph_replays(self) -> int:
@@ -321,7 +361,8 @@ class PicardRunner:
         eval_names = eval_fn = None
         if do_eval:
             eval_names, eval_fn = make_traced_eval(
-                bool(cfg.EVAL.TEST_GRAD), bool(cfg.EVAL.TEST_HESSIAN))
+                bool(cfg.EVAL.TEST_GRAD), bool(cfg.EVAL.TEST_HESSIAN),
+                batch_size=cfg.EVAL.BATCH_SIZE)
         sol = Solution.from_net(module, self.net_type, self.equation.nx)
         shuffle_gen, eval_gen = self._fit_streams()
         shuffle = cfg.DATA.SHUFFLE is not False

@@ -15,9 +15,9 @@
 * The port's CLI end to end on the CPU, with DATA.TPU.PALLAS_ROLLOUT true
   and false: files, metric rows, rRMSE falling. The port takes the rollout
   kernel whatever the flag says (its plain version on CPU tensors).
-* PINN is not ported: it raises. FullyNonlinearSolver (DBDP) is ported
-  (tests/test_torch_fn.py) and raises on the Burgers equation, which has
-  no ``ffh``.
+* PINN is ported (tests/test_torch_pinn.py): the runner dispatches it.
+  FullyNonlinearSolver (DBDP) is ported (tests/test_torch_fn.py) and
+  raises on the Burgers equation, which has no ``ffh``.
 """
 
 import json
@@ -288,22 +288,17 @@ def test_cli_diffusion_runs_the_same_with_and_without_the_rollout_flag_on_cpu(
 
 
 @pytest.mark.parametrize("method", ["PINN", "FullyNonlinearSolver"])
-def test_unported_baselines_raise(tmp_path, method):
+def test_unported_baselines_raise(tmp_path, method, monkeypatch):
+    """Both baselines are ported now. The runner rejects DBDP before any
+    work where the equation has no ffh, which its loss reads (Cha defines
+    none); PINN on the Burgers recipe constructs and ``run_baseline``
+    dispatches it to ``train_pinn``."""
     cfg = load_cfg(ROOT / "configs/burgers/diffusion_100d_T1.0_beta10.0.yaml",
                    ["DEVICE", "cpu", "METHOD.cls", method])
-    # DBDP is ported; the runner rejects it before any work where the
-    # equation has no ffh, which its loss reads (Cha defines none)
-    with pytest.raises(NotImplementedError,
-                       match="ffh" if method == "FullyNonlinearSolver"
-                       else None):
-        PicardRunner(cfg, exp_root=tmp_path)
     if method == "FullyNonlinearSolver":
+        with pytest.raises(NotImplementedError, match="ffh"):
+            PicardRunner(cfg, exp_root=tmp_path)
         return
-
-    class Stub:
-        pass
-
-    stub = Stub()
-    stub.cfg = cfg
-    with pytest.raises(NotImplementedError, match="slice"):
-        baselines.run_baseline(stub)
+    runner = PicardRunner(cfg, exp_root=tmp_path)
+    monkeypatch.setattr(baselines, "train_pinn", lambda r: ("pinn", r))
+    assert baselines.run_baseline(runner) == ("pinn", runner)

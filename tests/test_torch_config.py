@@ -59,17 +59,25 @@ def test_dump_is_json_readable_as_yaml(tmp_path):
 
 
 def test_runner_rejects_what_the_port_lacks(tmp_path):
+    """What the port lacks raises at the runner's construction; RESUME and
+    METHOD.cls PINN, ported since, construct (RESUME with DATA.SAVE, a
+    resume from a saved dataset, still raises)."""
     from deeppicarditeration_torch.training.picard import PicardRunner
 
-    for ov in (["DATA.EXACT", "true"], ["RESUME", "true"],
+    for ov in (["DATA.EXACT", "true"],
+               ["RESUME", "true", "DATA.SAVE", "true"],
                ["DATA.TPU.PALLAS_ACT", "bf16"],
                ["TRAIN.SUPERVISE_HESSIAN", "true"],
                ["PICARD.FORMULA", "TwoLayer"],
-               ["METHOD.cls", "PINN"], ["DATA.SAVE", "true"],
+               ["DATA.SAVE", "true"],
                ["METHOD.cls", "FullyNonlinearSolver"]):
         cfg = tconfig.load_cfg(W1, ["DEVICE", "cpu"] + ov)
         with pytest.raises(NotImplementedError):
             PicardRunner(cfg, exp_root=tmp_path)
+    for ov in (["RESUME", "true"], ["METHOD.cls", "PINN"]):
+        cfg = tconfig.load_cfg(W1, ["DEVICE", "cpu", "FORCE", "true"] + ov)
+        runner = PicardRunner(cfg, exp_root=tmp_path)
+        assert runner.i == 0 and runner.cfg.METHOD.cls == cfg.METHOD.cls
 
 
 def test_chip_smoke_recipe_equals_the_yaml_chain():

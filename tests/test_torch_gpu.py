@@ -1321,3 +1321,92 @@ def test_merged_kernel_has_a_plan_at_every_nx(cuda, n_hidden):
         assert kernels.library_tc_plan(100, 4) == {
             "stages": 4, "save_smem": False, "dw_smem": True,
             "smem_bytes": 189152, "scratch_floats": 2 * 3 * 64 * 128}
+
+
+# ---- the PINN baseline and RESUME on the card ---------------------------
+
+PINN_GPU = {
+    "burgers": {"EQUATION": {"cls": "Cha",
+                             "kwargs": {"nx": 16, "alpha": 1.0, "k": 1.0,
+                                        "T": 1.0}},
+                "METHOD": {"cls": "PINN", "num_v_samples": 4},
+                "TRAIN": {"BATCH_SIZE": 64, "LOSS": {"beta": 10.0}}},
+    "fn": {"EQUATION": {"cls": "GBMEquationComplexExact",
+                        "kwargs": {"nx": 16}},
+           "METHOD": {"cls": "PINN"},
+           "DATA": {"HESSIAN_APPROXIMATION": {"method": "SDGD",
+                                              "kwargs": {"v": 16}}},
+           "TRAIN": {"BATCH_SIZE": 64, "LOSS": {"beta": 10.0}}},
+}
+@pytest.mark.parametrize("family", list(PINN_GPU))
+def test_pinn_captured_epoch_equals_the_eager_epoch(cuda, tmp_path, family):
+    from deeppicarditeration_torch.config import default_cfg
+    from deeppicarditeration_torch.training.picard import PicardRunner
+
+    cfg = default_cfg()
+    cfg.merge({"NAME": f"pinn_{family}", "FORCE": True,
+               "NETWORK": {"NEURONS": [32, 32],
+                           "ACTIVATIONS": ["ELU", "ELU"]},
+               **PINN_GPU[family]}, allow_new=False)
+    runner = PicardRunner(cfg.freeze(), exp_root=tmp_path)
+    # chip_smoke's phase 19 comparison: 3 epochs through the epoch's graph
+    # against the same epochs run eagerly (the same kernels)
+    from chip_smoke import PINN_CAPTURED_REL, pinn_captured_vs_eager
+
+    rel = pinn_captured_vs_eager(runner)
+    print(f"PINN {family}: captured vs eager after 3 epochs {rel:.3e}")
+    assert rel <= PINN_CAPTURED_REL
+
+
+@pytest.mark.parametrize("method", ["PINN", "Diffusion"])
+def test_resume_on_the_card_equals_an_uninterrupted_run(cuda, tmp_path,
+                                                        method):
+    """A baseline killed after its first log interval and continued with
+    RESUME: its final weights equal an uninterrupted run's (1e-6 of the
+    largest magnitude; the resumed run captures its epoch graph anew)."""
+    from deeppicarditeration_torch.config import default_cfg
+    from deeppicarditeration_torch.training import checkpoint
+    from deeppicarditeration_torch.training.picard import PicardRunner
+
+    def cfg(resume):
+        c = default_cfg()
+        c.merge({"NAME": "resume", "FORCE": True, "RESUME": resume,
+                 "EQUATION": {"cls": "Cha",
+                              "kwargs": {"nx": 8, "alpha": 1.0, "k": 1.0,
+                                         "T": 1.0}},
+                 "METHOD": {"cls": method, "K": 5, "dt": 0.05,
+                            "num_v_samples": 4},
+                 "TRAIN": {"BATCH_SIZE": 64, "N_EPOCHS": 30,
+                           "LOSS": {"beta": 10.0}},
+                 "NETWORK": {"NEURONS": [32, 32],
+                             "ACTIVATIONS": ["ELU", "ELU"]},
+                 "EVAL": {"FREQ": 10, "L2_N_POINTS": 200}},
+                allow_new=False)
+        return c.freeze()
+
+    PicardRunner(cfg(False), exp_root=tmp_path / "whole").run()
+    real, calls = checkpoint.save_state, []
+
+    class Stop(Exception):
+        pass
+
+    def save_state(*args):
+        calls.append(1)
+        if len(calls) > 1:
+            raise Stop
+        real(*args)
+
+    checkpoint.save_state = save_state
+    try:
+        with pytest.raises(Stop):
+            PicardRunner(cfg(False), exp_root=tmp_path / "cut").run()
+    finally:
+        checkpoint.save_state = real
+    resumed = PicardRunner(cfg(True), exp_root=tmp_path / "cut")
+    resumed.run()
+    assert resumed.graph_replays == 20
+    a = checkpoint.read(tmp_path / "whole" / "resume" / "model_1")
+    b = checkpoint.read(tmp_path / "cut" / "resume" / "model_1")
+    for k in a:
+        assert float((a[k] - b[k]).abs().max()) <= 1e-6 * float(
+            a[k].abs().max()), k
