@@ -10,6 +10,7 @@
     python3 chip_smoke.py --dbdp-sub-iter recipe  # paths M, N in full
     python3 chip_smoke.py --pinn-epochs 30000  # path O's full budget (also
                                             # --hjb-pinn-epochs, --fn-pinn-epochs)
+    python3 chip_smoke.py --highd-iterations 5  # paths R, S, T longer
 
 Paths (the Burgers 100-d w1.0 recipe through ``PicardRunner`` at full
 width: nx=100, 4x128 ELU net, B=4096 points from the path's sampler; A-D
@@ -72,7 +73,19 @@ TRAIN.FUSED's "auto"):
      20 000 epochs (``--hjb-pinn-epochs``);
   Q  configs/fully_nonlinear/pinn_100d_T1.0_v16_beta10.0.yaml (GBM, SDGD
      v = 100 drawn without replacement, the 3x64 net, beta 10): 1000 of
-     10 000 epochs (``--fn-pinn-epochs``).
+     10 000 epochs (``--fn-pinn-epochs``);
+  R  configs/burgers/base_100d_T1.0_w1.0.yaml at nx = 512, M = 16384 +
+     16384 (the JAX package's bench_results/burgers512d_m16k_r5.jsonl):
+     the merged kernel at nx 512, 4x128, bf16x3;
+  S  the same recipe at nx = 1024, B = 8192, M = 32768 + 32768, a 4x256
+     ELU net, 24 epochs (burgers1024d_b8k_r5.jsonl): the merged kernel's
+     width-256 pass;
+  T  configs/hjb/base_100d_T1.0_w0.1.yaml at nx = 512, B = 8192, M = 8192
+     + 8192, 24 epochs (hjb512d_scaled_r5.jsonl): the PIS kernel's wide
+     instance, "default". R, S, T: read from configs/ by the port's YAML
+     reader with the records' overrides, 3 iterations
+     (``--highd-iterations``; the recipes' own 60, 50, 40:
+     ``_run_highd``).
 Each path's kernel launch counts are read around its run (every count set
 to 0 just before) and checked against its generation calls (A-D, F, G, K,
 L; the net kernels' also by precision mode), its epochs (E, I) or its
@@ -209,6 +222,21 @@ only when every phase passed):
      A, H and K within 5 sqrt(2) of the record's standard error from the
      JAX package's records (``MC_RECORDS``), H's u_net(0, 0) = g(0) the
      record's; no kernel launched;
+ 22. the merged kernel at nx 512 and 1024, widths 128 and 256, bf16x3 and
+     "default", with and without antithetic pairing (B = 64, M = 256, the
+     mode tolerances of phase 2), and at ragged B, M, nx (4095 points at
+     nx = 1000, 4x256; 131 at nx = 1023, 2x128; "default" there under the
+     wide gate), against its plain version on the same noise, its own
+     draws against the host Philox at nx = 1024 and the ragged cases; the
+     PIS kernel at nx 512 (net and zero iterate), 500 and 136 likewise
+     (``PIS_REL_TOL``), its draws at nx = 512; nx = 1025, "highest" at
+     nx = 512 and the PIS kernel at nx = 513 raising NotImplementedError
+     before any launch;
+ 23. paths R, S, T, 3 iterations each: every generation call merged, one
+     launch of the path's kernel per iteration, rRMSE at each iteration
+     under 1.5x the record's (``HIGHD_PATHS``), generate and fit ms, the
+     second iteration traced (device busy ms, idle share), peak device
+     memory;
  11. kernel, plain-version and library times at the paths' shapes, and
      each kernel's bound, printed as one ``{"kernels": [...]}`` JSON line
      (the net kernels with a row per precision mode, timed in turns in
@@ -228,7 +256,13 @@ only when every phase passed):
      beside it as ``sass_issue_ms``); the normals kernel also at paths
      K/L's chunk shape and the rollout kernel at M/N's, each with its
      launches on those paths; the rollout timed writing four rotating
-     output buffers.
+     output buffers; the merged kernels at paths R, S and T's shapes in
+     their paths' modes with their paths' trained iterates (the plain
+     versions timed once: seconds a call), and checked there
+     (``_highd_at_own_shape``): the kernel's own draws against the host
+     Philox at the first and last point at the path's M (its row's
+     max_abs_err), and its law against the plain version's over every
+     output (CLT).
 Needs one NVIDIA H100 SXM card; imports nothing of JAX.
 """
 
@@ -584,6 +618,61 @@ PINN_CAPTURED_EPOCHS = 3
 # a run stopped and continued under RESUME against an uninterrupted one,
 # on the final parameters (phase 20)
 RESUME_REL = 1e-6
+
+# Paths R, S, T: the JAX package's high-dimension records (README.md's
+# table, bench_results/), each recipe read from configs/ by the port's YAML
+# reader with the record's overrides (cut to --highd-iterations, 3, at
+# full width); (recipe, overrides, record, its rRMSE at iterations 1-3,
+# the recipe's budget). The limits, fixed before the first card run:
+# HIGHD_RRMSE_FACTOR x the record's rRMSE at each iteration (past 3, as
+# the record file gives it).
+HIGHD_PATHS = {
+    "R": ("configs/burgers/base_100d_T1.0_w1.0.yaml",
+          ("EQUATION.kwargs.nx", "512",
+           "DATA.kwargs.n_estimate_terminal", "16384",
+           "DATA.kwargs.n_estimate_integral", "16384"),
+          "bench_results/burgers512d_m16k_r5.jsonl",
+          (0.2293, 0.1304, 0.1394), 60),
+    "S": ("configs/burgers/base_100d_T1.0_w1.0.yaml",
+          ("EQUATION.kwargs.nx", "1024", "DATA.DATA_SIZE", "8192",
+           "DATA.kwargs.n_estimate_terminal", "32768",
+           "DATA.kwargs.n_estimate_integral", "32768",
+           "NETWORK.NEURONS", "[256, 256, 256, 256]",
+           "TRAIN.N_EPOCHS", "24"),
+          "bench_results/burgers1024d_b8k_r5.jsonl",
+          (0.2189, 0.1104, 0.0905), 50),
+    "T": ("configs/hjb/base_100d_T1.0_w0.1.yaml",
+          ("EQUATION.kwargs.nx", "512", "DATA.DATA_SIZE", "8192",
+           "DATA.kwargs.n_estimate_terminal", "8192",
+           "DATA.kwargs.n_estimate_integral", "8192",
+           "TRAIN.N_EPOCHS", "24"),
+          "bench_results/hjb512d_scaled_r5.jsonl",
+          (0.3865, 0.1599, 0.1379), 40),
+}
+HIGHD_RRMSE_FACTOR = 1.5
+HIGHD_ITERATIONS = 3
+# phase 22's cases of the merged kernel's new instances: (B, M, nx, width,
+# hidden layers); B within ONE_PASS_B (the one-pass gate's 5e-4), then
+# ragged ones: B off the grid, M off a ring pass, nx off the slabs, where
+# "default" takes the wide gate (_same_mode)
+HIGHD_CASES = ((64, 256, 512, 128, 4), (64, 256, 1024, 128, 4),
+               (64, 256, 512, 256, 4), (64, 256, 1024, 256, 4))
+HIGHD_RAGGED = ((4095, 64, 1000, 256, 4), (131, 100, 1023, 128, 2))
+# ... where "default" over more than ONE_PASS_B points takes the wide gate
+# with its length factor: layer 1 sums 1 + nx products (path A's 101),
+# whose order-dependent f32 rounding grows as the square root of the
+# length and flips more first activations' bf16 rounding (the kernel and
+# the plain version sum in another order), so ONE_PASS_WIDE_TOL x
+# sqrt((1 + nx) / 101), and under HIGHD_ONE_PASS_CONTROL of the plain
+# version's distance from its bf16x3 (measured, first card run of these
+# cases: the kernel 3.9e-3 from the plain version at nx = 1000, 4x256, M
+# = 64 antithetic, where that distance is 6.7e-3: 0.59 of it); the plain
+# version's distance from itself with its inputs' order permuted (layer
+# 1's sum in another order) is printed beside, measured, not gated
+HIGHD_ONE_PASS_CONTROL = 0.75
+# ... and of the PIS kernel's: (B, M, nx, net)
+PIS_HIGHD_CASES = ((64, 128, 512, True), (64, 128, 512, False),
+                   (33, 100, 500, True), (8, 64, 136, True))
 # Phase 21: iteration 0 (the zero or g ansatz: no trained net) of the
 # 10^6-sample MC self-consistency check at (0, 0) against the JAX
 # package's records of the same protocol (scripts/run_mc_eval.py, the
@@ -664,9 +753,16 @@ PROBE_ELU_ISSUE = 18.1875
 def path_cfg(path: str, n_iter: int = None, device: str = "cuda",
              epochs: int = None, overrides=()):
     """The path's recipe; ``overrides``: CLI-style pairs on top of the
-    path's own."""
-    from deeppicarditeration_torch.config import default_cfg
+    path's own. Paths R, S, T: their recipes read from configs/ by the
+    port's YAML reader (``config.load_cfg``) with the records' overrides."""
+    from deeppicarditeration_torch.config import default_cfg, load_cfg
 
+    if path in HIGHD_PATHS:
+        recipe, own = HIGHD_PATHS[path][:2]
+        extra = [] if n_iter is None else ["PICARD.N", str(n_iter)]
+        extra += [] if epochs is None else ["TRAIN.N_EPOCHS", str(epochs)]
+        return load_cfg(ROOT / recipe, list(own) + list(overrides) + extra
+                        + ["DEVICE", device])
     layers, own = PATHS[path]
     cfg = default_cfg()
     for layer in layers:
@@ -706,6 +802,20 @@ def _time_ms(fn, reps: int) -> float:
         for _ in range(reps):
             fn()
     return tm.ms / reps
+
+
+def _once_ms(fn) -> float:
+    """ms of one call of ``fn`` (CUDA events, no warm-up): the plain
+    versions at the high-dimension paths' shapes, where a call takes
+    seconds."""
+    import torch
+
+    from deeppicarditeration_torch.device import Timer
+
+    torch.cuda.synchronize()
+    with Timer(torch.device("cuda")) as tm:
+        fn()
+    return tm.ms
 
 
 def _in_turns(fns: dict, reps: int) -> dict:
@@ -820,7 +930,7 @@ def _mode_tol(mode: str) -> float:
 
 
 def _same_mode(label, mode, out, ref, plain_as=None, m=None,
-               anti=False) -> float:
+               anti=False, nx=None) -> float:
     """``_same`` in ``mode`` at every point; under "default" with a net
     (``plain_as(permuted, precision)``: the plain version on the same
     inputs, its net's hidden units permuted or not) over more than
@@ -828,7 +938,9 @@ def _same_mode(label, mode, out, ref, plain_as=None, m=None,
     ONE_PASS_M / m, or ONE_PASS_M_ANTI / m with ``anti``, below those
     counts, at most ONE_PASS_SCALE_CAP times), and under ONE_PASS_CONTROL
     of the plain version's distance from its bf16x3; the plain version's
-    own distance under the permutation printed before."""
+    own distance under the permutation printed before. With ``nx`` (phase
+    22's cases) the gate takes layer 1's length factor and
+    HIGHD_ONE_PASS_CONTROL (at HIGHD_RAGGED)."""
     if mode != "default" or plain_as is None or out.shape[0] <= ONE_PASS_B:
         return _same(label, out, ref, _mode_tol(mode))
     perm = plain_as(True, "default")
@@ -841,10 +953,14 @@ def _same_mode(label, mode, out, ref, plain_as=None, m=None,
     del x3
     m_ref = ONE_PASS_M_ANTI if anti else ONE_PASS_M
     scale = min(max(1.0, m_ref / (m or m_ref)), ONE_PASS_SCALE_CAP)
-    tol = min(ONE_PASS_WIDE_TOL * scale, ONE_PASS_CONTROL * control)
+    share = ONE_PASS_CONTROL
+    if nx is not None:
+        scale *= math.sqrt((1 + nx) / 101)
+        share = HIGHD_ONE_PASS_CONTROL
+    tol = min(ONE_PASS_WIDE_TOL * scale, share * control)
     print(f"control ({label}): plain one pass vs plain bf16x3 max |diff| "
-          f"{control:.3e}; the gate {tol:.3e} (ONE_PASS_WIDE_TOL x {scale:g}"
-          f", at most {ONE_PASS_CONTROL} of the control)")
+          f"{control:.3e}; the gate {tol:.3e} (ONE_PASS_WIDE_TOL x "
+          f"{scale:.3g}, at most {share} of the control)")
     return _same(label, out, ref, tol)
 
 
@@ -888,9 +1004,10 @@ def _highest_control(label, eq, sol, tx, anti, dev) -> None:
               f"bf16x3 by HIGHEST_CONTROL ({label})")
 
 
-def _clt(label, out, ref, var, m, bound) -> None:
+def _clt(label, out, ref, var, m, bound) -> float:
     """In-kernel draws vs torch.Generator draws: every |diff| within
-    ``bound`` standard errors, and a mean squared z-score in Z2_BAND."""
+    ``bound`` standard errors, and a mean squared z-score in Z2_BAND;
+    returns the max |diff|/SE."""
     import torch
 
     z = (out - ref).abs() / torch.sqrt(2.0 * var / m).clamp(min=1e-12)
@@ -902,6 +1019,7 @@ def _clt(label, out, ref, var, m, bound) -> None:
             and torch.isfinite(out).all()):
         _fail(f"in-kernel draws disagree with the plain version's law "
               f"({label})")
+    return zmax
 
 
 def _pis_rel(out, ref):
@@ -1203,6 +1321,282 @@ def _check_ragged(max_err: dict, dev, stem: str = "generate") -> None:
             del u_h, nt_h, ni_h
 
 
+def _highd_problem(b, m, nx, width, n_hidden, seed, device, rows):
+    """A Burgers problem at (B, nx) with a random ELU net of ``n_hidden``
+    layers of ``width`` and external noise of ``rows`` draws a point."""
+    import torch
+
+    from deeppicarditeration_torch.equations import make_equation
+    from deeppicarditeration_torch.models.networks import MLP
+    from deeppicarditeration_torch.models.solution import Solution
+
+    g = torch.Generator().manual_seed(seed)
+    eq = make_equation("Cha", nx=nx, alpha=1.0, k=5.0, T=1.0)
+    mod = MLP(1 + nx, (width,) * n_hidden, ("ELU",) * n_hidden, 1,
+              generator=g)
+    sol = Solution.from_net(mod.to(device), "Value", nx)
+    t = torch.rand((b, 1), generator=g) * 0.99 + 0.005
+    x = torch.randn((b, nx), generator=g) * t.sqrt()
+    tx = torch.cat([t, x], 1).to(device)
+    gd = torch.Generator(device=device).manual_seed(seed + 1)
+    noise = (torch.rand((b, rows, 1), generator=gd, device=device),
+             torch.randn((b, rows, nx), generator=gd, device=device),
+             torch.randn((b, rows, nx), generator=gd, device=device))
+    return eq, sol, tx, noise
+
+
+def _inputs_permuted(eq, sol, tx, m, noise, kw):
+    """The plain merged estimator with the x dimensions permuted (x, both
+    noises, W1's x columns; Cha's g and f are symmetric in them) and its
+    gradient columns put back: the same function, layer 1's sum in
+    another order."""
+    import copy
+
+    import torch
+
+    from deeppicarditeration_torch.models.solution import Solution
+    from deeppicarditeration_torch.ops import kernels
+
+    nx = tx.shape[1] - 1
+    g = torch.Generator().manual_seed(12)
+    perm = torch.randperm(nx, generator=g).to(tx.device)
+    mod = copy.deepcopy(sol.module)
+    with torch.no_grad():
+        w1 = mod.layers[0].weight
+        w1[:, 1:] = w1[:, 1:][:, perm]
+    out = kernels.generate_with_gradients_plain(
+        0, eq, Solution.from_net(mod, sol.net_type, nx),
+        torch.cat([tx[:, :1], tx[:, 1:][:, perm]], 1), m, noise[0],
+        noise[1][..., perm].contiguous(), noise[2][..., perm].contiguous(),
+        **kw)
+    back = out.clone()
+    back[:, 1 + perm] = out[:, 1:]
+    return back
+
+
+def _check_highd(max_err: dict, dev) -> None:
+    """Phase 22: the merged kernel's instances of this slice (nx 512 and
+    1024, widths 128 and 256; ragged B, M, nx) against the plain version
+    on the same noise in bf16x3 and "default", with and without antithetic
+    pairing, and its own draws against the host Philox at nx = 1024; the
+    PIS kernel's (nx 136 to 512) likewise; nx past each kernel's limit, and
+    "highest" past its own, raising before any launch."""
+    import torch
+
+    from deeppicarditeration_torch.equations import make_equation
+    from deeppicarditeration_torch.models.solution import Solution
+    from deeppicarditeration_torch.ops import kernels
+
+    for b, m, nx, width, n_hidden in HIGHD_CASES + HIGHD_RAGGED:
+        for anti in (False, True):
+            rows = m // 2 if anti else m
+            eq, sol, tx, noise = _highd_problem(b, m, nx, width, n_hidden,
+                                                nx + width, dev, rows)
+            tag = (f"nx={nx}, {n_hidden}x{width}, B={b} M={m}"
+                   f"{' antithetic' if anti else ''}")
+            for mode in ("bf16x3", "default"):
+                kw = dict(antithetic=anti, precision=mode)
+                key = _err_key("generate", mode) + " highd"
+                ref = kernels.generate_with_gradients_plain(
+                    0, eq, sol, tx, m, *noise, **kw)
+                if mode == "default" and b > ONE_PASS_B:
+                    d = float((_inputs_permuted(eq, sol, tx, m, noise, kw)
+                               - ref).abs().max())
+                    print(f"plain vs plain with its inputs' order permuted "
+                          f"(merged default, {tag}, measured, not gated): "
+                          f"max |diff| {d:.3e}")
+                max_err[key] = max(max_err.get(key, 0.0), _same_mode(
+                    f"merged {mode}, {tag}", mode,
+                    kernels.generate_with_gradients_cuda(
+                        0, eq, sol, tx, m, *noise, **kw), ref,
+                    lambda perm, prec: kernels.generate_with_gradients_plain(
+                        0, eq, _permuted(sol, 10) if perm else sol, tx, m,
+                        *noise, antithetic=anti, precision=prec), m, anti,
+                    nx))
+            del noise
+            if nx != 1024 and b == HIGHD_CASES[0][0]:
+                continue
+            pts = [0, 1, b - 2, b - 1]
+            draws = _host_draws(EXACT_SEED, pts, rows, nx, dev)
+            for mode in ("bf16x3", "default"):
+                kw = dict(antithetic=anti, precision=mode)
+                key = _err_key("generate", mode) + " highd"
+                max_err[key] = max(max_err[key], _same(
+                    f"merged {mode}, {tag}, own draws vs host Philox at "
+                    f"points {pts}", kernels.generate_with_gradients_cuda(
+                        EXACT_SEED, eq, sol, tx, m, **kw)[pts],
+                    kernels.generate_with_gradients_plain(
+                        0, eq, sol, tx[pts], m, *draws, **kw),
+                    _mode_tol(mode)))
+    for b, m, nx, net in PIS_HIGHD_CASES:
+        g = torch.Generator().manual_seed(nx)
+        eq = make_equation("OUProcessEquation", nx=nx, num_components=5,
+                           seed=nx).to(dev)
+        sol = Solution.zero(nx)
+        if net:
+            from deeppicarditeration_torch.models.networks import PISGradNet
+
+            mod = PISGradNet(nx, (512,) * 4, (eq.gmm_means, eq.gmm_vars,
+                                              eq.gmm_log_weights),
+                             generator=g)
+            with torch.no_grad():  # a phase away from its init
+                mod.timestep_phase.normal_(generator=g)
+            sol = Solution.from_net(mod.to(dev), "Value", nx)
+        t = torch.rand((b, 1), generator=g) * 0.99
+        x = torch.randn((b, nx), generator=g) * (2.0 * (1.0 + t).sqrt())
+        tx = torch.cat([t, x], 1).to(dev)
+        noise = [v.to(dev) for v in (torch.rand((b, m, 1), generator=g),
+                                     torch.randn((b, m, nx), generator=g),
+                                     torch.randn((b, m, nx), generator=g))]
+        tag = f"nx={nx}, {'4x512 PISGradNet' if net else 'zero'}, B={b} M={m}"
+        for mode in PIS_MODES:
+            key = _err_key("generate_pis", mode) + " highd"
+            max_err[key] = max(max_err.get(key, 0.0), _pis_same(
+                f"generate_pis {mode}, {tag}",
+                kernels.generate_pis_cuda(0, eq, sol, tx, m, *noise,
+                                          precision=mode),
+                kernels.generate_with_gradients_plain(
+                    0, eq, sol, tx, m, *noise, precision=mode), mode))
+        if nx == 512:
+            pts = [0, 1, b - 2, b - 1]
+            draws = _host_draws(EXACT_SEED, pts, m, nx, dev)
+            for mode in PIS_MODES:
+                key = _err_key("generate_pis", mode) + " highd"
+                max_err[key] = max(max_err[key], _pis_same(
+                    f"generate_pis {mode}, {tag}, own draws vs host Philox "
+                    f"at points {pts}", kernels.generate_pis_cuda(
+                        EXACT_SEED, eq, sol, tx, m, precision=mode)[pts],
+                    kernels.generate_with_gradients_plain(
+                        0, eq, sol, tx[pts], m, *draws, precision=mode),
+                    mode))
+    # past the limits: NotImplementedError from the structure, no launch
+    past = []
+    eq, sol, tx, _ = _highd_problem(4, 2, kernels.GENERATE_TC_MAX_NX + 1,
+                                    128, 1, 3, dev, 1)
+    past.append(("merged bf16x3 at nx = limit + 1", kernels.GENERATE,
+                 lambda eq=eq, sol=sol, tx=tx:
+                 kernels.generate_with_gradients_cuda(
+                     0, eq, sol, tx, 64, precision="bf16x3")))
+    eq, sol, tx, _ = _highd_problem(4, 2, 512, 128, 1, 3, dev, 1)
+    past.append(("merged highest at nx = 512", kernels.GENERATE,
+                 lambda eq=eq, sol=sol, tx=tx:
+                 kernels.generate_with_gradients_cuda(
+                     0, eq, sol, tx, 64, precision="highest")))
+    eq_o = make_equation("OUProcessEquation", nx=kernels.PIS_MAX_NX + 1,
+                         num_components=5).to(dev)
+    tx_o = torch.zeros((4, kernels.PIS_MAX_NX + 2), device=dev)
+    past.append(("PIS default at nx = limit + 1", kernels.GENERATE_PIS,
+                 lambda: kernels.generate_pis_cuda(
+                     0, eq_o, Solution.zero(kernels.PIS_MAX_NX + 1), tx_o,
+                     64, precision="default")))
+    for label, lib, call in past:
+        n0 = lib.launches
+        try:
+            call()
+        except NotImplementedError as e:
+            print(f"{label}: raises before any launch ({e})")
+        else:
+            _fail(f"{label}: no NotImplementedError")
+        if lib.launches != n0:
+            _fail(f"{label}: launched")
+
+
+def _run_highd(path: str, n_iter: int):
+    """Phase 23: path R, S or T through the merged kernel, one launch per
+    generation call (S makes two an iteration: DATA.CHUNK_ELEMS caps a
+    call at 4096 points at nx = 1024, as the JAX package's
+    default_gen_batch does); its second iteration traced (generation and
+    fit: device busy ms; the idle share against the iteration's own
+    CUDA-event time, generate plus fit, and against the traced wall, which
+    holds the profiler's own overhead); peak device memory; rRMSE under the
+    record's limits (``_rrmse_limit``). Returns (runner, launches, peak
+    GiB)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    runner, launches, seen = _run_path(path, n_iter,
+                                       trace_iter=min(2, n_iter))
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    stem = "generate_pis" if path == "T" else "generate"
+    _expect_launches(path, runner, launches, seen,
+                     {stem: runner.generate_calls})
+    sm = runner.traced
+    nth = min(2, n_iter)
+    tm = next(t for t in runner.timings if t["iter"] == nth)
+    sm["idle_of_iteration"] = 1.0 - sm["device_busy_ms"] / (
+        tm["generate_ms"] + tm["fit_ms"])
+    print(f"path {path} ({HIGHD_PATHS[path][0]} + "
+          f"{' '.join(HIGHD_PATHS[path][1])}, read by the port's YAML "
+          f"reader): routes {seen[0]}, {launches[stem] / n_iter:g} {stem} "
+          f"launch(es) per iteration; iteration {nth} traced: "
+          f"{sm['device_busy_ms']:.1f} device ms of its "
+          f"{tm['generate_ms'] + tm['fit_ms']:.1f} ms (generate + fit, CUDA "
+          f"events): device idle {sm['idle_of_iteration']:.1%} "
+          f"({sm['device_idle_share']:.1%} of the traced wall, "
+          f"{sm['host_ms_per_iteration']:.1f} ms with the profiler's "
+          f"overhead); {sm['kernels_per_iteration']:.0f} "
+          f"kernels, top {sm['top_kernels_ms'][:3]}; peak device memory "
+          f"{peak:.2f} GiB above the {held / 2 ** 30:.2f} GiB held before it; "
+          f"record {HIGHD_PATHS[path][2]}: rRMSE "
+          f"{_record_rrmse(path)[:n_iter]}, limits x{HIGHD_RRMSE_FACTOR}")
+    return runner, launches, peak
+
+
+def _highd_at_own_shape(path: str, runner, max_err: dict, dev):
+    """Phase 11's rows of paths R, S, T: the path's merged kernel at the
+    path's own shapes (a generation call's points, ``default_gen_batch``:
+    S's 8192 in two calls of 4096; the path's M, nx and mode) with its
+    trained iterate. Its own draws against the host Philox at the first
+    and last point (the plain version fed those draws, at the path's M:
+    ``_same`` in the mode, ``_pis_same`` for T), and its law against the
+    plain version's over every output (``_clt``: the plain version on
+    torch.Generator draws, with its variance). The kernel is timed on the
+    call after that first one (which warms it up), the plain version on its
+    one call (with the variance it returns). Updates max_err[f"{stem}
+    {mode} path {path}"] with the first check's max |diff|; returns (eq,
+    sol, B, M, mode, ms, plain ms, the CLT's max z)."""
+    from deeppicarditeration_torch.data.dataset import default_gen_batch
+    from deeppicarditeration_torch.device import make_generator
+    from deeppicarditeration_torch.ops import estimators as est
+    from deeppicarditeration_torch.ops import kernels
+    from deeppicarditeration_torch.training.picard import gen_config_from_cfg
+
+    eq, sol = runner.equation, runner.u_current
+    gen = gen_config_from_cfg(runner.cfg)
+    nx, mode = eq.nx, gen.pallas_precision
+    nb = default_gen_batch(int(runner.cfg.DATA.DATA_SIZE), gen.chunk_elems,
+                           nx)
+    mm = gen.n_estimate_terminal
+    tx = est.sample_tx(make_generator(dev, 4), eq, nb, gen, device=dev)
+    pis = path == "T"
+    wrapper = (kernels.generate_pis_cuda if pis
+               else kernels.generate_with_gradients_cuda)
+    key = f"{'generate_pis' if pis else 'generate'} {mode} path {path}"
+    tag = (f"path {path}, iterate {len(runner.u_history) - 1}, B={nb} M={mm} "
+           f"nx={nx}")
+    own = wrapper(EXACT_SEED, eq, sol, tx, mm, precision=mode)
+    pts = [0, nb - 1]
+    draws = _host_draws(EXACT_SEED, pts, mm, nx, dev)
+    ref = kernels.generate_with_gradients_plain(0, eq, sol, tx[pts], mm,
+                                                *draws, precision=mode)
+    del draws
+    label = f"{tag}, own draws vs host Philox at points {pts}"
+    max_err[key] = (_pis_same(f"generate_pis {mode}, {label}", own[pts],
+                              ref, mode) if pis else
+                    _same(f"merged {mode}, {label}", own[pts], ref,
+                          _mode_tol(mode)))
+    ms = _once_ms(lambda: wrapper(5, eq, sol, tx, mm, precision=mode))
+    res = {}
+    plain_ms = _once_ms(lambda: res.update(
+        ref=kernels.generate_with_gradients_plain(
+            7, eq, sol, tx, mm, precision=mode, return_var=True)))
+    ref, var = res.pop("ref")
+    z = _clt(f"{'generate_pis' if pis else 'merged'} {mode}, {tag}", own,
+             ref, var, mm, _bonferroni(nb * (1 + nx)))
+    return eq, sol, nb, mm, mode, ms, plain_ms, z
+
+
 # ---- work and bound models (per call, from the call's shapes) -------------
 
 def _terminal_work(b, m, nx, anti):
@@ -1370,9 +1764,12 @@ def _bound(work):
 
 # ---- paths -----------------------------------------------------------------
 
-def _run_path(path: str, n_iter: int, overrides=()):
+def _run_path(path: str, n_iter: int, overrides=(), trace_iter=None):
     """Run one path (``overrides`` on top of its recipe, as in
-    ``path_cfg``); returns (runner, {library name: launches})."""
+    ``path_cfg``); returns (runner, {library name: launches}). With
+    ``trace_iter``: that iteration (generation and fit) traced by
+    torch.profiler, ``utils/fit_trace.py:summarize``'s reading in
+    ``runner.traced``."""
     import torch
 
     from deeppicarditeration_torch.ops import estimators as est
@@ -1391,6 +1788,8 @@ def _run_path(path: str, n_iter: int, overrides=()):
         lib.mode_launches.clear()
     for route in est.route_calls:
         est.route_calls[route] = 0
+    if trace_iter:
+        _trace_iteration(runner, trace_iter, f"path_{path}")
     t0 = time.perf_counter()
     runner.run()
     torch.cuda.synchronize()
@@ -1452,8 +1851,49 @@ def _run_path(path: str, n_iter: int, overrides=()):
     return runner, launches, (routes, modes)
 
 
+def _trace_iteration(runner, nth: int, name: str) -> None:
+    """Trace the runner's ``nth`` iteration (its ``run_one``: generation,
+    fit, checkpoint) with torch.profiler; ``fit_trace.summarize``'s
+    reading (device busy ms, idle share, kernels) goes to
+    ``runner.traced``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeppicarditeration_torch.utils import fit_trace
+
+    run_one, seen = runner.run_one, {"n": 0}
+
+    def traced():
+        seen["n"] += 1
+        if seen["n"] != nth:
+            return run_one()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = run_one()
+            torch.cuda.synchronize()
+        runner.traced = fit_trace.summarize(
+            prof, (time.perf_counter() - t0) * 1e3, 1, "iteration", name,
+            ROOT / "build" / "chip_smoke_runs" / "traces")
+        return out
+
+    runner.run_one = traced
+
+
+def _record_rrmse(path: str) -> list:
+    """The record's rRMSE by iteration (bench_results/), the first three
+    as HIGHD_PATHS states them."""
+    recipe, _, record, first, _ = HIGHD_PATHS[path]
+    rows = [json.loads(ln) for ln in
+            (ROOT / record).read_text().splitlines() if ln.strip()]
+    return list(first) + [r["rRMSE"] for r in rows[len(first):]]
+
+
 def _rrmse_limit(path: str, i: int) -> float:
     """Path ``path``'s rRMSE limit at iteration i."""
+    if path in HIGHD_PATHS:
+        rec = _record_rrmse(path)
+        return HIGHD_RRMSE_FACTOR * rec[min(i, len(rec)) - 1]
     if path in ("H", "J"):
         return HJB_RRMSE_MAX[min(i, len(HJB_RRMSE_MAX)) - 1]
     if path in ("K", "L"):
@@ -2246,7 +2686,8 @@ def _expect_launches(path, runner, launches, seen, want):
     mode = gen_config_from_cfg(runner.cfg).pallas_precision
     want_modes = {name: {mode: n} for name, n in full.items()
                   if n and name in ("generate", "integral", "generate_pis")}
-    route = (est.MERGED if path in ("A", "A'", "D", "F", "H", "J")
+    route = (est.MERGED if path in ("A", "A'", "D", "F", "H", "J", "R",
+                                    "S", "T")
              else est.SPLIT)
     want_routes = {r: runner.generate_calls if r == route else 0
                    for r in routes}
@@ -2258,41 +2699,56 @@ def _expect_launches(path, runner, launches, seen, want):
 
 
 # STL and LDL (local-memory stores and loads: spills) in the SASS of each
-# tensor-core kernel as the tree stands (H100, CUDA 12.8; PERF.md §6): a
-# build that spills more fails phase 1. The integral kernel's instances
-# are to reach none (ROADMAP §B).
-SPILLS_MAX = {"generate_tc_kernel": (20, 24),
-              "generate_pis_kernel": (216, 262),
+# tensor-core kernel's instance as the tree stands (H100, CUDA 12.8;
+# PERF.md §6): a build that spills more fails phase 1. The integral
+# kernel's instances are to reach none (ROADMAP §B).
+SPILLS_MAX = {"generate_tc_kernel<bf16x3, 128>": (12, 15),
+              "generate_tc_kernel<default, 128>": (11, 13),
+              "generate_tc_kernel<bf16x3, 256>": (10, 12),
+              "generate_tc_kernel<default, 256>": (11, 13),
+              "generate_pis_kernel<default>": (113, 137),
+              "generate_pis_kernel<bf16x3>": (114, 138),
+              "generate_pis_kernel<default, nx > 128>": (205, 261),
+              "generate_pis_kernel<bf16x3, nx > 128>": (255, 405),
               "integral_tc_kernel<bf16x3>": (7, 11),
               "integral_tc_kernel<default>": (1, 1),
               "integral_tc_kernel<highest>": (28, 32)}
-# the integral kernel's instances by mode: integral_tc_kernel<P>, P passes
-INTEGRAL_INSTANCES = {"bf16x3": "integral_tc_kernelILi3E",
-                      "default": "integral_tc_kernelILi1E",
-                      "highest": "integral_tc_kernelILi6E"}
+# each tensor-core kernel's instances by their mangled template arguments:
+# the merged kernel's generate_tc_kernel<P, HW> (P passes, hidden width
+# HW), the HJB kernel's generate_pis_kernel<X3, W> (W: nx > 128), the
+# integral kernel's integral_tc_kernel<P>
+INSTANCES = {
+    "generate_tc_kernel": {
+        f"{mode}, {hw}": f"generate_tc_kernelILi{p}ELi{hw}EE"
+        for hw in (128, 256) for mode, p in (("bf16x3", 3), ("default", 1))},
+    "generate_pis_kernel": {
+        f"{mode}{', nx > 128' if w else ''}":
+            f"generate_pis_kernelILb{x3}ELb{w}E"
+        for w in (0, 1) for mode, x3 in (("bf16x3", 1), ("default", 0))},
+    "integral_tc_kernel": {"bf16x3": "integral_tc_kernelILi3E",
+                           "default": "integral_tc_kernelILi1E",
+                           "highest": "integral_tc_kernelILi6E"}}
 
 
 def _hgmma_counts():
     """(HGMMA, WARPGROUP.DEPBAR, STL, LDL) instructions in the SASS of the
     tensor-core kernels (``cuobjdump -sass`` of the built libraries), by
-    kernel: the merged and the HJB kernel over all their instantiations,
-    the integral kernel's three instances apart. A DEPBAR waits for wgmma
-    to finish: one per slab group is the design, one per HGMMA a
-    serialised pass; STL and LDL are spills."""
+    instance (``INSTANCES``). A DEPBAR waits for wgmma to finish: one per
+    slab group is the design, one per HGMMA a serialised pass; STL and LDL
+    are spills."""
     from deeppicarditeration_torch.ops import kernels
     from deeppicarditeration_torch.utils.pis_bench import function_counts
 
     ops = ("HGMMA", "WARPGROUP.DEPBAR", "STL", "LDL")
     out = {}
     for lib, fn in ((kernels.GENERATE, "generate_tc_kernel"),
-                    (kernels.GENERATE_PIS, "generate_pis_kernel")):
-        counts = function_counts(lib, fn).values()
-        out[fn] = tuple(sum(c[op] for c in counts) for op in ops)
-    found = function_counts(kernels.INTEGRAL, "integral_tc_kernel")
-    for mode, inst in INTEGRAL_INSTANCES.items():
-        counts = [c for name, c in found.items() if inst in name]
-        out[f"integral_tc_kernel<{mode}>"] = tuple(
-            sum(c[op] for c in counts) for op in ops)
+                    (kernels.GENERATE_PIS, "generate_pis_kernel"),
+                    (kernels.INTEGRAL, "integral_tc_kernel")):
+        found = function_counts(lib, fn)
+        for label, inst in INSTANCES[fn].items():
+            counts = [c for name, c in found.items() if inst in name]
+            out[f"{fn}<{label}>"] = tuple(
+                sum(c[op] for c in counts) for op in ops)
     return out
 
 
@@ -2415,6 +2871,11 @@ def main(argv=None) -> int:
                     help=f"sub-iterations per grid time of paths M and N "
                          f"(default {DBDP_SUB_ITER}; 'recipe': the recipes' "
                          f"own, 150 and 125)")
+    ap.add_argument("--highd-iterations", type=int,
+                    default=HIGHD_ITERATIONS,
+                    help=f"Picard iterations of paths R, S, T (default "
+                         f"{HIGHD_ITERATIONS}; the recipes' own: 60, 50, "
+                         f"40)")
     for flag, path, own in (("--pinn-epochs", "O", 30000),
                             ("--hjb-pinn-epochs", "P", 20000),
                             ("--fn-pinn-epochs", "Q", 10000)):
@@ -2831,6 +3292,13 @@ def main(argv=None) -> int:
     # ---- 21. cli evaluate on the card ---------------------------------------
     _evaluate_phase({"A": runner_a, "H": runner_h, "K": runner_k}, n_iter)
 
+    # ---- 22. the merged kernels' high-dimension instances vs plain --------
+    _check_highd(max_err, dev)
+
+    # ---- 23. paths R, S, T: the JAX package's high-dimension records -----
+    n_hd = args.highd_iterations
+    highd = {p: _run_highd(p, n_hd) for p in HIGHD_PATHS}
+
     # ---- 11. times and bounds at the paths' shapes -------------------------
     neurons = sol.module.neurons
     n_weights = sum(p.numel() for p in sol.module.parameters())
@@ -3028,6 +3496,44 @@ def main(argv=None) -> int:
             _pis_work(nb_h, mm_h, nx, hidden_h, ncomp, n_w_h, mode),
             shape=f"B={nb_h} M={mm_h} nx={nx}, 4x512 PISGradNet",
             mode=mode, extra={"instance": "OU + PISGradNet (HJB)"})
+    # the merged kernels' high-dimension instances at paths R, S and T's
+    # shapes, each with its path's trained iterate in its path's mode,
+    # checked there (_highd_at_own_shape)
+    for path, (runner_p, launches_p, _) in highd.items():
+        eq_p, sol_p, nb_p, mm_p, mode_p, ms_p, plain_p, z_p = \
+            _highd_at_own_shape(path, runner_p, max_err, dev)
+        nx_p = eq_p.nx
+        n_w_p = sum(v.numel() for v in sol_p.module.parameters())
+        if path == "T":
+            stem, lib_name = "generate_pis", "generate_pis"
+            work = _pis_work(nb_p, mm_p, nx_p, sol_p.module.hidden_shapes,
+                             int(eq_p.gmm_means.shape[0]), n_w_p, mode_p)
+            net = "4x512 PISGradNet"
+        else:
+            stem, lib_name = "generate", "generate_with_gradients"
+            neurons_p = sol_p.module.neurons
+            work = _merged_work(nb_p, mm_p, nx_p, False, neurons_p, n_w_p,
+                                mode_p)
+            net = f"{len(neurons_p)}x{neurons_p[0]} net"
+            plan_p = kernels.library_tc_plan(nx_p, len(neurons_p),
+                                             width=neurons_p[0])
+            v = kernels.generate_tc_l2_bytes(nb_p, mm_p, nx_p, len(neurons_p),
+                                             mode_p, plan_p, neurons_p[0])
+            print(f"generate_with_gradients {mode_p} at path {path}'s shapes "
+                  f"(counted, not measured): L2 bytes per launch by the plan "
+                  f"{plan_p}: {v['total'] / 1e9:.2f} GB (weight slabs "
+                  f"{v['weights'] / 1e9:.2f}, scratch "
+                  f"{v['scratch'] / 1e9:.2f})")
+        row(lib_name, stem, f"{src}:869", path, launches_p[stem],
+            runner_p.generate_calls, ms_p, plain_p, work,
+            shape=f"B={nb_p} M={mm_p} nx={nx_p}, {net}", mode=mode_p,
+            err_key=f"{stem} {mode_p} path {path}",
+            extra={"instance": f"path {path}: nx={nx_p}, {net}",
+                   "launches_per_iteration": launches_p[stem] / n_hd,
+                   "plain_ms_calls": 1, "plain_returns_var": True,
+                   "clt_max_z": z_p,
+                   "max_abs_err_phase_22": max_err[
+                       _err_key(stem, mode_p) + " highd"]})
     # the normals kernel at paths K/L's chunk shape, launched by path L
     n_fn_chunk = math.prod(FN_CHUNK)
     row("normals", "normals", f"{src}:71", "L", launches_l2["normals"],
@@ -3081,6 +3587,16 @@ def main(argv=None) -> int:
           f"of {runner_i.graph_replays} graph replays (traced: "
           f"{traced_i['launches']} in {traced_i['replays']}; K="
           f"{int(runner_i.cfg.METHOD.K)}), first interval {per_i[0]:.3f} ms")
+    for path, (runner_p, _, peak_p) in highd.items():
+        steady = [tm for tm in runner_p.timings if tm["iter"] > 1] \
+            or runner_p.timings
+        print(f"path {path}: generate ms "
+              f"{statistics.median(tm['generate_ms'] for tm in steady):.1f}, "
+              f"fit ms {statistics.median(tm['fit_ms'] for tm in steady):.1f}"
+              f" (median of iterations 2-{n_hd}), idle "
+              f"{runner_p.traced['idle_of_iteration']:.1%} (iteration "
+              f"{min(2, n_hd)} traced, of its generate + fit), peak "
+              f"{peak_p:.2f} GiB")
     print("paths O, P, Q (PINN): " + "; ".join(
         f"{p} {ms:.3f} ms per epoch, idle {sm['device_idle_share']:.1%}, "
         f"peak {peak:.2f} GiB, rRMSE {r:.4f}"

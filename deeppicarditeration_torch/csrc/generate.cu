@@ -11,7 +11,11 @@
 //             acc += Tt (f - f0) * (1, dWi / (sqrt(max(s - t, 1e-6)) sqrt(a)))
 //   out = acc / M + (g0 + f0 Tt, 0),  shape (B, 1 + nx) f32.
 // Specialised to the Burgers equation "Cha" (g and ff below) and a Value
-// MLP of ELU hidden layers of width 128 with no output clamp.
+// MLP of ELU hidden layers with no output clamp: of width 128 or 256 at
+// nx <= 1024 on the tensor cores, of width 128 at nx <= 511 in "highest"
+// (ops/kernels.py:merged_covers holds those limits; the card tests hold
+// them to dpi_generate_tc_widths, dpi_generate_tc_max_nx,
+// dpi_generate_hidden_width, dpi_generate_max_nx).
 //
 // Antithetic pairing (anti = 1): samples 2p and 2p + 1 share draw p, the
 // second with both increments negated and the same time u; external noise
@@ -58,8 +62,22 @@
 //     ELU derivatives and the tiles' normals stay in shared memory where
 //     the plan fits them, else in a global scratch of the block's own
 //     (at nx = 100 and 4x128: the normals in shared memory, the
-//     derivatives in scratch, 4 stages); the integral sums are reduced in
-//     row order by the thread that owns each output; a persistent grid.
+//     derivatives in scratch, 4 stages; at nx = 512 and 1024, 128 KB and
+//     256 KB of a tile's normals: both in scratch, 4 stages); the integral
+//     sums are reduced in row order by the thread that owns each output
+//     (4 a consumer in registers; from nx = 512 the columns past them in
+//     a row of shared memory a warpgroup, whose loops run no iteration
+//     below 512: one instance a width and mode serves every nx, measured
+//     in turns with the width-128 kernel of nx <= 511 it replaced at path
+//     A's B = M = 4096, nx = 100 (utils/generate_bench.py, H100 80GB
+//     HBM3 700 W): bf16x3 47.00 against 46.22 ms, "default" 35.93
+//     against 35.67, antithetic M = 8192 86.74 against 84.30, all within
+//     3 % of the build before nx 512 (46.30, 35.21, 84.69)); a persistent
+//     grid.
+//     Width 256 (net_pass_n256): each warpgroup keeps its own tile and
+//     takes a layer in two m64n128 halves; a layer's output goes back as
+//     the next layer's A through the warpgroup's global scratch (why, and
+//     the choice against both warpgroups on one tile: at net_pass_n256).
 //   * "highest": generate_kernel, the FP32-FMA design
 //     (value_mlp.cuh), one block per point, inner blocks of S = 32
 //     samples, 8 per warp through the whole net, activations and both
@@ -291,11 +309,28 @@ constexpr int WG = tc::CONSUMERS;  // a warpgroup: 128 threads
 // the consumers and the terminal warps (the producer warpgroup's others)
 constexpr int TERM_BAR_THREADS = TC_CONSUMERS + AUX_THREADS;
 
+// The tensor-core kernel's cover: nx (its output columns past the
+// consumers' registers in shared memory) and the hidden widths it is built
+// for (H = 128, and the width-256 pass below).
+constexpr int GEN_MAX_NX = 1024;
+constexpr int H2 = 256;
+// a consumer's floats of one layer's output at width 256: two m64n128
+// halves
+constexpr int ACT_THREAD = H2 / 2;
+
 // The merged kernel's shared memory beside the ring: each consumer
 // warpgroup's tile of normals (rows of nx), the terminal warps' sums, 32 KB
-// stages (hi and lo images). ops/kernels.py:library_tc_plan reads the plan.
-__host__ __device__ inline tc::Layout gen_layout(int nx) {
-  return tc::Layout{1, 1, nx, 2 * tc::IMAGE_BYTES};
+// stages (hi and lo images of a 128-row slab at either width); at width
+// 256 the saved derivatives of TILE x 256 a layer and two buffers of layer
+// outputs a warpgroup (global scratch). ops/kernels.py:library_tc_plan
+// reads the plan.
+__host__ __device__ inline tc::Layout gen_layout(int nx, int hw) {
+  tc::Layout k{1, 1, nx, 2 * tc::IMAGE_BYTES};
+  if (hw == H2) {
+    k.save_layer = tc::TILE * H2;
+    k.act = 2 * ACT_THREAD * tc::CONSUMERS;
+  }
+  return k;
 }
 
 }  // namespace
@@ -585,12 +620,309 @@ __device__ __forceinline__ void net_pass_n128(const Params& p, const Tile& s,
   }
 }
 
+// ---- the width-256 pass ---------------------------------------------------
+// Of the two designs, both warpgroups on one tile (N = 128 each, as
+// generate_pis.cu's wide layers) or each on its own (N in two halves), the
+// second: it keeps the block's loop, the ring's 32 KB stages of 128-row
+// slabs, the turns and every weight byte serving two tiles as at width
+// 128, and the registers of the width-128 pass; the first would stage
+// 256-row slabs (64 KB a stage under bf16x3), each byte serving one tile,
+// and hold a tile's activations in shared memory beside them.
+// Each consumer warpgroup keeps its own 64-row tile, as at width 128, and
+// takes a layer's 256 output columns in two m64n128 halves, each over all
+// of the layer's K-slabs (the ring's stages are 128-row slabs as at width
+// 128: 32 KB under bf16x3). A layer's output is 128 floats a thread, too
+// many beside the accumulator and the A fragments in the 208 registers a
+// consumer has, and a tile's outputs (64 KB a warpgroup, two buffers) do
+// not fit in shared memory beside the ring and the rows of normals at
+// nx = 1024: so each thread writes its halves to its warpgroup's buffers in
+// global scratch ([float][thread], coalesced; L2-resident) and reads them
+// back, a K-slab (32 floats) at a time, as the next layer's A fragments:
+// the m64n128 accumulator's layout is the A fragments' (acc_col), so a
+// thread reads back only what it wrote. Both halves of a layer read the
+// same input; the output goes to the other buffer.
+
+// Bias and ELU of half h of layer l's accumulator (width 256). Below the
+// last layer elu'(z) is saved and acc is the activation; at the last layer
+// the head's partial sums go to u and acc becomes the head's gradient
+// times elu'(z).
+template <bool X3>
+__device__ __forceinline__ void layer_out256(const Params& p, const Tile& s,
+                                             float (&acc)[NACC], int l, int h,
+                                             int ctid, float (&u)[2]) {
+  const int t = ctid & 3;
+  const float* bias = p.vec + (size_t)(l - 1) * H2 + 128 * h;
+  if (l < p.L) {
+    float2* sv = s.save + (size_t)(l - 1) * 64 * CONSUMERS +
+                 (size_t)32 * h * CONSUMERS + ctid;
+#pragma unroll
+    for (int q = 0; q < NACC / 2; ++q) {
+      float d[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 2 * q + e;
+        const float z = acc[i] + __ldg(bias + acc_col(i, t));
+        const float ez = expf(fminf(z, 0.0f));
+        acc[i] = z > 0.0f ? z : ez - 1.0f;
+        d[e] = z > 0.0f ? 1.0f : ez;
+      }
+      sv[(size_t)q * CONSUMERS] = make_float2(d[0], d[1]);
+    }
+    return;
+  }
+  const float* w_out = p.vec + (size_t)p.L * H2 + 128 * h;
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) {
+    const int col = acc_col(i, t);
+    const float z = acc[i] + __ldg(bias + col);
+    const float ez = expf(fminf(z, 0.0f));
+    const float a = z > 0.0f ? z : ez - 1.0f;
+    const float w = __ldg(w_out + col);
+    const float wh = bf16_round(w), ah = bf16_round(a);
+    float term = ah * wh, gw = wh;
+    if (X3) {
+      const float wl = bf16_round(w - wh);
+      term += bf16_round(a - ah) * wh + ah * wl;
+      gw += wl;
+    }
+    u[(i >> 1) & 1] += term;
+    acc[i] = gw * (z > 0.0f ? 1.0f : ez);
+  }
+}
+
+// g1 (half h) contracted with W1's column sums over x, _split3's products
+template <bool X3>
+__device__ __forceinline__ void colsum256(const Params& p,
+                                          const float (&acc)[NACC], int h,
+                                          int t, float (&sx)[2]) {
+  const float* wc_hi = p.vec + (size_t)(p.L + 1) * H2 + 128 * h;
+  const float* wc_lo = p.vec + (size_t)(p.L + 2) * H2 + 128 * h;
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) {
+    const int col = acc_col(i, t);
+    const float gh = bf16_round(acc[i]), ch = __ldg(wc_hi + col);
+    float term = gh * ch;
+    if (X3) term += gh * __ldg(wc_lo + col) + bf16_round(acc[i] - gh) * ch;
+    sx[(i >> 1) & 1] += term;
+  }
+}
+
+// half h of a layer's output into a buffer: float 64 h + i of this thread
+__device__ __forceinline__ void store_half(const float (&acc)[NACC],
+                                           float* buf, int h, int ctid) {
+#pragma unroll
+  for (int i = 0; i < NACC; ++i)
+    buf[(size_t)(64 * h + i) * CONSUMERS + ctid] = acc[i];
+}
+
+// K-slab sb of a layer's input (floats 32 sb .. of this thread: its half
+// sb / 2, k-chunks 4 (sb & 1) ..) as A fragments
+__device__ __forceinline__ void load_slab(const float* buf, int sb, int ctid,
+                                          uint32_t (&ah)[4][4],
+                                          uint32_t (&al)[4][4]) {
+  float x[32];
+#pragma unroll
+  for (int q = 0; q < 32; ++q)
+    x[q] = buf[(size_t)(32 * sb + q) * CONSUMERS + ctid];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split_hi_lo(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1], ah[kk][r],
+                  al[kk][r]);
+}
+
+// One K-slab's products in one turn, waited for, the slab freed.
+template <int TRANS_B, bool X3, class Turn>
+__device__ __forceinline__ void slab_turn(float (&acc)[NACC],
+                                          uint32_t (&ah)[4][4],
+                                          uint32_t (&al)[4][4], Ring& ring,
+                                          const Turn& turn) {
+  int freed = ring.it;
+  turn.wait();
+  slab_issue<TRANS_B, X3, 0>(acc, ah, al, ring);
+  turn.pass();
+  slab_retire<0>(acc, ring, freed);
+}
+
+// u and sum_j u_x_j of a width-256 net at (s, X_s) for the tile's rows
+// (written to s.u, s.sux); act: the warpgroup's two output buffers.
+template <bool X3, class Turn>
+__device__ __forceinline__ void net_pass_n256(const Params& p, const Tile& s,
+                                              Ring& ring, int ctid,
+                                              const Turn& turn, float* act) {
+  const int warp = ctid >> 5, lane = ctid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + g, r1 = r0 + 8;
+  const int L = p.L, nx = p.nx, n1 = k1_of(nx) / SLAB_K;
+  float* in = act;
+  float* out = act + (size_t)ACT_THREAD * CONSUMERS;
+  float u[2] = {0.0f, 0.0f}, sx[2] = {0.0f, 0.0f};
+  float acc[NACC];
+
+  // layer 1: [X_s, s] W1p^T, each half over all K-slabs
+  for (int h = 0; h < 2; ++h) {
+    zero(acc);
+    for (int sb = 0; sb < n1; ++sb) {
+      uint32_t ah[4][4], al[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = (r & 1) ? r1 : r0;
+          const int col = SLAB_K * sb + 16 * kk + 2 * t + 8 * (r >> 1);
+          split_hi_lo(s.a1(row, col, nx), s.a1(row, col + 1, nx), ah[kk][r],
+                      al[kk][r]);
+        }
+      slab_turn<0, X3>(acc, ah, al, ring, turn);
+    }
+    layer_out256<X3>(p, s, acc, 1, h, ctid, u);
+    if (L == 1)
+      colsum256<X3>(p, acc, h, t, sx);
+    else
+      store_half(acc, out, h, ctid);
+  }
+
+  // hidden layers 2..L forward
+  for (int l = 2; l <= L; ++l) {
+    float* tmp = in;
+    in = out;
+    out = tmp;
+    for (int h = 0; h < 2; ++h) {
+      zero(acc);
+      for (int sb = 0; sb < 4; ++sb) {
+        uint32_t ah[4][4], al[4][4];
+        load_slab(in, sb, ctid, ah, al);
+        slab_turn<0, X3>(acc, ah, al, ring, turn);
+      }
+      layer_out256<X3>(p, s, acc, l, h, ctid, u);
+      store_half(acc, out, h, ctid);
+    }
+  }
+
+  // backward through hidden layers L..2: g_{l-1} = (g_l W_l) elu'(z_{l-1})
+  for (int l = L; l >= 2; --l) {
+    float* tmp = in;
+    in = out;
+    out = tmp;
+    for (int h = 0; h < 2; ++h) {
+      zero(acc);
+      for (int sb = 0; sb < 4; ++sb) {
+        uint32_t ah[4][4], al[4][4];
+        load_slab(in, sb, ctid, ah, al);
+        slab_turn<1, X3>(acc, ah, al, ring, turn);
+      }
+      const float2* sv = s.save + (size_t)(l - 2) * 64 * CONSUMERS +
+                         (size_t)32 * h * CONSUMERS + ctid;
+#pragma unroll
+      for (int q = 0; q < NACC / 2; ++q) {
+        const float2 d = sv[(size_t)q * CONSUMERS];
+        acc[2 * q] *= d.x;
+        acc[2 * q + 1] *= d.y;
+      }
+      if (l == 2)
+        colsum256<X3>(p, acc, h, t, sx);
+      else
+        store_half(acc, out, h, ctid);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      u[r] += __shfl_xor_sync(0xffffffffu, u[r], o);
+      sx[r] += __shfl_xor_sync(0xffffffffu, sx[r], o);
+    }
+  }
+  if (t == 0) {
+    const float b_out = __ldg(p.vec + (size_t)(L + 3) * H2);
+    s.u[r0] = u[0] + b_out;
+    s.u[r1] = u[1] + b_out;
+    s.sux[r0] = sx[0];
+    s.sux[r1] = sx[1];
+  }
+}
+
+// The producer warp at width 256: every slab in the consumers' order, per
+// tile pair: layer 1's K-slabs for output half 0, then half 1; each hidden
+// layer's 4 K-slabs per half forward (W's rows 128 h .., K-major as at
+// width 128), then backward (W's columns 128 h .. of each 64-row slab,
+// MN-major: 8 core rows of 16 cores, as at width 128).
+__device__ __forceinline__ void produce_wide(const Params& p, uint32_t ring,
+                                             uint32_t full, uint32_t empty,
+                                             int lane, int stages,
+                                             int stage_bytes, int copies,
+                                             int nimg) {
+  const int L = p.L, K1 = k1_of(p.nx);
+  const int n1 = K1 / SLAB_K, nf = 2 * n1 + 8 * (L - 1);
+  const int nslab = nf + 8 * (L - 1);
+  const int ntile = (p.M + TILE - 1) / TILE;
+  const __nv_bfloat16* hidden = p.img + (size_t)nimg * H2 * K1;
+  int it = 0;
+  for (int b = blockIdx.x; b < p.B; b += gridDim.x)
+    for (int kb = 0; kb < ntile; kb += NWG)
+      for (int sl = 0; sl < nslab; ++sl, ++it) {
+        const int st = it % stages, round = it / stages;
+        if (round > 0) mbar_wait(empty + 8 * st, (uint32_t)((round - 1) & 1));
+        const __nv_bfloat16* src;
+        size_t img_off, row_stride;
+        int rows = 16, row_bytes = 1024;
+        if (sl < 2 * n1) {  // W1: rows 128 h .., input columns 64 sb ..
+          const int h = sl / n1, sb = sl - h * n1;
+          src = p.img + ((size_t)16 * h * (K1 / 8) + 8 * sb) * 64;
+          img_off = (size_t)H2 * K1;
+          row_stride = (size_t)K1 * 8;
+        } else {
+          const bool fwd = sl < nf;
+          const int f = fwd ? sl - 2 * n1 : sl - nf;
+          const int l = fwd ? 2 + f / 8 : L - f / 8;
+          const int h = (f & 7) >> 2, sb = f & 3;
+          const __nv_bfloat16* w = hidden + (size_t)(l - 2) * nimg * H2 * H2;
+          img_off = (size_t)H2 * H2;
+          row_stride = (size_t)H2 * 8;
+          if (fwd) {
+            src = w + ((size_t)16 * h * (H2 / 8) + 8 * sb) * 64;
+          } else {
+            src = w + ((size_t)8 * sb * (H2 / 8) + 16 * h) * 64;
+            rows = 8;
+            row_bytes = 2048;
+          }
+        }
+        const uint32_t bar = full + 8 * st;
+        if (lane == 0)
+          mbar_expect_tx(bar, (uint32_t)(rows * row_bytes * copies));
+        __syncwarp();
+        for (int c = lane; c < rows * copies; c += 32) {
+          const int im = c / rows, r = c - im * rows;
+          bulk_copy(ring + (uint32_t)(st * stage_bytes + im * IMAGE_BYTES +
+                                      r * row_bytes),
+                    src + im * img_off + r * row_stride, (uint32_t)row_bytes,
+                    bar);
+        }
+      }
+}
+
 }  // namespace tc
 }  // namespace dpi
 
 namespace {
 
 using namespace dpi;
+
+// the point's integral sums at the columns past a consumer's registers
+// (isum_floats), kept in shared memory, over the tile's rows in row order
+__device__ __forceinline__ void accumulate_wide(const tc::Tile& s, int nx,
+                                                int ctid, float* isum) {
+  constexpr int J0 = tc::MAXJ * tc::CONSUMERS;
+  for (int j = J0 + ctid; j <= nx; j += tc::CONSUMERS) {
+    const float* di = s.dw + (j - 1);
+    float a = isum[j - J0];
+#pragma unroll 4
+    for (int row = 0; row < tc::TILE; ++row)
+      a = fmaf(s.c_iy[row], di[row * s.ld], a);
+    isum[j - J0] = a;
+  }
+}
 
 __device__ __forceinline__ float quad_sum(float4 v) {
   return (v.x + v.y) + (v.z + v.w);
@@ -721,13 +1053,15 @@ __device__ __forceinline__ void terminal_warps(const tc::Params& p,
   }
 }
 
-// P: the net's passes (3: bf16x3, 1: one bf16 pass). A block: two
-// consumer warpgroups, each on its own 64-row tile (tiles 2 i and 2 i + 1
-// of a point; the second warpgroup takes an empty tile past the last when a
-// point's tiles are odd, to keep the ring's pace), both reading every
-// weight stage; the producer warpgroup: one warp streaming the stages,
-// three running the terminal chain.
-template <int P>
+// P: the net's passes (3: bf16x3, 1: one bf16 pass); HW: the hidden width
+// (128, or H2 = 256: net_pass_n256). A block: two consumer warpgroups, each
+// on its own 64-row tile (tiles 2 i and 2 i + 1 of a point; the second
+// warpgroup takes an empty tile past the last when a point's tiles are
+// odd, to keep the ring's pace), both reading every weight stage; the
+// producer warpgroup: one warp streaming the stages, three running the
+// terminal chain. The output columns from MAXJ x 128 on (nx >= 512) are
+// summed in shared memory (isum), each warpgroup its own row.
+template <int P, int HW>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 generate_tc_kernel(const tc::Params p) {
   using namespace tc;
@@ -744,7 +1078,10 @@ generate_tc_kernel(const tc::Params p) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     const int pw = (threadIdx.x - TC_CONSUMERS) >> 5, lane = threadIdx.x & 31;
     if (pw == 0) {
-      if (L > 0)
+      if (L > 0 && HW == H2)
+        produce_wide(p, smem_u32(smem + pl.ring), full, empty, lane,
+                     pl.stages, lay.stage_bytes, pieces(P), packed(P));
+      else if (L > 0)
         produce(p, smem_u32(smem + pl.ring), full, empty, lane, pl.stages,
                 lay.stage_bytes, pieces(P), packed(P));
     } else {
@@ -759,6 +1096,19 @@ generate_tc_kernel(const tc::Params p) {
   // this warpgroup's tile: its rows, normals and saved derivatives
   const Tile s = tile_of(smem, pl, lay, p, 0, wg);
   float* red = reinterpret_cast<float*>(smem + pl.red);
+  const int n_isum = isum_floats(nx);
+  const size_t isum_bytes = align16((size_t)n_isum * 4);
+  float* isum0 = reinterpret_cast<float*>(smem + pl.isum);
+  float* isum = reinterpret_cast<float*>(smem + pl.isum + wg * isum_bytes);
+  float* isum1 = reinterpret_cast<float*>(smem + pl.isum + isum_bytes);
+  // width 256: this warpgroup's buffers of layer outputs, at the end of the
+  // block's scratch
+  float* act = nullptr;
+  if (HW == H2 && L > 1) {
+    const size_t per_block = scratch_floats(pl, lay, L);
+    act = p.scratch + blockIdx.x * per_block + per_block -
+          (size_t)NWG * lay.act + (size_t)wg * lay.act;
+  }
   Ring ring{smem_u32(smem + pl.ring), full, empty, pl.stages,
             lay.stage_bytes, 0};
   const PingPong turn{wg};
@@ -773,6 +1123,7 @@ generate_tc_kernel(const tc::Params p) {
     const uint2 key = make_uint2(p.seed_lo, (uint32_t)b);
     for (int j = threadIdx.x; j < nx; j += TC_CONSUMERS)
       s.xrow[j] = p.x[(size_t)b * nx + j];
+    for (int j = wtid; j < n_isum; j += WG) isum[j] = 0.0f;
     float acc[MAXJ] = {0.0f, 0.0f, 0.0f, 0.0f};
     named_sync(BAR_CONSUMERS, TC_CONSUMERS);
 
@@ -781,7 +1132,10 @@ generate_tc_kernel(const tc::Params p) {
       draw_normals(p, s, b, kb, key, wtid);
       named_sync(BAR_WG + wg, WG);
       if (L > 0) {
-        net_pass_n128<P == 3>(p, s, ring, wtid, turn);
+        if constexpr (HW == H2)
+          net_pass_n256<P == 3>(p, s, ring, wtid, turn, act);
+        else
+          net_pass_n128<P == 3>(p, s, ring, wtid, turn);
       } else if (wtid < TILE) {
         s.u[wtid] = 0.0f;
         s.sux[wtid] = 0.0f;
@@ -790,6 +1144,7 @@ generate_tc_kernel(const tc::Params p) {
       sample_weights(p, s, kb, Tt, f0, wtid);
       named_sync(BAR_WG + wg, WG);
       accumulate(s, nx, wtid, acc);
+      accumulate_wide(s, nx, wtid, isum);
       named_sync(BAR_WG + wg, WG);
     }
 
@@ -816,6 +1171,13 @@ generate_tc_kernel(const tc::Params p) {
                           : (sum_t * inv_yT + a) * inv_m;
         }
       }
+      for (int j = MAXJ * WG + wtid; j <= nx; j += WG) {
+        float sum_t = 0.0f;
+#pragma unroll
+        for (int w = 0; w < AUX_WARPS; ++w) sum_t += tred[w * (1 + nx) + j];
+        const int i = j - MAXJ * WG;
+        out[j] = (sum_t * inv_yT + (isum0[i] + isum1[i])) * inv_m;
+      }
     }
     if (b + (int)gridDim.x < p.B) named_arrive(BAR_TERM_FREE, TERM_BAR_THREADS);
     named_sync(BAR_CONSUMERS, TC_CONSUMERS);
@@ -823,11 +1185,15 @@ generate_tc_kernel(const tc::Params p) {
   if (wg == 0 && L > 0) turn.wait();  // the second warpgroup's last pass
 }
 
-// the tensor-core kernel for a mode
+// the tensor-core kernel for a mode and a hidden width
 using TcKernel = void (*)(const tc::Params);
-TcKernel tc_kernel(int mode) {
-  return mode == tc::MODE_BF16X3 ? generate_tc_kernel<3>
-                                 : generate_tc_kernel<1>;
+template <int HW>
+TcKernel tc_kernel_of(int mode) {
+  return mode == tc::MODE_BF16X3 ? generate_tc_kernel<3, HW>
+                                 : generate_tc_kernel<1, HW>;
+}
+TcKernel tc_kernel(int mode, int hw) {
+  return hw == H2 ? tc_kernel_of<H2>(mode) : tc_kernel_of<H>(mode);
 }
 
 }  // namespace
@@ -864,18 +1230,30 @@ int dpi_generate(const float* t, const float* x, const float* g0,
   return (int)cudaGetLastError();
 }
 
-// global scratch (bytes) dpi_generate_tc needs at any B and mode: the
-// saved derivatives and tiles' normals its plan keeps out of shared memory
+// the tensor-core kernel's cover: nx, and its hidden widths into out[4]
+// (their count returned)
+int dpi_generate_tc_max_nx() { return GEN_MAX_NX; }
+int dpi_generate_tc_widths(int* out) {
+  out[0] = H;
+  out[1] = H2;
+  return 2;
+}
+
+// global scratch (bytes) the tensor-core kernel needs at any B and mode
+// for a net of hidden width hw: the saved derivatives and tiles' normals
+// its plan keeps out of shared memory, and at width 256 the layer outputs
 // (0: none; -1: no plan)
-long long dpi_generate_tc_scratch_bytes(int nx, int L) {
-  const tc::Layout lay = gen_layout(nx);
+long long dpi_generate_tc_scratch_bytes_w(int nx, int L, int hw) {
+  if ((hw != H && hw != H2) || nx < 1 || nx > GEN_MAX_NX) return -1;
+  const tc::Layout lay = gen_layout(nx, hw);
   const tc::GPlan pl = tc::choose_gplan(nx, L, lay);
-  if (pl.stages < 0 || nx < 1 || nx > tc::TC_MAX_NX) return -1;
+  if (pl.stages < 0) return -1;
   const size_t f = tc::scratch_floats(pl, lay, L);
   if (f == 0) return 0;
   long long most = 0;
   for (int mode = tc::MODE_BF16X3; mode <= tc::MODE_ONE_PASS; ++mode) {
-    const int grid = tc::persistent_grid(tc_kernel(mode), pl.total, 1 << 30);
+    const int grid =
+        tc::persistent_grid(tc_kernel(mode, hw), pl.total, 1 << 30);
     if (grid < 0) return -1;
     const long long b = (long long)grid * f * 4;
     most = b > most ? b : most;
@@ -883,11 +1261,12 @@ long long dpi_generate_tc_scratch_bytes(int nx, int L) {
   return most;
 }
 
-// the plan at (nx, L) into out[5]: stages (-1: none), saved derivatives in
-// shared memory, tiles' normals in shared memory, shared memory bytes,
-// global scratch floats per block (ops/kernels.py:library_tc_plan)
-void dpi_generate_tc_plan(int nx, int L, long long* out) {
-  const tc::Layout lay = gen_layout(nx);
+// the plan at (nx, L, width hw) into out[5]: stages (-1: none), saved
+// derivatives in shared memory, tiles' normals in shared memory, shared
+// memory bytes, global scratch floats per block
+// (ops/kernels.py:library_tc_plan)
+void dpi_generate_tc_plan_w(int nx, int L, int hw, long long* out) {
+  const tc::Layout lay = gen_layout(nx, hw);
   const tc::GPlan pl = tc::choose_gplan(nx, L, lay);
   out[0] = pl.stages;
   out[1] = pl.save_smem;
@@ -896,25 +1275,28 @@ void dpi_generate_tc_plan(int nx, int L, long long* out) {
   out[4] = (long long)tc::scratch_floats(pl, lay, L);
 }
 
-// The tensor-core kernel (mode 1: bf16x3, 2: one bf16 pass); `img`, `vec`
-// from ops/kernels.py:pack_mlp_tc. Launches on `stream`; returns 0, a CUDA
+// The tensor-core kernel (mode 1: bf16x3, 2: one bf16 pass) for a net of
+// hidden width hw (128 or 256); `img`, `vec` from
+// ops/kernels.py:pack_mlp_tc. Launches on `stream`; returns 0, a CUDA
 // error or one of dpi::tc::ERR_*.
-int dpi_generate_tc(const float* t, const float* x, const float* g0,
-                    const float* f0, const void* img, const float* vec,
-                    const float* u01, const float* noise_t,
-                    const float* noise_i, float* scratch, float* out, int B,
-                    int M, int nx, int L, int has_net, int anti, int mode,
-                    unsigned long long seed, float T, float alpha_sqrt,
-                    float k, float c0, void* stream) {
+int dpi_generate_tc_w(const float* t, const float* x, const float* g0,
+                      const float* f0, const void* img, const float* vec,
+                      const float* u01, const float* noise_t,
+                      const float* noise_i, float* scratch, float* out, int B,
+                      int M, int nx, int L, int has_net, int anti, int mode,
+                      int hw, unsigned long long seed, float T,
+                      float alpha_sqrt, float k, float c0, void* stream) {
   using namespace dpi::tc;
   if (mode != MODE_BF16X3 && mode != MODE_ONE_PASS) return ERR_BAD_MODE;
-  if ((has_net && L < 1) || nx < 1 || nx > TC_MAX_NX) return ERR_NO_PLAN;
+  if ((has_net && L < 1) || nx < 1 || nx > GEN_MAX_NX ||
+      (hw != H && hw != H2))
+    return ERR_NO_PLAN;
   const int Ln = has_net ? L : 0;
-  const Layout lay = gen_layout(nx);
+  const Layout lay = gen_layout(nx, hw);
   const GPlan pl = choose_gplan(nx, Ln, lay);
   if (pl.stages < 0) return ERR_NO_PLAN;
   if (scratch_floats(pl, lay, Ln) > 0 && !scratch) return ERR_NO_SCRATCH;
-  auto* kernel = tc_kernel(mode);
+  auto* kernel = tc_kernel(mode, hw);
   const int grid = persistent_grid(kernel, pl.total, B);
   if (grid < 1) return ERR_GRID;
   dpi::tc::Params p;

@@ -85,7 +85,19 @@
 //     256 threads: the responsibilities and the f rows take 4 lanes a row
 //     (the head's output and the x columns of h0's gradient staged in
 //     shared memory); the mixture's variances are inverted once per block;
-//   * sums over draws and rows run in a fixed order (deterministic).
+//   * sums over draws and rows run in a fixed order (deterministic);
+//   * nx up to 512 in a wide instance of its own (W, nx > 128; the narrow
+//     instance keeps its code): the head and the x columns of N_0^T are
+//     512 rows (m64n256 per warpgroup, as the hidden layers); h0 = [T_enc,
+//     X_s] takes 64 + nx <= 576 columns of the activation buffer (72 KB
+//     an image), written once the gate has read its columns; the tile's
+//     integral normals (128 KB at nx = 512) go to the block's global
+//     scratch where the activations and the ring leave no room; the
+//     terminal chain's lane holds one draw's mixture sums, and the warp's
+//     sums over its draws sit in shared memory (term_draw_wide: at nx = 512
+//     the narrow layout's quads would take 128 registers a lane); w and f
+//     per row are summed in registers in the accumulators' layout and then
+//     across the 4 lanes of a row and the two warpgroups.
 // Draws: Philox4x32-10 keyed by (seed, point), counters (sample, quad,
 // chain) as in generate.cu (philox.cuh), so the host reference
 // ops/philox.py gives the same numbers.
@@ -115,16 +127,31 @@ constexpr int TERM_WARPS = 3;              // the producer warpgroup's others
 constexpr int TERM_THREADS = 32 * TERM_WARPS;
 constexpr int CH = 64;                   // the time net's channels
 constexpr int HW = 512;                  // the hidden width covered
-constexpr int ACT_COLS = 512;            // columns of the activation buffer
-constexpr int ACT_IMAGE = TILE * ACT_COLS * 2;  // one bf16 image: 64 KB
+constexpr int MAX_NX = 512;              // the nx covered
+// Up to NARROW_NX the narrow instance: the head and the x columns of
+// N_0^T 128 rows (HALF); beyond it the wide instance (W): those 512 rows
+// (WIDE), h0 = [T_enc, X_s] up to 64 + MAX_NX columns of the activation
+// buffer, the integral normals in global scratch where shared memory has
+// no room, and the terminal chain's sums in shared memory. Both stay: the
+// wide instance forced at path H's nx = 100 (B = M = 4096) took 535.21 ms
+// in "default" and 1315.86 in bf16x3, in turns with the narrow one's
+// 303.31 and 562.40 (utils/pis_bench.py, H100 80GB HBM3 700 W).
+constexpr int NARROW_NX = 128;
+// columns of the activation buffer, and one bf16 image of it (64 or 72 KB)
+__host__ __device__ constexpr int act_cols(bool w) { return w ? 576 : 512; }
+__host__ __device__ constexpr int act_image(bool w) {
+  return TILE * act_cols(w) * 2;
+}
 // a ring stage, one wgmma group: 32 KB under "default", 16 KB under bf16x3
 __host__ __device__ constexpr int stage_bytes(bool x3) {
   return x3 ? 16384 : 32768;
 }
 constexpr int MIN_STAGES = 2, MAX_STAGES = 8;
-constexpr int MAX_NX = 128;
 constexpr int NACC = 64;                 // accumulator floats: m64n128
-constexpr int LANE_QUADS = MAX_NX / 16;  // quads a lane of 4 takes
+// quads a lane of 4 takes in registers (the narrow instance)
+constexpr int LANE_QUADS = NARROW_NX / 16;
+// output columns a consumer sums (1 + nx over 256 consumers)
+constexpr int OUT_SLOTS = (MAX_NX + 1 + 255) / 256;
 constexpr int NROWS = 7;                 // per-row arrays of a tile
 constexpr float PIS_ST_FLOOR = 1e-6f;    // estimators._ST_FLOOR
 constexpr size_t SMEM_LIMIT = 232448;
@@ -136,6 +163,10 @@ constexpr int HALF = 1;  // N = 128: m64n64, warpgroup wg rows 64 wg ..
 constexpr int WIDE = 2;  // N = 512: m64n256, rows 256 wg ..
 
 __host__ __device__ inline int pad16(int v) { return (v + 15) / 16 * 16; }
+// rows of the head's and of N_0x^T's B images: nx padded to 128 or HW
+__host__ __device__ inline int head_rows(int nx) {
+  return nx <= NARROW_NX ? 128 : HW;
+}
 __host__ __device__ inline size_t align16(size_t v) {
   return (v + 15) / 16 * 16;
 }
@@ -152,10 +183,10 @@ __host__ __device__ inline void layer_nk(int i, int L, int nx, int* N,
   if (i == L + 2) { *N = 128; *K = CH; return; }              // T_1
   if (i == L + 3) { *N = HW; *K = pad16(CH + nx); return; }   // N_0
   if (i <= 2 * L + 2) { *N = HW; *K = HW; return; }           // N_1..
-  if (i == 2 * L + 3) { *N = 128; *K = HW; return; }          // head
+  if (i == 2 * L + 3) { *N = head_rows(nx); *K = HW; return; }  // head
   if (i == 2 * L + 4) { *N = HW; *K = pad16(nx); return; }    // head^T
   if (i <= 3 * L + 3) { *N = HW; *K = HW; return; }           // N_l^T
-  *N = 128; *K = HW;                                          // N_0x^T
+  *N = head_rows(nx); *K = HW;                                // N_0x^T
 }
 
 __host__ __device__ inline int n_layers(int L) { return 3 * L + 5; }
@@ -236,23 +267,26 @@ __host__ __device__ inline VecLayout vec_layout(int L, int nx) {
   return v;
 }
 
-// Byte offsets of the dynamic shared memory.
+// Byte offsets of the dynamic shared memory; the tile's integral normals
+// (dw) in global scratch where dw_smem is 0.
 struct Plan {
-  int stages;
-  size_t act, ring, dw, xrow, gmm, rows, resp, tred, bars, total;
+  int stages, dw_smem;
+  size_t act, ring, dw, xrow, gmm, rows, resp, tacc, tred, bars, total;
 };
 
 __host__ __device__ inline Plan make_plan(int nx, int ncomp, int has_net,
-                                          bool x3, int stages) {
+                                          bool x3, int stages, int dw_smem) {
+  const bool w = nx > NARROW_NX;
   Plan p;
   p.stages = stages;
+  p.dw_smem = dw_smem;
   size_t o = 0;
   p.act = o;
-  if (has_net) o += (size_t)(x3 ? 2 : 1) * ACT_IMAGE;
+  if (has_net) o += (size_t)(x3 ? 2 : 1) * act_image(w);
   p.ring = o;
   if (has_net) o += (size_t)stages * stage_bytes(x3);
   p.dw = o;
-  o += align16((size_t)TILE * nx * 4);
+  if (dw_smem) o += align16((size_t)TILE * nx * 4);
   p.xrow = o;
   o += align16((size_t)nx * 4);
   p.gmm = o;
@@ -261,6 +295,9 @@ __host__ __device__ inline Plan make_plan(int nx, int ncomp, int has_net,
   o += (size_t)NROWS * TILE * 4;
   p.resp = o;
   o += (size_t)TILE * GMM_MAX_COMPONENTS * 4;
+  // the wide instance's terminal warps: each its sums over the point
+  p.tacc = o;
+  if (w && has_net) o += (size_t)TERM_WARPS * align16((size_t)nx * 4);
   p.tred = o;
   o += has_net ? align16((size_t)TERM_WARPS * (1 + nx) * 4) : 0;
   p.bars = o;
@@ -269,21 +306,28 @@ __host__ __device__ inline Plan make_plan(int nx, int ncomp, int has_net,
   return p;
 }
 
-// the largest ring of MIN_STAGES..MAX_STAGES stages that fits; stages =
-// -1 if none
+// the largest ring of MIN_STAGES..MAX_STAGES stages that fits with the
+// tile's normals in shared memory, else (the wide instance with a net: the
+// narrow one and the zero iterate keep them on chip) the largest with them
+// in global scratch; stages = -1 if none
 inline Plan choose_plan(int nx, int ncomp, int has_net, bool x3) {
-  for (int st = MAX_STAGES; st >= MIN_STAGES; --st) {
-    const Plan p = make_plan(nx, ncomp, has_net, x3, st);
-    if (p.total <= SMEM_LIMIT) return p;
-  }
-  Plan bad = make_plan(nx, ncomp, has_net, x3, 0);
+  for (int dw = 1; dw >= (has_net && nx > NARROW_NX ? 0 : 1); --dw)
+    for (int st = MAX_STAGES; st >= MIN_STAGES; --st) {
+      const Plan p = make_plan(nx, ncomp, has_net, x3, st, dw);
+      if (p.total <= SMEM_LIMIT) return p;
+    }
+  Plan bad = make_plan(nx, ncomp, has_net, x3, 0, 0);
   bad.stages = -1;
   return bad;
 }
 
-// floats of global scratch a block keeps: the head and L layers' ELU'(z)
-__host__ __device__ inline size_t scratch_floats_per_block(int L) {
-  return (size_t)L * TILE * HW + (size_t)TILE * 128;
+// floats of global scratch a block keeps: the head's output, L layers'
+// ELU'(z), then the tile's integral normals where the plan keeps them
+// there
+__host__ __device__ inline size_t scratch_floats_per_block(int L, int nx,
+                                                           int dw_smem) {
+  return (size_t)TILE * head_rows(nx) + (size_t)L * TILE * HW +
+         (dw_smem ? 0 : (size_t)TILE * nx);
 }
 
 struct Params {
@@ -297,9 +341,9 @@ struct Params {
   const float* u01;      // (B, M) or null: in-kernel draws
   const float* noise_t;  // (B, M, nx) or null
   const float* noise_i;  // (B, M, nx) or null
-  float* scratch;        // gridDim.x x scratch_floats_per_block(L)
+  float* scratch;        // gridDim.x x scratch_floats_per_block(L, ..)
   float* out;            // (B, 1 + nx)
-  int B, M, nx, L, has_net, ncomp, stages;
+  int B, M, nx, L, has_net, ncomp, stages, dw_smem;
   uint32_t seed_lo, seed_hi;
   float T, alpha_sqrt, theta, mu, half_alpha, nx_theta, sigma0;
 };
@@ -366,10 +410,12 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
          ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
 }
 
-// an A image at byte `a` (64 rows, K-major, 8 KB between core rows) and a
-// B image at byte `b` (K-major slab rows, 256 B between core rows)
+// an A image at byte `a` (64 rows, K-major, act_cols(W) x 16 B between
+// core rows) and a B image at byte `b` (K-major slab rows, 256 B between
+// core rows)
+template <bool W>
 __device__ __forceinline__ uint64_t desc_a(uint32_t a) {
-  return gmma_desc(a, 128, ACT_COLS * 16);
+  return gmma_desc(a, 128, act_cols(W) * 16);
 }
 __device__ __forceinline__ uint64_t desc_b(uint32_t b) {
   return gmma_desc(b, 128, 256);
@@ -488,10 +534,12 @@ __device__ __forceinline__ int acc_col(int i, int t) {
 }
 
 // Byte offset of element (row, col) in an activation image: core matrices
-// of 8 rows x 8 columns (128 B), core (row / 8, col / 8) at (row / 8 x 64 +
-// col / 8) x 128 B (LBO 128 B along K, SBO 8 KB along M).
+// of 8 rows x 8 columns (128 B), core (row / 8, col / 8) at (row / 8 x
+// act_cols / 8 + col / 8) x 128 B (LBO 128 B along K, SBO act_cols x 16 B
+// along M).
+template <bool W>
 __device__ __forceinline__ uint32_t act_off(int row, int col) {
-  return (uint32_t)((((row >> 3) * (ACT_COLS / 8) + (col >> 3)) << 7) +
+  return (uint32_t)((((row >> 3) * (act_cols(W) / 8) + (col >> 3)) << 7) +
                     ((row & 7) << 4) + ((col & 7) << 1));
 }
 
@@ -515,14 +563,14 @@ __device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi,
 
 // columns (col, col + 1) of `row`, f32 values a, b, into the activation
 // images (lo only under bf16x3)
-template <bool X3>
+template <bool X3, bool W>
 __device__ __forceinline__ void put_pair(unsigned char* act, int row,
                                          int col, float a, float b) {
   uint32_t hi, lo;
   split_pair(a, b, hi, lo);
-  const uint32_t o = act_off(row, col);
+  const uint32_t o = act_off<W>(row, col);
   *reinterpret_cast<uint32_t*>(act + o) = hi;
-  if (X3) *reinterpret_cast<uint32_t*>(act + ACT_IMAGE + o) = lo;
+  if (X3) *reinterpret_cast<uint32_t*>(act + act_image(W) + o) = lo;
 }
 
 __device__ __forceinline__ float elu(float z, float* d) {
@@ -563,7 +611,7 @@ __device__ __forceinline__ void mma(float (&a0)[NACC], float (&a1)[NACC],
 // warpgroup's rows of the stage's B images from byte b: PART 0 hi*hi (and
 // lo*hi under bf16x3), PART 1 hi*lo (B's lo image at b), PART 2 all of
 // them (B's lo image IMG bytes after its hi image)
-template <bool X3, int KIND, int PART, int SPC>
+template <bool X3, int KIND, int PART, int SPC, bool W>
 __device__ __forceinline__ void stage_mma(float (&a0)[NACC],
                                           float (&a1)[NACC], uint32_t a,
                                           uint32_t b) {
@@ -573,11 +621,11 @@ __device__ __forceinline__ void stage_mma(float (&a0)[NACC],
   for (int s = 0; s < SPC; ++s) {
     const uint32_t as = a + s * 256, bs = b + s * SB;
     if (PART != 1) {
-      mma<KIND>(a0, a1, desc_a(as), desc_b(bs));
-      if (X3) mma<KIND>(a0, a1, desc_a(as + ACT_IMAGE), desc_b(bs));
+      mma<KIND>(a0, a1, desc_a<W>(as), desc_b(bs));
+      if (X3) mma<KIND>(a0, a1, desc_a<W>(as + act_image(W)), desc_b(bs));
     }
-    if (X3 && PART == 1) mma<KIND>(a0, a1, desc_a(as), desc_b(bs));
-    if (X3 && PART == 2) mma<KIND>(a0, a1, desc_a(as), desc_b(bs + IMG));
+    if (X3 && PART == 1) mma<KIND>(a0, a1, desc_a<W>(as), desc_b(bs));
+    if (X3 && PART == 2) mma<KIND>(a0, a1, desc_a<W>(as), desc_b(bs + IMG));
   }
 }
 
@@ -587,7 +635,7 @@ __device__ __forceinline__ void stage_mma(float (&a0)[NACC],
 // (warpgroup 1 on the GATE layers) only passes them on. One wgmma group
 // per stage, one in flight while the next is issued; what a group issues
 // is fixed at compile time, so ptxas keeps the wgmma asynchronous.
-template <bool X3, int KIND, bool USE, bool SYNC = true>
+template <bool X3, int KIND, bool USE, bool W, bool SYNC = true>
 __device__ __forceinline__ void layer_mma(float (&a0)[NACC],
                                           float (&a1)[NACC], uint32_t act,
                                           int in_col, int K, int wg,
@@ -622,7 +670,7 @@ __device__ __forceinline__ void layer_mma(float (&a0)[NACC],
       fence_acc<NV>(a0);
       if (KIND == WIDE) fence_acc<NACC>(a1);
       wgmma_fence();
-      stage_mma<X3, KIND, HALVES ? 0 : 2, SPC>(a0, a1, a, stage + rows);
+      stage_mma<X3, KIND, HALVES ? 0 : 2, SPC, W>(a0, a1, a, stage + rows);
       wgmma_commit();
       if (c > 0) {
         wgmma_wait<1>();
@@ -636,7 +684,7 @@ __device__ __forceinline__ void layer_mma(float (&a0)[NACC],
       fence_acc<NV>(a0);
       if (KIND == WIDE) fence_acc<NACC>(a1);
       wgmma_fence();
-      stage_mma<X3, KIND, 1, 1>(a0, a1, a, stage + rows);
+      stage_mma<X3, KIND, 1, 1, W>(a0, a1, a, stage + rows);
       wgmma_commit();
       wgmma_wait<1>();
       fence_acc<NV>(a0);
@@ -781,7 +829,7 @@ __device__ __forceinline__ void transpose_sum(const float (&v)[4 * LANE_QUADS],
 // Bias (and ELU, saving ELU'(z)) of an m64nNV/2 accumulator, written to
 // the activation images at out_col. This thread's biases (bias_t = bias +
 // 2 t) and saves sit at fixed offsets from one base each.
-template <bool X3, bool ACT, int NV>
+template <bool X3, bool ACT, int NV, bool W>
 __device__ __forceinline__ void epilogue(float (&acc)[NACC],
                                          unsigned char* act,
                                          const float* bias_t, int out_col,
@@ -796,13 +844,13 @@ __device__ __forceinline__ void epilogue(float (&acc)[NACC],
       v0 = elu(v0, &d0);
       v1 = elu(v1, &d1);
     }
-    put_pair<X3>(act, acc_row(i, w, g), out_col + acc_col(i, t), v0, v1);
+    put_pair<X3, W>(act, acc_row(i, w, g), out_col + acc_col(i, t), v0, v1);
     if (save) save[q * CONSUMERS] = make_float2(d0, d1);
   }
 }
 
 // Backward epilogue: acc times the saved ELU'(z), written at column 0..
-template <bool X3>
+template <bool X3, bool W>
 __device__ __forceinline__ void epilogue_bwd(float (&acc)[NACC],
                                              unsigned char* act, int col0,
                                              int w, int g, int t,
@@ -812,8 +860,8 @@ __device__ __forceinline__ void epilogue_bwd(float (&acc)[NACC],
   for (int q = 0; q < NACC / 2; ++q) {
     const int i = 2 * q;
     const float2 d = save[(size_t)q * save_stride];
-    put_pair<X3>(act, acc_row(i, w, g), col0 + acc_col(i, t), acc[i] * d.x,
-                 acc[i + 1] * d.y);
+    put_pair<X3, W>(act, acc_row(i, w, g), col0 + acc_col(i, t),
+                    acc[i] * d.x, acc[i + 1] * d.y);
   }
 }
 
@@ -830,16 +878,83 @@ __device__ __forceinline__ void bar_sync(int id) {
                : "memory");
 }
 
+// One draw of the wide instance's terminal chain, on 4 lanes (r4 = lane &
+// 3; the quads r4 + 4 m of the draw): pass 1 its mixture logits, pass 2
+// diff x its normals, summed over the warp's 8 draws by shuffles and added
+// by lanes 0..3 to the warp's sums in shared memory (wsum, nx floats):
+// at nx = 512 a lane's quads would take 128 registers. Returns diff (0 for
+// a draw that is not live); every lane of the warp takes part.
+__device__ __forceinline__ float term_draw_wide(const Params& p,
+                                                const Gmm& gmix,
+                                                const float* x,
+                                                const float* row, bool live,
+                                                int k, uint2 key, float cT,
+                                                float g0, int lane,
+                                                float* wsum) {
+  const int nx = p.nx, Q = (nx + 3) / 4, nm = (Q + 3) / 4, r4 = lane & 3;
+  float part[GMM_MAX_COMPONENTS], lp[GMM_MAX_COMPONENTS];
+#pragma unroll
+  for (int c = 0; c < GMM_MAX_COMPONENTS; ++c) part[c] = 0.0f;
+#pragma unroll 1
+  for (int m = 0; m < nm; ++m) {
+    const int q = r4 + 4 * m;
+    if (!live || q >= Q) continue;
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (row) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (4 * q + e < nx) v[e] = row[4 * q + e];
+    } else {
+      normals4(k, q, STREAM_TERMINAL, p.seed_hi, key, v);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (4 * q + e < nx)
+        gmm_add(gmix, 4 * q + e, __fadd_rn(x[4 * q + e], __fmul_rn(cT, v[e])),
+                part);
+  }
+  group_logits(gmix, part, lp);
+  const float diff = live ? gmm_neg_log_prob(gmix, lp) - g0 : 0.0f;
+#pragma unroll 1
+  for (int m = 0; m < nm; ++m) {
+    const int q = r4 + 4 * m;
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (live && q < Q) {
+      if (row) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (4 * q + e < nx) v[e] = row[4 * q + e];
+      } else {
+        normals4(k, q, STREAM_TERMINAL, p.seed_hi, key, v);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (4 * q + e >= nx) v[e] = 0.0f;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float w = diff * v[e];
+      w += __shfl_xor_sync(0xffffffffu, w, 4);
+      w += __shfl_xor_sync(0xffffffffu, w, 8);
+      w += __shfl_xor_sync(0xffffffffu, w, 16);
+      if (lane < 4 && 4 * q + e < nx) wsum[4 * q + e] += w;
+    }
+  }
+  return diff;
+}
+
 // The terminal chain of the points of this block, on the producer
 // warpgroup's three warps, beside the consumers' products (with a net;
 // the zero iterate's consumers run it themselves). 4 lanes a draw, 24
 // draws a round, 3 rounds a tile; two passes over a draw's quads: its
 // mixture logits, then diff x its normals, summed over the warp's 8
-// draws per quad (lane l keeps quad l). At a point's end the three warps'
-// sums go to tred for the consumers, in a fixed order.
+// draws per quad (narrow: lane l keeps quad l; wide: term_draw_wide, the
+// warp's sums in tacc). At a point's end the three warps' sums go to tred
+// for the consumers, in a fixed order.
+template <bool W>
 __device__ __forceinline__ void terminal_warps(const Params& p,
                                                const Gmm& gmix, float* tred,
-                                               int wt) {
+                                               float* tacc, int wt) {
   const int nx = p.nx, Q = (nx + 3) / 4, r4 = wt & 3, lane = wt & 31;
   const int tw = wt >> 5, ntile = (p.M + TILE - 1) / TILE;
   bool first = true;
@@ -849,12 +964,24 @@ __device__ __forceinline__ void terminal_warps(const Params& p,
     const uint2 key = make_uint2(p.seed_lo, (uint32_t)b);
     const float* x = p.x + (size_t)b * nx;
     float acc_t[4] = {0.0f, 0.0f, 0.0f, 0.0f}, acc_tv = 0.0f;
+    float* wsum = tacc + (size_t)tw * (align16((size_t)nx * 4) / 4);
+    if (W) {
+      for (int j = lane; j < nx; j += 32) wsum[j] = 0.0f;
+      __syncwarp();
+    }
     for (int kb = 0; kb < ntile; ++kb)
       for (int d0 = 0; d0 < TILE; d0 += TERM_THREADS / 4) {
         const int dl = d0 + (wt >> 2), k = kb * TILE + dl;
         const bool live = dl < TILE && k < p.M;
         const float* row = p.noise_t ? p.noise_t + ((size_t)b * p.M + k) * nx
                                      : nullptr;
+        if constexpr (W) {
+          const float diff = term_draw_wide(p, gmix, x, live ? row : nullptr,
+                                            live, k, key, cT, g0, lane,
+                                            wsum);
+          if (r4 == 0) acc_tv += diff;
+          continue;
+        }
         // pass 1: the draw's logits
         float part[GMM_MAX_COMPONENTS], lp[GMM_MAX_COMPONENTS];
 #pragma unroll
@@ -914,25 +1041,31 @@ __device__ __forceinline__ void terminal_warps(const Params& p,
     acc_tv = warp_sum(acc_tv);
     float* out = tred + tw * (1 + nx);
     if (lane == 0) out[0] = acc_tv;
+    if (W) {
+      __syncwarp();
+      for (int j = lane; j < nx; j += 32) out[1 + j] = wsum[j];
+    } else {
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (4 * lane + e < nx) out[1 + 4 * lane + e] = acc_t[e];
+      for (int e = 0; e < 4; ++e)
+        if (4 * lane + e < nx) out[1 + 4 * lane + e] = acc_t[e];
+    }
     bar_arrive(BAR_TERM_FULL);
   }
 }
 
-template <bool X3>
+// X3: bf16x3 (else one bf16 pass); W: the wide instance (nx > NARROW_NX)
+template <bool X3, bool W>
 __global__ void __launch_bounds__(THREADS, 1)
 generate_pis_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int nx = p.nx, L = p.has_net ? p.L : 0;
-  const Plan pl = make_plan(nx, p.ncomp, p.has_net, X3, p.stages);
+  // (the narrow instance keeps the tile's normals in shared memory)
+  const Plan pl =
+      make_plan(nx, p.ncomp, p.has_net, X3, p.stages, W ? p.dw_smem : 1);
   unsigned char* act = smem + pl.act;
-  float* dw = reinterpret_cast<float*>(smem + pl.dw);
   float* xrow = reinterpret_cast<float*>(smem + pl.xrow);
   float* gm = reinterpret_cast<float*>(smem + pl.gmm);
   float* resp = reinterpret_cast<float*>(smem + pl.resp);
-  float* red = dw;  // after the last tile: the warps' terminal sums
   const Rows rw = carve_rows(smem, pl);
   const uint32_t full = smem_u32(smem + pl.bars);
   const uint32_t empty = full + 8 * MAX_STAGES;
@@ -958,15 +1091,29 @@ generate_pis_kernel(const Params p) {
     if (L > 0 && threadIdx.x == CONSUMERS)
       produce(p, X3, smem_u32(smem + pl.ring), full, empty);
     else if (L > 0 && threadIdx.x >= CONSUMERS + 32)
-      terminal_warps(p, gmix, tred, threadIdx.x - CONSUMERS - 32);
+      terminal_warps<W>(p, gmix, tred,
+                        reinterpret_cast<float*>(smem + pl.tacc),
+                        threadIdx.x - CONSUMERS - 32);
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
                ::"n"(CONSUMER_REGS));
 
+  // this block's scratch: the head's output (pairs x 256 threads), then L
+  // x 2 chunks x 32 pairs x 256 threads of ELU', then (dw_smem 0) the
+  // tile's integral normals
+  float* const scr_block =
+      p.scratch +
+      (size_t)blockIdx.x * scratch_floats_per_block(L, nx, pl.dw_smem);
+  float* dw = pl.dw_smem ? reinterpret_cast<float*>(smem + pl.dw)
+                         : scr_block + (size_t)TILE * head_rows(nx) +
+                               (size_t)L * TILE * HW;
+  float* red = dw;  // after the last tile: the warps' terminal sums
   const int ctid = threadIdx.x, warp = ctid >> 5, lane = ctid & 31;
   const int wg = ctid >> 7, w = warp & 3, g = lane >> 2, t = lane & 3;
   const int quad4 = ctid >> 2, r4 = ctid & 3;  // 4 lanes per draw or row
+  // output columns a consumer sums: one below NARROW_NX
+  constexpr int NSLOTS = W ? OUT_SLOTS : 1;
   Ring ring{smem_u32(smem + pl.ring), full, empty, p.stages, 0,
             stage_bytes(X3)};
   const uint32_t act_u = smem_u32(act);
@@ -978,12 +1125,9 @@ generate_pis_kernel(const Params p) {
   // columns are zero to a multiple of 32 (a last two-slab stage)
   const int k_h0 = pad16(CH + nx), k_cot = pad16(nx);
   const int z_h0 = (CH + nx + 31) / 32 * 32, z_cot = (nx + 31) / 32 * 32;
-  // this block's scratch: the head's 16 pairs x 256 threads, then L x 2
-  // chunks x 32 pairs x 256 threads of ELU'
-  float* const scr_block =
-      p.scratch + (size_t)blockIdx.x * scratch_floats_per_block(L);
   float2* scr_head = reinterpret_cast<float2*>(scr_block) + ctid;
-  float2* scr = reinterpret_cast<float2*>(scr_block + TILE * 128);
+  float2* scr =
+      reinterpret_cast<float2*>(scr_block + (size_t)TILE * head_rows(nx));
 
   for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
     const float t0 = p.t[b], g0 = p.g0[b], f0 = p.f0[b];
@@ -994,13 +1138,31 @@ generate_pis_kernel(const Params p) {
     const uint2 key = make_uint2(p.seed_lo, (uint32_t)b);
     for (int j = ctid; j < nx; j += CONSUMERS)
       xrow[j] = p.x[(size_t)b * nx + j];
-    float acc_i = 0.0f, acc_tv = 0.0f, acc_t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float acc_i[NSLOTS], acc_tv = 0.0f;
+    float acc_t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < NSLOTS; ++r) acc_i[r] = 0.0f;
+    // the wide zero iterate: each consumer warp's terminal sums in red
+    float* wsum = red + (size_t)warp * (1 + nx) + 1;
+    if (W && L == 0) {
+      for (int j = lane; j < nx; j += 32) wsum[j] = 0.0f;
+      __syncwarp();
+    }
     consumers_sync();
 
     for (int kb = 0; kb < ntile; ++kb) {
       // ---- the zero iterate's terminal chain: draw kb TILE + ctid / 4,
       // 4 lanes each (with a net, the producer warpgroup's three warps)
-      if (L == 0) {
+      if (W && L == 0) {
+        const int k = kb * TILE + quad4;
+        const bool live = k < p.M;
+        const float* row =
+            p.noise_t && live ? p.noise_t + ((size_t)b * p.M + k) * nx
+                              : nullptr;
+        const float diff = term_draw_wide(p, gmix, xrow, row, live, k, key,
+                                          cT, g0, lane, wsum);
+        if (r4 == 0) acc_tv += diff;
+      } else if (L == 0) {
         const int k = kb * TILE + quad4;
         const bool live = k < p.M;
         // the draw's quads r4 + 4 m, m < LANE_QUADS, shifted in one at a
@@ -1091,8 +1253,8 @@ generate_pis_kernel(const Params p) {
               __ldg(p.vec + vl.phase + c + h));
           sincosf(arg, &sv[h], &cv[h]);
         }
-        put_pair<X3>(act, row, c, sv[0], sv[1]);
-        put_pair<X3>(act, row, CH + c, cv[0], cv[1]);
+        put_pair<X3, W>(act, row, c, sv[0], sv[1]);
+        put_pair<X3, W>(act, row, CH + c, cv[0], cv[1]);
       }
       // responsibilities of the mixture at e^{-lambda/2} X_s: row ctid / 4
       {
@@ -1120,11 +1282,11 @@ generate_pis_kernel(const Params p) {
       if (wg == 0) {
         for (int l = 0; l <= L; ++l) {
           const int K = l == 0 ? 2 * CH : CH;
-          layer_mma<X3, GATE, true, false>(a0, a1, act_u,
+          layer_mma<X3, GATE, true, W, false>(a0, a1, act_u,
                                            l == 0 ? 0 : s_col, K, wg, ring);
           if (l == 0) embedding_read();
           if (l < L) {
-            epilogue<X3, true, NACC / 2>(a0, act,
+            epilogue<X3, true, NACC / 2, W>(a0, act,
                                          p.vec + vl.s_bias + l * CH + 2 * t,
                                          s_col, w, g, t, nullptr);
           } else {
@@ -1164,26 +1326,29 @@ generate_pis_kernel(const Params p) {
         for (int l = 0; l < 2; ++l) {
           const int K = l == 0 ? 2 * CH : CH;
           pass_stages(ring, layer_stages(CH, K, X3));  // S_l
-          layer_mma<X3, GATE, true, false>(a0, a1, act_u,
+          layer_mma<X3, GATE, true, W, false>(a0, a1, act_u,
                                            l == 0 ? 0 : t_col, K, wg, ring);
           if (l == 0) {
-            epilogue<X3, true, NACC / 2>(a0, act, p.vec + vl.t_bias + 2 * t,
+            epilogue<X3, true, NACC / 2, W>(a0, act, p.vec + vl.t_bias + 2 * t,
                                          t_col, w, g, t, nullptr);
             fence_async_smem();
             wg_sync(1);
           } else {
             embedding_free();
-            epilogue<X3, false, NACC / 2>(a0, act,
+            epilogue<X3, false, NACC / 2, W>(a0, act,
                                           p.vec + vl.t_bias + CH + 2 * t, 0,
                                           w, g, t, nullptr);
             const int half = (z_h0 - CH) / 2;
-            for (int e = ctid - WG_THREADS; e < TILE * half; e += WG_THREADS) {
+            // (the wide instance: below, once the gate has read columns
+            // 384..)
+            for (int e = W ? TILE * half : ctid - WG_THREADS;
+                 e < TILE * half; e += WG_THREADS) {
               const int row = e / half, j = 2 * (e - row * half);
               const float v0 =
                   j < nx ? xs_of(xrow, rw, dw, nx, row, j) : 0.0f;
               const float v1 =
                   j + 1 < nx ? xs_of(xrow, rw, dw, nx, row, j + 1) : 0.0f;
-              put_pair<X3>(act, row, CH + j, v0, v1);
+              put_pair<X3, W>(act, row, CH + j, v0, v1);
             }
           }
         }
@@ -1192,28 +1357,58 @@ generate_pis_kernel(const Params p) {
       }
       fence_async_smem();
       consumers_sync();
+      if (W) {  // h0's X_s columns 64 .. z_h0, over the gate's and T_0's
+        const int half = (z_h0 - CH) / 2;
+        for (int e = ctid; e < TILE * half; e += CONSUMERS) {
+          const int row = e / half, j = 2 * (e - row * half);
+          const float v0 = j < nx ? xs_of(xrow, rw, dw, nx, row, j) : 0.0f;
+          const float v1 =
+              j + 1 < nx ? xs_of(xrow, rw, dw, nx, row, j + 1) : 0.0f;
+          put_pair<X3, W>(act, row, CH + j, v0, v1);
+        }
+        fence_async_smem();
+        consumers_sync();
+      }
 
       // ---- N forward: L layers of 512 with ELU (ELU' saved), the head ---
       for (int l = 0; l < L; ++l) {
-        layer_mma<X3, WIDE, true>(a0, a1, act_u, 0, l == 0 ? k_h0 : HW, wg,
+        layer_mma<X3, WIDE, true, W>(a0, a1, act_u, 0, l == 0 ? k_h0 : HW, wg,
                                   ring);
         float2* sv = scr + (size_t)(l * 2) * 32 * CONSUMERS + ctid;
         const float* bias = p.vec + vl.n_bias + l * HW + 256 * wg + 2 * t;
-        epilogue<X3, true, NACC>(a0, act, bias, 256 * wg, w, g, t, sv);
-        epilogue<X3, true, NACC>(a1, act, bias + 128, 256 * wg + 128, w, g, t,
+        epilogue<X3, true, NACC, W>(a0, act, bias, 256 * wg, w, g, t, sv);
+        epilogue<X3, true, NACC, W>(a1, act, bias + 128, 256 * wg + 128, w, g, t,
                                  sv + 32 * CONSUMERS);
         fence_async_smem();
         consumers_sync();
       }
-      // the head, columns 64 wg .. of each warpgroup: N(h0), kept for w
-      layer_mma<X3, HALF, true>(a0, a1, act_u, 0, HW, wg, ring);
+      // the head: N(h0), kept for w; narrow: columns 64 wg .. of each
+      // warpgroup (m64n64), wide: 256 wg .. (m64n256, a0 then a1)
+      if constexpr (W) {
+        layer_mma<X3, WIDE, true, W>(a0, a1, act_u, 0, HW, wg, ring);
 #pragma unroll
-      for (int q = 0; q < NACC / 4; ++q) {
-        const int i = 2 * q, col = 64 * wg + acc_col(i, t);
-        float2 v = make_float2(0.0f, 0.0f);
-        if (col < nx) v.x = a0[i] + __ldg(p.vec + vl.h_bias + col);
-        if (col + 1 < nx) v.y = a0[i + 1] + __ldg(p.vec + vl.h_bias + col + 1);
-        scr_head[(size_t)q * CONSUMERS] = v;
+        for (int q = 0; q < NACC; ++q) {
+          const int i = 2 * (q & 31);
+          const int col = 256 * wg + 128 * (q >> 5) + acc_col(i, t);
+          // (q is a constant here: the arrays stay in registers)
+          const float x0 = q < 32 ? a0[i] : a1[i];
+          const float x1 = q < 32 ? a0[i + 1] : a1[i + 1];
+          float2 v = make_float2(0.0f, 0.0f);
+          if (col < nx) v.x = x0 + __ldg(p.vec + vl.h_bias + col);
+          if (col + 1 < nx) v.y = x1 + __ldg(p.vec + vl.h_bias + col + 1);
+          scr_head[(size_t)q * CONSUMERS] = v;
+        }
+      } else {
+        layer_mma<X3, HALF, true, W>(a0, a1, act_u, 0, HW, wg, ring);
+#pragma unroll
+        for (int q = 0; q < NACC / 4; ++q) {
+          const int i = 2 * q, col = 64 * wg + acc_col(i, t);
+          float2 v = make_float2(0.0f, 0.0f);
+          if (col < nx) v.x = a0[i] + __ldg(p.vec + vl.h_bias + col);
+          if (col + 1 < nx)
+            v.y = a0[i + 1] + __ldg(p.vec + vl.h_bias + col + 1);
+          scr_head[(size_t)q * CONSUMERS] = v;
+        }
       }
       // the cotangent sigma X_s at columns 0 .. nx, zero to z_cot
       for (int e = ctid; e < TILE * (z_cot / 2); e += CONSUMERS) {
@@ -1222,118 +1417,195 @@ generate_pis_kernel(const Params p) {
         const float v0 = j < nx ? sg * xs_of(xrow, rw, dw, nx, row, j) : 0.0f;
         const float v1 =
             j + 1 < nx ? sg * xs_of(xrow, rw, dw, nx, row, j + 1) : 0.0f;
-        put_pair<X3>(act, row, j, v0, v1);
+        put_pair<X3, W>(act, row, j, v0, v1);
       }
       fence_async_smem();
       consumers_sync();
 
       // ---- N backward: the head, then layers L-1 .. 1, times ELU' ------
       for (int l = L - 1; l >= 0; --l) {
-        layer_mma<X3, WIDE, true>(a0, a1, act_u, 0, l == L - 1 ? k_cot : HW,
+        layer_mma<X3, WIDE, true, W>(a0, a1, act_u, 0, l == L - 1 ? k_cot : HW,
                                   wg, ring);
         const float2* sv = scr + (size_t)(l * 2) * 32 * CONSUMERS + ctid;
-        epilogue_bwd<X3>(a0, act, 256 * wg, w, g, t, sv, CONSUMERS);
-        epilogue_bwd<X3>(a1, act, 256 * wg + 128, w, g, t,
+        epilogue_bwd<X3, W>(a0, act, 256 * wg, w, g, t, sv, CONSUMERS);
+        epilogue_bwd<X3, W>(a1, act, 256 * wg + 128, w, g, t,
                          sv + (size_t)32 * CONSUMERS, CONSUMERS);
         fence_async_smem();
         consumers_sync();
       }
-      // the x columns of h0's gradient, columns 64 wg .. of each
-      // warpgroup; they and the head's output N(h0) into shared memory
-      // (the activations are read), [row][col] f32 with stride nx
-      layer_mma<X3, HALF, true>(a0, a1, act_u, 0, HW, wg, ring);
-      float* sm_grad = reinterpret_cast<float*>(act);
-      float* sm_head = sm_grad + TILE * nx;
+      if constexpr (W) {
+        // the x columns of h0's gradient (m64n256: columns 256 wg .., a0
+        // then a1), and w and f's sums per row in registers: this thread's
+        // rows r0 = 16 w + g and r0 + 8, its columns; the partial sums of
+        // the 4 lanes of a row, then of the two warpgroups (in shared
+        // memory, the activations read), in a fixed order
+        layer_mma<X3, WIDE, true, W>(a0, a1, act_u, 0, HW, wg, ring);
+        const int r0 = 16 * w + g;
+        float rk[2][GMM_MAX_COMPONENTS], sg[2], dc[2];
 #pragma unroll
-      for (int q = 0; q < NACC / 4; ++q) {
-        const float2 no = scr_head[(size_t)q * CONSUMERS];
-        const int i = 2 * q, row = acc_row(i, w, g);
-        const int col = 64 * wg + acc_col(i, t);
-        if (col < nx) {
-          sm_grad[row * nx + col] = a0[i];
-          sm_head[row * nx + col] = no.x;
-        }
-        if (col + 1 < nx) {
-          sm_grad[row * nx + col + 1] = a0[i + 1];
-          sm_head[row * nx + col + 1] = no.y;
-        }
-      }
-      consumers_sync();
-
-      // ---- w and f per row (4 lanes a row); the rows' weights ----------
-      {
-        const int row = quad4;
-        const float sg = rw.sigma[row], dc = rw.decay[row];
-        float rk[GMM_MAX_COMPONENTS];
+        for (int h = 0; h < 2; ++h) {
+          sg[h] = rw.sigma[r0 + 8 * h];
+          dc[h] = rw.decay[r0 + 8 * h];
 #pragma unroll
-        for (int k = 0; k < GMM_MAX_COMPONENTS; ++k)
-          rk[k] = k < p.ncomp ? resp[row * GMM_MAX_COMPONENTS + k] : 0.0f;
-        float dr = 0.0f, qr = 0.0f;
-#pragma unroll 1
-        for (int j = r4; j < nx; j += 4) {
-          const float xs = xs_of(xrow, rw, dw, nx, row, j);
-          const float gres = gmm_grad(gmix, rk, dc * xs, j);
-          const float wv = sg * sm_head[row * nx + j] + sm_grad[row * nx + j] +
-                           (1.0f - sg) * (dc * gres);
-          dr += (p.theta * (p.mu - xs)) * wv;
-          qr += wv * wv;
+          for (int k = 0; k < GMM_MAX_COMPONENTS; ++k)
+            rk[h][k] = k < p.ncomp
+                           ? resp[(r0 + 8 * h) * GMM_MAX_COMPONENTS + k]
+                           : 0.0f;
         }
-        dr += __shfl_xor_sync(0xffffffffu, dr, 1);
-        dr += __shfl_xor_sync(0xffffffffu, dr, 2);
-        qr += __shfl_xor_sync(0xffffffffu, qr, 1);
-        qr += __shfl_xor_sync(0xffffffffu, qr, 2);
-        if (r4 == 0) {
+        float dr[2] = {0.0f, 0.0f}, qr[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int q = 0; q < NACC; ++q) {
+          const float2 no = scr_head[(size_t)q * CONSUMERS];
+          const int h = q & 1;  // the pair's row: r0 + 8 h
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 2 * (q & 31) + e;
+            const int col = 256 * wg + 128 * (q >> 5) + acc_col(i, t);
+            if (col < nx) {
+              const float xs = xs_of(xrow, rw, dw, nx, r0 + 8 * h, col);
+              const float gres = gmm_grad(gmix, rk[h], dc[h] * xs, col);
+              const float gx = q < 32 ? a0[i] : a1[i];
+              const float wv = sg[h] * (e ? no.y : no.x) + gx +
+                               (1.0f - sg[h]) * (dc[h] * gres);
+              dr[h] += (p.theta * (p.mu - xs)) * wv;
+              qr[h] += wv * wv;
+            }
+          }
+        }
+        float* part = reinterpret_cast<float*>(act);  // [wg][row][dr, qr]
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int o = 1; o <= 2; o <<= 1) {
+            dr[h] += __shfl_xor_sync(0xffffffffu, dr[h], o);
+            qr[h] += __shfl_xor_sync(0xffffffffu, qr[h], o);
+          }
+          if (t == 0) {
+            part[2 * (wg * TILE + r0 + 8 * h)] = dr[h];
+            part[2 * (wg * TILE + r0 + 8 * h) + 1] = qr[h];
+          }
+        }
+        consumers_sync();
+        if (ctid < TILE) {
+          const int row = ctid;
+          const float drs = part[2 * row] + part[2 * (TILE + row)];
+          const float qrs = part[2 * row + 1] + part[2 * (TILE + row) + 1];
           const bool valid = kb * TILE + row < p.M;
-          const float f = -dr - p.half_alpha * qr - p.nx_theta;
+          const float f = -drs - p.half_alpha * qrs - p.nx_theta;
           const float di = valid ? Tt * (f - f0) : 0.0f;
           rw.c_i[row] = di;
           rw.c_iy[row] = di * rw.iys[row];
         }
+      } else {
+        // the x columns of h0's gradient, columns 64 wg .. of each
+        // warpgroup; they and the head's output N(h0) into shared memory
+        // (the activations are read), [row][col] f32 with stride nx
+        layer_mma<X3, HALF, true, W>(a0, a1, act_u, 0, HW, wg, ring);
+        float* sm_grad = reinterpret_cast<float*>(act);
+        float* sm_head = sm_grad + TILE * nx;
+  #pragma unroll
+        for (int q = 0; q < NACC / 4; ++q) {
+          const float2 no = scr_head[(size_t)q * CONSUMERS];
+          const int i = 2 * q, row = acc_row(i, w, g);
+          const int col = 64 * wg + acc_col(i, t);
+          if (col < nx) {
+            sm_grad[row * nx + col] = a0[i];
+            sm_head[row * nx + col] = no.x;
+          }
+          if (col + 1 < nx) {
+            sm_grad[row * nx + col + 1] = a0[i + 1];
+            sm_head[row * nx + col + 1] = no.y;
+          }
+        }
+        consumers_sync();
+
+        // ---- w and f per row (4 lanes a row); the rows' weights ----------
+        {
+          const int row = quad4;
+          const float sg = rw.sigma[row], dc = rw.decay[row];
+          float rk[GMM_MAX_COMPONENTS];
+  #pragma unroll
+          for (int k = 0; k < GMM_MAX_COMPONENTS; ++k)
+            rk[k] = k < p.ncomp ? resp[row * GMM_MAX_COMPONENTS + k] : 0.0f;
+          float dr = 0.0f, qr = 0.0f;
+  #pragma unroll 1
+          for (int j = r4; j < nx; j += 4) {
+            const float xs = xs_of(xrow, rw, dw, nx, row, j);
+            const float gres = gmm_grad(gmix, rk, dc * xs, j);
+            const float wv = sg * sm_head[row * nx + j] + sm_grad[row * nx + j] +
+                             (1.0f - sg) * (dc * gres);
+            dr += (p.theta * (p.mu - xs)) * wv;
+            qr += wv * wv;
+          }
+          dr += __shfl_xor_sync(0xffffffffu, dr, 1);
+          dr += __shfl_xor_sync(0xffffffffu, dr, 2);
+          qr += __shfl_xor_sync(0xffffffffu, qr, 1);
+          qr += __shfl_xor_sync(0xffffffffu, qr, 2);
+          if (r4 == 0) {
+            const bool valid = kb * TILE + row < p.M;
+            const float f = -dr - p.half_alpha * qr - p.nx_theta;
+            const float di = valid ? Tt * (f - f0) : 0.0f;
+            rw.c_i[row] = di;
+            rw.c_iy[row] = di * rw.iys[row];
+          }
+        }
       }
       consumers_sync();
-      // the integral sums, in row order
-      if (ctid == 0) {
-        for (int row = 0; row < TILE; ++row) acc_i += rw.c_i[row];
-      } else if (ctid <= nx) {
-        for (int row = 0; row < TILE; ++row)
-          acc_i = fmaf(rw.c_iy[row], dw[row * nx + ctid - 1], acc_i);
+      // the integral sums, in row order (column ctid + 256 r)
+#pragma unroll
+      for (int r = 0; r < NSLOTS; ++r) {
+        const int j = ctid + r * CONSUMERS;
+        if (j == 0) {
+          for (int row = 0; row < TILE; ++row) acc_i[r] += rw.c_i[row];
+        } else if (j <= nx) {
+          for (int row = 0; row < TILE; ++row)
+            acc_i[r] = fmaf(rw.c_iy[row], dw[row * nx + j - 1], acc_i[r]);
+        }
       }
       consumers_sync();
     }
 
     // the terminal sums of the 8 consumer warps (zero iterate) or of the 3
     // terminal warps, added in a fixed order
-    float sum_t = 0.0f;
+    const float* sums = tred;
+    int nsums = TERM_WARPS;
     if (L == 0) {
       acc_tv = warp_sum(acc_tv);
       if (lane == 0) red[warp * (1 + nx)] = acc_tv;
+      if (!W)  // (wide: the warps' sums are in red already)
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-        if (4 * lane + r < nx)
-          red[warp * (1 + nx) + 1 + 4 * lane + r] = acc_t[r];
+        for (int r = 0; r < 4; ++r)
+          if (4 * lane + r < nx)
+            red[warp * (1 + nx) + 1 + 4 * lane + r] = acc_t[r];
       consumers_sync();
-      if (ctid <= nx)
-        for (int v = 0; v < CONSUMERS / 32; ++v)
-          sum_t += red[v * (1 + nx) + ctid];
+      sums = red;
+      nsums = CONSUMERS / 32;
     } else {
       bar_sync(BAR_TERM_FULL);
-      if (ctid <= nx)
-        for (int v = 0; v < TERM_WARPS; ++v)
-          sum_t += tred[v * (1 + nx) + ctid];
-      if (b + (int)gridDim.x < p.B) bar_arrive(BAR_TERM_FREE);
     }
-    if (ctid <= nx)
-      p.out[(size_t)b * (1 + nx) + ctid] =
-          ctid == 0 ? (sum_t + acc_i) * inv_m + g0 + f0 * Tt
-                    : (sum_t * inv_yT + acc_i) * inv_m;
+#pragma unroll
+    for (int r = 0; r < NSLOTS; ++r) {
+      const int j = ctid + r * CONSUMERS;
+      if (j <= nx) {
+        float sum_t = 0.0f;
+        for (int v = 0; v < nsums; ++v) sum_t += sums[v * (1 + nx) + j];
+        p.out[(size_t)b * (1 + nx) + j] =
+            j == 0 ? (sum_t + acc_i[r]) * inv_m + g0 + f0 * Tt
+                   : (sum_t * inv_yT + acc_i[r]) * inv_m;
+      }
+    }
+    if (L > 0 && b + (int)gridDim.x < p.B) bar_arrive(BAR_TERM_FREE);
     consumers_sync();
   }
 }
 
 using Kernel = void (*)(const Params);
-Kernel pick(int mode) {
-  return mode == MODE_BF16X3 ? generate_pis_kernel<true>
-                             : generate_pis_kernel<false>;
+Kernel pick(int mode, int nx) {
+  if (nx > NARROW_NX)
+    return mode == MODE_BF16X3 ? generate_pis_kernel<true, true>
+                               : generate_pis_kernel<false, true>;
+  return mode == MODE_BF16X3 ? generate_pis_kernel<true, false>
+                             : generate_pis_kernel<false, false>;
 }
 
 }  // namespace
@@ -1362,7 +1634,7 @@ int dpi_generate_pis_grid(int nx, int ncomp, int has_net, int mode, int B) {
   const Plan pl = choose_plan(nx, ncomp, has_net, mode == MODE_BF16X3);
   if (pl.stages < 0) return -1;
   int dev = 0, sms = 0, per_sm = 0;
-  Kernel k = pick(mode);
+  Kernel k = pick(mode, nx);
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess ||
@@ -1375,9 +1647,13 @@ int dpi_generate_pis_grid(int nx, int ncomp, int has_net, int mode, int B) {
     return -1;
   return B < sms * per_sm ? B : sms * per_sm;
 }
-// floats of global scratch per block of the grid
-long long dpi_generate_pis_scratch_floats(int L) {
-  return (long long)scratch_floats_per_block(L);
+// floats of global scratch per block of the grid at (L, nx) in a mode's
+// plan (-1: no plan)
+long long dpi_generate_pis_scratch_floats_nx(int L, int nx, int ncomp,
+                                             int mode) {
+  const Plan pl = choose_plan(nx, ncomp, 1, mode == MODE_BF16X3);
+  if (pl.stages < 0) return -1;
+  return (long long)scratch_floats_per_block(L, nx, pl.dw_smem);
 }
 
 // Launches on `stream` with `grid` blocks (dpi_generate_pis_grid); returns
@@ -1397,7 +1673,7 @@ int dpi_generate_pis(const float* t, const float* x, const float* g0,
   const Plan pl = choose_plan(nx, ncomp, has_net, mode == MODE_BF16X3);
   if (pl.stages < 0) return ERR_NO_PLAN;
   if (grid < 1) return ERR_GRID;
-  Kernel k = pick(mode);
+  Kernel k = pick(mode, nx);
   cudaError_t e = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.total);
   if (e != cudaSuccess) return (int)e;
@@ -1407,7 +1683,7 @@ int dpi_generate_pis(const float* t, const float* x, const float* g0,
   p.u01 = u01; p.noise_t = noise_t; p.noise_i = noise_i;
   p.scratch = scratch; p.out = out;
   p.B = B; p.M = M; p.nx = nx; p.L = has_net ? L : 0; p.has_net = has_net;
-  p.ncomp = ncomp; p.stages = pl.stages;
+  p.ncomp = ncomp; p.stages = pl.stages; p.dw_smem = pl.dw_smem;
   p.seed_lo = (uint32_t)(seed & 0xFFFFFFFFull);
   p.seed_hi = (uint32_t)(seed >> 32);
   p.T = T; p.alpha_sqrt = alpha_sqrt; p.theta = theta; p.mu = mu;

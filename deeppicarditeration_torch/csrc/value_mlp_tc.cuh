@@ -132,10 +132,21 @@ __host__ __device__ inline size_t align16(size_t v) {
 // consumer warpgroup draws its own tile; term = 1: the terminal warps'
 // sums), integral.cu (bufs = 2: the draw warps fill one tile pair's buffer
 // while the consumers read the other; term = 0). ld: a tile row's floats
-// of normals; stage_bytes: a ring stage (one image per piece of W staged).
+// of normals; stage_bytes: a ring stage (one image per piece of W staged);
+// save_layer: floats of one layer's saved elu'(z) of a tile (TILE x the
+// hidden width); act: global scratch floats a warpgroup keeps for its
+// layers' outputs (generate.cu's width-256 pass; 0: none).
 struct Layout {
   int bufs, term, ld, stage_bytes;
+  int save_layer = SAVE_LAYER_FLOATS;
+  int act = 0;
 };
+
+// output columns a consumer keeps in registers (MAXJ slots); generate.cu
+// keeps the columns past them in shared memory, a row of each warpgroup's
+__host__ __device__ inline int isum_floats(int nx) {
+  return 1 + nx > MAXJ * CONSUMERS ? 1 + nx - MAXJ * CONSUMERS : 0;
+}
 
 __host__ __device__ inline size_t dw_bytes(int ld) {
   return align16((size_t)TILE * ld * 4);
@@ -146,7 +157,8 @@ __host__ __device__ inline size_t dw_bytes(int ld) {
 // they live in the block's global scratch.
 struct GPlan {
   int stages, save_smem, dw_smem;
-  size_t ring, save, dw, xrow, rows, tacc, tred, red, sums, bars, total;
+  size_t ring, save, dw, xrow, rows, tacc, tred, red, isum, sums, bars,
+      total;
 };
 
 __host__ __device__ inline GPlan gplan(int nx, int L, const Layout& k,
@@ -160,7 +172,7 @@ __host__ __device__ inline GPlan gplan(int nx, int L, const Layout& k,
   p.ring = o;
   o += (size_t)stages * k.stage_bytes;
   p.save = o;
-  if (save_smem && L > 1) o += (size_t)NWG * (L - 1) * SAVE_LAYER_FLOATS * 4;
+  if (save_smem && L > 1) o += (size_t)NWG * (L - 1) * k.save_layer * 4;
   p.dw = o;
   if (dw_smem) o += (size_t)k.bufs * NWG * dw_bytes(k.ld);
   p.xrow = o;
@@ -173,6 +185,9 @@ __host__ __device__ inline GPlan gplan(int nx, int L, const Layout& k,
   if (k.term) o += align16((size_t)AUX_WARPS * (1 + nx) * 4);
   p.red = o;
   o += align16((size_t)(1 + nx) * 4);
+  // term = 1: each consumer warpgroup's integral sums past its registers'
+  p.isum = o;
+  if (k.term) o += (size_t)NWG * align16((size_t)isum_floats(nx) * 4);
   // term = 0: the consumers' integral sums (MAXJ a thread) between tiles
   p.sums = o;
   if (!k.term) o += (size_t)TC_CONSUMERS * MAXJ * 4;
@@ -209,13 +224,14 @@ __host__ __device__ inline GPlan choose_gplan(int nx, int L,
 
 // floats of global scratch a block keeps: the consumers' saved derivatives
 // (each warpgroup's L - 1 layers), then their tiles' normals, where they
-// are not in shared memory
+// are not in shared memory, then (k.act) the warpgroups' layer outputs
 __host__ __device__ inline size_t scratch_floats(const GPlan& pl,
                                                  const Layout& k, int L) {
   size_t f = 0;
   if (!pl.save_smem && L > 1)
-    f += (size_t)NWG * (L - 1) * SAVE_LAYER_FLOATS;
+    f += (size_t)NWG * (L - 1) * k.save_layer;
   if (!pl.dw_smem) f += (size_t)k.bufs * NWG * TILE * k.ld;
+  if (L > 1) f += (size_t)NWG * k.act;
   return f;
 }
 
@@ -510,8 +526,8 @@ __device__ __forceinline__ Tile tile_of(unsigned char* smem, const GPlan& pl,
   s.sux = rows + 6 * TILE;
   s.xrow = reinterpret_cast<float*>(smem + pl.xrow +
                                     buf * align16((size_t)nx * 4));
-  const size_t n_save = (size_t)(L > 1 ? L - 1 : 0) * SAVE_LAYER_FLOATS;
-  float* scr = pl.save_smem && pl.dw_smem
+  const size_t n_save = (size_t)(L > 1 ? L - 1 : 0) * k.save_layer;
+  float* scr = pl.save_smem && pl.dw_smem && !(L > 1 && k.act)
                    ? nullptr
                    : p.scratch + blockIdx.x * scratch_floats(pl, k, L);
   s.save = reinterpret_cast<float2*>(

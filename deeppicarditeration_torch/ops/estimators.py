@@ -59,7 +59,7 @@ from deeppicarditeration_torch.ops.kernels import (
     generate_pis_cuda,
     generate_with_gradients_cuda,
     integral_with_gradients_cuda,
-    kernel_net,
+    merged_covers,
     normals_cuda,
     normals_plain,
     pis_covers,
@@ -117,8 +117,9 @@ class GenConfig:
     pallas_terminal: bool = False  # standalone terminal kernel
     pallas_integral: bool = False  # standalone integral kernel
     # Merged terminal+integral kernel: False / True / "auto". "auto" takes
-    # it where it covers the equation and the frozen net (kernel_net), and
-    # the split estimators elsewhere, with a one-line notice.
+    # it where it covers the equation and the frozen net (merged_covers,
+    # pis_covers), and the split estimators elsewhere, with a one-line
+    # notice.
     pallas_generate: object = "auto"
     # Precision of the frozen-net dots in the merged and the integral
     # estimator kernels (ops/kernels.py:PRECISIONS): "bf16x3" (the hi/lo
@@ -483,15 +484,20 @@ def generation_route(eq, sol: Solution, gen: GenConfig) -> str:
         (the JAX package's merged kernel takes neither);
       * different terminal and integral M => SPLIT;
       * pallas_generate False => SPLIT, True => MERGED (the merged kernel
-        raises on the card where it does not cover the net);
+        raises NotImplementedError on the card, with the reason below and
+        before any launch, where it does not cover the case; the CPU runs
+        its plain version);
       * "auto" => MERGED where a merged kernel covers the equation and the
-        net: for Cha ``generate.cu`` (``kernel_net``: ELU MLPs of width
-        128), for the OU equation ``generate_pis.cu`` (``pis_covers``: a
-        PISGradNet of width 512 in "default" or "bf16x3"); else SPLIT with
-        a printed notice (other PISGradNet widths, EnforceTerminal, plain
-        MLPs on OU, "highest" with a PISGradNet, antithetic pairing on
-        OU); and SPLIT, silently, for the zero iterate at nx below
-        ZERO_ITERATE_MIN_NX, where the chunk estimators are faster."""
+        net: for Cha ``generate.cu`` (``merged_covers``: ELU MLPs of
+        hidden width 128 or 256 at nx <= 1024 in "bf16x3" and "default",
+        of width 128 at nx <= 511 in "highest"), for the OU equation
+        ``generate_pis.cu`` (``pis_covers``: a PISGradNet of width 512 at
+        nx <= 512 in "default" or "bf16x3"); else SPLIT with a printed
+        notice (other widths or nx, EnforceTerminal, plain MLPs on OU,
+        "highest" with a PISGradNet or beyond width 128 and nx 511,
+        antithetic pairing on OU); and SPLIT, silently, for the zero
+        iterate at nx below ZERO_ITERATE_MIN_NX, where the chunk
+        estimators are faster."""
     mode = gen.pallas_generate
     if not _integral_kernel_applies(eq):
         return SPLIT
@@ -511,10 +517,9 @@ def generation_route(eq, sol: Solution, gen: GenConfig) -> str:
         reason = (f"the merged kernels cover Cha and the OU equation, not "
                   f"{type(eq).__name__}")
     else:
-        try:
-            kernel_net(sol, sol.nx)
-        except NotImplementedError as e:
-            reason = str(e)
+        why = merged_covers(eq, sol, gen.pallas_precision)
+        if why is not None:
+            reason = f"the merged kernel (generate.cu): {why}"
     if reason is not None:
         _notice_fallback("DATA.TPU.PALLAS_GENERATE: auto", reason,
                          "using the split estimators")

@@ -191,10 +191,17 @@ def _declare_generate(lib: ctypes.CDLL) -> None:
         + [_P]
     lib.dpi_generate.restype = _I
     _declare_net_limits(lib, "generate")
-    _declare_tc(lib, "generate", 11)
-    if hasattr(lib, "dpi_generate_tc_plan"):  # not in earlier builds
-        lib.dpi_generate_tc_plan.argtypes = [_I, _I, _P]
-        lib.dpi_generate_tc_plan.restype = None
+    lib.dpi_generate_tc_w.argtypes = [_P] * 11 + [_I] * 8 + [_U64] \
+        + [_F] * 4 + [_P]
+    lib.dpi_generate_tc_w.restype = _I
+    lib.dpi_generate_tc_scratch_bytes_w.argtypes = [_I] * 3
+    lib.dpi_generate_tc_scratch_bytes_w.restype = _I64
+    lib.dpi_generate_tc_plan_w.argtypes = [_I, _I, _I, _P]
+    lib.dpi_generate_tc_plan_w.restype = None
+    lib.dpi_generate_tc_max_nx.argtypes = []
+    lib.dpi_generate_tc_max_nx.restype = _I
+    lib.dpi_generate_tc_widths.argtypes = [_P]
+    lib.dpi_generate_tc_widths.restype = _I
 
 
 def _declare_terminal(lib: ctypes.CDLL) -> None:
@@ -268,8 +275,8 @@ def _declare_generate_pis(lib: ctypes.CDLL) -> None:
     lib.dpi_generate_pis_smem_bytes.restype = _I64
     lib.dpi_generate_pis_grid.argtypes = [_I] * 5
     lib.dpi_generate_pis_grid.restype = _I
-    lib.dpi_generate_pis_scratch_floats.argtypes = [_I]
-    lib.dpi_generate_pis_scratch_floats.restype = _I64
+    lib.dpi_generate_pis_scratch_floats_nx.argtypes = [_I] * 4
+    lib.dpi_generate_pis_scratch_floats_nx.restype = _I64
 
 
 GENERATE = CudaLibrary("generate.cu", _declare_generate)
@@ -427,11 +434,13 @@ def _seed(seed: int) -> int:
     return int(seed) & 0xFFFFFFFFFFFFFFFF
 
 
-def kernel_net(sol: Solution, nx: int, width: int = KERNEL_WIDTH
+def kernel_net(sol: Solution, nx: int, width=KERNEL_WIDTH
                ) -> Optional[MLP]:
     """The MLP the net kernels run for ``sol`` (None for the zero iterate).
     Raises for a frozen iterate they do not cover (``width``: the hidden
-    width they are compiled for)."""
+    width they are compiled for, or a tuple of widths: every hidden layer
+    of one of them)."""
+    widths = (width,) if isinstance(width, int) else tuple(width)
     if sol.kind == "zero":
         return None
     mod = sol.module
@@ -443,16 +452,47 @@ def kernel_net(sol: Solution, nx: int, width: int = KERNEL_WIDTH
             f"module={type(mod).__name__})")
     if (mod.out_dim != 1 or mod.bound is not None
             or any(a != "ELU" for a in mod.activations)
-            or any(n != width for n in mod.neurons)
+            or len(set(mod.neurons)) != 1 or mod.neurons[0] not in widths
             or mod.layers[0].in_features != 1 + nx):
+        shown = " or ".join(str(w) for w in widths)
         raise NotImplementedError(
             f"the CUDA estimator kernel covers ELU MLPs of hidden width "
-            f"{width} with one unclamped output (got neurons "
+            f"{shown} with one unclamped output (got neurons "
             f"{mod.neurons}, activations {mod.activations}, bound "
             f"{mod.bound}, out_dim {mod.out_dim})")
     if any(p.dtype != torch.float32 for p in mod.parameters()):
         raise NotImplementedError("the CUDA estimator kernel is f32 only")
     return mod
+
+
+# The merged kernel's cover (csrc/generate.cu), held equal to the built
+# library's by the card tests: the tensor-core kernel ("bf16x3",
+# "default"; dpi_generate_tc_widths, dpi_generate_tc_max_nx) and the
+# FP32-FMA kernel ("highest"; dpi_generate_hidden_width,
+# dpi_generate_max_nx)
+GENERATE_TC_WIDTHS, GENERATE_TC_MAX_NX = (128, 256), 1024
+GENERATE_FMA_WIDTH, GENERATE_FMA_MAX_NX = KERNEL_WIDTH, 511
+
+
+def merged_covers(eq, sol: Solution, precision: str):
+    """None where the merged kernel (``generate.cu``) covers (eq, sol) in
+    ``precision``, else why not: decided from the structure alone (the
+    equation, nx against the limit of the precision's kernel, the net's
+    kind, widths, activations and depth), before any launch. Antithetic
+    pairing is covered wherever the kernel is, so it takes no part; the
+    counterpart of ``pis_covers`` for the Burgers equation."""
+    if not isinstance(eq, Cha):
+        return f"it covers the Cha equation, not {type(eq).__name__}"
+    highest = check_precision(precision) == "highest"
+    limit = GENERATE_FMA_MAX_NX if highest else GENERATE_TC_MAX_NX
+    if eq.nx > limit:
+        return f"nx={eq.nx} exceeds its {limit} in {precision!r}"
+    try:
+        kernel_net(sol, eq.nx, (GENERATE_FMA_WIDTH,) if highest
+                   else GENERATE_TC_WIDTHS)
+    except NotImplementedError as e:
+        return f"{e} in {precision!r}"
+    return None
 
 
 def pack_mlp(mod: MLP) -> torch.Tensor:
@@ -656,6 +696,30 @@ def _net_for_launch(lib: ctypes.CDLL, name: str, sol: Solution,
     return mod, n_hidden, scratch
 
 
+def _tc_net_for_launch(dll: ctypes.CDLL, sol: Solution, tx: torch.Tensor,
+                       nx: int):
+    """(module or None, hidden layers, scratch bytes) of the merged
+    tensor-core kernel in the built library ``dll``: the scratch its plan
+    keeps at the net's width."""
+    widths = (ctypes.c_int * 4)()
+    widths = tuple(widths[:dll.dpi_generate_tc_widths(widths)])
+    if nx > dll.dpi_generate_tc_max_nx():
+        raise NotImplementedError(
+            f"nx={nx} exceeds the generate kernel's "
+            f"{dll.dpi_generate_tc_max_nx()}")
+    mod = kernel_net(sol, nx, widths)
+    n_hidden = len(mod.neurons) if mod is not None else 0
+    width = mod.neurons[0] if mod is not None else KERNEL_WIDTH
+    scratch = dll.dpi_generate_tc_scratch_bytes_w(nx, n_hidden, width)
+    if scratch < 0:
+        raise NotImplementedError(
+            f"the generate tensor-core kernel has no launch plan at nx={nx}, "
+            f"{n_hidden} hidden layers of width {width}")
+    if mod is not None and next(mod.parameters()).device != tx.device:
+        raise ValueError("the frozen net must lie on the device of tx")
+    return mod, n_hidden, scratch
+
+
 def _tc_net(mod: Optional[MLP], nx: int, scratch: int, device,
             pieces: int = 2):
     """The tensor-core launch's net buffers and scratch (None where
@@ -676,18 +740,20 @@ def _tc_net(mod: Optional[MLP], nx: int, scratch: int, device,
 # on 64-row tiles and a ring stage's bytes (value_mlp_tc.cuh: TILE,
 # STAGE_BYTES), which set the L2 traffic of ``generate_tc_l2_bytes``
 TC_TILE, TC_NWG, TC_STAGE_BYTES = 64, 2, 32768
-TC_SAVE_LAYER_FLOATS = TC_TILE * KERNEL_WIDTH
+# one layer's saved elu'(z) of a tile, by hidden width
+TC_SAVE_LAYER_FLOATS = {w: TC_TILE * w for w in GENERATE_TC_WIDTHS}
 
 
 def library_tc_plan(nx: int, n_hidden: int,
-                    lib: Optional[CudaLibrary] = None) -> Optional[dict]:
+                    lib: Optional[CudaLibrary] = None,
+                    width: int = KERNEL_WIDTH) -> Optional[dict]:
     """The plan the built ``generate.cu`` (``lib``, default ``GENERATE``)
-    takes at (nx, hidden layers) (its choose_gplan): the ring's stages,
-    whether the saved ELU derivatives and the tiles' normals stay in
-    shared memory, the block's shared memory and the global scratch
+    takes at (nx, hidden layers, hidden width) (its choose_gplan): the
+    ring's stages, whether the saved ELU derivatives and the tiles' normals
+    stay in shared memory, the block's shared memory and the global scratch
     floats it keeps. None where nothing fits."""
     out = (ctypes.c_longlong * 5)()
-    (lib or GENERATE).lib().dpi_generate_tc_plan(nx, n_hidden, out)
+    (lib or GENERATE).lib().dpi_generate_tc_plan_w(nx, n_hidden, width, out)
     if out[0] < 0:
         return None
     return {"stages": out[0], "save_smem": bool(out[1]),
@@ -696,25 +762,39 @@ def library_tc_plan(nx: int, n_hidden: int,
 
 
 def generate_tc_l2_bytes(b: int, m: int, nx: int, n_hidden: int,
-                         precision: str, plan: dict) -> dict:
+                         precision: str, plan: dict,
+                         width: int = KERNEL_WIDTH) -> dict:
     """Bytes one launch of the merged tensor-core kernel moves through L2
     by ``plan`` (``library_tc_plan``'s): the weight slabs the producer
     stages (each ring pass serves the two warpgroups' tiles of a point; hi
-    and lo images under bf16x3, hi alone under "default"), and the global
-    scratch: the saved
-    derivatives written and read once a tile, the tiles' normals written
-    once and read twice (layer 1's input, the sums) where the plan keeps
-    them there. A count of the plan, not a measurement."""
+    and lo images under bf16x3, hi alone under "default"; a slab is 128
+    output rows, so a width-256 layer takes twice the slabs, and its first
+    layer's K-slabs are staged once for each half), and the global
+    scratch: the saved derivatives written and read once a tile, the
+    tiles' normals written once and read twice (layer 1's input, the sums;
+    at width 256 read once more: each half of layer 1 reads them) where the
+    plan keeps them there, and at width 256 the layer outputs (TILE x 256
+    f32 a layer: layers 1..L forward and L-1..2 backward written, each of
+    the 2 (L - 1) hidden products' inputs read once a half). A count of
+    the plan, not a measurement."""
     passes = -(-(-(-m // TC_TILE)) // TC_NWG)
-    slabs = tc_k1(nx) // TC_SLAB_K + 4 * (n_hidden - 1) if n_hidden else 0
+    halves = width // 128
+    slabs = (halves * (tc_k1(nx) // TC_SLAB_K + 4 * halves * (n_hidden - 1))
+             if n_hidden else 0)
     slab = TC_STAGE_BYTES // (1 if precision == "bf16x3" else 2)
     tiles = b * passes * TC_NWG
     saves = (0 if plan["save_smem"] or n_hidden < 2 else
-             tiles * (n_hidden - 1) * TC_SAVE_LAYER_FLOATS * 4 * 2)
-    normals = 0 if plan["dw_smem"] else tiles * TC_TILE * nx * 4 * 3
+             tiles * (n_hidden - 1) * TC_SAVE_LAYER_FLOATS[width] * 4 * 2)
+    reads = 2 + (halves if n_hidden else 1)
+    normals = 0 if plan["dw_smem"] else tiles * TC_TILE * nx * 4 * reads
+    acts = 0
+    if halves > 1 and n_hidden > 1:
+        layer = TC_TILE * width * 4
+        acts = tiles * layer * ((2 * n_hidden - 2) + 2 * 2 * (n_hidden - 1))
     weights = b * passes * slabs * slab
-    return {"weights": weights, "scratch": saves + normals,
-            "total": weights + saves + normals}
+    scratch = saves + normals + acts
+    return {"weights": weights, "scratch": scratch,
+            "total": weights + scratch}
 
 
 def generate_with_gradients_plain(seed: int, eq, sol: Solution,
@@ -777,8 +857,11 @@ def generate_with_gradients_cuda(seed: int, eq, sol: Solution,
     (B, rows, nx) it uses those, as the TPU kernel does (its test path).
     ``antithetic`` pairs each draw with its mirror: rows = m / 2.
     ``precision`` (``PRECISIONS``): "highest" launches the FP32-FMA kernel,
-    "bf16x3" and "default" the tensor-core kernel. CPU tensors take
-    ``generate_with_gradients_plain``. ``lib``: another build of
+    "bf16x3" and "default" the tensor-core kernel (hidden width 128 or 256,
+    nx up to ``GENERATE_TC_MAX_NX``). CPU tensors take
+    ``generate_with_gradients_plain``; on any other device a case the
+    kernel does not cover (``merged_covers``) raises NotImplementedError
+    before the library is loaded. ``lib``: another build of
     ``generate.cu`` (``utils/generate_bench.py``) in place of
     ``GENERATE``."""
     check_precision(precision)
@@ -787,6 +870,9 @@ def generate_with_gradients_cuda(seed: int, eq, sol: Solution,
                                              noise_t, noise_i,
                                              antithetic=antithetic,
                                              precision=precision)
+    why = merged_covers(eq, sol, precision)
+    if why is not None:
+        raise NotImplementedError(f"the CUDA merged estimator kernel: {why}")
     _on_card("estimator", tx, eq)
     b, nx = tx.shape[0], tx.shape[1] - 1
     _check("tx", tx, (b, 1 + nx), tx.device)
@@ -800,8 +886,12 @@ def generate_with_gradients_cuda(seed: int, eq, sol: Solution,
         _check("noise_i", noise_i, (b, rows, nx), tx.device)
     lib = lib or GENERATE
     dll = lib.lib()
-    mod, n_hidden, scratch = _net_for_launch(dll, "generate", sol, tx, nx,
-                                             precision != "highest")
+    if precision == "highest":
+        mod, n_hidden, scratch = _net_for_launch(dll, "generate", sol, tx,
+                                                 nx, False)
+    else:
+        mod, n_hidden, scratch = _tc_net_for_launch(dll, sol, tx, nx)
+    width = mod.neurons[0] if mod is not None else KERNEL_WIDTH
     t = tx[:, :1].contiguous()
     x = tx[:, 1:].contiguous()
     g0 = eq.g(x).contiguous()
@@ -817,10 +907,10 @@ def generate_with_gradients_cuda(seed: int, eq, sol: Solution,
             _ptr(noise_t), _ptr(noise_i), _ptr(out), *shape, *scalars)
     else:
         img, vec, buf = _tc_net(mod, nx, scratch, tx.device)
-        rc = dll.dpi_generate_tc(
+        rc = dll.dpi_generate_tc_w(
             _ptr(t), _ptr(x), _ptr(g0), _ptr(f0), _ptr(img), _ptr(vec),
             _ptr(u01), _ptr(noise_t), _ptr(noise_i), _ptr(buf), _ptr(out),
-            *shape, _TC_MODES[precision], *scalars)
+            *shape, _TC_MODES[precision], width, *scalars)
     if rc != 0:
         raise RuntimeError(f"dpi_generate launch failed: error {rc} (CUDA's, "
                            f"or value_mlp_tc.cuh's ERR_* from 10001)")
@@ -832,8 +922,16 @@ def generate_with_gradients_cuda(seed: int, eq, sol: Solution,
 # the merged estimator's HJB instance: OU + PISGradNet (csrc/generate_pis.cu)
 # ---------------------------------------------------------------------------
 
-# the PISGradNet the kernel is built for (generate_pis.cu: HW, CH, MAX_NX)
-PIS_WIDTH, PIS_CHANNELS, PIS_MAX_NX = 512, 64, 128
+# the PISGradNet the kernel is built for (generate_pis.cu: HW, CH, MAX_NX),
+# held equal to the built library's by the card tests; up to
+# PIS_NARROW_NX the head and the x columns of N_0^T are 128 rows, beyond it
+# 512 (generate_pis.cu: NARROW_NX, head_rows)
+PIS_WIDTH, PIS_CHANNELS, PIS_MAX_NX = 512, 64, 512
+PIS_NARROW_NX = 128
+
+
+def pis_head_rows(nx: int) -> int:
+    return 128 if nx <= PIS_NARROW_NX else PIS_WIDTH
 
 
 def _pad16(v: int) -> int:
@@ -844,12 +942,12 @@ def pis_layer_shapes(n_hidden: int, nx: int):
     """(N, K) of the kernel's products in the order it takes them
     (generate_pis.cu:layer_nk): the gate S_0..S_L, the time encoder
     T_0, T_1, the net N_0..N_{L-1} and its head, then backward the head^T,
-    N_{L-1}^T..N_1^T and the x columns of N_0^T; N padded to 128 or 512,
-    K to 16."""
-    L, c, w = n_hidden, PIS_CHANNELS, PIS_WIDTH
+    N_{L-1}^T..N_1^T and the x columns of N_0^T; N padded to 128 or 512
+    (the head and N_0x^T: ``pis_head_rows``), K to 16."""
+    L, c, w, h = n_hidden, PIS_CHANNELS, PIS_WIDTH, pis_head_rows(nx)
     return ([(128, 2 * c)] + [(128, c)] * L + [(128, 2 * c), (128, c)]
-            + [(w, _pad16(c + nx))] + [(w, w)] * (L - 1) + [(128, w)]
-            + [(w, _pad16(nx))] + [(w, w)] * (L - 1) + [(128, w)])
+            + [(w, _pad16(c + nx))] + [(w, w)] * (L - 1) + [(h, w)]
+            + [(w, _pad16(nx))] + [(w, w)] * (L - 1) + [(h, w)])
 
 
 def _slab_image(w: torch.Tensor, n: int, k: int) -> torch.Tensor:
@@ -1025,7 +1123,8 @@ def generate_pis_cuda(seed: int, eq, sol: Solution, tx: torch.Tensor,
             raise RuntimeError("pack_pis_tc and generate_pis.cu disagree "
                                "on the packed net's layout")
         scratch = torch.empty(
-            grid * dll.dpi_generate_pis_scratch_floats(n_hidden),
+            grid * dll.dpi_generate_pis_scratch_floats_nx(n_hidden, nx,
+                                                          ncomp, mode),
             dtype=torch.float32, device=tx.device)
         sigma0 = pis_sigma0(mod, precision)
     t = tx[:, :1].contiguous()

@@ -2,6 +2,7 @@
 the integral kernel (``csrc/integral.cu``) in turns.
 
     python -m deeppicarditeration_torch.utils.generate_bench [--kernel integral] [--source PATH ...]
+        [--nx NX] [--width W] [--b B] [--m M]
 
 Each ``--source`` (default: the package's ``csrc/generate.cu``, or
 ``csrc/integral.cu`` under ``--kernel integral``; another build, such as
@@ -23,6 +24,11 @@ WARPGROUP.DEPBAR, STL and LDL (local-memory stores and loads: spills) in
 the SASS of each instantiation of its tensor-core kernel, and the card's
 name and power limit. Needs a CUDA card: there is no CPU mode.
 
+``--nx``, ``--width``, ``--b``, ``--m``: another instance of the merged
+kernel (path R's: ``--nx 512 --m 16384``; path S's: ``--nx 1024 --width
+256 --b 8192 --m 32768``); the net stays 4 ELU layers, D's pairing at 2 M.
+A build from before a width or an nx took the kernel raises there.
+
 ``--time-only``: time variants whose output is wrong by design (a part
 of the kernel taken out, to see what it costs): each must still give the
 same output twice, and its distance from the first source is printed
@@ -30,7 +36,10 @@ but not checked.
 
 A build of ``integral.cu`` from before its six-pass instance runs its
 "highest" on its FP32-FMA kernel (``dpi_integral``), launched here as its
-wrapper did (``_integral``); the package's wrapper has one launch path.
+wrapper did (``_integral``); a build of ``generate.cu`` from before its
+width-256 and nx > 511 instances (no ``dpi_generate_tc_w``) is reached
+through adapters of its own symbols under the new names
+(``_declare_generate``). The package's wrappers have one launch path.
 
 ``--stamps``: for each build that exports ``dpi_generate_tc_stamps`` (or
 ``dpi_integral_tc_stamps``; a variant with ``clock64()`` stamps, kept out
@@ -59,6 +68,47 @@ from deeppicarditeration_torch.utils.bench_turns import (
 from deeppicarditeration_torch.utils.pis_bench import function_counts
 
 B, M, NX, REPS, SEED = 4096, 4096, 100, 3, (7 << 32) | 5
+
+
+def _declare_generate(lib: ctypes.CDLL) -> None:
+    """``kernels._declare_generate``; an earlier build (width 128 and nx <=
+    511 only: ``dpi_generate_tc``, ``dpi_generate_tc_scratch_bytes``,
+    ``dpi_generate_tc_plan``, the FP32-FMA kernel's ``dpi_generate_max_nx``)
+    first gets the wrapper's names as adapters of its own symbols (the
+    declaration's argtypes then land on the adapters, unused)."""
+    if not hasattr(lib, "dpi_generate_tc_w"):
+        kernels._declare_tc(lib, "generate", 11)
+        lib.dpi_generate_tc_plan.argtypes = [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
+        lib.dpi_generate_tc_plan.restype = None
+        h = kernels.KERNEL_WIDTH
+
+        def width_128(width):
+            if width != h:
+                raise NotImplementedError(
+                    f"this build of generate.cu has width {h} only")
+
+        def launch(*a):  # a[18]: the width, after 11 pointers, 7 ints
+            width_128(a[18])
+            return lib.dpi_generate_tc(*a[:18], *a[19:])
+
+        def scratch(nx, n_hidden, width):
+            return (lib.dpi_generate_tc_scratch_bytes(nx, n_hidden)
+                    if width == h else -1)
+
+        def plan(nx, n_hidden, width, out):
+            width_128(width)
+            lib.dpi_generate_tc_plan(nx, n_hidden, out)
+
+        def widths(out):
+            out[0] = h
+            return 1
+
+        for name, fn in (("w", launch), ("scratch_bytes_w", scratch),
+                         ("plan_w", plan), ("widths", widths),
+                         ("max_nx", lambda: lib.dpi_generate_max_nx())):
+            setattr(lib, f"dpi_generate_tc_{name}", fn)
+    kernels._declare_generate(lib)
 
 
 def _declare_integral(lib: ctypes.CDLL) -> None:
@@ -103,7 +153,7 @@ def _integral(seed, eq, sol, tx, m, *, antithetic, precision, lib):
 # paths A or B in each mode, and D's pairing)
 KERNELS = {
     "generate": (kernels.generate_with_gradients_cuda,
-                 kernels._declare_generate, "generate_tc_kernel",
+                 _declare_generate, "generate_tc_kernel",
                  "dpi_generate_tc_stamps",
                  {"bf16x3": 5e-5, "default": 5e-4},
                  (("bf16x3", False, M), ("default", False, M),
@@ -124,19 +174,25 @@ def main(argv=None):
                     help="print the stamped builds' phases per tile")
     ap.add_argument("--time-only", action="store_true",
                     help="do not hold the builds to the first's output")
+    ap.add_argument("--nx", type=int, default=NX)
+    ap.add_argument("--width", type=int, default=kernels.KERNEL_WIDTH)
+    ap.add_argument("--b", type=int, default=B)
+    ap.add_argument("--m", type=int, default=M)
     args = ap.parse_args(argv)
+    nx, b = args.nx, args.b
     run, declare, fn, symbol, tol, cases = KERNELS[args.kernel]
+    cases = [(mode, anti, m * args.m // M) for mode, anti, m in cases]
     sources = args.source or [str(
         (kernels.GENERATE if args.kernel == "generate"
          else kernels.INTEGRAL).source)]
     libs = build_sources(sources, declare)
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(4)
-    eq = make_equation("Cha", nx=NX, alpha=1.0, k=5.0, T=1.0)
-    mod = MLP(1 + NX, (128,) * 4, ("ELU",) * 4, 1, generator=g)
-    sol = Solution.from_net(mod.to(dev), "Value", NX)
-    t = torch.rand((B, 1), generator=g) * 0.99 + 0.005
-    x = torch.randn((B, NX), generator=g) * t.sqrt()
+    eq = make_equation("Cha", nx=nx, alpha=1.0, k=5.0, T=1.0)
+    mod = MLP(1 + nx, (args.width,) * 4, ("ELU",) * 4, 1, generator=g)
+    sol = Solution.from_net(mod.to(dev), "Value", nx)
+    t = torch.rand((b, 1), generator=g) * 0.99 + 0.005
+    x = torch.randn((b, nx), generator=g) * t.sqrt()
     tx = torch.cat([t, x], 1).to(dev)
     results = []
     for mode, anti, m in cases:
@@ -149,7 +205,8 @@ def main(argv=None):
                  run(SEED, eq, sol, tx, m, antithetic=anti, precision=mode,
                      lib=lib) for lib in libs]
         case = {"kernel": args.kernel, "precision": mode,
-                "antithetic": anti, "B": B, "M": m, "nx": NX}
+                "antithetic": anti, "B": b, "M": m, "nx": nx,
+                "width": args.width}
         if args.stamps:
             for name, lib, call in zip(sources, libs, calls):
                 stamps(symbol, name, case, lib, call)

@@ -2,6 +2,7 @@
 turns.
 
     python -m deeppicarditeration_torch.utils.pis_bench [--source PATH ...]
+        [--nx NX] [--b B] [--m M]
 
 Each ``--source`` (default: the package's ``csrc/generate_pis.cu``; another
 build, such as an earlier commit's file unpacked by ``git archive``, with
@@ -17,6 +18,12 @@ ptxas lines and the counts of HGMMA (wgmma), STL and LDL (local-memory
 stores and loads: spills) in its SASS, and the card's name and power
 limit. Needs a CUDA card: there is no CPU mode.
 
+``--nx``, ``--b``, ``--m``: another instance (path T's: ``--nx 512 --b
+8192 --m 8192``; the PISGradNet stays 4x512, the only width the kernel is
+built for). A build from before nx > 128 (its scratch query takes the
+hidden layers alone) is reached through an adapter of its own symbol
+under the new name (``_declare``).
+
 ``--stamps``: for each build that exports ``dpi_generate_pis_stamps``
 (a variant with ``clock64()`` stamps, kept out of the repository), one
 launch per mode and the cycles of each stamped phase per 64-sample tile,
@@ -27,6 +34,7 @@ them).
 from __future__ import annotations
 
 import argparse
+import ctypes
 import re
 
 import torch
@@ -75,22 +83,40 @@ def function_counts(lib: kernels.CudaLibrary, name: str) -> dict:
     return out
 
 
+def _declare(lib) -> None:
+    """``kernels._declare_generate_pis``; an earlier build (nx <= 128 only:
+    ``dpi_generate_pis_scratch_floats(L)``) first gets the wrapper's
+    scratch query as an adapter of its own (the declaration's argtypes then
+    land on the adapter, unused)."""
+    if not hasattr(lib, "dpi_generate_pis_scratch_floats_nx"):
+        old = lib.dpi_generate_pis_scratch_floats
+        old.argtypes, old.restype = [ctypes.c_int], ctypes.c_longlong
+        lib.dpi_generate_pis_scratch_floats_nx = (
+            lambda n_hidden, nx, ncomp, mode: old(n_hidden))
+    kernels._declare_generate_pis(lib)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--source", nargs="*",
                     default=[str(kernels.GENERATE_PIS.source)])
     ap.add_argument("--stamps", action="store_true",
                     help="print the stamped builds' phases per tile")
+    ap.add_argument("--nx", type=int, default=NX)
+    ap.add_argument("--b", type=int, default=B)
+    ap.add_argument("--m", type=int, default=M)
     args = ap.parse_args(argv)
-    libs = build_sources(args.source, kernels._declare_generate_pis)
+    nx, b, m = args.nx, args.b, args.m
+    libs = build_sources(args.source, _declare)
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(4)
-    eq = make_equation("OUProcessEquation", nx=NX, num_components=5).to(dev)
-    mod = PISGradNet(NX, (512,) * 4, (eq.gmm_means, eq.gmm_vars,
-                                      eq.gmm_log_weights), generator=g)
-    sol = Solution.from_net(mod.to(dev), "Value", NX)
-    t = torch.rand((B, 1), generator=g) * 0.99
-    x = torch.randn((B, NX), generator=g) * 2.0 * (1.0 + t).sqrt()
+    eq = make_equation("OUProcessEquation", nx=nx, num_components=5).to(dev)
+    mod = PISGradNet(nx, (kernels.PIS_WIDTH,) * 4,
+                     (eq.gmm_means, eq.gmm_vars, eq.gmm_log_weights),
+                     generator=g)
+    sol = Solution.from_net(mod.to(dev), "Value", nx)
+    t = torch.rand((b, 1), generator=g) * 0.99
+    x = torch.randn((b, nx), generator=g) * 2.0 * (1.0 + t).sqrt()
     tx = torch.cat([t, x], 1).to(dev)
     results = []
     for mode in ("default", "bf16x3"):
@@ -99,12 +125,12 @@ def main(argv=None):
             return err <= REL_TOL[mode], err
 
         calls = [lambda lib=lib, mode=mode: kernels.generate_pis_cuda(
-            SEED, eq, sol, tx, M, precision=mode, lib=lib) for lib in libs]
+            SEED, eq, sol, tx, m, precision=mode, lib=lib) for lib in libs]
         if args.stamps:
             for name, lib, call in zip(args.source, libs, calls):
                 stamps("dpi_generate_pis_stamps", name,
                        {"precision": mode}, lib, call)
-        results += in_turns({"precision": mode, "B": B, "M": M, "nx": NX},
+        results += in_turns({"precision": mode, "B": b, "M": m, "nx": nx},
                             args.source, calls, agree, REPS)
     report_builds(args.source, libs, sass_counts)
     return results

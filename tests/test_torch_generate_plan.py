@@ -26,6 +26,20 @@ PATH_A_PLAN = {"stages": 4, "save_smem": False, "dw_smem": True,
                "smem_bytes": 189152, "scratch_floats": 2 * 3 * 64 * 128}
 
 
+# paths R (nx = 512, 4x128) and S (nx = 1024, 4x256): the tiles' normals
+# and the saved derivatives in global scratch, a ring of 4 stages; S also
+# its two buffers of layer outputs a warpgroup (tests/test_torch_highd.py
+# counts their L2 traffic; tests/test_torch_gpu.py holds them to the
+# built kernel)
+PATH_R_PLAN = {"stages": 4, "save_smem": False, "dw_smem": False,
+               "smem_bytes": 151168,
+               "scratch_floats": 2 * 3 * 64 * 128 + 2 * 64 * 512}
+PATH_S_PLAN = {"stages": 4, "save_smem": False, "dw_smem": False,
+               "smem_bytes": 171648,
+               "scratch_floats": (2 * 3 * 64 * 256 + 2 * 64 * 1024
+                                  + 2 * 2 * 128 * 128)}
+
+
 def _plan(save_smem, dw_smem):
     return {**PATH_A_PLAN, "save_smem": save_smem, "dw_smem": dw_smem}
 

@@ -10,6 +10,7 @@ is installed:
 """
 
 import copy
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -1410,3 +1411,124 @@ def test_resume_on_the_card_equals_an_uninterrupted_run(cuda, tmp_path,
     for k in a:
         assert float((a[k] - b[k]).abs().max()) <= 1e-6 * float(
             a[k].abs().max()), k
+
+
+# ---- high dimension: the merged kernels at nx up to 1024 / 512 -------------
+
+def test_cover_constants_equal_the_built_libraries(cuda):
+    """ops/kernels.py's limits, which merged_covers and pis_covers read
+    before any launch, are the built kernels' own."""
+    dll = kernels.GENERATE.lib()
+    widths = (ctypes.c_int * 4)()
+    n = dll.dpi_generate_tc_widths(widths)
+    assert tuple(widths[:n]) == kernels.GENERATE_TC_WIDTHS
+    assert dll.dpi_generate_tc_max_nx() == kernels.GENERATE_TC_MAX_NX
+    assert dll.dpi_generate_hidden_width() == kernels.GENERATE_FMA_WIDTH
+    assert dll.dpi_generate_max_nx() == kernels.GENERATE_FMA_MAX_NX
+    pis = kernels.GENERATE_PIS.lib()
+    assert pis.dpi_generate_pis_max_nx() == kernels.PIS_MAX_NX
+    assert pis.dpi_generate_pis_hidden_width() == kernels.PIS_WIDTH
+    assert pis.dpi_generate_pis_channels() == kernels.PIS_CHANNELS
+
+
+def test_merged_plans_at_the_high_dimension_paths(cuda):
+    """The built kernel's plans at paths R's and S's shapes are the ones
+    whose L2 traffic the CPU tests count
+    (tests/test_torch_generate_plan.py: PATH_R_PLAN, PATH_S_PLAN); every nx
+    up to 1024 has one at both widths."""
+    assert kernels.library_tc_plan(512, 4) == {
+        "stages": 4, "save_smem": False, "dw_smem": False,
+        "smem_bytes": 151168,
+        "scratch_floats": 2 * 3 * 64 * 128 + 2 * 64 * 512}
+    assert kernels.library_tc_plan(1024, 4, width=256) == {
+        "stages": 4, "save_smem": False, "dw_smem": False,
+        "smem_bytes": 171648,
+        "scratch_floats": (2 * 3 * 64 * 256 + 2 * 64 * 1024
+                           + 2 * 2 * 128 * 128)}
+    for width in kernels.GENERATE_TC_WIDTHS:
+        for nx in range(1, kernels.GENERATE_TC_MAX_NX + 1, 7):
+            plan = kernels.library_tc_plan(nx, 4, width=width)
+            assert plan is not None and 2 <= plan["stages"] <= 4, (nx, width)
+
+
+@pytest.mark.parametrize("precision", ["bf16x3", "default"])
+@pytest.mark.parametrize("anti", [False, True])
+@pytest.mark.parametrize("nx,width,n_hidden,m", [
+    (512, 128, 4, 128), (1024, 128, 2, 100), (1024, 256, 4, 128),
+    (513, 256, 1, 64), (1000, 256, 3, 70)])
+def test_merged_kernel_at_high_dimension_matches_plain(cuda, precision, anti,
+                                                       nx, width, n_hidden,
+                                                       m):
+    """The tensor-core kernel at nx 512-1024 (its output columns past 512
+    in shared memory), widths 128 and 256 (the width-256 pass), against
+    the plain version in the same mode on the same noise; a ragged last
+    tile and nx off the 64-column slabs."""
+    b, rows = 8, m // 2 if anti else m
+    eq, _, tx, u01, nt, ni = _problem(cuda, b, rows, nx, net=False)
+    sol = _deep(cuda, nx, (width,) * n_hidden)
+    kw = dict(antithetic=anti, precision=precision)
+    out = kernels.generate_with_gradients_cuda(0, eq, sol, tx, m, u01, nt,
+                                               ni, **kw)
+    ref = kernels.generate_with_gradients_plain(0, eq, sol, tx, m, u01, nt,
+                                                ni, **kw)
+    torch.cuda.synchronize()
+    tol = ONE_PASS_TOL if precision == "default" else RTOL
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("width", [128, 256])
+def test_merged_kernel_draws_equal_the_host_philox_at_1024(cuda, width):
+    b, m, nx = 4, 128, 1024
+    eq, _, tx, *_ = _problem(cuda, b, 1, nx, net=False)
+    sol = _deep(cuda, nx, (width,) * 2)
+    seed, pts = (7 << 32) | 5, [0, b - 1]
+    draws = [torch.from_numpy(a).to(cuda) for a in (
+        philox.estimator_times(seed, pts, m),
+        philox.estimator_normals(seed, pts, m, nx, philox.STREAM_TERMINAL),
+        philox.estimator_normals(seed, pts, m, nx, philox.STREAM_INTEGRAL))]
+    out = kernels.generate_with_gradients_cuda(seed, eq, sol, tx, m,
+                                               precision="bf16x3")[pts]
+    ref = kernels.generate_with_gradients_plain(0, eq, sol, tx[pts], m,
+                                                *draws, precision="bf16x3")
+    torch.testing.assert_close(out, ref, rtol=RTOL, atol=RTOL)
+
+
+@pytest.mark.parametrize("precision", ["default", "bf16x3"])
+@pytest.mark.parametrize("net,m,nx", [(True, 100, 512), (True, 64, 136),
+                                      (False, 64, 512), (True, 70, 301)])
+def test_pis_kernel_at_high_dimension_matches_plain(cuda, precision, net, m,
+                                                    nx):
+    """The PIS kernel's wide instance (nx > 128: the head and the x columns
+    of N_0^T 512 rows, the tile's normals in global scratch, the terminal
+    sums in shared memory) against the plain version; the zero iterate's
+    terminal chain on the consumers at nx = 512."""
+    eq, sol, tx, u01, nt, ni = _pis_problem(cuda, 8, m, nx, net)
+    out = kernels.generate_pis_cuda(0, eq, sol, tx, m, u01, nt, ni,
+                                    precision=precision)
+    ref = kernels.generate_with_gradients_plain(0, eq, sol, tx, m, u01, nt,
+                                                ni, precision=precision)
+    torch.cuda.synchronize()
+    tol = {"default": 1e-3, "bf16x3": 1e-4}[precision]
+    for cols in (slice(0, 1), slice(1, None)):
+        rel = float((out[:, cols] - ref[:, cols]).abs().max()) / max(
+            float(ref[:, cols].abs().max()), 1.0)
+        assert rel <= tol, (cols, rel)
+
+
+def test_past_the_limits_raises_before_any_launch(cuda):
+    """nx = 1025 (the merged kernel), nx = 512 in "highest" (its FP32-FMA
+    pass) and nx = 513 (the PIS kernel): NotImplementedError from the
+    structure, and no launch."""
+    n0, p0 = kernels.GENERATE.launches, kernels.GENERATE_PIS.launches
+    for nx, precision in ((kernels.GENERATE_TC_MAX_NX + 1, "bf16x3"),
+                          (512, "highest")):
+        eq, _, tx, *_ = _problem(cuda, 2, 1, nx, net=False)
+        with pytest.raises(NotImplementedError, match="exceeds"):
+            kernels.generate_with_gradients_cuda(
+                0, eq, _deep(cuda, nx, (128,)), tx, 64, precision=precision)
+    eq, _, tx, *_ = _pis_problem(cuda, 2, 1, kernels.PIS_MAX_NX + 1, False)
+    with pytest.raises(NotImplementedError, match="exceeds"):
+        kernels.generate_pis_cuda(0, eq, Solution.zero(eq.nx), tx, 64,
+                                  precision="default")
+    assert (kernels.GENERATE.launches, kernels.GENERATE_PIS.launches) == (
+        n0, p0)

@@ -212,13 +212,16 @@ def test_dispatch_passes_the_precision_to_the_kernels_only():
 
 
 @pytest.mark.parametrize("nx,neurons", [(100, (128,) * 4), (7, (128,)),
-                                        (30, (128, 128))])
+                                        (30, (128, 128)),
+                                        (1024, (256, 256))])
 def test_pack_mlp_tc_layout(nx, neurons):
     """The tensor-core kernels' images hold hi = bf16(W) and lo =
     bf16(W - hi) of W1 (columns x_1..x_nx, s, zero padding to whole slabs
     of 64) and of each hidden W, in 8 x 8 core matrices; then the biases,
     the head, the column sums over x of hi(W1) and lo(W1), the head's
-    bias."""
+    bias. At hidden width 128 and 256 (the merged kernel's widths; path
+    S's K1 = 1025 padded to 1088)."""
+    h = neurons[0]
     g = torch.Generator().manual_seed(nx)
     mod = MLP(1 + nx, neurons, ("ELU",) * len(neurons), 1, generator=g)
     with torch.no_grad():
@@ -234,14 +237,14 @@ def test_pack_mlp_tc_layout(nx, neurons):
             .reshape(n, k)
 
     w1 = mod.layers[0].weight.detach()
-    w1p = torch.zeros((128, k1))
+    w1p = torch.zeros((h, k1))
     w1p[:, :nx], w1p[:, nx] = w1[:, 1:], w1[:, 0]
     o = 0
     his = []
-    for w, k in [(w1p, k1)] + [(lin.weight.detach(), 128)
+    for w, k in [(w1p, k1)] + [(lin.weight.detach(), h)
                                for lin in mod.layers[1:-1]]:
-        hi = untile(img[o:o + 128 * k], 128, k).float()
-        lo = untile(img[o + 128 * k:o + 256 * k], 128, k).float()
+        hi = untile(img[o:o + h * k], h, k).float()
+        lo = untile(img[o + h * k:o + 2 * h * k], h, k).float()
         torch.testing.assert_close(hi, w.to(torch.bfloat16).float(),
                                    rtol=0, atol=0)
         torch.testing.assert_close(lo, (w - hi).to(torch.bfloat16).float(),
@@ -249,7 +252,7 @@ def test_pack_mlp_tc_layout(nx, neurons):
         assert float((w - hi - lo).abs().max()) <= 2 ** -16 * float(
             w.abs().max())
         his.append((hi, lo))
-        o += 256 * k
+        o += 2 * h * k
     assert o == img.numel()
     L = len(neurons)
     want = [lin.bias.detach() for lin in mod.layers[:-1]] + [
@@ -257,4 +260,4 @@ def test_pack_mlp_tc_layout(nx, neurons):
         his[0][0][:, :nx].sum(1), his[0][1][:, :nx].sum(1),
         mod.layers[-1].bias.detach()]
     torch.testing.assert_close(vec, torch.cat(want), rtol=0, atol=0)
-    assert vec.numel() == (L + 3) * 128 + 1
+    assert vec.numel() == (L + 3) * h + 1
