@@ -85,7 +85,18 @@ TRAIN.FUSED's "auto"):
      instance, "default". R, S, T: read from configs/ by the port's YAML
      reader with the records' overrides, 3 iterations
      (``--highd-iterations``; the recipes' own 60, 50, 40:
-     ``_run_highd``).
+     ``_run_highd``);
+  U  configs/burgers/base_100d_T1.0_w1.0.yaml with a 4x512 ELU net (the
+     JAX package's dispatcher matrix, scripts/bench_dispatcher_matrix.py:
+     its 4x512 / nx 100 cell): the merged kernel's wide pass, bf16x3;
+  V  the same recipe with a 6x512 ELU net at nx = 256 (6x512 / 256);
+  W  ... a 2x1024 ELU net at nx = 512 (2x1024 / 512: width 1024 with the
+     output columns past 511);
+  X  ... a 3x64 ELU net at nx = 256 (3x64 / 256): the width-64 pass.
+     U, V, W, X: B = 4096, M = 4096 + 4096, 16 epochs, read from configs/
+     by the port's YAML reader with only NETWORK.NEURONS (and its ELU
+     activations) and nx overridden, 3 iterations (``WIDTH_ITERATIONS``,
+     ``WIDTH_PATHS``; longer runs through ``_run_highd(path, n)``).
 Each path's kernel launch counts are read around its run (every count set
 to 0 just before) and checked against its generation calls (A-D, F, G, K,
 L; the net kernels' also by precision mode), its epochs (E, I) or its
@@ -237,6 +248,18 @@ only when every phase passed):
      under 1.5x the record's (``HIGHD_PATHS``), generate and fit ms, the
      second iteration traced (device busy ms, idle share), peak device
      memory;
+ 24. the merged kernel at widths 64, 512 and 1024, depths 2 and 6
+     (``WIDTH_CASES``: random nets, B = 64, M = 256, bf16x3 and
+     "default", with and without antithetic pairing; bf16x3 at phase 2's
+     5e-5, "default" against the plain version in f64 beside the plain
+     one pass, ``DEEP_ONE_PASS_RATIO``) and at the
+     matrix's ragged B = 4000 (``WIDTH_RAGGED``:
+     W's 2x1024 net at nx 512, bf16x3, every point) against its plain
+     version on the same noise;
+ 25. paths U, V, W, X, 3 iterations each: every generation call merged,
+     one ``generate.cu`` launch an iteration, rRMSE at iterations 1-3
+     under 1.5x the split route's at the same seed (``WIDTH_PATHS``),
+     generate and fit ms, the second iteration traced, peak memory;
  11. kernel, plain-version and library times at the paths' shapes, and
      each kernel's bound, printed as one ``{"kernels": [...]}`` JSON line
      (the net kernels with a row per precision mode, timed in turns in
@@ -262,7 +285,11 @@ only when every phase passed):
      (``_highd_at_own_shape``): the kernel's own draws against the host
      Philox at the first and last point at the path's M (its row's
      max_abs_err), and its law against the plain version's over every
-     output (CLT).
+     output (CLT); the same at paths U, V, W, X's shapes, the law over
+     the first ``WIDTH_CLT_POINTS`` points (the plain version takes 27-46
+     s a call over all 4096 at U, V, W), and at V's in "default" too, on
+     the same external noise over its first ``WIDTH_DEFAULT_POINTS``
+     points (phase 24's gate).
 Needs one NVIDIA H100 SXM card; imports nothing of JAX.
 """
 
@@ -673,6 +700,54 @@ HIGHD_ONE_PASS_CONTROL = 0.75
 # ... and of the PIS kernel's: (B, M, nx, net)
 PIS_HIGHD_CASES = ((64, 128, 512, True), (64, 128, 512, False),
                    (33, 100, 500, True), (8, 64, 136, True))
+# Paths U, V, W, X: the merged kernel at the nets of the JAX package's
+# dispatcher matrix (scripts/bench_dispatcher_matrix.py,
+# bench_results/dispatcher_matrix_r5.jsonl: B = 4096, M = 4096, bf16x3,
+# the Burgers w1.0 recipe's B, M and k), each the w1.0 recipe read from
+# configs/ by the port's YAML reader with the cell's net (ELU) and nx, cut
+# to WIDTH_ITERATIONS (3) at full width; (net, nx, the split route's
+# rRMSE at iterations 1-3: DATA.TPU.PALLAS_GENERATE false at the same seed,
+# one run on the card before the path's first run there,
+# ``width_split_reference``). No JAX record trains these nets, so each
+# limit is WIDTH_RRMSE_FACTOR x that run's rRMSE at the iteration.
+WIDTH_RECIPE = "configs/burgers/base_100d_T1.0_w1.0.yaml"
+WIDTH_PATHS = {
+    "U": ((512,) * 4, 100, (0.22619453072547913, 0.12848491966724396,
+                            0.14012014865875244)),
+    "V": ((512,) * 6, 256, (0.2490963190793991, 0.13347280025482178,
+                            0.15027759969234467)),
+    "W": ((1024,) * 2, 512, (0.2819693386554718, 0.2655358612537384,
+                             0.5638657808303833)),
+    "X": ((64,) * 3, 256, (0.2502145767211914, 0.15293489396572113,
+                           0.2315014749765396)),
+}
+WIDTH_RRMSE_FACTOR = 1.5
+WIDTH_ITERATIONS = 3
+# the law (CLT) at U, V, W, X's own shapes over the first points only
+WIDTH_CLT_POINTS = 256
+# V's "default" check at its own shape, over its first points
+WIDTH_DEFAULT_POINTS = 512
+# Phase 24's and V's "default" checks: deep and wide nets in one bf16
+# pass, whose sums' order flips bf16 roundings that compound through the
+# layers, so that two correct one-pass evaluations lie as far apart at
+# some output as one pass from bf16x3 (first card runs, H100 80GB HBM3
+# 700 W: at 6x1024, nx = 100 the kernel 1.35e-3 from the plain version,
+# the plain version with its hidden units permuted 7.9e-4 from itself, the
+# plain bf16x3 1.25e-3 from it): no gate on that distance separates a
+# kernel of another precision. Each is held against the plain version in
+# f64 on the same inputs instead: the kernel's RMS distance from it over
+# every output within a factor DEEP_ONE_PASS_RATIO of the plain one
+# pass's, its max distance at most DEEP_ONE_PASS_RATIO times the plain
+# one pass's; the control (the plain bf16x3's RMS distance over the plain
+# one pass's) must fall below the window, or the check fails as blind.
+DEEP_ONE_PASS_RATIO = 1.5
+# phase 24's cases: (B, M, nx, width, hidden layers), at widths 64, 512
+# and 1024, depths 2 and 6; and the matrix's ragged B = 4000 at W's net
+# (bf16x3)
+WIDTH_CASES = ((64, 256, 100, 64, 2), (64, 256, 256, 64, 6),
+               (64, 256, 100, 512, 2), (64, 256, 256, 512, 6),
+               (64, 256, 512, 1024, 2), (64, 128, 100, 1024, 6))
+WIDTH_RAGGED = (4000, 256, 512, 1024, 2)
 # Phase 21: iteration 0 (the zero or g ansatz: no trained net) of the
 # 10^6-sample MC self-consistency check at (0, 0) against the JAX
 # package's records of the same protocol (scripts/run_mc_eval.py, the
@@ -757,8 +832,8 @@ def path_cfg(path: str, n_iter: int = None, device: str = "cuda",
     port's YAML reader (``config.load_cfg``) with the records' overrides."""
     from deeppicarditeration_torch.config import default_cfg, load_cfg
 
-    if path in HIGHD_PATHS:
-        recipe, own = HIGHD_PATHS[path][:2]
+    if path in HIGHD_PATHS or path in WIDTH_PATHS:
+        recipe, own = _recipe_of(path)
         extra = [] if n_iter is None else ["PICARD.N", str(n_iter)]
         extra += [] if epochs is None else ["TRAIN.N_EPOCHS", str(epochs)]
         return load_cfg(ROOT / recipe, list(own) + list(overrides) + extra
@@ -774,6 +849,18 @@ def path_cfg(path: str, n_iter: int = None, device: str = "cuda",
         cfg.TRAIN.N_EPOCHS = epochs
     cfg.DEVICE = device
     return cfg.freeze()
+
+
+def _recipe_of(path: str):
+    """(recipe, overrides) of a path read from configs/: R, S, T's record
+    overrides, or U, V, W, X's net and nx."""
+    if path in HIGHD_PATHS:
+        return HIGHD_PATHS[path][:2]
+    neurons, nx, _ = WIDTH_PATHS[path]
+    return WIDTH_RECIPE, (
+        "NETWORK.NEURONS", str(list(neurons)),
+        "NETWORK.ACTIVATIONS", str(["ELU"] * len(neurons)),
+        "EQUATION.kwargs.nx", str(nx))
 
 
 def diffusion_cfg(epochs: int, device: str = "cuda"):
@@ -941,12 +1028,13 @@ def _same_mode(label, mode, out, ref, plain_as=None, m=None,
     own distance under the permutation printed before. With ``nx`` (phase
     22's cases) the gate takes layer 1's length factor and
     HIGHD_ONE_PASS_CONTROL (at HIGHD_RAGGED)."""
-    if mode != "default" or plain_as is None or out.shape[0] <= ONE_PASS_B:
+    if (mode != "default" or plain_as is None
+            or out.shape[0] <= ONE_PASS_B):
         return _same(label, out, ref, _mode_tol(mode))
     perm = plain_as(True, "default")
+    d_perm = float((perm - ref).abs().max())
     print(f"plain vs plain with the net's hidden units permuted ({label}, "
-          f"measured, not gated): max |diff| "
-          f"{float((perm - ref).abs().max()):.3e}")
+          f"measured, not gated): max |diff| {d_perm:.3e}")
     del perm
     x3 = plain_as(False, "bf16x3")
     control = float((x3 - ref).abs().max())
@@ -962,6 +1050,62 @@ def _same_mode(label, mode, out, ref, plain_as=None, m=None,
           f"{control:.3e}; the gate {tol:.3e} (ONE_PASS_WIDE_TOL x "
           f"{scale:.3g}, at most {share} of the control)")
     return _same(label, out, ref, tol)
+
+
+def _one_pass_vs_f64(label, out, eq, sol, tx, m, noise, anti) -> float:
+    """Phase 24's and V's "default" check (DEEP_ONE_PASS_RATIO): the
+    kernel's one pass ``out`` and the plain version's, on the same inputs
+    (external ``noise``), each against the plain version in f64, with the
+    plain bf16x3 as the control; the distances from the plain one pass,
+    of the kernel and of the plain version with its net's hidden units
+    permuted, and the latter's ratios, are printed, not gated. Returns the kernel's max |diff| from
+    the plain one pass."""
+    import copy
+
+    import torch
+
+    from deeppicarditeration_torch.models.solution import Solution
+    from deeppicarditeration_torch.ops import kernels
+
+    def plain(s, precision, dtype=torch.float32):
+        return kernels.generate_with_gradients_plain(
+            0, eq, s, tx.to(dtype), m, *(n.to(dtype) for n in noise),
+            antithetic=anti, precision=precision).double()
+
+    s64 = Solution.from_net(copy.deepcopy(sol.module).double(), sol.net_type,
+                            sol.nx)
+    r64 = plain(s64, "highest", torch.float64)
+    del s64
+    p1 = plain(sol, "default")
+    perm = plain(_permuted(sol, 10), "default")
+    d_plain = float((out.double() - p1).abs().max())
+    d_perm = float((perm - p1).abs().max())
+
+    def dist(y):
+        e = y.double() - r64
+        return float(e.pow(2).mean().sqrt()), float(e.abs().max())
+
+    (rk, mk), (rp, mp), (rq, mq) = dist(out), dist(p1), dist(perm)
+    rc, _ = dist(plain(sol, "bf16x3"))
+    del p1, perm, r64
+    lo, hi = 1.0 / DEEP_ONE_PASS_RATIO, DEEP_ONE_PASS_RATIO
+    rho, mu, rho_c = rk / rp, mk / mp, rc / rp
+    ok = (lo <= rho <= hi and mu <= hi
+          and bool(torch.isfinite(out).all()))
+    print(f"one pass vs the plain version in f64 ({label}): RMS / max "
+          f"|diff| of the kernel {rk:.3e} / {mk:.3e}, of the plain one pass "
+          f"{rp:.3e} / {mp:.3e}: RMS ratio {rho:.3f} (window "
+          f"{lo:.3f}-{hi:.3f}), max ratio {mu:.3f} (at most {hi:.3f}); "
+          f"control: the plain bf16x3's RMS ratio {rho_c:.3e} (must fall "
+          f"under {lo:.3f}); measured, not gated: kernel vs plain one pass "
+          f"max |diff| {d_plain:.3e}, plain vs plain with the net's hidden "
+          f"units permuted {d_perm:.3e}, whose RMS / max ratios {rq / rp:.3f}"
+          f" / {mq / mp:.3f} (the statistic's own spread); within: {ok}")
+    if not rho_c < lo:
+        _fail(f"the one-pass check does not separate the control ({label})")
+    if not ok:
+        _fail(f"kernel disagrees with its plain version ({label})")
+    return d_plain
 
 
 def _highest_control(label, eq, sol, tx, anti, dev) -> None:
@@ -1501,8 +1645,40 @@ def _check_highd(max_err: dict, dev) -> None:
             _fail(f"{label}: launched")
 
 
+def _check_widths(max_err: dict, dev) -> None:
+    """Phase 24: the merged kernel's width-64 pass and wide pass at random
+    nets of widths 64, 512 and 1024 and depths 2 and 6 (WIDTH_CASES), in
+    bf16x3 and "default", with and without antithetic pairing, and at the
+    matrix's ragged B = 4000 (WIDTH_RAGGED, bf16x3, every point), against
+    the plain version on the same noise (max_err[... " widths"])."""
+    from deeppicarditeration_torch.ops import kernels
+
+    for b, m, nx, width, n_hidden in WIDTH_CASES + (WIDTH_RAGGED,):
+        for anti in ((False, True) if b <= ONE_PASS_B else (False,)):
+            rows = m // 2 if anti else m
+            eq, sol, tx, noise = _highd_problem(b, m, nx, width, n_hidden,
+                                                nx + width + n_hidden, dev,
+                                                rows)
+            tag = (f"nx={nx}, {n_hidden}x{width}, B={b} M={m}"
+                   f"{' antithetic' if anti else ''}")
+            for mode in (("bf16x3", "default") if b <= ONE_PASS_B
+                         else ("bf16x3",)):
+                kw = dict(antithetic=anti, precision=mode)
+                key = _err_key("generate", mode) + " widths"
+                out = kernels.generate_with_gradients_cuda(
+                    0, eq, sol, tx, m, *noise, **kw)
+                label = f"merged {mode}, {tag}"
+                err = (_one_pass_vs_f64(label, out, eq, sol, tx, m, noise,
+                                        anti) if mode == "default" else
+                       _same(label, out, kernels.generate_with_gradients_plain(
+                           0, eq, sol, tx, m, *noise, **kw)))
+                max_err[key] = max(max_err.get(key, 0.0), err)
+            del noise
+
+
 def _run_highd(path: str, n_iter: int):
-    """Phase 23: path R, S or T through the merged kernel, one launch per
+    """Phases 23 and 25: path R, S, T (or U, V, W, X) through the merged
+    kernel, one launch per
     generation call (S makes two an iteration: DATA.CHUNK_ELEMS caps a
     call at 4096 points at nx = 1024, as the JAX package's
     default_gen_batch does); its second iteration traced (generation and
@@ -1526,9 +1702,17 @@ def _run_highd(path: str, n_iter: int):
     tm = next(t for t in runner.timings if t["iter"] == nth)
     sm["idle_of_iteration"] = 1.0 - sm["device_busy_ms"] / (
         tm["generate_ms"] + tm["fit_ms"])
-    print(f"path {path} ({HIGHD_PATHS[path][0]} + "
-          f"{' '.join(HIGHD_PATHS[path][1])}, read by the port's YAML "
-          f"reader): routes {seen[0]}, {launches[stem] / n_iter:g} {stem} "
+    recipe, own = _recipe_of(path)
+    if path in HIGHD_PATHS:
+        ref = (f"record {HIGHD_PATHS[path][2]}: rRMSE "
+               f"{_record_rrmse(path)[:n_iter]}, limits "
+               f"x{HIGHD_RRMSE_FACTOR}")
+    else:
+        ref = (f"the split route at the same seed: rRMSE "
+               f"{WIDTH_PATHS[path][2]}, limits x{WIDTH_RRMSE_FACTOR}")
+    print(f"path {path} ({recipe} + {' '.join(own)}, read by the port's "
+          f"YAML reader): routes {seen[0]}, "
+          f"{launches[stem] / n_iter:g} {stem} "
           f"launch(es) per iteration; iteration {nth} traced: "
           f"{sm['device_busy_ms']:.1f} device ms of its "
           f"{tm['generate_ms'] + tm['fit_ms']:.1f} ms (generate + fit, CUDA "
@@ -1538,24 +1722,31 @@ def _run_highd(path: str, n_iter: int):
           f"overhead); {sm['kernels_per_iteration']:.0f} "
           f"kernels, top {sm['top_kernels_ms'][:3]}; peak device memory "
           f"{peak:.2f} GiB above the {held / 2 ** 30:.2f} GiB held before it; "
-          f"record {HIGHD_PATHS[path][2]}: rRMSE "
-          f"{_record_rrmse(path)[:n_iter]}, limits x{HIGHD_RRMSE_FACTOR}")
+          f"{ref}")
     return runner, launches, peak
 
 
 def _highd_at_own_shape(path: str, runner, max_err: dict, dev):
-    """Phase 11's rows of paths R, S, T: the path's merged kernel at the
-    path's own shapes (a generation call's points, ``default_gen_batch``:
-    S's 8192 in two calls of 4096; the path's M, nx and mode) with its
+    """Phase 11's rows of paths R, S, T (and U, V, W, X): the path's merged
+    kernel at the path's own shapes (a generation call's points,
+    ``default_gen_batch``: S's 8192 in two calls of 4096; the path's M, nx
+    and mode) with its
     trained iterate. Its own draws against the host Philox at the first
     and last point (the plain version fed those draws, at the path's M:
     ``_same`` in the mode, ``_pis_same`` for T), and its law against the
     plain version's over every output (``_clt``: the plain version on
     torch.Generator draws, with its variance). The kernel is timed on the
     call after that first one (which warms it up), the plain version on its
-    one call (with the variance it returns). Updates max_err[f"{stem}
-    {mode} path {path}"] with the first check's max |diff|; returns (eq,
-    sol, B, M, mode, ms, plain ms, the CLT's max z)."""
+    one call (with the variance it returns). At U, V, W, X the law is held
+    over the first WIDTH_CLT_POINTS points and the plain version timed
+    there; at V the kernel in "default" also over its first
+    WIDTH_DEFAULT_POINTS points on external noise (``_one_pass_vs_f64``,
+    max_err[f"generate default path V"]).
+    Updates max_err[f"{stem} {mode} path {path}"] with the first check's
+    max |diff|; returns (eq, sol, B, M, mode, ms, plain ms, the CLT's max
+    z, the points of the plain call)."""
+    import torch
+
     from deeppicarditeration_torch.data.dataset import default_gen_batch
     from deeppicarditeration_torch.device import make_generator
     from deeppicarditeration_torch.ops import estimators as est
@@ -1587,14 +1778,59 @@ def _highd_at_own_shape(path: str, runner, max_err: dict, dev):
                     _same(f"merged {mode}, {label}", own[pts], ref,
                           _mode_tol(mode)))
     ms = _once_ms(lambda: wrapper(5, eq, sol, tx, mm, precision=mode))
+    # the law over every point (R, S, T), or over the first
+    # WIDTH_CLT_POINTS (U, V, W, X)
+    nc = WIDTH_CLT_POINTS if path in WIDTH_PATHS else nb
     res = {}
     plain_ms = _once_ms(lambda: res.update(
         ref=kernels.generate_with_gradients_plain(
-            7, eq, sol, tx, mm, precision=mode, return_var=True)))
+            7, eq, sol, tx[:nc], mm, precision=mode, return_var=True)))
     ref, var = res.pop("ref")
-    z = _clt(f"{'generate_pis' if pis else 'merged'} {mode}, {tag}", own,
-             ref, var, mm, _bonferroni(nb * (1 + nx)))
-    return eq, sol, nb, mm, mode, ms, plain_ms, z
+    z = _clt(f"{'generate_pis' if pis else 'merged'} {mode}, {tag}"
+             f"{'' if nc == nb else f', its first {nc} points'}", own[:nc],
+             ref, var, mm, _bonferroni(nc * (1 + nx)))
+    del own, ref, var
+    if path == "V":  # "default" on the same noise at its first points
+        nd = WIDTH_DEFAULT_POINTS
+        txd = tx[:nd]
+        g = torch.Generator(device=dev).manual_seed(13)
+        noise = (torch.rand((nd, mm, 1), generator=g, device=dev),
+                 torch.randn((nd, mm, nx), generator=g, device=dev),
+                 torch.randn((nd, mm, nx), generator=g, device=dev))
+        max_err[f"generate default path {path}"] = _one_pass_vs_f64(
+            f"merged default, {tag}, its first {nd} points, external noise",
+            kernels.generate_with_gradients_cuda(
+                0, eq, sol, txd, mm, *noise, precision="default"),
+            eq, sol, txd, mm, noise, False)
+        del noise
+    return eq, sol, nb, mm, mode, ms, plain_ms, z, nc
+
+
+def width_split_reference(paths=tuple(WIDTH_PATHS), n_iter: int = None):
+    """The rRMSE that paths U, V, W, X reach on the split route
+    (DATA.TPU.PALLAS_GENERATE false: the chunk estimators in plain
+    PyTorch, no kernel) at the same seed, at iterations 1..n_iter: the
+    runs WIDTH_PATHS' limits rest on. Prints one JSON line a path.
+
+        python3 -c 'import chip_smoke as c; c.width_split_reference()'
+    """
+    n_iter = n_iter or WIDTH_ITERATIONS
+    sys.path.insert(0, str(ROOT))
+    for path in paths:
+        runner, launches, (routes, _) = _run_path(
+            path, n_iter, ("DATA.TPU.PALLAS_GENERATE", "false"))
+        rows = [json.loads(ln) for ln in (runner.exp_dir / "metrics.jsonl")
+                .read_text().splitlines()]
+        last = {}
+        for r in rows:
+            if r["context"] == "eval":
+                last[int(r["iter"])] = r["rRMSE"]
+        print(json.dumps({"path": path, "route": routes,
+                          "launches": launches,
+                          "rRMSE": [last.get(i) for i in
+                                    range(1, n_iter + 1)],
+                          "generate_ms": [tm["generate_ms"] for tm in
+                                          runner.timings]}), flush=True)
 
 
 # ---- work and bound models (per call, from the call's shapes) -------------
@@ -1894,6 +2130,9 @@ def _rrmse_limit(path: str, i: int) -> float:
     if path in HIGHD_PATHS:
         rec = _record_rrmse(path)
         return HIGHD_RRMSE_FACTOR * rec[min(i, len(rec)) - 1]
+    if path in WIDTH_PATHS:
+        rec = WIDTH_PATHS[path][2]
+        return WIDTH_RRMSE_FACTOR * rec[min(i, len(rec)) - 1]
     if path in ("H", "J"):
         return HJB_RRMSE_MAX[min(i, len(HJB_RRMSE_MAX)) - 1]
     if path in ("K", "L"):
@@ -2687,7 +2926,7 @@ def _expect_launches(path, runner, launches, seen, want):
     want_modes = {name: {mode: n} for name, n in full.items()
                   if n and name in ("generate", "integral", "generate_pis")}
     route = (est.MERGED if path in ("A", "A'", "D", "F", "H", "J", "R",
-                                    "S", "T")
+                                    "S", "T", *WIDTH_PATHS)
              else est.SPLIT)
     want_routes = {r: runner.generate_calls if r == route else 0
                    for r in routes}
@@ -2704,8 +2943,10 @@ def _expect_launches(path, runner, launches, seen, want):
 # kernel's instances are to reach none (ROADMAP §B).
 SPILLS_MAX = {"generate_tc_kernel<bf16x3, 128>": (12, 15),
               "generate_tc_kernel<default, 128>": (11, 13),
-              "generate_tc_kernel<bf16x3, 256>": (10, 12),
-              "generate_tc_kernel<default, 256>": (11, 13),
+              "generate_tc_kernel<bf16x3, 64>": (10, 12),
+              "generate_tc_kernel<default, 64>": (10, 12),
+              "generate_tc_kernel<bf16x3, wide>": (10, 12),
+              "generate_tc_kernel<default, wide>": (9, 10),
               "generate_pis_kernel<default>": (113, 137),
               "generate_pis_kernel<bf16x3>": (114, 138),
               "generate_pis_kernel<default, nx > 128>": (205, 261),
@@ -2714,13 +2955,15 @@ SPILLS_MAX = {"generate_tc_kernel<bf16x3, 128>": (12, 15),
               "integral_tc_kernel<default>": (1, 1),
               "integral_tc_kernel<highest>": (28, 32)}
 # each tensor-core kernel's instances by their mangled template arguments:
-# the merged kernel's generate_tc_kernel<P, HW> (P passes, hidden width
-# HW), the HJB kernel's generate_pis_kernel<X3, W> (W: nx > 128), the
-# integral kernel's integral_tc_kernel<P>
+# the merged kernel's generate_tc_kernel<P, HW> (P passes; HW the hidden
+# width 64 or 128, or 0: the wide pass of widths 256 to 1024), the HJB
+# kernel's generate_pis_kernel<X3, W> (W: nx > 128), the integral kernel's
+# integral_tc_kernel<P>
 INSTANCES = {
     "generate_tc_kernel": {
-        f"{mode}, {hw}": f"generate_tc_kernelILi{p}ELi{hw}EE"
-        for hw in (128, 256) for mode, p in (("bf16x3", 3), ("default", 1))},
+        f"{mode}, {label}": f"generate_tc_kernelILi{p}ELi{hw}EE"
+        for label, hw in (("128", 128), ("64", 64), ("wide", 0))
+        for mode, p in (("bf16x3", 3), ("default", 1))},
     "generate_pis_kernel": {
         f"{mode}{', nx > 128' if w else ''}":
             f"generate_pis_kernelILb{x3}ELb{w}E"
@@ -3299,6 +3542,13 @@ def main(argv=None) -> int:
     n_hd = args.highd_iterations
     highd = {p: _run_highd(p, n_hd) for p in HIGHD_PATHS}
 
+    # ---- 24. the merged kernel at the dispatcher matrix's widths vs plain -
+    _check_widths(max_err, dev)
+
+    # ---- 25. paths U, V, W, X: the dispatcher matrix's nets ----------------
+    n_w = WIDTH_ITERATIONS
+    widths = {p: _run_highd(p, n_w) for p in WIDTH_PATHS}
+
     # ---- 11. times and bounds at the paths' shapes -------------------------
     neurons = sol.module.neurons
     n_weights = sum(p.numel() for p in sol.module.parameters())
@@ -3497,10 +3747,12 @@ def main(argv=None) -> int:
             shape=f"B={nb_h} M={mm_h} nx={nx}, 4x512 PISGradNet",
             mode=mode, extra={"instance": "OU + PISGradNet (HJB)"})
     # the merged kernels' high-dimension instances at paths R, S and T's
-    # shapes, each with its path's trained iterate in its path's mode,
-    # checked there (_highd_at_own_shape)
-    for path, (runner_p, launches_p, _) in highd.items():
-        eq_p, sol_p, nb_p, mm_p, mode_p, ms_p, plain_p, z_p = \
+    # shapes, and the matrix's nets at U, V, W and X's, each with its
+    # path's trained iterate in its path's mode, checked there
+    # (_highd_at_own_shape)
+    for path, (runner_p, launches_p, _) in {**highd, **widths}.items():
+        n_run = n_hd if path in highd else n_w
+        eq_p, sol_p, nb_p, mm_p, mode_p, ms_p, plain_p, z_p, nc_p = \
             _highd_at_own_shape(path, runner_p, max_err, dev)
         nx_p = eq_p.nx
         n_w_p = sum(v.numel() for v in sol_p.module.parameters())
@@ -3529,11 +3781,19 @@ def main(argv=None) -> int:
             shape=f"B={nb_p} M={mm_p} nx={nx_p}, {net}", mode=mode_p,
             err_key=f"{stem} {mode_p} path {path}",
             extra={"instance": f"path {path}: nx={nx_p}, {net}",
-                   "launches_per_iteration": launches_p[stem] / n_hd,
+                   "launches_per_iteration": launches_p[stem] / n_run,
                    "plain_ms_calls": 1, "plain_returns_var": True,
-                   "clt_max_z": z_p,
-                   "max_abs_err_phase_22": max_err[
-                       _err_key(stem, mode_p) + " highd"]})
+                   "plain_ms_points": nc_p, "clt_max_z": z_p,
+                   **({"max_abs_err_phase_22": max_err[
+                       _err_key(stem, mode_p) + " highd"]}
+                      if path in highd else
+                      {"max_abs_err_phase_24": max_err[
+                          _err_key(stem, mode_p) + " widths"],
+                       "max_abs_err_phase_24_default": max_err[
+                           _err_key(stem, "default") + " widths"]}),
+                   **({"default_max_abs_err": max_err[
+                       f"generate default path {path}"]}
+                      if path == "V" else {})})
     # the normals kernel at paths K/L's chunk shape, launched by path L
     n_fn_chunk = math.prod(FN_CHUNK)
     row("normals", "normals", f"{src}:71", "L", launches_l2["normals"],
@@ -3587,22 +3847,23 @@ def main(argv=None) -> int:
           f"of {runner_i.graph_replays} graph replays (traced: "
           f"{traced_i['launches']} in {traced_i['replays']}; K="
           f"{int(runner_i.cfg.METHOD.K)}), first interval {per_i[0]:.3f} ms")
-    for path, (runner_p, _, peak_p) in highd.items():
+    for path, (runner_p, _, peak_p) in {**highd, **widths}.items():
         steady = [tm for tm in runner_p.timings if tm["iter"] > 1] \
             or runner_p.timings
+        n_run = n_hd if path in highd else n_w
         print(f"path {path}: generate ms "
               f"{statistics.median(tm['generate_ms'] for tm in steady):.1f}, "
               f"fit ms {statistics.median(tm['fit_ms'] for tm in steady):.1f}"
-              f" (median of iterations 2-{n_hd}), idle "
+              f" (median of iterations 2-{n_run}), idle "
               f"{runner_p.traced['idle_of_iteration']:.1%} (iteration "
-              f"{min(2, n_hd)} traced, of its generate + fit), peak "
+              f"{min(2, n_run)} traced, of its generate + fit), peak "
               f"{peak_p:.2f} GiB")
     print("paths O, P, Q (PINN): " + "; ".join(
         f"{p} {ms:.3f} ms per epoch, idle {sm['device_idle_share']:.1%}, "
         f"peak {peak:.2f} GiB, rRMSE {r:.4f}"
         for p, (_, ms, r, peak, sm) in pinn.items()))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
-          f"card check")
+          f"card check, from the build's start")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,10 +11,12 @@
 //             acc += Tt (f - f0) * (1, dWi / (sqrt(max(s - t, 1e-6)) sqrt(a)))
 //   out = acc / M + (g0 + f0 Tt, 0),  shape (B, 1 + nx) f32.
 // Specialised to the Burgers equation "Cha" (g and ff below) and a Value
-// MLP of ELU hidden layers with no output clamp: of width 128 or 256 at
-// nx <= 1024 on the tensor cores, of width 128 at nx <= 511 in "highest"
-// (ops/kernels.py:merged_covers holds those limits; the card tests hold
-// them to dpi_generate_tc_widths, dpi_generate_tc_max_nx,
+// MLP of ELU hidden layers of one width, at any depth, with no output
+// clamp: on the tensor cores of width 64, 128, or 256 to 1024 in steps of
+// 128 at nx <= 1024 (the nets of the JAX package's dispatcher matrix,
+// 3x64, 4x512, 6x512 and 2x1024, among them); in "highest" of width 128 at
+// nx <= 511 (ops/kernels.py:merged_covers holds those limits; the card
+// tests hold them to dpi_generate_tc_widths, dpi_generate_tc_max_nx,
 // dpi_generate_hidden_width, dpi_generate_max_nx).
 //
 // Antithetic pairing (anti = 1): samples 2p and 2p + 1 share draw p, the
@@ -25,7 +27,7 @@
 // Two kernels, by the precision of the net's dots (the TPU kernel's
 // mxu_precision, DATA.TPU.PALLAS_PRECISION):
 //   * "bf16x3" (the default) and "default": generate_tc_kernel, the net on
-//     the tensor cores (net_pass_n128 below; the block layout and the
+//     the tensor cores (net_pass_narrow below; the block layout and the
 //     plan are value_mlp_tc.cuh's, shared with integral.cu). Its bound is
 //     the tensor pipe (3 x 111.5 k bf16 multiply-adds per sample under
 //     bf16x3). What
@@ -74,10 +76,33 @@
 //     against 35.67, antithetic M = 8192 86.74 against 84.30, all within
 //     3 % of the build before nx 512 (46.30, 35.21, 84.69)); a persistent
 //     grid.
-//     Width 256 (net_pass_n256): each warpgroup keeps its own tile and
-//     takes a layer in two m64n128 halves; a layer's output goes back as
-//     the next layer's A through the warpgroup's global scratch (why, and
-//     the choice against both warpgroups on one tile: at net_pass_n256).
+//     Three passes, one instance each a mode (generate_tc_kernel<P, HW>):
+//       - width 128 (net_pass_narrow<X3, 128>, above);
+//       - width 64 (net_pass_narrow<X3, 64>): a layer is one wgmma m64n64
+//         product per k16 chunk into a 32-float accumulator, a hidden
+//         layer's K = 64 one slab (the 64 x 64 image of W, read K-major
+//         forward and MN-major backward), the output in registers as at
+//         width 128;
+//       - widths 256 to 1024 (net_pass_wide, HW = WIDE, the width a
+//         runtime value): each warpgroup keeps its own tile and takes a
+//         layer in hw / 128 column blocks of m64n128, each over all of
+//         the layer's K-slabs; a block's output goes back as the next
+//         layer's A through the warpgroup's global scratch, the saved ELU
+//         derivatives too (why, and the choice against both warpgroups on
+//         one tile: at net_pass_wide). It replaced an earlier width-256
+//         pass (two fixed halves), measured in turns with that build at
+//         B = M = 4096, nx = 1024, 4x256 (utils/generate_bench.py, H100
+//         80GB HBM3 700 W): bf16x3 538.02 against 540.65 ms, "default"
+//         483.43 against 482.46, antithetic M = 8192 1052.45 against
+//         1056.93; at path A's width 128, 46.28 / 35.84 / 84.42 against
+//         46.31 / 35.95 / 84.60 (and after the width-64 pass joined the
+//         width-128 one in net_pass_narrow, 45.98 / 35.47 / 84.08 against
+//         46.05 / 35.49 / 84.21).
+//     At the JAX package's dispatcher-matrix nets, B = M = 4096, bf16x3
+//     (chip_smoke paths U, V, W, X, H100 80GB HBM3 700 W): 4x512 at
+//     nx = 100 523.86 ms, 6x512 at 256 883.60, 2x1024 at 512 1144.92
+//     (3.2, 3.2 and 4.3x the tensor pipe's bound), 3x64 at 256 81.03 (7.6x
+//     its issue bound: the draws bind there, not the net).
 //   * "highest": generate_kernel, the FP32-FMA design
 //     (value_mlp.cuh), one block per point, inner blocks of S = 32
 //     samples, 8 per warp through the whole net, activations and both
@@ -311,25 +336,33 @@ constexpr int TERM_BAR_THREADS = TC_CONSUMERS + AUX_THREADS;
 
 // The tensor-core kernel's cover: nx (its output columns past the
 // consumers' registers in shared memory) and the hidden widths it is built
-// for (H = 128, and the width-256 pass below).
+// for: H64 = 64 and H = 128 (net_pass_narrow) and every multiple of 128
+// from 256 to GEN_MAX_WIDTH (net_pass_wide, one instance: WIDE).
 constexpr int GEN_MAX_NX = 1024;
-constexpr int H2 = 256;
-// a consumer's floats of one layer's output at width 256: two m64n128
-// halves
-constexpr int ACT_THREAD = H2 / 2;
+constexpr int H64 = 64;
+constexpr int WIDE = 0;  // the instance of widths 256 .. GEN_MAX_WIDTH
+constexpr int GEN_MAX_WIDTH = 1024;
+
+__host__ __device__ inline bool covered_width(int hw) {
+  return hw == H64 || hw == H ||
+         (hw >= 2 * H && hw <= GEN_MAX_WIDTH && hw % H == 0);
+}
+
+// the instance (template HW) of a covered width
+__host__ __device__ inline int instance_of(int hw) {
+  return hw == H64 || hw == H ? hw : WIDE;
+}
 
 // The merged kernel's shared memory beside the ring: each consumer
 // warpgroup's tile of normals (rows of nx), the terminal warps' sums, 32 KB
-// stages (hi and lo images of a 128-row slab at either width); at width
-// 256 the saved derivatives of TILE x 256 a layer and two buffers of layer
-// outputs a warpgroup (global scratch). ops/kernels.py:library_tc_plan
-// reads the plan.
+// stages (hi and lo images of a 128-row slab; at width 64 of a 64-row
+// one), the saved derivatives of TILE x hw a layer; at widths past 128 two
+// buffers of layer outputs a warpgroup (hw / 2 floats a thread each,
+// global scratch). ops/kernels.py:library_tc_plan reads the plan.
 __host__ __device__ inline tc::Layout gen_layout(int nx, int hw) {
   tc::Layout k{1, 1, nx, 2 * tc::IMAGE_BYTES};
-  if (hw == H2) {
-    k.save_layer = tc::TILE * H2;
-    k.act = 2 * ACT_THREAD * tc::CONSUMERS;
-  }
+  k.save_layer = tc::TILE * hw;
+  if (hw > H) k.act = 2 * (hw / 2) * tc::CONSUMERS;
   return k;
 }
 
@@ -339,13 +372,19 @@ __host__ __device__ inline tc::Layout gen_layout(int nx, int hw) {
 namespace dpi {
 namespace tc {
 
-// ---- the merged kernel's own pass (one m64n128 group per K-slab) ------
+// ---- the merged kernel's own pass (one m64nW group per K-slab) ----------
 // In turns at path A's shapes (PERF.md §6), value_mlp_tc.cuh's net_pass
 // (the same groups, its epilogues: the biases and saved derivatives
 // loaded ahead, the head and column sums summed inside them) made this
 // kernel spill 220 bytes a thread at the 208 registers its consumers get
 // beside the terminal warps' 88 and ran 15 % slower in bf16x3; its
 // products with this pass's epilogues, 2.2 % slower (1.4 % antithetic).
+// net_pass_narrow serves widths W = 128 and 64: a layer is one m64nW
+// product per k16 chunk into an accumulator of W / 2 floats a thread
+// (NA below), so its output stays in registers and the next layer splits
+// it into its A fragments; a hidden layer's K = W is two slabs at 128
+// (hidden_layer128) and one at 64 (the 64 x 64 image of W, staged at the
+// offsets of a 128-row slab's).
 
 template <int N>
 __device__ __forceinline__ void fence_frags2(uint32_t (&a)[N][4]) {
@@ -358,9 +397,9 @@ __device__ __forceinline__ void fence_frags2(uint32_t (&a)[N][4]) {
 // d (64 x 128, f32) += A (64 x 16 bf16, registers) B (16 x 128 bf16,
 // shared memory at desc_b; TRANS_B = 1: read MN-major)
 template <int TRANS_B>
-__device__ __forceinline__ void wgmma128(float (&d)[NACC],
-                                           const uint32_t (&a)[4],
-                                           uint64_t desc_b) {
+__device__ __forceinline__ void wgmma_n(float (&d)[NACC],
+                                        const uint32_t (&a)[4],
+                                        uint64_t desc_b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -393,6 +432,31 @@ __device__ __forceinline__ void wgmma128(float (&d)[NACC],
         "n"(TRANS_B));
 }
 
+// d (64 x 64, f32) += A (64 x 16 bf16, registers) B (16 x 64 bf16)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_n(float (&d)[H64 / 2],
+                                        const uint32_t (&a)[4],
+                                        uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(TRANS_B));
+}
+
 // a, b -> their bf16 hi parts and bf16-rounded residuals, packed in pairs
 // (the lower column in the low half, as a wgmma A fragment holds them)
 __device__ __forceinline__ void split_hi_lo(float a, float b, uint32_t& hi,
@@ -408,41 +472,46 @@ __device__ __forceinline__ void split_hi_lo(float a, float b, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-__device__ __forceinline__ void to_frags(const float (&acc)[NACC],
-                                         uint32_t (&ah)[KC][4],
-                                         uint32_t (&al)[KC][4]) {
+// an accumulator of NA floats (a layer of 2 NA columns) as NA / 8 k-chunks
+// of A fragments
+template <int NA>
+__device__ __forceinline__ void to_frags(const float (&acc)[NA],
+                                         uint32_t (&ah)[NA / 8][4],
+                                         uint32_t (&al)[NA / 8][4]) {
 #pragma unroll
-  for (int kc = 0; kc < KC; ++kc)
+  for (int kc = 0; kc < NA / 8; ++kc)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
       split_hi_lo(acc[8 * kc + 2 * r], acc[8 * kc + 2 * r + 1], ah[kc][r],
                  al[kc][r]);
 }
 
-// One k-chunk of a staged slab: hi*hi (+ lo*hi + hi*lo under bf16x3).
-// Forward slabs are K-major (column slab of W: 16 core rows of 8 cores),
-// backward slabs MN-major (row slab of W: 8 core rows of 16 cores). The
-// mode is a template parameter: a branch between two wgmma makes ptxas
-// wait for the first to finish.
-template <int TRANS_B, bool X3>
-__device__ __forceinline__ void mma_chunk128(float (&acc)[NACC],
+// One k-chunk of a staged slab into an accumulator of NA floats (its
+// W = 2 NA output columns): hi*hi (+ lo*hi + hi*lo under bf16x3).
+// Forward slabs are K-major (column slab of W: W / 8 core rows of 8
+// cores), backward slabs MN-major (row slab of W: 8 core rows of W / 8
+// cores, W / 8 x 128 bytes a row). The mode is a template parameter: a
+// branch between two wgmma makes ptxas wait for the first to finish.
+template <int TRANS_B, bool X3, int NA>
+__device__ __forceinline__ void mma_chunk(float (&acc)[NA],
                                           const uint32_t (&ah)[4],
                                           const uint32_t (&al)[4],
                                           uint32_t stage, int kk) {
-  const uint32_t b = stage + (TRANS_B ? kk * 4096 : kk * 256);
-  const uint32_t lbo = TRANS_B ? 2048 : 128, sbo = TRANS_B ? 128 : 1024;
+  constexpr uint32_t row = 2 * NA / 8 * 128;
+  const uint32_t b = stage + (TRANS_B ? kk * 2 * row : kk * 256);
+  const uint32_t lbo = TRANS_B ? row : 128, sbo = TRANS_B ? 128 : 1024;
   const uint64_t bh = gmma_desc(b, lbo, sbo);
-  wgmma128<TRANS_B>(acc, ah, bh);
+  wgmma_n<TRANS_B>(acc, ah, bh);
   if (X3) {
-    wgmma128<TRANS_B>(acc, al, bh);
-    wgmma128<TRANS_B>(acc, ah, gmma_desc(b + IMAGE_BYTES, lbo, sbo));
+    wgmma_n<TRANS_B>(acc, al, bh);
+    wgmma_n<TRANS_B>(acc, ah, gmma_desc(b + IMAGE_BYTES, lbo, sbo));
   }
 }
 
 // Issue acc += A's k-chunks K0 .. K0 + 3 (ah, al: N chunks) times the
 // next staged slab, as one wgmma group.
-template <int TRANS_B, bool X3, int K0, int N>
-__device__ __forceinline__ void slab_issue(float (&acc)[NACC],
+template <int TRANS_B, bool X3, int K0, int N, int NA>
+__device__ __forceinline__ void slab_issue(float (&acc)[NA],
                                            uint32_t (&ah)[N][4],
                                            uint32_t (&al)[N][4],
                                            Ring& ring) {
@@ -453,21 +522,35 @@ __device__ __forceinline__ void slab_issue(float (&acc)[NACC],
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < SLAB_K / 16; ++kk)
-    mma_chunk128<TRANS_B, X3>(acc, ah[K0 + kk], al[K0 + kk], stage, kk);
+    mma_chunk<TRANS_B, X3>(acc, ah[K0 + kk], al[K0 + kk], stage, kk);
   wgmma_commit();
 }
 
 // Wait until at most PENDING groups are in flight, then free the oldest
 // slab taken and not yet freed.
-template <int PENDING>
-__device__ __forceinline__ void slab_retire(float (&acc)[NACC], Ring& ring,
+template <int PENDING, int NA>
+__device__ __forceinline__ void slab_retire(float (&acc)[NA], Ring& ring,
                                             int& freed) {
   wgmma_wait<PENDING>();
   fence_acc(acc);
   ring.release_slab(freed++);
 }
 
-// A hidden layer: both slabs in flight together, then freed in order.
+// One K-slab's products in one turn, waited for, the slab freed.
+template <int TRANS_B, bool X3, int NA, class Turn>
+__device__ __forceinline__ void slab_turn(float (&acc)[NA],
+                                          uint32_t (&ah)[4][4],
+                                          uint32_t (&al)[4][4], Ring& ring,
+                                          const Turn& turn) {
+  int freed = ring.it;
+  turn.wait();
+  slab_issue<TRANS_B, X3, 0>(acc, ah, al, ring);
+  turn.pass();
+  slab_retire<0>(acc, ring, freed);
+}
+
+// A hidden layer of width 128: both slabs in flight together, then freed
+// in order.
 template <int TRANS_B, bool X3, class Turn>
 __device__ __forceinline__ void hidden_layer128(float (&acc)[NACC],
                                              uint32_t (&ah)[KC][4],
@@ -482,20 +565,21 @@ __device__ __forceinline__ void hidden_layer128(float (&acc)[NACC],
   slab_retire<0>(acc, ring, freed);
 }
 
-// Bias and ELU of layer l's accumulator. Below the last layer the
-// activation stays in acc and elu'(z) is saved; at the last layer the head
-// gives u (rows written by lanes t = 0) and acc becomes the head's gradient
-// times elu'(z).
-template <bool X3>
+// Bias and ELU of layer l's accumulator (NA floats: width W = 2 NA).
+// Below the last layer the activation stays in acc and elu'(z) is saved;
+// at the last layer the head gives u (rows written by lanes t = 0) and acc
+// becomes the head's gradient times elu'(z).
+template <bool X3, int NA>
 __device__ __forceinline__ void layer_out(const Params& p, const Tile& s,
-                                          float (&acc)[NACC], int l,
+                                          float (&acc)[NA], int l,
                                           int ctid) {
+  constexpr int W = 2 * NA;
   const int warp = ctid >> 5, lane = ctid & 31, g = lane >> 2, t = lane & 3;
-  const float* bias = p.vec + (size_t)(l - 1) * H;
+  const float* bias = p.vec + (size_t)(l - 1) * W;
   if (l < p.L) {
-    float2* sv = s.save + (size_t)(l - 1) * 32 * CONSUMERS + ctid;
+    float2* sv = s.save + (size_t)(l - 1) * (NA / 2) * CONSUMERS + ctid;
 #pragma unroll
-    for (int q = 0; q < NACC / 2; ++q) {
+    for (int q = 0; q < NA / 2; ++q) {
       float d[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
@@ -509,10 +593,10 @@ __device__ __forceinline__ void layer_out(const Params& p, const Tile& s,
     }
     return;
   }
-  const float* w_out = p.vec + (size_t)p.L * H;
+  const float* w_out = p.vec + (size_t)p.L * W;
   float u[2] = {0.0f, 0.0f};
 #pragma unroll
-  for (int i = 0; i < NACC; ++i) {
+  for (int i = 0; i < NA; ++i) {
     const int col = acc_col(i, t);
     const float z = acc[i] + __ldg(bias + col);
     const float ez = expf(fminf(z, 0.0f));
@@ -528,7 +612,7 @@ __device__ __forceinline__ void layer_out(const Params& p, const Tile& s,
     u[(i >> 1) & 1] += term;
     acc[i] = gw * (z > 0.0f ? 1.0f : ez);
   }
-  const float b_out = __ldg(p.vec + (size_t)(p.L + 3) * H);
+  const float b_out = __ldg(p.vec + (size_t)(p.L + 3) * W);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     u[r] += __shfl_xor_sync(0xffffffffu, u[r], 1);
@@ -540,17 +624,18 @@ __device__ __forceinline__ void layer_out(const Params& p, const Tile& s,
   }
 }
 
-// u and sum_j u_x_j of the frozen net at (s, X_s) for the tile's rows
-// (written to s.u, s.sux). All consumers, warp-uniformly; each group of
-// products issued in its turn.
-template <bool X3, class Turn>
-__device__ __forceinline__ void net_pass_n128(const Params& p, const Tile& s,
-                                         Ring& ring, int ctid,
-                                         const Turn& turn) {
+// u and sum_j u_x_j of the frozen net (hidden width W: 128 or 64) at
+// (s, X_s) for the tile's rows (written to s.u, s.sux). All consumers,
+// warp-uniformly; each group of products issued in its turn.
+template <bool X3, int W, class Turn>
+__device__ __forceinline__ void net_pass_narrow(const Params& p,
+                                                const Tile& s, Ring& ring,
+                                                int ctid, const Turn& turn) {
+  constexpr int NA = W / 2;
   const int warp = ctid >> 5, lane = ctid & 31, g = lane >> 2, t = lane & 3;
   const int r0 = 16 * warp + g, r1 = r0 + 8;
   const int L = p.L, nx = p.nx, n1 = k1_of(nx) / SLAB_K;
-  float acc[NACC];
+  float acc[NA];
 
   // layer 1: [X_s, s] W1p^T in K-slabs, A split from the tile's normals
   zero(acc);
@@ -565,32 +650,34 @@ __device__ __forceinline__ void net_pass_n128(const Params& p, const Tile& s,
         split_hi_lo(s.a1(row, col, nx), s.a1(row, col + 1, nx), ah[kk][r],
                    al[kk][r]);
       }
-    int freed = ring.it;
-    turn.wait();
-    slab_issue<0, X3, 0>(acc, ah, al, ring);
-    turn.pass();
-    slab_retire<0>(acc, ring, freed);
+    slab_turn<0, X3>(acc, ah, al, ring, turn);
   }
   layer_out<X3>(p, s, acc, 1, ctid);
 
   // hidden layers 2..L forward
   for (int l = 2; l <= L; ++l) {
-    uint32_t ah[KC][4], al[KC][4];
+    uint32_t ah[NA / 8][4], al[NA / 8][4];
     to_frags(acc, ah, al);
     zero(acc);
-    hidden_layer128<0, X3>(acc, ah, al, ring, turn);
+    if constexpr (W == H)
+      hidden_layer128<0, X3>(acc, ah, al, ring, turn);
+    else
+      slab_turn<0, X3>(acc, ah, al, ring, turn);
     layer_out<X3>(p, s, acc, l, ctid);
   }
 
   // backward through hidden layers L..2: g_{l-1} = (g_l W_l) elu'(z_{l-1})
   for (int l = L; l >= 2; --l) {
-    uint32_t ah[KC][4], al[KC][4];
+    uint32_t ah[NA / 8][4], al[NA / 8][4];
     to_frags(acc, ah, al);
     zero(acc);
-    hidden_layer128<1, X3>(acc, ah, al, ring, turn);
-    const float2* sv = s.save + (size_t)(l - 2) * 32 * CONSUMERS + ctid;
+    if constexpr (W == H)
+      hidden_layer128<1, X3>(acc, ah, al, ring, turn);
+    else
+      slab_turn<1, X3>(acc, ah, al, ring, turn);
+    const float2* sv = s.save + (size_t)(l - 2) * (NA / 2) * CONSUMERS + ctid;
 #pragma unroll
-    for (int q = 0; q < NACC / 2; ++q) {
+    for (int q = 0; q < NA / 2; ++q) {
       const float2 d = sv[(size_t)q * CONSUMERS];
       acc[2 * q] *= d.x;
       acc[2 * q + 1] *= d.y;
@@ -598,11 +685,11 @@ __device__ __forceinline__ void net_pass_n128(const Params& p, const Tile& s,
   }
 
   // sum_j u_x_j = sum_n g1_n sum_j W1[n, 1 + j], with _split3's products
-  const float* wc_hi = p.vec + (size_t)(L + 1) * H;
-  const float* wc_lo = p.vec + (size_t)(L + 2) * H;
+  const float* wc_hi = p.vec + (size_t)(L + 1) * W;
+  const float* wc_lo = p.vec + (size_t)(L + 2) * W;
   float sx[2] = {0.0f, 0.0f};
 #pragma unroll
-  for (int i = 0; i < NACC; ++i) {
+  for (int i = 0; i < NA; ++i) {
     const int col = acc_col(i, t);
     const float gh = bf16_round(acc[i]), ch = __ldg(wc_hi + col);
     float term = gh * ch;
@@ -620,40 +707,92 @@ __device__ __forceinline__ void net_pass_n128(const Params& p, const Tile& s,
   }
 }
 
-// ---- the width-256 pass ---------------------------------------------------
+// The producer warp at width 64: per tile pair, layer 1's K-slabs (W1's 64
+// rows, input columns 64 sb ..: 8 rows of 8 cores), then each hidden
+// layer's whole 64 x 64 image forward (2 .. L) and backward (L .. 2), one
+// copy of 8 KB a piece.
+__device__ __forceinline__ void produce64(const Params& p, uint32_t ring,
+                                          uint32_t full, uint32_t empty,
+                                          int lane, int stages,
+                                          int stage_bytes, int copies,
+                                          int nimg) {
+  const int L = p.L, K1 = k1_of(p.nx);
+  const int n1 = K1 / SLAB_K, nslab = n1 + 2 * (L - 1);
+  const int ntile = (p.M + TILE - 1) / TILE;
+  const __nv_bfloat16* hidden = p.img + (size_t)nimg * H64 * K1;
+  int it = 0;
+  for (int b = blockIdx.x; b < p.B; b += gridDim.x)
+    for (int kb = 0; kb < ntile; kb += NWG)
+      for (int sl = 0; sl < nslab; ++sl, ++it) {
+        const int st = it % stages, round = it / stages;
+        if (round > 0) mbar_wait(empty + 8 * st, (uint32_t)((round - 1) & 1));
+        const __nv_bfloat16* src;
+        size_t img_off, row_stride = 0;
+        int rows = 8, row_bytes = 1024;
+        if (sl < n1) {  // W1, input columns 64 sl ..
+          src = p.img + (size_t)8 * sl * 64;
+          img_off = (size_t)H64 * K1;
+          row_stride = (size_t)K1 * 8;
+        } else {
+          const int f = sl - n1;
+          const int l = f < L - 1 ? 2 + f : L - (f - (L - 1));
+          src = hidden + (size_t)(l - 2) * nimg * H64 * H64;
+          img_off = (size_t)H64 * H64;
+          rows = 1;
+          row_bytes = H64 * H64 * 2;
+        }
+        const uint32_t bar = full + 8 * st;
+        if (lane == 0)
+          mbar_expect_tx(bar, (uint32_t)(rows * row_bytes * copies));
+        __syncwarp();
+        for (int c = lane; c < rows * copies; c += 32) {
+          const int im = c / rows, r = c - im * rows;
+          bulk_copy(ring + (uint32_t)(st * stage_bytes + im * IMAGE_BYTES +
+                                      r * row_bytes),
+                    src + im * img_off + r * row_stride, (uint32_t)row_bytes,
+                    bar);
+        }
+      }
+}
+
+// ---- the wide pass: hidden widths 256 to 1024 ------------------------------
 // Of the two designs, both warpgroups on one tile (N = 128 each, as
-// generate_pis.cu's wide layers) or each on its own (N in two halves), the
-// second: it keeps the block's loop, the ring's 32 KB stages of 128-row
+// generate_pis.cu's wide layers) or each on its own (N in column blocks),
+// the second: it keeps the block's loop, the ring's 32 KB stages of 128-row
 // slabs, the turns and every weight byte serving two tiles as at width
 // 128, and the registers of the width-128 pass; the first would stage
 // 256-row slabs (64 KB a stage under bf16x3), each byte serving one tile,
 // and hold a tile's activations in shared memory beside them.
 // Each consumer warpgroup keeps its own 64-row tile, as at width 128, and
-// takes a layer's 256 output columns in two m64n128 halves, each over all
-// of the layer's K-slabs (the ring's stages are 128-row slabs as at width
-// 128: 32 KB under bf16x3). A layer's output is 128 floats a thread, too
-// many beside the accumulator and the A fragments in the 208 registers a
-// consumer has, and a tile's outputs (64 KB a warpgroup, two buffers) do
-// not fit in shared memory beside the ring and the rows of normals at
-// nx = 1024: so each thread writes its halves to its warpgroup's buffers in
-// global scratch ([float][thread], coalesced; L2-resident) and reads them
+// takes a layer's hw output columns in nb = hw / 128 column blocks of
+// m64n128 (nb a runtime value: one instance serves every width from 256 to
+// 1024 in steps of 128), each over all of the layer's K-slabs (the ring's
+// stages are 128-row slabs as at width 128: 32 KB under bf16x3). A layer's
+// output is hw / 2 floats a thread, too many beside the accumulator and
+// the A fragments in the 208 registers a consumer has, and a tile's
+// outputs (64 x hw f32 a warpgroup, two buffers) do not fit in shared
+// memory beside the ring and the rows of normals: so each thread writes
+// its blocks to its warpgroup's buffers in global scratch ([float][thread],
+// coalesced; L2-resident where the grid's buffers fit) and reads them
 // back, a K-slab (32 floats) at a time, as the next layer's A fragments:
 // the m64n128 accumulator's layout is the A fragments' (acc_col), so a
-// thread reads back only what it wrote. Both halves of a layer read the
-// same input; the output goes to the other buffer.
+// thread reads back only what it wrote. Every block of a layer reads the
+// whole input (nb times a layer); the output goes to the other buffer. The
+// saved ELU derivatives (TILE x hw a layer) go to scratch too.
 
-// Bias and ELU of half h of layer l's accumulator (width 256). Below the
-// last layer elu'(z) is saved and acc is the activation; at the last layer
-// the head's partial sums go to u and acc becomes the head's gradient
-// times elu'(z).
+// Bias and ELU of column block h of layer l's accumulator (width p.hw).
+// Below the last layer elu'(z) is saved and acc is the activation; at the
+// last layer the head's partial sums go to u and acc becomes the head's
+// gradient times elu'(z).
 template <bool X3>
-__device__ __forceinline__ void layer_out256(const Params& p, const Tile& s,
-                                             float (&acc)[NACC], int l, int h,
-                                             int ctid, float (&u)[2]) {
-  const int t = ctid & 3;
-  const float* bias = p.vec + (size_t)(l - 1) * H2 + 128 * h;
+__device__ __forceinline__ void layer_out_wide(const Params& p, const Tile& s,
+                                               float (&acc)[NACC], int l,
+                                               int h, int ctid,
+                                               float (&u)[2]) {
+  const int t = ctid & 3, hw = p.hw;
+  const float* bias = p.vec + (size_t)(l - 1) * hw + 128 * h;
   if (l < p.L) {
-    float2* sv = s.save + (size_t)(l - 1) * 64 * CONSUMERS +
+    float2* sv = s.save + (size_t)(l - 1) * (hw / 4) * CONSUMERS +
                  (size_t)32 * h * CONSUMERS + ctid;
 #pragma unroll
     for (int q = 0; q < NACC / 2; ++q) {
@@ -670,7 +809,7 @@ __device__ __forceinline__ void layer_out256(const Params& p, const Tile& s,
     }
     return;
   }
-  const float* w_out = p.vec + (size_t)p.L * H2 + 128 * h;
+  const float* w_out = p.vec + (size_t)p.L * hw + 128 * h;
 #pragma unroll
   for (int i = 0; i < NACC; ++i) {
     const int col = acc_col(i, t);
@@ -690,13 +829,14 @@ __device__ __forceinline__ void layer_out256(const Params& p, const Tile& s,
   }
 }
 
-// g1 (half h) contracted with W1's column sums over x, _split3's products
+// g1 (column block h) contracted with W1's column sums over x, _split3's
+// products
 template <bool X3>
-__device__ __forceinline__ void colsum256(const Params& p,
-                                          const float (&acc)[NACC], int h,
-                                          int t, float (&sx)[2]) {
-  const float* wc_hi = p.vec + (size_t)(p.L + 1) * H2 + 128 * h;
-  const float* wc_lo = p.vec + (size_t)(p.L + 2) * H2 + 128 * h;
+__device__ __forceinline__ void colsum_wide(const Params& p,
+                                            const float (&acc)[NACC], int h,
+                                            int t, float (&sx)[2]) {
+  const float* wc_hi = p.vec + (size_t)(p.L + 1) * p.hw + 128 * h;
+  const float* wc_lo = p.vec + (size_t)(p.L + 2) * p.hw + 128 * h;
 #pragma unroll
   for (int i = 0; i < NACC; ++i) {
     const int col = acc_col(i, t);
@@ -707,15 +847,16 @@ __device__ __forceinline__ void colsum256(const Params& p,
   }
 }
 
-// half h of a layer's output into a buffer: float 64 h + i of this thread
-__device__ __forceinline__ void store_half(const float (&acc)[NACC],
-                                           float* buf, int h, int ctid) {
+// column block h of a layer's output into a buffer: float 64 h + i of this
+// thread
+__device__ __forceinline__ void store_block(const float (&acc)[NACC],
+                                            float* buf, int h, int ctid) {
 #pragma unroll
   for (int i = 0; i < NACC; ++i)
     buf[(size_t)(64 * h + i) * CONSUMERS + ctid] = acc[i];
 }
 
-// K-slab sb of a layer's input (floats 32 sb .. of this thread: its half
+// K-slab sb of a layer's input (floats 32 sb .. of this thread: its block
 // sb / 2, k-chunks 4 (sb & 1) ..) as A fragments
 __device__ __forceinline__ void load_slab(const float* buf, int sb, int ctid,
                                           uint32_t (&ah)[4][4],
@@ -732,35 +873,24 @@ __device__ __forceinline__ void load_slab(const float* buf, int sb, int ctid,
                   al[kk][r]);
 }
 
-// One K-slab's products in one turn, waited for, the slab freed.
-template <int TRANS_B, bool X3, class Turn>
-__device__ __forceinline__ void slab_turn(float (&acc)[NACC],
-                                          uint32_t (&ah)[4][4],
-                                          uint32_t (&al)[4][4], Ring& ring,
-                                          const Turn& turn) {
-  int freed = ring.it;
-  turn.wait();
-  slab_issue<TRANS_B, X3, 0>(acc, ah, al, ring);
-  turn.pass();
-  slab_retire<0>(acc, ring, freed);
-}
-
-// u and sum_j u_x_j of a width-256 net at (s, X_s) for the tile's rows
-// (written to s.u, s.sux); act: the warpgroup's two output buffers.
+// u and sum_j u_x_j of a net of width p.hw (256 .. 1024) at (s, X_s) for
+// the tile's rows (written to s.u, s.sux); act: the warpgroup's two output
+// buffers.
 template <bool X3, class Turn>
-__device__ __forceinline__ void net_pass_n256(const Params& p, const Tile& s,
+__device__ __forceinline__ void net_pass_wide(const Params& p, const Tile& s,
                                               Ring& ring, int ctid,
                                               const Turn& turn, float* act) {
   const int warp = ctid >> 5, lane = ctid & 31, g = lane >> 2, t = lane & 3;
   const int r0 = 16 * warp + g, r1 = r0 + 8;
   const int L = p.L, nx = p.nx, n1 = k1_of(nx) / SLAB_K;
+  const int hw = p.hw, nb = hw / 128, ks = hw / SLAB_K;
   float* in = act;
-  float* out = act + (size_t)ACT_THREAD * CONSUMERS;
+  float* out = act + (size_t)(hw / 2) * CONSUMERS;
   float u[2] = {0.0f, 0.0f}, sx[2] = {0.0f, 0.0f};
   float acc[NACC];
 
-  // layer 1: [X_s, s] W1p^T, each half over all K-slabs
-  for (int h = 0; h < 2; ++h) {
+  // layer 1: [X_s, s] W1p^T, each column block over all K-slabs
+  for (int h = 0; h < nb; ++h) {
     zero(acc);
     for (int sb = 0; sb < n1; ++sb) {
       uint32_t ah[4][4], al[4][4];
@@ -775,11 +905,11 @@ __device__ __forceinline__ void net_pass_n256(const Params& p, const Tile& s,
         }
       slab_turn<0, X3>(acc, ah, al, ring, turn);
     }
-    layer_out256<X3>(p, s, acc, 1, h, ctid, u);
+    layer_out_wide<X3>(p, s, acc, 1, h, ctid, u);
     if (L == 1)
-      colsum256<X3>(p, acc, h, t, sx);
+      colsum_wide<X3>(p, acc, h, t, sx);
     else
-      store_half(acc, out, h, ctid);
+      store_block(acc, out, h, ctid);
   }
 
   // hidden layers 2..L forward
@@ -787,15 +917,15 @@ __device__ __forceinline__ void net_pass_n256(const Params& p, const Tile& s,
     float* tmp = in;
     in = out;
     out = tmp;
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < nb; ++h) {
       zero(acc);
-      for (int sb = 0; sb < 4; ++sb) {
+      for (int sb = 0; sb < ks; ++sb) {
         uint32_t ah[4][4], al[4][4];
         load_slab(in, sb, ctid, ah, al);
         slab_turn<0, X3>(acc, ah, al, ring, turn);
       }
-      layer_out256<X3>(p, s, acc, l, h, ctid, u);
-      store_half(acc, out, h, ctid);
+      layer_out_wide<X3>(p, s, acc, l, h, ctid, u);
+      store_block(acc, out, h, ctid);
     }
   }
 
@@ -804,14 +934,14 @@ __device__ __forceinline__ void net_pass_n256(const Params& p, const Tile& s,
     float* tmp = in;
     in = out;
     out = tmp;
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < nb; ++h) {
       zero(acc);
-      for (int sb = 0; sb < 4; ++sb) {
+      for (int sb = 0; sb < ks; ++sb) {
         uint32_t ah[4][4], al[4][4];
         load_slab(in, sb, ctid, ah, al);
         slab_turn<1, X3>(acc, ah, al, ring, turn);
       }
-      const float2* sv = s.save + (size_t)(l - 2) * 64 * CONSUMERS +
+      const float2* sv = s.save + (size_t)(l - 2) * (hw / 4) * CONSUMERS +
                          (size_t)32 * h * CONSUMERS + ctid;
 #pragma unroll
       for (int q = 0; q < NACC / 2; ++q) {
@@ -820,9 +950,9 @@ __device__ __forceinline__ void net_pass_n256(const Params& p, const Tile& s,
         acc[2 * q + 1] *= d.y;
       }
       if (l == 2)
-        colsum256<X3>(p, acc, h, t, sx);
+        colsum_wide<X3>(p, acc, h, t, sx);
       else
-        store_half(acc, out, h, ctid);
+        store_block(acc, out, h, ctid);
     }
   }
 
@@ -835,7 +965,7 @@ __device__ __forceinline__ void net_pass_n256(const Params& p, const Tile& s,
     }
   }
   if (t == 0) {
-    const float b_out = __ldg(p.vec + (size_t)(L + 3) * H2);
+    const float b_out = __ldg(p.vec + (size_t)(L + 3) * hw);
     s.u[r0] = u[0] + b_out;
     s.u[r1] = u[1] + b_out;
     s.sux[r0] = sx[0];
@@ -843,21 +973,22 @@ __device__ __forceinline__ void net_pass_n256(const Params& p, const Tile& s,
   }
 }
 
-// The producer warp at width 256: every slab in the consumers' order, per
-// tile pair: layer 1's K-slabs for output half 0, then half 1; each hidden
-// layer's 4 K-slabs per half forward (W's rows 128 h .., K-major as at
-// width 128), then backward (W's columns 128 h .. of each 64-row slab,
-// MN-major: 8 core rows of 16 cores, as at width 128).
+// The producer warp of the wide pass: every slab in the consumers' order,
+// per tile pair: layer 1's K-slabs for column block 0, then 1, ..; each
+// hidden layer's hw / 64 K-slabs per block forward (W's rows 128 h ..,
+// K-major as at width 128), then backward (W's columns 128 h .. of each
+// 64-row slab, MN-major: 8 core rows of 16 cores, as at width 128).
 __device__ __forceinline__ void produce_wide(const Params& p, uint32_t ring,
                                              uint32_t full, uint32_t empty,
                                              int lane, int stages,
                                              int stage_bytes, int copies,
                                              int nimg) {
-  const int L = p.L, K1 = k1_of(p.nx);
-  const int n1 = K1 / SLAB_K, nf = 2 * n1 + 8 * (L - 1);
-  const int nslab = nf + 8 * (L - 1);
+  const int L = p.L, K1 = k1_of(p.nx), hw = p.hw;
+  const int nb = hw / 128, ks = hw / SLAB_K, per_layer = nb * ks;
+  const int n1 = K1 / SLAB_K, nf = nb * n1 + per_layer * (L - 1);
+  const int nslab = nf + per_layer * (L - 1);
   const int ntile = (p.M + TILE - 1) / TILE;
-  const __nv_bfloat16* hidden = p.img + (size_t)nimg * H2 * K1;
+  const __nv_bfloat16* hidden = p.img + (size_t)nimg * hw * K1;
   int it = 0;
   for (int b = blockIdx.x; b < p.B; b += gridDim.x)
     for (int kb = 0; kb < ntile; kb += NWG)
@@ -867,23 +998,23 @@ __device__ __forceinline__ void produce_wide(const Params& p, uint32_t ring,
         const __nv_bfloat16* src;
         size_t img_off, row_stride;
         int rows = 16, row_bytes = 1024;
-        if (sl < 2 * n1) {  // W1: rows 128 h .., input columns 64 sb ..
+        if (sl < nb * n1) {  // W1: rows 128 h .., input columns 64 sb ..
           const int h = sl / n1, sb = sl - h * n1;
           src = p.img + ((size_t)16 * h * (K1 / 8) + 8 * sb) * 64;
-          img_off = (size_t)H2 * K1;
+          img_off = (size_t)hw * K1;
           row_stride = (size_t)K1 * 8;
         } else {
           const bool fwd = sl < nf;
-          const int f = fwd ? sl - 2 * n1 : sl - nf;
-          const int l = fwd ? 2 + f / 8 : L - f / 8;
-          const int h = (f & 7) >> 2, sb = f & 3;
-          const __nv_bfloat16* w = hidden + (size_t)(l - 2) * nimg * H2 * H2;
-          img_off = (size_t)H2 * H2;
-          row_stride = (size_t)H2 * 8;
+          const int f = fwd ? sl - nb * n1 : sl - nf;
+          const int l = fwd ? 2 + f / per_layer : L - f / per_layer;
+          const int r = f % per_layer, h = r / ks, sb = r - h * ks;
+          const __nv_bfloat16* w = hidden + (size_t)(l - 2) * nimg * hw * hw;
+          img_off = (size_t)hw * hw;
+          row_stride = (size_t)hw * 8;
           if (fwd) {
-            src = w + ((size_t)16 * h * (H2 / 8) + 8 * sb) * 64;
+            src = w + ((size_t)16 * h * (hw / 8) + 8 * sb) * 64;
           } else {
-            src = w + ((size_t)8 * sb * (H2 / 8) + 16 * h) * 64;
+            src = w + ((size_t)8 * sb * (hw / 8) + 16 * h) * 64;
             rows = 8;
             row_bytes = 2048;
           }
@@ -1053,8 +1184,9 @@ __device__ __forceinline__ void terminal_warps(const tc::Params& p,
   }
 }
 
-// P: the net's passes (3: bf16x3, 1: one bf16 pass); HW: the hidden width
-// (128, or H2 = 256: net_pass_n256). A block: two consumer warpgroups, each
+// P: the net's passes (3: bf16x3, 1: one bf16 pass); HW: the instance of
+// the hidden width (H64, H: net_pass_narrow; WIDE: widths 256 to 1024,
+// net_pass_wide, the width read from p.hw). A block: two consumer warpgroups, each
 // on its own 64-row tile (tiles 2 i and 2 i + 1 of a point; the second
 // warpgroup takes an empty tile past the last when a point's tiles are
 // odd, to keep the ring's pace), both reading every weight stage; the
@@ -1078,9 +1210,12 @@ generate_tc_kernel(const tc::Params p) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     const int pw = (threadIdx.x - TC_CONSUMERS) >> 5, lane = threadIdx.x & 31;
     if (pw == 0) {
-      if (L > 0 && HW == H2)
+      if (L > 0 && HW == WIDE)
         produce_wide(p, smem_u32(smem + pl.ring), full, empty, lane,
                      pl.stages, lay.stage_bytes, pieces(P), packed(P));
+      else if (L > 0 && HW == H64)
+        produce64(p, smem_u32(smem + pl.ring), full, empty, lane, pl.stages,
+                  lay.stage_bytes, pieces(P), packed(P));
       else if (L > 0)
         produce(p, smem_u32(smem + pl.ring), full, empty, lane, pl.stages,
                 lay.stage_bytes, pieces(P), packed(P));
@@ -1101,10 +1236,10 @@ generate_tc_kernel(const tc::Params p) {
   float* isum0 = reinterpret_cast<float*>(smem + pl.isum);
   float* isum = reinterpret_cast<float*>(smem + pl.isum + wg * isum_bytes);
   float* isum1 = reinterpret_cast<float*>(smem + pl.isum + isum_bytes);
-  // width 256: this warpgroup's buffers of layer outputs, at the end of the
-  // block's scratch
+  // the wide pass: this warpgroup's buffers of layer outputs, at the end of
+  // the block's scratch
   float* act = nullptr;
-  if (HW == H2 && L > 1) {
+  if (HW == WIDE && L > 1) {
     const size_t per_block = scratch_floats(pl, lay, L);
     act = p.scratch + blockIdx.x * per_block + per_block -
           (size_t)NWG * lay.act + (size_t)wg * lay.act;
@@ -1132,10 +1267,10 @@ generate_tc_kernel(const tc::Params p) {
       draw_normals(p, s, b, kb, key, wtid);
       named_sync(BAR_WG + wg, WG);
       if (L > 0) {
-        if constexpr (HW == H2)
-          net_pass_n256<P == 3>(p, s, ring, wtid, turn, act);
+        if constexpr (HW == WIDE)
+          net_pass_wide<P == 3>(p, s, ring, wtid, turn, act);
         else
-          net_pass_n128<P == 3>(p, s, ring, wtid, turn);
+          net_pass_narrow<P == 3, HW>(p, s, ring, wtid, turn);
       } else if (wtid < TILE) {
         s.u[wtid] = 0.0f;
         s.sux[wtid] = 0.0f;
@@ -1193,7 +1328,10 @@ TcKernel tc_kernel_of(int mode) {
                                  : generate_tc_kernel<1, HW>;
 }
 TcKernel tc_kernel(int mode, int hw) {
-  return hw == H2 ? tc_kernel_of<H2>(mode) : tc_kernel_of<H>(mode);
+  const int inst = instance_of(hw);
+  return inst == WIDE  ? tc_kernel_of<WIDE>(mode)
+         : inst == H64 ? tc_kernel_of<H64>(mode)
+                       : tc_kernel_of<H>(mode);
 }
 
 }  // namespace
@@ -1230,21 +1368,22 @@ int dpi_generate(const float* t, const float* x, const float* g0,
   return (int)cudaGetLastError();
 }
 
-// the tensor-core kernel's cover: nx, and its hidden widths into out[4]
-// (their count returned)
+// the tensor-core kernel's cover: nx, and its hidden widths in increasing
+// order into out[16] (their count returned)
 int dpi_generate_tc_max_nx() { return GEN_MAX_NX; }
 int dpi_generate_tc_widths(int* out) {
-  out[0] = H;
-  out[1] = H2;
-  return 2;
+  int n = 0;
+  for (int hw = H64; hw <= GEN_MAX_WIDTH; hw += H64)
+    if (covered_width(hw)) out[n++] = hw;
+  return n;
 }
 
 // global scratch (bytes) the tensor-core kernel needs at any B and mode
 // for a net of hidden width hw: the saved derivatives and tiles' normals
-// its plan keeps out of shared memory, and at width 256 the layer outputs
-// (0: none; -1: no plan)
+// its plan keeps out of shared memory, and past width 128 the layer
+// outputs (0: none; -1: no plan)
 long long dpi_generate_tc_scratch_bytes_w(int nx, int L, int hw) {
-  if ((hw != H && hw != H2) || nx < 1 || nx > GEN_MAX_NX) return -1;
+  if (!covered_width(hw) || nx < 1 || nx > GEN_MAX_NX) return -1;
   const tc::Layout lay = gen_layout(nx, hw);
   const tc::GPlan pl = tc::choose_gplan(nx, L, lay);
   if (pl.stages < 0) return -1;
@@ -1276,7 +1415,8 @@ void dpi_generate_tc_plan_w(int nx, int L, int hw, long long* out) {
 }
 
 // The tensor-core kernel (mode 1: bf16x3, 2: one bf16 pass) for a net of
-// hidden width hw (128 or 256); `img`, `vec` from
+// hidden width hw (covered_width: 64, 128, or 256 to 1024 in steps of
+// 128); `img`, `vec` from
 // ops/kernels.py:pack_mlp_tc. Launches on `stream`; returns 0, a CUDA
 // error or one of dpi::tc::ERR_*.
 int dpi_generate_tc_w(const float* t, const float* x, const float* g0,
@@ -1289,7 +1429,7 @@ int dpi_generate_tc_w(const float* t, const float* x, const float* g0,
   using namespace dpi::tc;
   if (mode != MODE_BF16X3 && mode != MODE_ONE_PASS) return ERR_BAD_MODE;
   if ((has_net && L < 1) || nx < 1 || nx > GEN_MAX_NX ||
-      (hw != H && hw != H2))
+      (has_net && !covered_width(hw)))
     return ERR_NO_PLAN;
   const int Ln = has_net ? L : 0;
   const Layout lay = gen_layout(nx, hw);
@@ -1305,7 +1445,7 @@ int dpi_generate_tc_w(const float* t, const float* x, const float* g0,
   p.u01 = u01; p.noise_t = noise_t; p.noise_i = noise_i;
   p.scratch = scratch; p.out = out;
   p.B = B; p.M = M; p.nx = nx; p.L = Ln; p.has_net = has_net;
-  p.anti = anti; p.mode = mode;
+  p.anti = anti; p.mode = mode; p.hw = hw;
   p.lay = lay; p.plan = pl;
   p.seed_lo = (uint32_t)(seed & 0xFFFFFFFFull);
   p.seed_hi = (uint32_t)(seed >> 32);

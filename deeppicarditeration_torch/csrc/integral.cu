@@ -332,6 +332,7 @@ int dpi_integral_tc(const float* t, const float* x, const float* f0,
   p.anti = anti; p.mode = mode;
   p.Md = anti ? M / 2 : M;
   p.npair = ((M + TILE - 1) / TILE + 1) / 2;
+  p.hw = H;
   p.lay = lay; p.plan = pl;
   p.seed_lo = (uint32_t)(seed & 0xFFFFFFFFull);
   p.seed_hi = (uint32_t)(seed >> 32);

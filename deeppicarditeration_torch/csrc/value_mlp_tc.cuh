@@ -28,7 +28,7 @@
 // every weight stage. Warp 0 of the producer warpgroup stages the weights
 // (produce); its other three warps carry a chain of their own (generate.cu:
 // the terminal chain; integral.cu: the draws of the next tile pair). The
-// pass (net_pass: integral.cu's; generate.cu keeps its own, net_pass_n128)
+// pass (net_pass: integral.cu's; generate.cu keeps its own, net_pass_narrow)
 // issues each K-slab of a layer as one group of m64n128k16 products, with
 // A (activations forward, gradients backward) split into bf16 pieces in
 // registers and B (the weights) from shared memory; the accumulator is
@@ -135,7 +135,7 @@ __host__ __device__ inline size_t align16(size_t v) {
 // of normals; stage_bytes: a ring stage (one image per piece of W staged);
 // save_layer: floats of one layer's saved elu'(z) of a tile (TILE x the
 // hidden width); act: global scratch floats a warpgroup keeps for its
-// layers' outputs (generate.cu's width-256 pass; 0: none).
+// layers' outputs (generate.cu's wide pass; 0: none).
 struct Layout {
   int bufs, term, ld, stage_bytes;
   int save_layer = SAVE_LAYER_FLOATS;
@@ -250,6 +250,7 @@ struct Params {
   float* out;            // (B, 1 + nx)
   int B, M, nx, L, has_net, anti, mode;  // Md = anti ? M / 2 : M
   int Md, npair;         // rows of draws; tile pairs a point (integral.cu)
+  int hw;                // the net's hidden width (generate.cu)
   Layout lay;            // the kernel's shared memory beside the ring
   GPlan plan;            // its offsets, computed on the host
   uint32_t seed_lo, seed_hi;

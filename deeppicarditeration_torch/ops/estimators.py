@@ -488,16 +488,20 @@ def generation_route(eq, sol: Solution, gen: GenConfig) -> str:
         before any launch, where it does not cover the case; the CPU runs
         its plain version);
       * "auto" => MERGED where a merged kernel covers the equation and the
-        net: for Cha ``generate.cu`` (``merged_covers``: ELU MLPs of
-        hidden width 128 or 256 at nx <= 1024 in "bf16x3" and "default",
-        of width 128 at nx <= 511 in "highest"), for the OU equation
-        ``generate_pis.cu`` (``pis_covers``: a PISGradNet of width 512 at
-        nx <= 512 in "default" or "bf16x3"); else SPLIT with a printed
-        notice (other widths or nx, EnforceTerminal, plain MLPs on OU,
-        "highest" with a PISGradNet or beyond width 128 and nx 511,
-        antithetic pairing on OU); and SPLIT, silently, for the zero
-        iterate at nx below ZERO_ITERATE_MIN_NX, where the chunk
-        estimators are faster."""
+        net: for Cha ``generate.cu`` (``merged_covers``: ELU MLPs whose
+        hidden layers are all of one width, 64, 128, or 256 to 1024 in
+        steps of 128 (``GENERATE_TC_WIDTHS``), at nx <= 1024 in "bf16x3"
+        and "default"; of width 128 at nx <= 511 in "highest"), for the
+        OU equation ``generate_pis.cu`` (``pis_covers``: a PISGradNet of
+        width 512 at nx <= 512 in "default" or "bf16x3"); else SPLIT with
+        one printed notice (nets of unequal hidden widths or of other
+        widths, other activations, an output bound, nx past the limits,
+        EnforceTerminal, plain MLPs on OU, "highest" with a PISGradNet or
+        beyond width 128 and nx 511, antithetic pairing on OU: forced
+        with True, each of these raises NotImplementedError on the card
+        before any launch); and SPLIT, silently, for the zero iterate at
+        nx below ZERO_ITERATE_MIN_NX, where the chunk estimators are
+        faster."""
     mode = gen.pallas_generate
     if not _integral_kernel_applies(eq):
         return SPLIT

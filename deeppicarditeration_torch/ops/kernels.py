@@ -439,7 +439,8 @@ def kernel_net(sol: Solution, nx: int, width=KERNEL_WIDTH
     """The MLP the net kernels run for ``sol`` (None for the zero iterate).
     Raises for a frozen iterate they do not cover (``width``: the hidden
     width they are compiled for, or a tuple of widths: every hidden layer
-    of one of them)."""
+    of one and the same of them; unequal widths, other activations, an
+    output bound or more than one output raise)."""
     widths = (width,) if isinstance(width, int) else tuple(width)
     if sol.kind == "zero":
         return None
@@ -454,10 +455,11 @@ def kernel_net(sol: Solution, nx: int, width=KERNEL_WIDTH
             or any(a != "ELU" for a in mod.activations)
             or len(set(mod.neurons)) != 1 or mod.neurons[0] not in widths
             or mod.layers[0].in_features != 1 + nx):
-        shown = " or ".join(str(w) for w in widths)
+        *head, last = map(str, widths)
+        shown = f"{', '.join(head)} or {last}" if head else last
         raise NotImplementedError(
-            f"the CUDA estimator kernel covers ELU MLPs of hidden width "
-            f"{shown} with one unclamped output (got neurons "
+            f"the CUDA estimator kernel covers ELU MLPs whose hidden layers "
+            f"are all of width {shown}, with one unclamped output (got neurons "
             f"{mod.neurons}, activations {mod.activations}, bound "
             f"{mod.bound}, out_dim {mod.out_dim})")
     if any(p.dtype != torch.float32 for p in mod.parameters()):
@@ -467,10 +469,14 @@ def kernel_net(sol: Solution, nx: int, width=KERNEL_WIDTH
 
 # The merged kernel's cover (csrc/generate.cu), held equal to the built
 # library's by the card tests: the tensor-core kernel ("bf16x3",
-# "default"; dpi_generate_tc_widths, dpi_generate_tc_max_nx) and the
+# "default"; dpi_generate_tc_widths, dpi_generate_tc_max_nx: widths 64
+# and 128, and 256 to 1024 in steps of 128, the wide pass) and the
 # FP32-FMA kernel ("highest"; dpi_generate_hidden_width,
 # dpi_generate_max_nx)
-GENERATE_TC_WIDTHS, GENERATE_TC_MAX_NX = (128, 256), 1024
+GENERATE_TC_WIDTHS = (64, 128) + tuple(range(256, 1025, 128))
+GENERATE_TC_MAX_NX = 1024
+# capacity of the buffer dpi_generate_tc_widths fills
+TC_WIDTHS_CAP = 16
 GENERATE_FMA_WIDTH, GENERATE_FMA_MAX_NX = KERNEL_WIDTH, 511
 
 
@@ -701,7 +707,7 @@ def _tc_net_for_launch(dll: ctypes.CDLL, sol: Solution, tx: torch.Tensor,
     """(module or None, hidden layers, scratch bytes) of the merged
     tensor-core kernel in the built library ``dll``: the scratch its plan
     keeps at the net's width."""
-    widths = (ctypes.c_int * 4)()
+    widths = (ctypes.c_int * TC_WIDTHS_CAP)()
     widths = tuple(widths[:dll.dpi_generate_tc_widths(widths)])
     if nx > dll.dpi_generate_tc_max_nx():
         raise NotImplementedError(
@@ -768,29 +774,33 @@ def generate_tc_l2_bytes(b: int, m: int, nx: int, n_hidden: int,
     by ``plan`` (``library_tc_plan``'s): the weight slabs the producer
     stages (each ring pass serves the two warpgroups' tiles of a point; hi
     and lo images under bf16x3, hi alone under "default"; a slab is 128
-    output rows, so a width-256 layer takes twice the slabs, and its first
-    layer's K-slabs are staged once for each half), and the global
+    output rows (at width 64 the layer's 64), so a layer of width past 128
+    takes width / 128 column blocks of width / 64 K-slabs each, and its
+    first layer's K-slabs are staged once for each block), and the global
     scratch: the saved derivatives written and read once a tile, the
     tiles' normals written once and read twice (layer 1's input, the sums;
-    at width 256 read once more: each half of layer 1 reads them) where the
-    plan keeps them there, and at width 256 the layer outputs (TILE x 256
-    f32 a layer: layers 1..L forward and L-1..2 backward written, each of
-    the 2 (L - 1) hidden products' inputs read once a half). A count of
-    the plan, not a measurement."""
+    past width 128 once more for each further block of layer 1) where the
+    plan keeps them there, and past width 128 the layer outputs (TILE x
+    width f32 a layer: layers 1..L forward and L-1..2 backward written,
+    each of the 2 (L - 1) hidden products' inputs read once a block). A
+    count of the plan, not a measurement."""
     passes = -(-(-(-m // TC_TILE)) // TC_NWG)
-    halves = width // 128
-    slabs = (halves * (tc_k1(nx) // TC_SLAB_K + 4 * halves * (n_hidden - 1))
+    blocks = max(1, width // 128)
+    slabs = (blocks * tc_k1(nx) // TC_SLAB_K
+             + 2 * blocks * (width // TC_SLAB_K) * (n_hidden - 1)
              if n_hidden else 0)
-    slab = TC_STAGE_BYTES // (1 if precision == "bf16x3" else 2)
+    slab = (TC_STAGE_BYTES // (1 if precision == "bf16x3" else 2)
+            * min(width, 128) // 128)
     tiles = b * passes * TC_NWG
     saves = (0 if plan["save_smem"] or n_hidden < 2 else
              tiles * (n_hidden - 1) * TC_SAVE_LAYER_FLOATS[width] * 4 * 2)
-    reads = 2 + (halves if n_hidden else 1)
+    reads = 2 + (blocks if n_hidden else 1)
     normals = 0 if plan["dw_smem"] else tiles * TC_TILE * nx * 4 * reads
     acts = 0
-    if halves > 1 and n_hidden > 1:
+    if blocks > 1 and n_hidden > 1:
         layer = TC_TILE * width * 4
-        acts = tiles * layer * ((2 * n_hidden - 2) + 2 * 2 * (n_hidden - 1))
+        acts = tiles * layer * ((2 * n_hidden - 2)
+                                + blocks * 2 * (n_hidden - 1))
     weights = b * passes * slabs * slab
     scratch = saves + normals + acts
     return {"weights": weights, "scratch": scratch,
@@ -857,8 +867,9 @@ def generate_with_gradients_cuda(seed: int, eq, sol: Solution,
     (B, rows, nx) it uses those, as the TPU kernel does (its test path).
     ``antithetic`` pairs each draw with its mirror: rows = m / 2.
     ``precision`` (``PRECISIONS``): "highest" launches the FP32-FMA kernel,
-    "bf16x3" and "default" the tensor-core kernel (hidden width 128 or 256,
-    nx up to ``GENERATE_TC_MAX_NX``). CPU tensors take
+    "bf16x3" and "default" the tensor-core kernel (``GENERATE_TC_WIDTHS``:
+    hidden width 64, 128, or 256 to 1024 in steps of 128, nx up to
+    ``GENERATE_TC_MAX_NX``). CPU tensors take
     ``generate_with_gradients_plain``; on any other device a case the
     kernel does not cover (``merged_covers``) raises NotImplementedError
     before the library is loaded. ``lib``: another build of

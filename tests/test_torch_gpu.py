@@ -1419,7 +1419,7 @@ def test_cover_constants_equal_the_built_libraries(cuda):
     """ops/kernels.py's limits, which merged_covers and pis_covers read
     before any launch, are the built kernels' own."""
     dll = kernels.GENERATE.lib()
-    widths = (ctypes.c_int * 4)()
+    widths = (ctypes.c_int * kernels.TC_WIDTHS_CAP)()
     n = dll.dpi_generate_tc_widths(widths)
     assert tuple(widths[:n]) == kernels.GENERATE_TC_WIDTHS
     assert dll.dpi_generate_tc_max_nx() == kernels.GENERATE_TC_MAX_NX
@@ -1476,7 +1476,35 @@ def test_merged_kernel_at_high_dimension_matches_plain(cuda, precision, anti,
     torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("precision", ["bf16x3", "default"])
+@pytest.mark.parametrize("anti", [False, True])
+@pytest.mark.parametrize("nx,width,n_hidden,m", [
+    (256, 64, 3, 128), (33, 64, 1, 70), (100, 64, 6, 64),
+    (100, 512, 4, 128), (256, 512, 6, 64), (512, 1024, 2, 128),
+    (7, 1024, 1, 64), (100, 384, 3, 70), (1024, 896, 2, 64)])
+def test_merged_kernel_at_the_matrix_widths_matches_plain(cuda, precision,
+                                                          anti, nx, width,
+                                                          n_hidden, m):
+    """The tensor-core kernel at the JAX package's dispatcher-matrix nets
+    (3x64, 4x512, 6x512, 2x1024: the width-64 pass and the wide pass's
+    column blocks) and at other depths and widths of both passes (one
+    hidden layer, 384 and 896: an odd count of column blocks), against the
+    plain version in the same mode on the same noise."""
+    b, rows = 8, m // 2 if anti else m
+    eq, _, tx, u01, nt, ni = _problem(cuda, b, rows, nx, net=False)
+    sol = _deep(cuda, nx, (width,) * n_hidden)
+    assert kernels.merged_covers(eq, sol, precision) is None
+    kw = dict(antithetic=anti, precision=precision)
+    out = kernels.generate_with_gradients_cuda(0, eq, sol, tx, m, u01, nt,
+                                               ni, **kw)
+    ref = kernels.generate_with_gradients_plain(0, eq, sol, tx, m, u01, nt,
+                                                ni, **kw)
+    torch.cuda.synchronize()
+    tol = ONE_PASS_TOL if precision == "default" else RTOL
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("width", [64, 128, 256, 512, 1024])
 def test_merged_kernel_draws_equal_the_host_philox_at_1024(cuda, width):
     b, m, nx = 4, 128, 1024
     eq, _, tx, *_ = _problem(cuda, b, 1, nx, net=False)

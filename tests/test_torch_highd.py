@@ -166,9 +166,9 @@ def test_auto_takes_the_merged_kernel_at_the_records(nx, neurons, precision,
 @pytest.mark.parametrize("nx,neurons,precision,why", [
     (1025, (128,) * 4, "bf16x3", "nx=1025 exceeds its 1024"),
     (2048, (256,) * 2, "default", "nx=2048 exceeds its 1024"),
-    (100, (192,) * 4, "bf16x3", "hidden width 128 or 256"),
-    (100, (256, 128), "bf16x3", "hidden width 128 or 256"),
-    (100, (256,) * 4, "highest", "hidden width 128 "),
+    (100, (192,) * 4, "bf16x3", "all of width 64, 128, 256, 384"),
+    (100, (256, 128), "bf16x3", "all of width 64, 128, 256, 384"),
+    (100, (256,) * 4, "highest", "all of width 128,"),
     (512, (128,) * 4, "highest", "nx=512 exceeds its 511"),
 ])
 def test_auto_splits_with_one_notice_where_the_kernel_does_not_cover(
@@ -281,7 +281,8 @@ def test_l2_bytes_at_path_s(precision, slab):
     layer = 64 * 256 * 4
     assert v["scratch"] == tiles * (3 * layer * 2 + 64 * nx * 4 * 4
                                     + layer * (6 + 12))
-    assert kernels.TC_SAVE_LAYER_FLOATS == {128: 64 * 128, 256: 64 * 256}
+    assert {w: kernels.TC_SAVE_LAYER_FLOATS[w] for w in (128, 256)} == {
+        128: 64 * 128, 256: 64 * 256}
 
 
 # ---------------------------------------------------------------------------
