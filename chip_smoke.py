@@ -79,7 +79,7 @@ TRAIN.FUSED's "auto"):
      the merged kernel at nx 512, 4x128, bf16x3;
   S  the same recipe at nx = 1024, B = 8192, M = 32768 + 32768, a 4x256
      ELU net, 24 epochs (burgers1024d_b8k_r5.jsonl): the merged kernel's
-     width-256 pass;
+     width-256 instance (its layer chain on chip);
   T  configs/hjb/base_100d_T1.0_w0.1.yaml at nx = 512, B = 8192, M = 8192
      + 8192, 24 epochs (hjb512d_scaled_r5.jsonl): the PIS kernel's wide
      instance, "default". R, S, T: read from configs/ by the port's YAML
@@ -1835,15 +1835,30 @@ def width_split_reference(paths=tuple(WIDTH_PATHS), n_iter: int = None):
 
 # ---- work and bound models (per call, from the call's shapes) -------------
 
-def _terminal_work(b, m, nx, anti):
+# per normal (FP32 FLOPs, INT32, SFU, other instructions): the terminal
+# kernel's draw loop (above), which every draw model takes unless it is
+# given a kernel's own (_per_normal)
+PER_NORMAL = (FP32_PER_NORMAL, INT_PER_NORMAL, SFU_PER_NORMAL,
+              OTHER_PER_NORMAL)
+
+
+def _per_normal(mix: dict) -> tuple:
+    """PER_NORMAL's counts from a draw loop's SASS mix per normal
+    (``probe_roofline.generate_draw_mix``)."""
+    fp32, i32, sfu = mix["fp32"], mix["int"], mix["sfu"]
+    return 2 * fp32, i32, sfu, mix["all"] - fp32 - i32 - sfu
+
+
+def _terminal_work(b, m, nx, anti, per_normal=PER_NORMAL):
     """The work model (FP32, INT32, SFU, bytes, bf16 tensor, other) of one
-    terminal estimator call: the normals, X_T and the sums (5 FP32 FLOPs
-    per sample and dimension), the sigmoid per sample; t, x, g0 in,
-    (B, 1 + nx) out."""
+    terminal estimator call: the normals (``per_normal`` each), X_T and the
+    sums (5 FP32 FLOPs per sample and dimension), the sigmoid per sample;
+    t, x, g0 in, (B, 1 + nx) out."""
     n = b * (m // 2 if anti else m) * nx
-    return (FP32_PER_NORMAL * n + 5 * b * m * nx + 4 * b * m,
-            INT_PER_NORMAL * n, SFU_PER_NORMAL * n + 2 * b * m,
-            4 * (b * (2 + nx) + b * (1 + nx)), 0, OTHER_PER_NORMAL * n)
+    fp32, i32, sfu, other = per_normal
+    return (fp32 * n + 5 * b * m * nx + 4 * b * m, i32 * n,
+            sfu * n + 2 * b * m, 4 * (b * (2 + nx) + b * (1 + nx)), 0,
+            other * n)
 
 
 def _net_work(nx, neurons, precision):
@@ -1873,25 +1888,34 @@ def _net_work(nx, neurons, precision):
     return passes * (net - mm) + split + epilogue, passes * mm
 
 
-def _integral_work(b, m, nx, anti, neurons, n_weights, precision="highest"):
-    """The same for one integral estimator call: normals and the time
-    uniforms, X_s and the sums (4 FP32 per sample and dimension), the net's
-    forward and backward pass (``_net_work``), an exp per hidden unit
-    (ELU), ~10 FP32 and 2 special functions per sample; t, x, f0 and the
-    weights in, (B, 1 + nx) out."""
+def _integral_work(b, m, nx, anti, neurons, n_weights, precision="highest",
+                   per_normal=PER_NORMAL):
+    """The same for one integral estimator call: normals (``per_normal``
+    each) and the time uniforms, X_s and the sums (4 FP32 per sample and
+    dimension), the net's forward and backward pass (``_net_work``), an
+    exp per hidden unit (ELU), ~10 FP32 and 2 special functions per sample;
+    t, x, f0 and the weights in, (B, 1 + nx) out."""
     rows = m // 2 if anti else m
     n, n_u = b * rows * nx, b * rows
     net_fp32, net_tensor = _net_work(nx, neurons, precision)
-    return (FP32_PER_NORMAL * n + n_u + b * m * (net_fp32 + 4 * nx + 10),
-            INT_PER_NORMAL * n + INT_PER_WORD * n_u,
-            SFU_PER_NORMAL * n + b * m * (2 + sum(neurons)),
+    fp32, i32, sfu, other = per_normal
+    return (fp32 * n + n_u + b * m * (net_fp32 + 4 * nx + 10),
+            i32 * n + INT_PER_WORD * n_u,
+            sfu * n + b * m * (2 + sum(neurons)),
             4 * (b * (2 + nx) + n_weights + b * (1 + nx)),
-            b * m * net_tensor, OTHER_PER_NORMAL * n)
+            b * m * net_tensor, other * n)
 
 
-def _merged_work(b, m, nx, anti, neurons, n_weights, precision="highest"):
-    t = _terminal_work(b, m, nx, anti)
-    i = _integral_work(b, m, nx, anti, neurons, n_weights, precision)
+def _merged_work(b, m, nx, anti, neurons, n_weights, precision="highest",
+                 per_normal=None):
+    """The merged kernel's work: the terminal and integral models', the
+    per-normal counts the terminal kernel's (PER_NORMAL), or by chain
+    (``per_normal``: {"terminal": ..., "integral": ...}, a kernel's
+    own)."""
+    own = per_normal or {}
+    t = _terminal_work(b, m, nx, anti, own.get("terminal", PER_NORMAL))
+    i = _integral_work(b, m, nx, anti, neurons, n_weights, precision,
+                       own.get("integral", PER_NORMAL))
     w = [a + c for a, c in zip(t, i)]
     w[3] = i[3] + 4 * b
     return tuple(w)
@@ -2942,6 +2966,8 @@ def _expect_launches(path, runner, launches, seen, want):
 # PERF.md §6): a build that spills more fails phase 1. The integral
 # kernel's instances are to reach none (ROADMAP §B).
 SPILLS_MAX = {"generate_tc_kernel<bf16x3, 128>": (12, 15),
+              "generate_tc_kernel<bf16x3, 256>": (282, 399),
+              "generate_tc_kernel<default, 256>": (343, 458),
               "generate_tc_kernel<default, 128>": (11, 13),
               "generate_tc_kernel<bf16x3, 64>": (10, 12),
               "generate_tc_kernel<default, 64>": (10, 12),
@@ -2956,13 +2982,15 @@ SPILLS_MAX = {"generate_tc_kernel<bf16x3, 128>": (12, 15),
               "integral_tc_kernel<highest>": (28, 32)}
 # each tensor-core kernel's instances by their mangled template arguments:
 # the merged kernel's generate_tc_kernel<P, HW> (P passes; HW the hidden
-# width 64 or 128, or 0: the wide pass of widths 256 to 1024), the HJB
+# width 64, 128 or 256 (the layer chain on chip), or 0: the wide pass of
+# widths 384 to 1024), the HJB
 # kernel's generate_pis_kernel<X3, W> (W: nx > 128), the integral kernel's
 # integral_tc_kernel<P>
 INSTANCES = {
     "generate_tc_kernel": {
         f"{mode}, {label}": f"generate_tc_kernelILi{p}ELi{hw}EE"
-        for label, hw in (("128", 128), ("64", 64), ("wide", 0))
+        for label, hw in (("128", 128), ("64", 64), ("256", 256),
+                          ("wide", 0))
         for mode, p in (("bf16x3", 3), ("default", 1))},
     "generate_pis_kernel": {
         f"{mode}{', nx > 128' if w else ''}":
@@ -3186,6 +3214,12 @@ def main(argv=None) -> int:
         probe_roofline.library_sass(kernels.TERMINAL))
     print("terminal kernel's SASS per normal at nx=100 (the draw loop's "
           "fast path): " + json.dumps(terminal_sass))
+    # the merged kernel's own draw loops at S's instance, for its bound
+    # beside the terminal kernel's counts (phase 11, path S)
+    generate_sass = probe_roofline.generate_draw_mix(
+        probe_roofline.library_sass(kernels.GENERATE))
+    print("merged kernel's own SASS per normal at S's instance "
+          f"({probe_roofline.GENERATE_256}): " + json.dumps(generate_sass))
     max_err = {f"{lib.source.stem}{sfx}": 0.0 for lib in kernels.ALL
                for sfx in ("", " bf16x3", " default")}
 
@@ -3776,11 +3810,30 @@ def main(argv=None) -> int:
                   f"{plan_p}: {v['total'] / 1e9:.2f} GB (weight slabs "
                   f"{v['weights'] / 1e9:.2f}, scratch "
                   f"{v['scratch'] / 1e9:.2f})")
+        own_bound = {}
+        if path == "S":
+            # the bound with the merged kernel's own draw loops (phase 1)
+            # in place of the terminal kernel's, printed beside the row's
+            own = dict.fromkeys(("terminal", "integral"),
+                                _per_normal(generate_sass["draw_loop"]))
+            bd_own = _bound(_merged_work(nb_p, mm_p, nx_p, False, neurons_p,
+                                         n_w_p, mode_p, own))
+            own_bound = {"bound_ms_own_sass": bd_own[0],
+                         "bound_pipe_own_sass": bd_own[2]}
+            print(f"path S's bound with generate.cu's own SASS per normal "
+                  f"{json.dumps(own)}: {bd_own[0]:.2f} ms ({bd_own[2]}), "
+                  f"beside {_bound(work)[0]:.2f} ms ({_bound(work)[2]}) with "
+                  f"the terminal kernel's (533.84 ms TENSOR under the "
+                  f"wide pass)")
         row(lib_name, stem, f"{src}:869", path, launches_p[stem],
             runner_p.generate_calls, ms_p, plain_p, work,
             shape=f"B={nb_p} M={mm_p} nx={nx_p}, {net}", mode=mode_p,
             err_key=f"{stem} {mode_p} path {path}",
-            extra={"instance": f"path {path}: nx={nx_p}, {net}",
+            extra={"instance": f"path {path}: nx={nx_p}, {net}"
+                   + ("" if path == "T" else ", generate_tc_kernel<"
+                      f"{mode_p}, "
+                      f"{kernels.generate_tc_instance(neurons_p[0])}>"),
+                   **own_bound,
                    "launches_per_iteration": launches_p[stem] / n_run,
                    "plain_ms_calls": 1, "plain_returns_var": True,
                    "plain_ms_points": nc_p, "clt_max_z": z_p,

@@ -76,14 +76,32 @@
 //     against 35.67, antithetic M = 8192 86.74 against 84.30, all within
 //     3 % of the build before nx 512 (46.30, 35.21, 84.69)); a persistent
 //     grid.
-//     Three passes, one instance each a mode (generate_tc_kernel<P, HW>):
+//     Four passes, one instance each a mode (generate_tc_kernel<P, HW>):
 //       - width 128 (net_pass_narrow<X3, 128>, above);
 //       - width 64 (net_pass_narrow<X3, 64>): a layer is one wgmma m64n64
 //         product per k16 chunk into a 32-float accumulator, a hidden
 //         layer's K = 64 one slab (the 64 x 64 image of W, read K-major
 //         forward and MN-major backward), the output in registers as at
 //         width 128;
-//       - widths 256 to 1024 (net_pass_wide, HW = WIDE, the width a
+//       - width 256 (net_pass256, HW = N256): the layer chain on chip,
+//         both chains on the consumers (the note at net_pass256). It
+//         replaced the wide pass at that width for path S (nx = 1024, B =
+//         4096 a call, M = 32768), where the wide pass took 4275.93 ms,
+//         8.0x its bound: its stamp trace (utils/generate_bench.py
+//         --stamps, per tile pair, H100 80GB HBM3 700 W) put 426 k of
+//         its ~1.02 M cycles in building layer 1's A from the tiles'
+//         normals in global scratch (67 MB of them over the grid: HBM, not
+//         L2), and the terminal warps worked 503 k, latency-bound (one warp
+//         a scheduler, 4.6 cycles an instruction); with every scratch
+//         access taken out the kernel still took 62 % of its time.
+//         Measured in turns with that build at S's shape (B = 4096, M =
+//         32768; utils/generate_bench.py, H100 80GB HBM3 700 W): bf16x3
+//         2930.59 against 4302.44 ms, "default" 2343.65 against 3857.07,
+//         antithetic (B = 1056, M = 65536) 1464.94 against 2159.36; what
+//         binds it now: the draws (158 k cycles a tile pair), layer 1's A
+//         from the kept normals (207 k) and the epilogues of 128
+//         accumulators, which spill (182 k), against 126 k of products.
+//       - widths 384 to 1024 (net_pass_wide, HW = WIDE, the width a
 //         runtime value): each warpgroup keeps its own tile and takes a
 //         layer in hw / 128 column blocks of m64n128, each over all of
 //         the layer's K-slabs; a block's output goes back as the next
@@ -337,20 +355,35 @@ constexpr int TERM_BAR_THREADS = TC_CONSUMERS + AUX_THREADS;
 // The tensor-core kernel's cover: nx (its output columns past the
 // consumers' registers in shared memory) and the hidden widths it is built
 // for: H64 = 64 and H = 128 (net_pass_narrow) and every multiple of 128
-// from 256 to GEN_MAX_WIDTH (net_pass_wide, one instance: WIDE).
+// from 256 to GEN_MAX_WIDTH: 256 (net_pass256, instance N256), the rest
+// net_pass_wide (one instance: WIDE).
 constexpr int GEN_MAX_NX = 1024;
 constexpr int H64 = 64;
 constexpr int WIDE = 0;  // the instance of widths 256 .. GEN_MAX_WIDTH
 constexpr int GEN_MAX_WIDTH = 1024;
+
+// the width-256 instance's tile images and ring stages (net_pass256)
+constexpr int N256 = 256;
+constexpr int A256_CHUNK = 2 * 8 * 128;      // a k16 chunk of a tile image
+constexpr int A256_IMAGE = 16 * A256_CHUNK;  // 64 x 256 bf16: 32 KB
+constexpr int A256_BYTES = 2 * A256_IMAGE;   // hi and lo
+constexpr int N256_IMAGE = N256 * 16 * 2;    // a 256-row k16 slab: 8 KB
+constexpr int STAGE256 = 2 * N256_IMAGE;     // hi and lo
+// arrivals that free a ring stage: one a consumer warp
+constexpr int EMPTY256_ARRIVALS = tc::TC_CONSUMERS / 32;
+
+// layer 1's k16 chunks: 1 + nx columns
+__host__ __device__ inline int chunks1(int nx) { return (nx + 16) / 16; }
 
 __host__ __device__ inline bool covered_width(int hw) {
   return hw == H64 || hw == H ||
          (hw >= 2 * H && hw <= GEN_MAX_WIDTH && hw % H == 0);
 }
 
-// the instance (template HW) of a covered width
+// the instance (template HW) of a covered width, from the width alone
+// (ops/kernels.py:generate_tc_instance)
 __host__ __device__ inline int instance_of(int hw) {
-  return hw == H64 || hw == H ? hw : WIDE;
+  return hw == H64 || hw == H || hw == N256 ? hw : WIDE;
 }
 
 // The merged kernel's shared memory beside the ring: each consumer
@@ -363,7 +396,74 @@ __host__ __device__ inline tc::Layout gen_layout(int nx, int hw) {
   tc::Layout k{1, 1, nx, 2 * tc::IMAGE_BYTES};
   k.save_layer = tc::TILE * hw;
   if (hw > H) k.act = 2 * (hw / 2) * tc::CONSUMERS;
+  if (instance_of(hw) == N256) k.stage_bytes = STAGE256;
   return k;
+}
+
+// The width-256 instance's shared memory: the two warpgroups' tile images
+// (hi and lo), the ring of 256-row k16 slabs, the point's x, the tiles'
+// rows (NROWS256 arrays), the point's sum_j x_j (at tred), and (at red)
+// each warpgroup's sums of both chains over the point (1 + nx each); no
+// tile of normals, no saved derivatives, no terminal warps' sums
+constexpr int NROWS256 = tc::NROWS + 2;
+__host__ __device__ inline size_t sums256_floats(int nx) {
+  return tc::align16((size_t)(1 + nx) * 4) / 4;
+}
+__host__ __device__ inline tc::GPlan gplan256(int nx, int stages) {
+  using namespace tc;
+  GPlan p = gplan(nx, 0, gen_layout(nx, N256), 0, 0, 0);
+  size_t o = 0;
+  p.stages = stages;
+  p.act = o;
+  o += (size_t)NWG * A256_BYTES;
+  p.ring = o;
+  o += (size_t)stages * STAGE256;
+  p.save = p.dw = p.xrow = o;
+  o += align16((size_t)nx * 4);
+  p.rows = o;
+  o += (size_t)NWG * NROWS256 * TILE * 4;
+  p.tacc = p.tred = o;
+  o += 16;
+  p.red = o;
+  o += (size_t)NWG * 2 * sums256_floats(nx) * 4;
+  p.isum = p.sums = p.bars = o;
+  o += (size_t)2 * MAX_STAGES * 8;
+  p.total = o;
+  return p;
+}
+
+// the deepest ring of 2..MAX_STAGES stages that fits; stages = -1 if none
+__host__ __device__ inline tc::GPlan choose_gplan256(int nx) {
+  for (int st = tc::MAX_STAGES; st >= 2; --st) {
+    const tc::GPlan p = gplan256(nx, st);
+    if (p.total <= tc::SMEM_LIMIT) return p;
+  }
+  tc::GPlan bad = gplan256(nx, 0);
+  bad.stages = -1;
+  return bad;
+}
+
+// global scratch floats a block of the width-256 instance keeps: each
+// warpgroup's L - 1 layers of saved elu'(z), then each warpgroup's tile of
+// normals of both chains (a float4 a quad of dimensions)
+__host__ __device__ inline size_t saves256_floats(int L) {
+  return L > 1 ? (size_t)(L - 1) * tc::TILE * N256 : 0;
+}
+__host__ __device__ inline size_t scratch_floats256(int nx, int L) {
+  return (size_t)tc::NWG *
+         (saves256_floats(L) + (size_t)2 * tc::TILE * 4 * ((nx + 3) / 4));
+}
+
+// the plan of a covered width's instance
+__host__ __device__ inline tc::GPlan plan_of(int nx, int L, int hw) {
+  return instance_of(hw) == N256 ? choose_gplan256(nx)
+                                 : tc::choose_gplan(nx, L, gen_layout(nx, hw));
+}
+__host__ __device__ inline size_t scratch_of(const tc::GPlan& pl, int nx,
+                                             int L, int hw) {
+  return instance_of(hw) == N256
+             ? scratch_floats256(nx, L)
+             : tc::scratch_floats(pl, gen_layout(nx, hw), L);
 }
 
 }  // namespace
@@ -773,7 +873,9 @@ __device__ __forceinline__ void produce64(const Params& p, uint32_t ring,
 // outputs (64 x hw f32 a warpgroup, two buffers) do not fit in shared
 // memory beside the ring and the rows of normals: so each thread writes
 // its blocks to its warpgroup's buffers in global scratch ([float][thread],
-// coalesced; L2-resident where the grid's buffers fit) and reads them
+// coalesced; not L2-resident: the layer outputs alone are 1 KB x hw a
+// block, 68 MB over the grid at width 512, past the 50 MB L2 at every
+// width this pass takes, the saved derivatives beside them) and reads them
 // back, a K-slab (32 floats) at a time, as the next layer's A fragments:
 // the m64n128 accumulator's layout is the A fragments' (acc_col), so a
 // thread reads back only what it wrote. Every block of a layer reads the
@@ -1033,6 +1135,661 @@ __device__ __forceinline__ void produce_wide(const Params& p, uint32_t ring,
       }
 }
 
+// ---- width 256: the layer chain on chip (generate_tc_kernel<P, N256>) -----
+// At width 256 a tile's layer output, kept as the bf16 images (hi, and lo
+// under bf16x3) that the next product reads, is 32 KB an image: each
+// consumer warpgroup keeps its own 64-row tile's in shared memory (64 KB,
+// act), and a layer is one m64n256 product per k16 chunk (128 f32
+// accumulators a thread) with A read from that image and B from the ring,
+// whose stages are 256-row k16 slabs (8 KB an image, hi and lo: 16 KB, one
+// contiguous copy each: pack_mlp_tc's chunk_major images), so that every
+// input chunk and every weight slab is read once a layer; the products
+// overwrite nothing until their last wait, so the epilogue writes the
+// output over the input. Both warpgroups read every stage (a weight byte
+// serves 128 samples), without turns, one group in flight while the next
+// is issued; a stage is freed by each consumer warp's lane 0.
+// Both chains run on the consumers (no terminal warps: the producer
+// warpgroup keeps 40 registers, the consumers take 232). A tile's normals
+// are drawn once, before its net pass, in a phase of their own with no
+// accumulator live (draw_tile256: both chains, two quads of each at a
+// time, the terminal chain's first pass summed there), into the
+// warpgroup's rows in global scratch; layer 1 builds each chunk's A from
+// them (the next chunk's loaded while the current one is built) into a
+// 2 KB slot of the image, and the sums read them once more after the net
+// (accumulate256). Why: the wide pass built layer 1's A from normals in
+// scratch with each load on the products' path, and its terminal warps
+// (one a scheduler) ran latency-bound; drawing the normals again where
+// they are used, inside the product loops, left too few registers beside
+// the 128 accumulators (spills), and the draws are bound by the card's
+// rate for them, not by their latency (PERF.md §6), so each normal
+// is drawn once, where nothing else is live. The saved ELU derivatives (TILE x 256
+// f32 a layer) stay in scratch too, as float4, prefetched to L2 while the
+// backward layer's products run.
+
+// d (64 x 256 f32) += A (64 x 16 bf16, shared memory at da) B (16 x 256
+// bf16, shared memory at db; TRANS_B = 1: read MN-major)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma256(float (&d)[2 * NACC], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      " %0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, 0, %131;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
+}
+
+// A tile image: core matrices of 8 rows x 8 columns (128 B), core (row /
+// 8, col / 8) at ((col / 8) x 8 + row / 8) x 128 B, so a k16 chunk is 2 KB
+// (LBO 1024 B along K, SBO 128 B along M); B slabs: forward K-major, 32
+// core rows of 2 cores (LBO 128 B, SBO 256 B), backward the 16 rows of W
+// MN-major, 2 core rows of 32 cores (LBO 4096 B along K, SBO 128 B)
+__device__ __forceinline__ uint32_t act_off256(int row, int col) {
+  return (uint32_t)(((((col >> 3) << 3) + (row >> 3)) << 7) +
+                    ((row & 7) << 4) + ((col & 7) << 1));
+}
+__device__ __forceinline__ uint64_t desc_a256(uint32_t a) {
+  return gmma_desc(a, 1024, 128);
+}
+template <int TRANS_B>
+__device__ __forceinline__ uint64_t desc_b256(uint32_t b) {
+  return TRANS_B ? gmma_desc(b, 4096, 128) : gmma_desc(b, 128, 256);
+}
+
+// One k16 chunk's products, as one wgmma group: hi*hi (+ lo*hi + hi*lo
+// under bf16x3), A's chunk at byte a (hi image; lo A256_IMAGE after), B
+// the stage at st (hi image; lo N256_IMAGE after)
+template <int TRANS_B, bool X3>
+__device__ __forceinline__ void chunk256(float (&acc)[2 * NACC], uint32_t a,
+                                         uint32_t st) {
+  fence_acc(acc);
+  wgmma_fence();
+  const uint64_t da = desc_a256(a), db = desc_b256<TRANS_B>(st);
+  wgmma256<TRANS_B>(acc, da, db);
+  if (X3) {
+    wgmma256<TRANS_B>(acc, desc_a256(a + A256_IMAGE), db);
+    wgmma256<TRANS_B>(acc, da, desc_b256<TRANS_B>(st + N256_IMAGE));
+  }
+  wgmma_commit();
+}
+
+// After chunk c's group was issued: wait for chunk c - 1's and free its
+// stage (nothing at c = 0)
+// (a stage is free once each consumer warp's lane 0 released it:
+// EMPTY256_ARRIVALS)
+__device__ __forceinline__ void release256(Ring& ring, int n) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) ring.release_slab(n);
+}
+__device__ __forceinline__ void retire256(float (&acc)[2 * NACC], Ring& ring,
+                                          int c, int& freed) {
+  if (c > 0) {
+    wgmma_wait<1>();
+    fence_acc(acc);
+    release256(ring, freed++);
+  }
+}
+__device__ __forceinline__ void drain256(float (&acc)[2 * NACC], Ring& ring,
+                                         int& freed) {
+  wgmma_wait<0>();
+  fence_acc(acc);
+  release256(ring, freed++);
+}
+
+// the shared-memory writes of this warpgroup's threads, made visible to
+// its products
+__device__ __forceinline__ void publish256(int wg) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  named_sync(BAR_WG + wg, CONSUMERS);
+}
+
+// columns (col, col + 1) of row, f32 values a, b, into the tile image:
+// split_hi_lo's pieces, each pair rounded by one packing conversion
+template <bool X3>
+__device__ __forceinline__ void put_pair256(unsigned char* act, int row,
+                                            int col, float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const uint32_t o = act_off256(row, col);
+  *reinterpret_cast<__nv_bfloat162*>(act + o) = h;
+  if (X3)
+    *reinterpret_cast<__nv_bfloat162*>(act + A256_IMAGE + o) =
+        __floats2bfloat162_rn(a - __low2float(h), b - __high2float(h));
+}
+
+// a point's terms of the terminal chain: cT = sqrt(Tt) sqrt(a), sum_j x_j,
+// g(x)
+struct PointTerm {
+  float cT, sx, g0;
+};
+
+// a warpgroup's sums over a point's samples in shared memory (1 + nx
+// each: the value, then the columns): the terminal chain's and the
+// integral chain's
+struct Sums256 {
+  float* t;
+  float* i;
+};
+
+// the normals of quad q (dimensions 4 q ..) of draw kd on a chain (its
+// external noise, or its own draws on `stream`: draws.cuh's guard-free
+// Box-Muller, philox.cuh's bits), zero past nx
+__device__ __forceinline__ void quad256(const Params& p, const float* noise,
+                                        uint32_t stream, int b, int kd, int q,
+                                        uint2 key, float (&v)[4]) {
+  const int nx = p.nx;
+  if (noise) {
+    const int Md = p.anti ? p.M / 2 : p.M;
+    const float* src = noise + ((size_t)b * Md + kd) * nx;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) v[r] = 4 * q + r < nx ? src[4 * q + r] : 0.0f;
+    return;
+  }
+  const float4 n = unit_normals4(philox4x32_10(
+      make_uint4((uint32_t)kd, (uint32_t)q, stream, p.seed_hi), key));
+  v[0] = n.x;
+  v[1] = 4 * q + 1 < nx ? n.y : 0.0f;
+  v[2] = 4 * q + 2 < nx ? n.z : 0.0f;
+  v[3] = 4 * q + 3 < nx ? n.w : 0.0f;
+}
+
+// Layer 1's chunk c of the tile's A, [X_s, s] (zero past it), into slot c
+// mod 16 of the image: 64 rows x 4 quads, two (row, quad) a thread, rows
+// ctid / 4 and ctid / 4 + 32, quad 4 c + ctid mod 4, from their integral
+// normals v (draw_tile256's, the odd sample's mirrored)
+template <bool X3>
+__device__ __forceinline__ void layer1_chunk256(const Params& p,
+                                                const Tile& s,
+                                                unsigned char* act, int c,
+                                                int ctid,
+                                                const float4 (&v)[2]) {
+  const int nx = p.nx, qq = ctid & 3, q = 4 * c + qq;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = (ctid >> 2) + 32 * h;
+    const float n[4] = {v[h].x, v[h].y, v[h].z, v[h].w};
+    float xs[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int j = 4 * q + r;
+      xs[r] = j < nx ? s.xrow[j] + s.sig[row] * n[r]
+                     : (j == nx ? s.s_val[row] : 0.0f);
+    }
+    const int col = 16 * (c & 15) + 4 * qq;
+    put_pair256<X3>(act, row, col, xs[0], xs[1]);
+    put_pair256<X3>(act, row, col + 2, xs[2], xs[3]);
+  }
+}
+
+// this thread's integral normals of layer 1's chunk c (zero past the tile's
+// rows and past nx), from scratch
+__device__ __forceinline__ void chunk_normals256(const Params& p,
+                                                 const Tile& s, int c,
+                                                 int kb, int ctid,
+                                                 float4 (&v)[2]) {
+  const int q = 4 * c + (ctid & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = (ctid >> 2) + 32 * h;
+    v[h] = 4 * q < p.nx && kb * TILE + row < p.M
+               ? reinterpret_cast<const float4*>(s.dw)[row * s.ld + q]
+               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+
+// The tile's draws, before its net pass (no accumulator live): for this
+// thread's 128 (row, quad) items, quad 4 m + ctid mod 4 of rows ctid / 4
+// and ctid / 4 + 32, both chains' normals (the integral chain's mirrored
+// for the odd sample of a pair) to the tile's rows in scratch (s.dw, then
+// the terminal chain's TILE rows on), and the terminal chain's first pass
+// (a draw's sum over its dimensions) into sn; two quads of each chain at a
+// time. EXT: from the external noise; else its own draws, in a loop of
+// their own (chip_smoke.py counts its SASS per normal)
+template <bool EXT>
+__device__ __forceinline__ void draw_tile256(const Params& p, const Tile& s,
+                                             int b, int kb, uint2 key,
+                                             int ctid, float (&sn)[2]) {
+  const int nx = p.nx, qq = ctid & 3;
+  float4* dwi = reinterpret_cast<float4*>(s.dw);
+  float4* dwt = dwi + TILE * s.ld;
+#pragma unroll 1
+  for (int h = 0; h < 2; ++h) {
+    const int row = (ctid >> 2) + 32 * h, k = kb * TILE + row;
+    if (k >= p.M) continue;
+    const int kd = p.anti ? k >> 1 : k;
+    const float sg = p.anti && (k & 1) ? -1.0f : 1.0f;
+    float sum = 0.0f;
+#pragma unroll 1
+    for (int m = 0; m < 64; m += 2) {
+      const int q = 4 * m + qq;
+      if (4 * q >= nx) break;
+      const bool two = 4 * q + 16 < nx;
+      float w[2][4], v[2][4];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (EXT) {
+          quad256(p, p.noise_t, STREAM_TERMINAL, b, kd, q + 4 * e, key, w[e]);
+          quad256(p, p.noise_i, STREAM_INTEGRAL, b, kd, q + 4 * e, key, v[e]);
+        } else {
+          quad256(p, nullptr, STREAM_TERMINAL, b, kd, q + 4 * e, key, w[e]);
+          quad256(p, nullptr, STREAM_INTEGRAL, b, kd, q + 4 * e, key, v[e]);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (e && !two) break;
+        dwt[row * s.ld + q + 4 * e] =
+            make_float4(w[e][0], w[e][1], w[e][2], w[e][3]);
+        dwi[row * s.ld + q + 4 * e] = make_float4(
+            sg * v[e][0], sg * v[e][1], sg * v[e][2], sg * v[e][3]);
+        sum += (w[e][0] + w[e][1]) + (w[e][2] + w[e][3]);
+      }
+    }
+    sn[h] = sum;
+  }
+}
+
+// One hidden layer's products (TRANS_B = 0 forward, 1 backward) from the
+// tile image into acc, 16 chunks, one group in flight while the next is
+// issued; side(): work of the consumers' own beside each group (it touches
+// neither acc nor the image)
+template <int TRANS_B, bool X3, class Side>
+__device__ __forceinline__ void layer256(float (&acc)[2 * NACC],
+                                         uint32_t act_s, Ring& ring, int wg,
+                                         Side side) {
+  publish256(wg);
+  zero(acc);
+  int freed = ring.it;
+  for (int c = 0; c < N256 / 16; ++c) {
+    const uint32_t st = ring.acquire();
+    chunk256<TRANS_B, X3>(acc, act_s + (uint32_t)(c * A256_CHUNK), st);
+    side(c);
+    retire256(acc, ring, c, freed);
+  }
+  drain256(acc, ring, freed);
+}
+
+// keeps the compiler from hoisting the next elements' loads above the
+// elements before: an epilogue's 128 accumulators leave few registers
+__device__ __forceinline__ void batch_fence() {
+  asm volatile("" ::: "memory");
+}
+
+// g1 contracted with W1's column sums over x, _split3's products (the
+// columns in colsum_wide's order)
+template <bool X3>
+__device__ __forceinline__ void colsum256(const Params& p,
+                                          const float (&acc)[2 * NACC],
+                                          int t, float (&sx)[2]) {
+  const float* wc_hi = p.vec + (size_t)(p.L + 1) * N256;
+  const float* wc_lo = p.vec + (size_t)(p.L + 2) * N256;
+#pragma unroll
+  for (int i = 0; i < 2 * NACC; ++i) {
+    const int col = acc_col(i, t);
+    const float gh = bf16_round(acc[i]), ch = __ldg(wc_hi + col);
+    float term = gh * ch;
+    if (X3) term += gh * __ldg(wc_lo + col) + bf16_round(acc[i] - gh) * ch;
+    sx[(i >> 1) & 1] += term;
+    if ((i & 15) == 15) batch_fence();
+  }
+}
+
+// layer j's saved elu'(z) of this thread in the block's scratch: a float4
+// (columns 8 m + 2 t, + 1 of rows r0 and r0 + 8) for m = 0 .. 31, each
+// CONSUMERS apart
+__device__ __forceinline__ float4* save256(const Tile& s, int j, int ctid) {
+  return reinterpret_cast<float4*>(s.save) + (size_t)j * (NACC / 2) *
+                                                 CONSUMERS + ctid;
+}
+
+// Bias and ELU of layer l's accumulator, as layer_out_wide's (exp on
+// MUFU.EX2, as value_mlp_tc.cuh's fwd_epilogue): below the last layer the
+// activation goes to the tile image and elu'(z) to scratch;
+// at the last layer the head's partial sums go to u and the head's
+// gradient times elu'(z) to the image (or, for a net of one layer, its
+// contraction with W1's column sums to sx)
+template <bool X3>
+__device__ __forceinline__ void epi_fwd256(const Params& p, const Tile& s,
+                                           float (&acc)[2 * NACC], int l,
+                                           int ctid, unsigned char* act,
+                                           float (&u)[2], float (&sx)[2]) {
+  const int warp = ctid >> 5, lane = ctid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + g;
+  const float* bias = p.vec + (size_t)(l - 1) * N256;
+  if (l < p.L) {
+    float4* sv = save256(s, l - 1, ctid);
+#pragma unroll
+    for (int m = 0; m < NACC / 2; ++m) {
+      const int col = 8 * m + 2 * t;
+      const float2 bv = __ldg(reinterpret_cast<const float2*>(bias + col));
+      float d[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // rows r0 (e < 2) and r0 + 8
+        const float z = acc[4 * m + e] + ((e & 1) ? bv.y : bv.x);
+        const float ez = __expf(fminf(z, 0.0f));
+        acc[4 * m + e] = z > 0.0f ? z : ez - 1.0f;
+        d[e] = z > 0.0f ? 1.0f : ez;
+      }
+      sv[(size_t)m * CONSUMERS] = make_float4(d[0], d[1], d[2], d[3]);
+      put_pair256<X3>(act, r0, col, acc[4 * m], acc[4 * m + 1]);
+      put_pair256<X3>(act, r0 + 8, col, acc[4 * m + 2], acc[4 * m + 3]);
+      if ((m & 3) == 3) batch_fence();
+    }
+    return;
+  }
+  const float* w_out = p.vec + (size_t)p.L * N256;
+#pragma unroll
+  for (int i = 0; i < 2 * NACC; ++i) {
+    const int col = acc_col(i, t);
+    const float z = acc[i] + __ldg(bias + col);
+    const float ez = __expf(fminf(z, 0.0f));
+    const float a = z > 0.0f ? z : ez - 1.0f;
+    const float w = __ldg(w_out + col);
+    const float wh = bf16_round(w), ah = bf16_round(a);
+    float term = ah * wh, gw = wh;
+    if (X3) {
+      const float wl = bf16_round(w - wh);
+      term += bf16_round(a - ah) * wh + ah * wl;
+      gw += wl;
+    }
+    u[(i >> 1) & 1] += term;
+    acc[i] = gw * (z > 0.0f ? 1.0f : ez);
+    if ((i & 15) == 15) batch_fence();
+  }
+  if (p.L == 1) {
+    colsum256<X3>(p, acc, t, sx);
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < NACC; ++q) {
+    put_pair256<X3>(act, r0 + 8 * (q & 1), 8 * (q >> 1) + 2 * t, acc[2 * q],
+                    acc[2 * q + 1]);
+    if ((q & 7) == 7) batch_fence();
+  }
+}
+
+// The backward epilogue at layer l: the gradient times the saved
+// elu'(z_{l-1}) (loaded 16 pairs at a time), to the tile image, or at l = 2
+// contracted with W1's column sums
+template <bool X3>
+__device__ __forceinline__ void epi_bwd256(const Params& p, const Tile& s,
+                                           float (&acc)[2 * NACC], int l,
+                                           int ctid, unsigned char* act,
+                                           float (&sx)[2]) {
+  const int warp = ctid >> 5, lane = ctid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + g;
+  const float4* sv = save256(s, l - 2, ctid);
+#pragma unroll
+  for (int m0 = 0; m0 < NACC / 2; m0 += 8) {
+    float4 d[8];
+#pragma unroll
+    for (int m = 0; m < 8; ++m) d[m] = sv[(size_t)(m0 + m) * CONSUMERS];
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      acc[4 * (m0 + m)] *= d[m].x;
+      acc[4 * (m0 + m) + 1] *= d[m].y;
+      acc[4 * (m0 + m) + 2] *= d[m].z;
+      acc[4 * (m0 + m) + 3] *= d[m].w;
+    }
+  }
+  if (l == 2) {
+    colsum256<X3>(p, acc, t, sx);
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < NACC; ++q) {
+    put_pair256<X3>(act, r0 + 8 * (q & 1), 8 * (q >> 1) + 2 * t, acc[2 * q],
+                    acc[2 * q + 1]);
+    if ((q & 7) == 7) batch_fence();
+  }
+}
+
+// The terminal chain's weights of tile kb's rows from their sums of
+// normals (sn: this thread's quads, rows ctid / 4 and ctid / 4 + 32),
+// summed over the row's 4 threads: ct, the weight of the row's draw's
+// normals (the odd sample of an antithetic pair: its mirror's), and cv,
+// g(X_T) - g0 (0 past M); g(x) = sigmoid(T + k sum x), sum X_T = sum x +
+// cT sum dW
+__device__ __forceinline__ void term_weights256(const Params& p,
+                                                const Tile& s, int kb,
+                                                int ctid, float (&sn)[2],
+                                                const PointTerm& pt) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sn[h] += __shfl_xor_sync(0xffffffffu, sn[h], 1);
+    sn[h] += __shfl_xor_sync(0xffffffffu, sn[h], 2);
+  }
+  if (ctid & 3) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = (ctid >> 2) + 32 * h, k = kb * TILE + row;
+    const bool odd = p.anti && (k & 1);
+    const float sw = odd ? -sn[h] : sn[h];
+    const float d = g_cha(p.T, p.k, fmaf(pt.cT, sw, pt.sx)) - pt.g0;
+    const bool valid = k < p.M;
+    s.ct[row] = valid ? (odd ? -d : d) : 0.0f;
+    s.cv[row] = valid ? d : 0.0f;
+  }
+}
+
+// u and sum_j u_x_j of a 256-wide net at (s, X_s) for tile kb's rows
+// (written to s.u, s.sux); act: this warpgroup's tile image
+template <bool X3>
+__device__ __forceinline__ void net_pass256(const Params& p, const Tile& s,
+                                            Ring& ring, int ctid, int wg,
+                                            unsigned char* act, int kb) {
+  const int warp = ctid >> 5, lane = ctid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + g, r1 = r0 + 8;
+  const int L = p.L, n1 = chunks1(p.nx);
+  const uint32_t act_s = smem_u32(act);
+  float u[2] = {0.0f, 0.0f}, sx[2] = {0.0f, 0.0f};
+  float acc[2 * NACC];
+
+  // layer 1: each chunk's A into its slot from the kept normals (the next
+  // chunk's loaded before), then its products
+  zero(acc);
+  int freed = ring.it;
+  float4 v[2], vn[2];
+  chunk_normals256(p, s, 0, kb, ctid, v);
+  for (int c = 0; c < n1; ++c) {
+    if (c + 1 < n1) chunk_normals256(p, s, c + 1, kb, ctid, vn);
+    layer1_chunk256<X3>(p, s, act, c, ctid, v);
+    publish256(wg);
+    const uint32_t st = ring.acquire();
+    chunk256<0, X3>(acc, act_s + (uint32_t)((c & 15) * A256_CHUNK), st);
+    retire256(acc, ring, c, freed);
+    v[0] = vn[0];
+    v[1] = vn[1];
+  }
+  drain256(acc, ring, freed);
+  epi_fwd256<X3>(p, s, acc, 1, ctid, act, u, sx);
+
+  // hidden layers 2..L forward, then backward through L..2 (the saved
+  // derivatives each backward epilogue reads, prefetched to L2 as its
+  // products start)
+  for (int l = 2; l <= L; ++l) {
+    layer256<0, X3>(acc, act_s, ring, wg, [](int) {});
+    epi_fwd256<X3>(p, s, acc, l, ctid, act, u, sx);
+  }
+  for (int l = L; l >= 2; --l) {
+    const float4* sv = save256(s, l - 2, ctid);
+    layer256<1, X3>(acc, act_s, ring, wg, [&](int c) {
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(sv + 2 * c * CONSUMERS));
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(sv + (2 * c + 1) *
+                                                            CONSUMERS));
+    });
+    epi_bwd256<X3>(p, s, acc, l, ctid, act, sx);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      u[r] += __shfl_xor_sync(0xffffffffu, u[r], o);
+      sx[r] += __shfl_xor_sync(0xffffffffu, sx[r], o);
+    }
+  }
+  if (t == 0) {
+    const float b_out = __ldg(p.vec + (size_t)(L + 3) * N256);
+    s.u[r0] = u[0] + b_out;
+    s.u[r1] = u[1] + b_out;
+    s.sux[r0] = sx[0];
+    s.sux[r1] = sx[1];
+  }
+}
+
+// The point's sums over tile kb's rows, in row order, from the normals
+// the pass kept in scratch (s.dw: the integral chain's, mirrored; after
+// it the terminal chain's, as drawn): the values (thread 0: the
+// terminal's g(X_T) - g0, the integral's Tt (f - f0)) and the columns
+// 4 q + 1 .. of this thread's two quads, q = ctid, ctid + CONSUMERS (a: in
+// shared memory between tiles), 8 rows' loads in flight
+__device__ __forceinline__ void accumulate256(const Params& p, const Tile& s,
+                                              int kb, int ctid,
+                                              const Sums256& a) {
+  const int nx = p.nx, Q = (nx + 3) / 4;
+  const int rows = p.M - kb * TILE < TILE ? p.M - kb * TILE : TILE;
+  if (ctid == 0) {
+    float tv = a.t[0], iv = a.i[0];
+    for (int row = 0; row < TILE; ++row) {
+      tv += s.cv[row];
+      iv += s.c_i[row];
+    }
+    a.t[0] = tv;
+    a.i[0] = iv;
+  }
+#pragma unroll 1
+  for (int h = 0; h < 2; ++h) {
+    const int q = ctid + CONSUMERS * h;
+    if (q >= Q) continue;
+    const float4* di = reinterpret_cast<const float4*>(s.dw) + q;
+    const float4* dt = di + TILE * s.ld;
+    float ts[4], is[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const bool in = 4 * q + r < nx;
+      ts[r] = in ? a.t[1 + 4 * q + r] : 0.0f;
+      is[r] = in ? a.i[1 + 4 * q + r] : 0.0f;
+    }
+    for (int r0 = 0; r0 < rows; r0 += 8) {
+      float4 wt[8], wi[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (r0 + e < rows) {
+          wt[e] = dt[(r0 + e) * s.ld];
+          wi[e] = di[(r0 + e) * s.ld];
+        }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (r0 + e >= rows) break;
+        const float ct = s.ct[r0 + e], cy = s.c_iy[r0 + e];
+        ts[0] = fmaf(ct, wt[e].x, ts[0]);
+        ts[1] = fmaf(ct, wt[e].y, ts[1]);
+        ts[2] = fmaf(ct, wt[e].z, ts[2]);
+        ts[3] = fmaf(ct, wt[e].w, ts[3]);
+        is[0] = fmaf(cy, wi[e].x, is[0]);
+        is[1] = fmaf(cy, wi[e].y, is[1]);
+        is[2] = fmaf(cy, wi[e].z, is[2]);
+        is[3] = fmaf(cy, wi[e].w, is[3]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      if (4 * q + r < nx) {
+        a.t[1 + 4 * q + r] = ts[r];
+        a.i[1 + 4 * q + r] = is[r];
+      }
+  }
+}
+
+// The producer warp of the width-256 pass: per tile pair, layer 1's
+// chunks, each hidden layer's 16 chunks forward, then backward, one copy
+// of 8 KB an image each. The images are ops/kernels.py:pack_mlp_tc's with
+// chunk_major: W1's pieces and each hidden W's forward pieces in k16
+// chunks of all 256 rows (chunk c: input columns 16 c .., 32 core rows of
+// 2 cores), each hidden W's backward pieces in the core layout (rows 16 c
+// .. of W contiguous), so every stage is contiguous in global memory.
+__device__ __forceinline__ void produce256(const Params& p, uint32_t ring,
+                                           uint32_t full, uint32_t empty,
+                                           int lane, int stages, int copies,
+                                           int nimg) {
+  const int L = p.L, n1 = chunks1(p.nx);
+  const int nf = n1 + 16 * (L - 1), nall = nf + 16 * (L - 1);
+  const int ntile = (p.M + TILE - 1) / TILE;
+  const size_t w1img = (size_t)N256 * k1_of(p.nx), himg = (size_t)N256 * N256;
+  const size_t chunk = (size_t)N256 * 16;  // elements of a chunk's image
+  const __nv_bfloat16* hidden = p.img + (size_t)nimg * w1img;
+  int it = 0;
+  for (int b = blockIdx.x; b < p.B; b += gridDim.x)
+    for (int kb = 0; kb < ntile; kb += NWG)
+      for (int c = 0; c < nall; ++c, ++it) {
+        const int st = it % stages, round = it / stages;
+        if (round > 0) mbar_wait(empty + 8 * st, (uint32_t)((round - 1) & 1));
+        const uint32_t bar = full + 8 * st;
+        if (lane == 0) mbar_expect_tx(bar, (uint32_t)(copies * N256_IMAGE));
+        __syncwarp();
+        if (lane >= copies) continue;
+        const __nv_bfloat16* src;
+        if (c < n1) {
+          src = p.img + lane * w1img + c * chunk;
+        } else {
+          const bool fwd = c < nf;
+          const int f = fwd ? c - n1 : c - nf;
+          const int l = fwd ? 2 + f / 16 : L - f / 16;
+          src = hidden + (size_t)(l - 2) * 2 * nimg * himg +
+                (size_t)((fwd ? 0 : nimg) + lane) * himg + (f % 16) * chunk;
+        }
+        bulk_copy(ring + (uint32_t)(st * STAGE256 + lane * N256_IMAGE), src,
+                  (uint32_t)N256_IMAGE, bar);
+      }
+}
+
 }  // namespace tc
 }  // namespace dpi
 
@@ -1184,6 +1941,114 @@ __device__ __forceinline__ void terminal_warps(const tc::Params& p,
   }
 }
 
+// a tile of the width-256 instance: its NROWS256 rows from `rows`, its
+// saved derivatives, its normals in scratch (`quads` float4 a row)
+__device__ __forceinline__ tc::Tile tile256(float* rows, float* xrow,
+                                            float2* save, float* dw,
+                                            int quads) {
+  tc::Tile s;
+  s.s_val = rows;
+  s.sig = rows + tc::TILE;
+  s.iys = rows + 2 * tc::TILE;
+  s.c_i = rows + 3 * tc::TILE;
+  s.c_iy = rows + 4 * tc::TILE;
+  s.u = rows + 5 * tc::TILE;
+  s.sux = rows + 6 * tc::TILE;
+  s.ct = rows + 7 * tc::TILE;
+  s.cv = rows + 8 * tc::TILE;
+  s.xrow = xrow;
+  s.dw = dw;
+  s.ld = quads;
+  s.save = save;
+  return s;
+}
+
+// The consumers of generate_tc_kernel<P, N256>: per point, each warpgroup's
+// tiles, both chains on the consumers (the layer chain in the tile image
+// act; the terminal chain's two passes beside the integral chain's
+// draws), then the point's sums: the second warpgroup's through red, added
+// by the first in a fixed order (the value and the columns 4 q + 1 .. of
+// this thread's two quads in registers)
+template <int P>
+__device__ __forceinline__ void consumers256(const tc::Params& p,
+                                             unsigned char* smem, int wg,
+                                             int wtid) {
+  using namespace tc;
+  const GPlan& pl = p.plan;
+  const int nx = p.nx, L = p.L;
+  const uint32_t full = smem_u32(smem + pl.bars);
+  // this warpgroup's sums and the other's (sums256_floats apart)
+  const size_t nsum = sums256_floats(nx);
+  float* sums = reinterpret_cast<float*>(smem + pl.red);
+  const Sums256 a{sums + (size_t)wg * 2 * nsum,
+                  sums + (size_t)wg * 2 * nsum + nsum};
+  const Sums256 o{sums + (size_t)(wg ^ 1) * 2 * nsum,
+                  sums + (size_t)(wg ^ 1) * 2 * nsum + nsum};
+  float* sxw = reinterpret_cast<float*>(smem + pl.tred);  // sum_j x_j
+  unsigned char* act = smem + pl.act + (size_t)wg * A256_BYTES;
+  // this warpgroup's tile rows, its saved derivatives and its tile's
+  // normals (the integral chain's, then the terminal chain's) in scratch
+  const int Q = (nx + 3) / 4;
+  float* blk = p.scratch + blockIdx.x * scratch_floats256(nx, L);
+  const Tile s = tile256(
+      reinterpret_cast<float*>(smem + pl.rows) + (size_t)wg * NROWS256 * TILE,
+      reinterpret_cast<float*>(smem + pl.xrow),
+      reinterpret_cast<float2*>(blk + (size_t)wg * saves256_floats(L)),
+      blk + NWG * saves256_floats(L) + (size_t)wg * 2 * TILE * 4 * Q, Q);
+  Ring ring{smem_u32(smem + pl.ring), full, full + 8 * MAX_STAGES,
+            pl.stages, STAGE256, 0};
+  const int ntile = (p.M + TILE - 1) / TILE;
+  const int ntile2 = ntile + (ntile & 1);
+  const float inv_m = 1.0f / (float)p.M;
+  for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
+    const float t = p.t[b], g0 = p.g0[b], f0 = p.f0[b];
+    const float Tt = fmaxf(p.T - t, 1e-6f);
+    const float inv_yT = 1.0f / (sqrtf(Tt) * p.alpha_sqrt);
+    const uint2 key = make_uint2(p.seed_lo, (uint32_t)b);
+    for (int j = threadIdx.x; j < nx; j += TC_CONSUMERS)
+      s.xrow[j] = p.x[(size_t)b * nx + j];
+    if (threadIdx.x < 32) {  // sum_j x_j, as the terminal warps take it
+      float v = 0.0f;
+      for (int j = threadIdx.x; j < nx; j += 32) v += p.x[(size_t)b * nx + j];
+      v = warp_sum(v);
+      if (threadIdx.x == 0) *sxw = v;
+    }
+    for (int j = wtid; j <= nx; j += WG) a.t[j] = a.i[j] = 0.0f;
+    named_sync(BAR_CONSUMERS, TC_CONSUMERS);
+    const PointTerm pt{sqrtf(Tt) * p.alpha_sqrt, *sxw, g0};
+
+    for (int kb = wg; kb < ntile2; kb += NWG) {
+      draw_times(p, s, b, kb, t, Tt, key, wtid);
+      float sn[2] = {0.0f, 0.0f};
+      if (p.noise_i)
+        draw_tile256<true>(p, s, b, kb, key, wtid, sn);
+      else
+        draw_tile256<false>(p, s, b, kb, key, wtid, sn);
+      term_weights256(p, s, kb, wtid, sn, pt);
+      named_sync(BAR_WG + wg, WG);
+      net_pass256<P == 3>(p, s, ring, wtid, wg, act, kb);
+      named_sync(BAR_WG + wg, WG);
+      sample_weights(p, s, kb, Tt, f0, wtid);
+      named_sync(BAR_WG + wg, WG);
+      accumulate256(p, s, kb, wtid, a);
+      named_sync(BAR_WG + wg, WG);
+    }
+
+    // the first warpgroup adds the second's sums to its own in a fixed
+    // order and stores
+    named_sync(BAR_CONSUMERS, TC_CONSUMERS);
+    if (wg == 0) {
+      float* out = p.out + (size_t)b * (1 + nx);
+      for (int j = wtid; j <= nx; j += WG) {
+        const float st = a.t[j] + o.t[j], si = a.i[j] + o.i[j];
+        out[j] = j == 0 ? (st + si) * inv_m + g0 + f0 * Tt
+                        : (st * inv_yT + si) * inv_m;
+      }
+    }
+    named_sync(BAR_CONSUMERS, TC_CONSUMERS);
+  }
+}
+
 // P: the net's passes (3: bf16x3, 1: one bf16 pass); HW: the instance of
 // the hidden width (H64, H: net_pass_narrow; WIDE: widths 256 to 1024,
 // net_pass_wide, the width read from p.hw). A block: two consumer warpgroups, each
@@ -1204,13 +2069,23 @@ generate_tc_kernel(const tc::Params p) {
   const GPlan& pl = p.plan;
   const uint32_t full = smem_u32(smem + pl.bars);
   const uint32_t empty = full + 8 * MAX_STAGES;
-  init_ring(full, empty, pl.stages, TC_CONSUMERS);
+  init_ring(full, empty, pl.stages,
+            HW == N256 ? EMPTY256_ARRIVALS : TC_CONSUMERS);
   float* tred = reinterpret_cast<float*>(smem + pl.tred);
+  // registers after setmaxnreg: the width-256 instance runs no terminal
+  // warps, so its producer warpgroup keeps 40 and its consumers take 232
+  // (128 (168 - 40) = 256 (232 - 168))
+  constexpr int PREGS = HW == N256 ? 40 : PRODUCER_REGS;
+  constexpr int CREGS = HW == N256 ? 232 : CONSUMER_REGS;
   if (threadIdx.x >= TC_CONSUMERS) {  // the producer warpgroup
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PREGS));
     const int pw = (threadIdx.x - TC_CONSUMERS) >> 5, lane = threadIdx.x & 31;
+    if (HW == N256 && pw > 0) return;
     if (pw == 0) {
-      if (L > 0 && HW == WIDE)
+      if (L > 0 && HW == N256)
+        produce256(p, smem_u32(smem + pl.ring), full, empty, lane, pl.stages,
+                   pieces(P), packed(P));
+      else if (L > 0 && HW == WIDE)
         produce_wide(p, smem_u32(smem + pl.ring), full, empty, lane,
                      pl.stages, lay.stage_bytes, pieces(P), packed(P));
       else if (L > 0 && HW == H64)
@@ -1225,9 +2100,13 @@ generate_tc_kernel(const tc::Params p) {
     }
     return;
   }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CREGS));
 
   const int wg = threadIdx.x / WG, wtid = threadIdx.x % WG;
+  if constexpr (HW == N256) {
+    consumers256<P>(p, smem, wg, wtid);
+    return;
+  }
   // this warpgroup's tile: its rows, normals and saved derivatives
   const Tile s = tile_of(smem, pl, lay, p, 0, wg);
   float* red = reinterpret_cast<float*>(smem + pl.red);
@@ -1269,7 +2148,7 @@ generate_tc_kernel(const tc::Params p) {
       if (L > 0) {
         if constexpr (HW == WIDE)
           net_pass_wide<P == 3>(p, s, ring, wtid, turn, act);
-        else
+        else if constexpr (HW == H || HW == H64)
           net_pass_narrow<P == 3, HW>(p, s, ring, wtid, turn);
       } else if (wtid < TILE) {
         s.u[wtid] = 0.0f;
@@ -1329,9 +2208,10 @@ TcKernel tc_kernel_of(int mode) {
 }
 TcKernel tc_kernel(int mode, int hw) {
   const int inst = instance_of(hw);
-  return inst == WIDE  ? tc_kernel_of<WIDE>(mode)
-         : inst == H64 ? tc_kernel_of<H64>(mode)
-                       : tc_kernel_of<H>(mode);
+  return inst == WIDE   ? tc_kernel_of<WIDE>(mode)
+         : inst == N256 ? tc_kernel_of<N256>(mode)
+         : inst == H64  ? tc_kernel_of<H64>(mode)
+                        : tc_kernel_of<H>(mode);
 }
 
 }  // namespace
@@ -1384,10 +2264,9 @@ int dpi_generate_tc_widths(int* out) {
 // outputs (0: none; -1: no plan)
 long long dpi_generate_tc_scratch_bytes_w(int nx, int L, int hw) {
   if (!covered_width(hw) || nx < 1 || nx > GEN_MAX_NX) return -1;
-  const tc::Layout lay = gen_layout(nx, hw);
-  const tc::GPlan pl = tc::choose_gplan(nx, L, lay);
+  const tc::GPlan pl = plan_of(nx, L, hw);
   if (pl.stages < 0) return -1;
-  const size_t f = tc::scratch_floats(pl, lay, L);
+  const size_t f = scratch_of(pl, nx, L, hw);
   if (f == 0) return 0;
   long long most = 0;
   for (int mode = tc::MODE_BF16X3; mode <= tc::MODE_ONE_PASS; ++mode) {
@@ -1400,18 +2279,19 @@ long long dpi_generate_tc_scratch_bytes_w(int nx, int L, int hw) {
   return most;
 }
 
-// the plan at (nx, L, width hw) into out[5]: stages (-1: none), saved
+// the plan at (nx, L, width hw) into out[6]: stages (-1: none), saved
 // derivatives in shared memory, tiles' normals in shared memory, shared
-// memory bytes, global scratch floats per block
-// (ops/kernels.py:library_tc_plan)
+// memory bytes, global scratch floats per block, and 1 where the instance
+// keeps the layer chain on chip and draws the normals where it uses them
+// (width 256), else 0 (ops/kernels.py:library_tc_plan)
 void dpi_generate_tc_plan_w(int nx, int L, int hw, long long* out) {
-  const tc::Layout lay = gen_layout(nx, hw);
-  const tc::GPlan pl = tc::choose_gplan(nx, L, lay);
+  const tc::GPlan pl = plan_of(nx, L, hw);
   out[0] = pl.stages;
   out[1] = pl.save_smem;
   out[2] = pl.dw_smem;
   out[3] = (long long)pl.total;
-  out[4] = (long long)tc::scratch_floats(pl, lay, L);
+  out[4] = (long long)scratch_of(pl, nx, L, hw);
+  out[5] = instance_of(hw) == N256;
 }
 
 // The tensor-core kernel (mode 1: bf16x3, 2: one bf16 pass) for a net of
@@ -1432,10 +2312,11 @@ int dpi_generate_tc_w(const float* t, const float* x, const float* g0,
       (has_net && !covered_width(hw)))
     return ERR_NO_PLAN;
   const int Ln = has_net ? L : 0;
+  if (!has_net) hw = H;
   const Layout lay = gen_layout(nx, hw);
-  const GPlan pl = choose_gplan(nx, Ln, lay);
+  const GPlan pl = plan_of(nx, Ln, hw);
   if (pl.stages < 0) return ERR_NO_PLAN;
-  if (scratch_floats(pl, lay, Ln) > 0 && !scratch) return ERR_NO_SCRATCH;
+  if (scratch_of(pl, nx, Ln, hw) > 0 && !scratch) return ERR_NO_SCRATCH;
   auto* kernel = tc_kernel(mode, hw);
   const int grid = persistent_grid(kernel, pl.total, B);
   if (grid < 1) return ERR_GRID;

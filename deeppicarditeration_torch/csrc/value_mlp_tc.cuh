@@ -159,6 +159,7 @@ struct GPlan {
   int stages, save_smem, dw_smem;
   size_t ring, save, dw, xrow, rows, tacc, tred, red, isum, sums, bars,
       total;
+  size_t act = 0;  // generate.cu's width-256 instance: its tile images
 };
 
 __host__ __device__ inline GPlan gplan(int nx, int L, const Layout& k,
@@ -500,6 +501,8 @@ struct Tile {
   float* c_iy;   // c_i * iys
   float* u;      // u at (s, X_s)
   float* sux;    // sum_j u_x_j at (s, X_s)
+  float* ct;     // generate.cu's width-256 instance: terminal weights
+  float* cv;     // ... and g(X_T) - g0
   float2* save;  // (L - 1) x 32 x CONSUMERS elu'(z) pairs of the warpgroup
   int ld;
 

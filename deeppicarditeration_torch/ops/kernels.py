@@ -641,7 +641,17 @@ def tc_k1(nx: int) -> int:
     return -(-(1 + nx) // TC_SLAB_K) * TC_SLAB_K
 
 
-def pack_mlp_tc(mod: MLP, nx: int, pieces: int = 2):
+def _chunk_tiles(w: torch.Tensor) -> torch.Tensor:
+    """(out, in) -> k16 chunks of all ``out`` rows: chunk c (input columns
+    16 c ..) of 8 x 8 core matrices, core (i, j) of the chunk at (2 i + j)
+    * 64 elements, chunk c at c * 16 out elements, flattened."""
+    n, k = w.shape
+    return w.reshape(n // 8, 8, k // 16, 2, 8).permute(2, 0, 3, 1, 4) \
+        .reshape(-1)
+
+
+def pack_mlp_tc(mod: MLP, nx: int, pieces: int = 2,
+                chunk_major: bool = False):
     """The tensor-core kernels' net: (bf16 images, f32 vectors).
 
     Images, in ``_core_tiles`` layout, the ``pieces`` bf16 pieces of W
@@ -652,16 +662,25 @@ def pack_mlp_tc(mod: MLP, nx: int, pieces: int = 2):
     of each hidden layer's W (out, in); the forward pass reads W K-major
     and the backward pass the same bytes through the B transpose.
     Vectors: the L biases (H each), the head's weight row (H), the column
-    sums over x of each piece of W1 (H each), the head's bias."""
+    sums over x of each piece of W1 (H each), the head's bias.
+    ``chunk_major`` (generate.cu's width-256 instance, whose ring stages
+    are k16 slabs of all the rows): W1's pieces and each hidden W's in
+    ``_chunk_tiles`` order, each hidden W's pieces also in core order after
+    them (its backward pass's chunks, rows 16 c .., are contiguous there),
+    so that every stage is one copy."""
     lin = list(mod.layers)
     w1 = lin[0].weight.detach()
     w1p = bf16_pieces(torch.cat(
         [w1[:, 1:], w1[:, :1],
          w1.new_zeros((w1.shape[0], tc_k1(nx) - 1 - nx))], dim=1), pieces)
-    images = [_core_tiles(w.to(torch.bfloat16)) for w in w1p]
+    fwd = _chunk_tiles if chunk_major else _core_tiles
+    images = [fwd(w.to(torch.bfloat16)) for w in w1p]
     for layer in lin[1:-1]:
-        images += [_core_tiles(w.to(torch.bfloat16))
-                   for w in bf16_pieces(layer.weight.detach(), pieces)]
+        ws = [w.to(torch.bfloat16)
+              for w in bf16_pieces(layer.weight.detach(), pieces)]
+        images += [fwd(w) for w in ws]
+        if chunk_major:
+            images += [_core_tiles(w) for w in ws]
     vec = [layer.bias.detach() for layer in lin[:-1]]
     vec += [lin[-1].weight.detach().reshape(-1)]
     vec += [w[:, :nx].sum(dim=1) for w in w1p]
@@ -727,12 +746,12 @@ def _tc_net_for_launch(dll: ctypes.CDLL, sol: Solution, tx: torch.Tensor,
 
 
 def _tc_net(mod: Optional[MLP], nx: int, scratch: int, device,
-            pieces: int = 2):
+            pieces: int = 2, chunk_major: bool = False):
     """The tensor-core launch's net buffers and scratch (None where
     unused)."""
     img = vec = None
     if mod is not None:
-        img, vec = pack_mlp_tc(mod, nx, pieces)
+        img, vec = pack_mlp_tc(mod, nx, pieces, chunk_major)
     buf = (torch.empty(scratch // 4, dtype=torch.float32, device=device)
            if scratch > 0 else None)
     return img, vec, buf
@@ -748,6 +767,18 @@ def _tc_net(mod: Optional[MLP], nx: int, scratch: int, device,
 TC_TILE, TC_NWG, TC_STAGE_BYTES = 64, 2, 32768
 # one layer's saved elu'(z) of a tile, by hidden width
 TC_SAVE_LAYER_FLOATS = {w: TC_TILE * w for w in GENERATE_TC_WIDTHS}
+# the width whose instance keeps the layer chain on chip (generate.cu:
+# N256; its ring stages are k16 slabs of all its rows)
+TC_ON_CHIP_WIDTH = 256
+
+
+def generate_tc_instance(width: int):
+    """The tensor-core kernel's instance for a covered hidden width, from
+    the width alone (generate.cu's ``instance_of``): 64, 128 and 256 their
+    own, "wide" (``net_pass_wide``) for 384 to 1024."""
+    if width not in GENERATE_TC_WIDTHS:
+        raise ValueError(f"width {width} is not covered")
+    return width if width in (64, 128, TC_ON_CHIP_WIDTH) else "wide"
 
 
 def library_tc_plan(nx: int, n_hidden: int,
@@ -757,14 +788,16 @@ def library_tc_plan(nx: int, n_hidden: int,
     takes at (nx, hidden layers, hidden width) (its choose_gplan): the
     ring's stages, whether the saved ELU derivatives and the tiles' normals
     stay in shared memory, the block's shared memory and the global scratch
-    floats it keeps. None where nothing fits."""
-    out = (ctypes.c_longlong * 5)()
+    floats it keeps, and whether the instance keeps the layer chain on chip
+    and draws the normals where it uses them ("on_chip"; False from a build
+    before that instance). None where nothing fits."""
+    out = (ctypes.c_longlong * 6)()
     (lib or GENERATE).lib().dpi_generate_tc_plan_w(nx, n_hidden, width, out)
     if out[0] < 0:
         return None
     return {"stages": out[0], "save_smem": bool(out[1]),
             "dw_smem": bool(out[2]), "smem_bytes": out[3],
-            "scratch_floats": out[4]}
+            "scratch_floats": out[4], "on_chip": bool(out[5])}
 
 
 def generate_tc_l2_bytes(b: int, m: int, nx: int, n_hidden: int,
@@ -783,8 +816,23 @@ def generate_tc_l2_bytes(b: int, m: int, nx: int, n_hidden: int,
     plan keeps them there, and past width 128 the layer outputs (TILE x
     width f32 a layer: layers 1..L forward and L-1..2 backward written,
     each of the 2 (L - 1) hidden products' inputs read once a block). A
-    count of the plan, not a measurement."""
+    plan "on_chip" (width 256) stages k16 slabs of all the layer's rows,
+    layer 1's ceil((1 + nx) / 16) once, keeps the layer outputs on chip,
+    and in scratch the saved derivatives and each tile's normals of both
+    chains (quads of nx padded to 4: written where drawn, read once by the
+    sums). A count of the plan, not a measurement."""
     passes = -(-(-(-m // TC_TILE)) // TC_NWG)
+    if plan.get("on_chip"):
+        chunks = (-(-(1 + nx) // 16) + 2 * (width // 16) * (n_hidden - 1)
+                  if n_hidden else 0)
+        weights = (b * passes * chunks * width * 16 * 2
+                   * (2 if precision == "bf16x3" else 1))
+        tiles = b * passes * TC_NWG
+        saves = (0 if n_hidden < 2 else tiles * (n_hidden - 1)
+                 * TC_SAVE_LAYER_FLOATS[width] * 4 * 2)
+        normals = tiles * 2 * TC_TILE * 4 * -(-nx // 4) * 4 * 2
+        return {"weights": weights, "scratch": saves + normals,
+                "total": weights + saves + normals}
     blocks = max(1, width // 128)
     slabs = (blocks * tc_k1(nx) // TC_SLAB_K
              + 2 * blocks * (width // TC_SLAB_K) * (n_hidden - 1)
@@ -917,7 +965,11 @@ def generate_with_gradients_cuda(seed: int, eq, sol: Solution,
             _ptr(t), _ptr(x), _ptr(g0), _ptr(f0), _ptr(w), _ptr(u01),
             _ptr(noise_t), _ptr(noise_i), _ptr(out), *shape, *scalars)
     else:
-        img, vec, buf = _tc_net(mod, nx, scratch, tx.device)
+        # the instance that keeps the layer chain on chip stages contiguous
+        # chunks (a build from before it reports no such plan)
+        plan = library_tc_plan(nx, n_hidden, lib, width)
+        img, vec, buf = _tc_net(mod, nx, scratch, tx.device,
+                                chunk_major=plan["on_chip"])
         rc = dll.dpi_generate_tc_w(
             _ptr(t), _ptr(x), _ptr(g0), _ptr(f0), _ptr(img), _ptr(vec),
             _ptr(u01), _ptr(noise_t), _ptr(noise_i), _ptr(buf), _ptr(out),

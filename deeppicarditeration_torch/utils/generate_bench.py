@@ -29,6 +29,9 @@ kernel (path R's: ``--nx 512 --m 16384``; path S's: ``--nx 1024 --width
 256 --b 8192 --m 32768``); the net stays 4 ELU layers, D's pairing at 2 M.
 A build from before a width or an nx took the kernel raises there.
 
+``--cases``: the precision cases to run, of ``bf16x3``, ``default`` and
+``antithetic`` (bf16x3 at 2 M; default: all three).
+
 ``--time-only``: time variants whose output is wrong by design (a part
 of the kernel taken out, to see what it costs): each must still give the
 same output twice, and its distance from the first source is printed
@@ -178,10 +181,14 @@ def main(argv=None):
     ap.add_argument("--width", type=int, default=kernels.KERNEL_WIDTH)
     ap.add_argument("--b", type=int, default=B)
     ap.add_argument("--m", type=int, default=M)
+    ap.add_argument("--cases", nargs="*", default=None,
+                    choices=("bf16x3", "default", "highest", "antithetic"))
     args = ap.parse_args(argv)
     nx, b = args.nx, args.b
     run, declare, fn, symbol, tol, cases = KERNELS[args.kernel]
-    cases = [(mode, anti, m * args.m // M) for mode, anti, m in cases]
+    cases = [(mode, anti, m * args.m // M) for mode, anti, m in cases
+             if args.cases is None
+             or ("antithetic" if anti else mode) in args.cases]
     sources = args.source or [str(
         (kernels.GENERATE if args.kernel == "generate"
          else kernels.INTEGRAL).source)]

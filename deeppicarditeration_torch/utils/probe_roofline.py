@@ -158,6 +158,43 @@ def sass_mix(sass: str) -> dict:
     return {"quads_per_iteration": quads, "draw_loop": mix}
 
 
+def _mix(ops: collections.Counter, normals: int) -> dict:
+    mix = {"all": sum(ops.values()) / normals}
+    for group, names in SASS_GROUPS.items():
+        mix[group] = sum(n for op, n in ops.items() if op in names) / normals
+    return mix
+
+
+# generate.cu's width-256 instance (S's), bf16x3
+GENERATE_256 = "generate_tc_kernelILi3ELi256EE"
+
+
+def generate_draw_mix(sass: str, instance: str = GENERATE_256) -> dict:
+    """Instructions per normal of the merged kernel's own draw loop at
+    ``instance`` (mangled-name part; S's by default), from ``cuobjdump
+    -sass`` output of ``csrc/generate.cu``, in all and by group: the loop
+    of the width-256 instance's own draws (draw_tile256: both chains'
+    normals stored to scratch, the terminal chain's summed; the most MUFU
+    of the loops that hold no wgmma, shuffle or shared store), the
+    ``fast_path`` of one pass over 4 normals per DRAW_MUFU_PER_QUAD MUFU
+    (one MUFU.RSQ a Box-Muller pair). Raises unless it holds a Philox and
+    a Box-Muller per quad."""
+    ins = function_sass(sass, lambda name: instance in name)
+    loops = [collections.Counter(ins[k].op for k in fast_path(ins, *se))
+             for se in sass_loops(ins)]
+    draws = [ops for ops in loops
+             if ops["MUFU"] >= DRAW_MUFU_PER_QUAD and not ops["HGMMA"]
+             and not ops["SHFL"] and not ops["STS"]]
+    if not draws:
+        raise RuntimeError(f"no draw loop in {instance}'s SASS")
+    ops = max(draws, key=lambda ops: ops["MUFU"])
+    quads = ops["MUFU"] // DRAW_MUFU_PER_QUAD
+    if ops["IMAD"] < DRAW_IMAD_PER_QUAD * quads:
+        raise RuntimeError(f"{instance}'s draw loop holds {ops['IMAD']} IMAD "
+                           f"for {quads} quads: not a Philox per quad")
+    return {"quads_per_iteration": quads, "draw_loop": _mix(ops, 4 * quads)}
+
+
 def library_sass(lib: kernels.CudaLibrary) -> str:
     """``cuobjdump -sass`` of ``lib``'s built library."""
     tool = (shutil.which("cuobjdump")

@@ -23,21 +23,34 @@ torch.set_num_threads(1)
 # normals in shared memory, a ring of 4 stages, the saved derivatives in
 # global scratch
 PATH_A_PLAN = {"stages": 4, "save_smem": False, "dw_smem": True,
-               "smem_bytes": 189152, "scratch_floats": 2 * 3 * 64 * 128}
+               "smem_bytes": 189152, "scratch_floats": 2 * 3 * 64 * 128,
+               "on_chip": False}
 
 
-# paths R (nx = 512, 4x128) and S (nx = 1024, 4x256): the tiles' normals
-# and the saved derivatives in global scratch, a ring of 4 stages; S also
-# its two buffers of layer outputs a warpgroup (tests/test_torch_highd.py
-# counts their L2 traffic; tests/test_torch_gpu.py holds them to the
-# built kernel)
+# path R (nx = 512, 4x128): the tiles' normals and the saved derivatives
+# in global scratch, a ring of 4 stages. Path S (nx = 1024, 4x256): the
+# width-256 instance, its layer chain on chip (each warpgroup's tile image,
+# 64 KB), a ring of 4 stages of 16 KB; in global scratch the saved
+# derivatives of 3 layers and each warpgroup's tile of normals of both
+# chains
+# (tests/test_torch_highd.py counts their L2 traffic;
+# tests/test_torch_gpu.py holds them to the built kernel)
 PATH_R_PLAN = {"stages": 4, "save_smem": False, "dw_smem": False,
                "smem_bytes": 151168,
-               "scratch_floats": 2 * 3 * 64 * 128 + 2 * 64 * 512}
+               "scratch_floats": 2 * 3 * 64 * 128 + 2 * 64 * 512,
+               "on_chip": False}
 PATH_S_PLAN = {"stages": 4, "save_smem": False, "dw_smem": False,
-               "smem_bytes": 171648,
-               "scratch_floats": (2 * 3 * 64 * 256 + 2 * 64 * 1024
-                                  + 2 * 2 * 128 * 128)}
+               "smem_bytes": 221840,
+               "scratch_floats": 2 * (3 * 64 * 256 + 2 * 64 * 1024),
+               "on_chip": True}
+# ... and S's plan under the wide pass before it (the tiles' normals, the
+# saved derivatives and two buffers of layer outputs a warpgroup in
+# scratch), whose count the new one is held against
+PATH_S_WIDE_PLAN = {"stages": 4, "save_smem": False, "dw_smem": False,
+                    "smem_bytes": 171648,
+                    "scratch_floats": (2 * 3 * 64 * 256 + 2 * 64 * 1024
+                                       + 2 * 2 * 128 * 128),
+                    "on_chip": False}
 
 
 def _plan(save_smem, dw_smem):
@@ -118,3 +131,47 @@ def test_chip_smoke_times_versions_in_turns(monkeypatch):
                                 "c": lambda: "c"}, 3)
     assert seen == ["a", "b", "c", "c", "b", "a"]
     assert got == {"a": 4.0, "b": 3.0, "c": 4.0}
+
+
+@pytest.mark.parametrize("nx,n_hidden", [(100, 2), (1024, 1)])
+def test_chunk_major_images_of_the_width_256_instance(nx, n_hidden):
+    """``pack_mlp_tc(chunk_major=True)``: chunk c of a forward image (W1's
+    pieces, each hidden W's) is the 8 KB block of W's input columns 16 c ..
+    in 8 x 8 cores (core (i, j) at (2 i + j) * 64); each hidden W's pieces
+    follow in core order; the vectors are the default packing's."""
+    g = torch.Generator().manual_seed(nx)
+    mod = MLP(1 + nx, (256,) * n_hidden, ("ELU",) * n_hidden, 1, generator=g)
+    img, vec = kernels.pack_mlp_tc(mod, nx, chunk_major=True)
+    core, vec0 = kernels.pack_mlp_tc(mod, nx)
+    assert torch.equal(vec, vec0)
+    k1 = kernels.tc_k1(nx)
+
+    def chunk(flat, k, c):  # chunk c as the (256, 16) block of W
+        return flat[c * 4096:(c + 1) * 4096].reshape(32, 2, 8, 8) \
+            .permute(0, 2, 1, 3).reshape(256, 16)
+
+    def untile(flat, k):  # the default core layout, (256, k)
+        return flat.reshape(32, k // 8, 8, 8).permute(0, 2, 1, 3) \
+            .reshape(256, k)
+
+    o = 0
+    for im in range(2):  # W1's hi and lo
+        w = untile(core[im * 256 * k1:(im + 1) * 256 * k1], k1)
+        mine = img[o:o + 256 * k1]
+        for c in (0, 1, k1 // 16 - 1):
+            assert torch.equal(chunk(mine, k1, c), w[:, 16 * c:16 * c + 16])
+        o += 256 * k1
+    base = 2 * 256 * k1
+    for layer in range(n_hidden - 1):
+        for im in range(2):
+            w = untile(core[base + (2 * layer + im) * 65536:
+                            base + (2 * layer + im + 1) * 65536], 256)
+            assert torch.equal(chunk(img[o:o + 65536], 256, 5),
+                               w[:, 80:96])
+            o += 65536
+        for im in range(2):
+            assert torch.equal(img[o:o + 65536],
+                               core[base + (2 * layer + im) * 65536:
+                                    base + (2 * layer + im + 1) * 65536])
+            o += 65536
+    assert o == img.numel()

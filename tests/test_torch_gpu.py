@@ -1434,17 +1434,20 @@ def test_cover_constants_equal_the_built_libraries(cuda):
 def test_merged_plans_at_the_high_dimension_paths(cuda):
     """The built kernel's plans at paths R's and S's shapes are the ones
     whose L2 traffic the CPU tests count
-    (tests/test_torch_generate_plan.py: PATH_R_PLAN, PATH_S_PLAN); every nx
-    up to 1024 has one at both widths."""
+    (tests/test_torch_generate_plan.py: PATH_R_PLAN, PATH_S_PLAN; S's
+    width-256 instance keeps its layer chain on chip, a ring of 4 stages
+    beside it, and only the saved derivatives in scratch); every nx up to
+    1024 has one at every width."""
     assert kernels.library_tc_plan(512, 4) == {
         "stages": 4, "save_smem": False, "dw_smem": False,
         "smem_bytes": 151168,
-        "scratch_floats": 2 * 3 * 64 * 128 + 2 * 64 * 512}
+        "scratch_floats": 2 * 3 * 64 * 128 + 2 * 64 * 512,
+        "on_chip": False}
     assert kernels.library_tc_plan(1024, 4, width=256) == {
         "stages": 4, "save_smem": False, "dw_smem": False,
-        "smem_bytes": 171648,
-        "scratch_floats": (2 * 3 * 64 * 256 + 2 * 64 * 1024
-                           + 2 * 2 * 128 * 128)}
+        "smem_bytes": 221840,
+        "scratch_floats": 2 * (3 * 64 * 256 + 2 * 64 * 1024),
+        "on_chip": True}
     for width in kernels.GENERATE_TC_WIDTHS:
         for nx in range(1, kernels.GENERATE_TC_MAX_NX + 1, 7):
             plan = kernels.library_tc_plan(nx, 4, width=width)
@@ -1455,7 +1458,7 @@ def test_merged_plans_at_the_high_dimension_paths(cuda):
 @pytest.mark.parametrize("anti", [False, True])
 @pytest.mark.parametrize("nx,width,n_hidden,m", [
     (512, 128, 4, 128), (1024, 128, 2, 100), (1024, 256, 4, 128),
-    (513, 256, 1, 64), (1000, 256, 3, 70)])
+    (513, 256, 1, 64), (1000, 256, 3, 70), (100, 256, 2, 130)])
 def test_merged_kernel_at_high_dimension_matches_plain(cuda, precision, anti,
                                                        nx, width, n_hidden,
                                                        m):

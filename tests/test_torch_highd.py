@@ -50,7 +50,11 @@ from deeppicarditeration_torch.models.networks import MLP, PISGradNet
 from deeppicarditeration_torch.models.solution import Solution
 from deeppicarditeration_torch.ops import estimators as est
 from deeppicarditeration_torch.ops import kernels
-from tests.test_torch_generate_plan import PATH_R_PLAN, PATH_S_PLAN
+from tests.test_torch_generate_plan import (
+    PATH_R_PLAN,
+    PATH_S_PLAN,
+    PATH_S_WIDE_PLAN,
+)
 
 torch.set_num_threads(1)
 
@@ -267,22 +271,62 @@ def test_l2_bytes_at_path_r(precision, slab):
 @pytest.mark.parametrize("precision,slab", [("bf16x3", 32768),
                                             ("default", 16384)])
 def test_l2_bytes_at_path_s(precision, slab):
-    """S (width 256): a layer is two 128-row halves, so a pass stages layer
-    1's 17 K-slabs twice and 8 slabs of each hidden layer; its tiles'
-    normals are read once more (each half of layer 1), and each tile
-    writes its 4 + 2 layer outputs (TILE x 256 f32) and reads the inputs
-    of its 6 hidden products twice."""
+    """S (width 256, the layer chain on chip): a pass stages layer 1's 65
+    k16 chunks (1 + nx = 1025 columns) once and 16 chunks of each hidden
+    layer forward and backward, each chunk all 256 rows (half a 128-row
+    K-slab's bytes); the scratch is the derivatives of 3 layers and the
+    tile's normals of both chains, each written and read once a tile."""
     b, m, nx = 8192, 32768, 1024
     v = kernels.generate_tc_l2_bytes(b, m, nx, 4, precision, PATH_S_PLAN,
                                      256)
     passes = m // 128
-    assert v["weights"] == b * passes * 2 * (17 + 4 * 2 * 3) * slab
+    assert v["weights"] == b * passes * (65 + 2 * 16 * 3) * slab // 2
     tiles = b * passes * 2
     layer = 64 * 256 * 4
-    assert v["scratch"] == tiles * (3 * layer * 2 + 64 * nx * 4 * 4
-                                    + layer * (6 + 12))
+    assert v["scratch"] == tiles * (3 * layer + 2 * 64 * nx * 4) * 2
     assert {w: kernels.TC_SAVE_LAYER_FLOATS[w] for w in (128, 256)} == {
         128: 64 * 128, 256: 64 * 256}
+
+
+@pytest.mark.parametrize("precision,weights,scratch", [
+    ("bf16x3", 2_765_958_938_624, 3_023_656_976_384),
+    ("default", 1_382_979_469_312, 3_023_656_976_384)])
+def test_l2_bytes_of_a_path_s_call_against_the_wide_plan(precision, weights,
+                                                         scratch):
+    """One generation call at S's shape (B = 4096, M = 32768): the
+    width-256 plan's counted bytes, and the wide pass's before it (8.32 TB
+    under bf16x3, 5.50 TB of it scratch: the tiles' normals read four
+    times, the layer outputs, the derivatives), whose layer outputs it
+    keeps on chip and whose normals it reads once."""
+    b, m, nx = 4096, 32768, 1024
+    v = kernels.generate_tc_l2_bytes(b, m, nx, 4, precision, PATH_S_PLAN,
+                                     256)
+    assert (v["weights"], v["scratch"]) == (weights, scratch)
+    old = kernels.generate_tc_l2_bytes(b, m, nx, 4, precision,
+                                       PATH_S_WIDE_PLAN, 256)
+    assert old["scratch"] == 5_497_558_138_880
+    assert old["weights"] == (2_817_498_546_176 if precision == "bf16x3"
+                              else 1_408_749_273_088)
+    assert v["total"] < 0.7 * old["total"]
+
+
+@pytest.mark.parametrize("path,width,instance", [
+    ("A", 128, 128), ("R", 128, 128), ("S", 256, 256), ("U", 512, "wide"),
+    ("V", 512, "wide"), ("W", 1024, "wide"), ("X", 64, 64)])
+def test_paths_keep_their_instance(path, width, instance):
+    """The merged kernel's instance by path, from the net's width alone
+    (generate.cu's instance_of): S moves to the width-256 instance; A, R
+    (4x128), U, V, W (the wide pass) and X (width 64) keep theirs."""
+    import json
+
+    import chip_smoke
+
+    if path in chip_smoke.WIDTH_PATHS:
+        assert chip_smoke.WIDTH_PATHS[path][0][0] == width
+    elif path in chip_smoke.HIGHD_PATHS:
+        over = dict(zip(*[iter(chip_smoke.HIGHD_PATHS[path][1])] * 2))
+        assert json.loads(over.get("NETWORK.NEURONS", "[128]"))[0] == width
+    assert kernels.generate_tc_instance(width) == instance
 
 
 # ---------------------------------------------------------------------------

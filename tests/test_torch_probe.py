@@ -114,3 +114,33 @@ def test_loop_opcodes_counts_the_iteration_loop_of_each_mode():
                                                            "BRA": 1}
     with pytest.raises(RuntimeError, match="no probe kernel"):
         probe_roofline.loop_opcodes(_SASS, "normals")
+
+
+def _generate_sass(draw_imad: int) -> str:
+    """A width-256 merged kernel's SASS: a loop with the products (HGMMA,
+    and a MUFU of the epilogues') and a draw loop (one quad: ``draw_imad``
+    IMAD, 2 MUFU, 4 FFMA, an LDS)."""
+    lines = ["\t\tFunction : _ZN4_GLOBAL_18generate_tc_kernelILi3ELi256EEEvN3dpi2tc6ParamsE"]
+    ops = ["HGMMA.64x256x16.F32.BF16 R24, gdesc[UR4], R24", "MUFU.EX2 R3, R2",
+           "@!P0 BRA 0x0"]
+    ops += ["IMAD.WIDE.U32 R6, R4, 0x3, RZ"] * draw_imad + [
+        "MUFU.RSQ R5, R4", "MUFU.RSQ R7, R6", "LDS R8, [R9]"] + [
+        "FFMA R10, R8, R5, R10"] * 4
+    ops += [f"@P1 BRA 0x{16 * 3:x}", "EXIT", "BRA 0x0"]
+    for k, op in enumerate(ops):
+        lines.append(f"        /*{16 * k:04x}*/                   {op} ;")
+    return "\n".join(lines) + "\n"
+
+
+def test_generate_draw_mix_reads_the_own_draw_loop():
+    """``generate_draw_mix``: the loop without products with the most MUFU,
+    its instructions over 4 normals per 2 MUFU (one quad here), by group;
+    a loop whose IMAD cannot hold a Philox per quad raises."""
+    got = probe_roofline.generate_draw_mix(_generate_sass(14))
+    assert got["quads_per_iteration"] == 1
+    mix = got["draw_loop"]
+    assert mix["all"] == (14 + 2 + 1 + 4 + 1) / 4
+    assert (mix["int"], mix["fp32"], mix["sfu"], mix["lds"]) == (
+        14 / 4, 4 / 4, 2 / 4, 1 / 4)
+    with pytest.raises(RuntimeError, match="not a Philox per quad"):
+        probe_roofline.generate_draw_mix(_generate_sass(13))
