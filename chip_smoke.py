@@ -239,10 +239,14 @@ only when every phase passed):
      nx = 1000, 4x256; 131 at nx = 1023, 2x128; "default" there under the
      wide gate), against its plain version on the same noise, its own
      draws against the host Philox at nx = 1024 and the ragged cases; the
-     PIS kernel at nx 512 (net and zero iterate), 500 and 136 likewise
-     (``PIS_REL_TOL``), its draws at nx = 512; nx = 1025, "highest" at
-     nx = 512 and the PIS kernel at nx = 513 raising NotImplementedError
-     before any launch;
+     PIS kernel's wide instance at nx 512 (net and zero iterate), 500,
+     136, 129, 300 and 511, M off the 64-sample tiles and B = 140 off the
+     grid (``PIS_HIGHD_CASES``) likewise (``PIS_REL_TOL``; "default" at
+     B = 140, M = 200, nx = 512 against the plain version in f64 as phase
+     24's, ``PIS_ONE_PASS_OUTPUTS``), its draws
+     against the host Philox in every case with a net and at nx = 512;
+     nx = 1025, "highest" at nx = 512 and the PIS kernel at nx = 513
+     raising NotImplementedError before any launch;
  23. paths R, S, T, 3 iterations each: every generation call merged, one
      launch of the path's kernel per iteration, rRMSE at each iteration
      under 1.5x the record's (``HIGHD_PATHS``), generate and fit ms, the
@@ -289,7 +293,12 @@ only when every phase passed):
      the first ``WIDTH_CLT_POINTS`` points (the plain version takes 27-46
      s a call over all 4096 at U, V, W), and at V's in "default" too, on
      the same external noise over its first ``WIDTH_DEFAULT_POINTS``
-     points (phase 24's gate).
+     points (phase 24's gate); the HJB kernel's rows (H, J, T) also with
+     the bound its own draw and mixture loops give
+     (``probe_roofline.generate_pis_draw_mix``, printed in phase 1;
+     ``bound_ms_own_sass``), and T's L2 bytes counted from its plan
+     (``kernels.library_pis_plan``, ``generate_pis_l2_bytes``) printed
+     beside its time.
 Needs one NVIDIA H100 SXM card; imports nothing of JAX.
 """
 
@@ -697,9 +706,25 @@ HIGHD_RAGGED = ((4095, 64, 1000, 256, 4), (131, 100, 1023, 128, 2))
 # version's distance from itself with its inputs' order permuted (layer
 # 1's sum in another order) is printed beside, measured, not gated
 HIGHD_ONE_PASS_CONTROL = 0.75
-# ... and of the PIS kernel's: (B, M, nx, net)
+# ... and of the PIS kernel's: (B, M, nx, net); its wide instance at nx
+# 129, 300, 511 (off the multiples of 4 and 32), M off the 64-sample tiles
+# and B = 140 off the grid of 132 blocks (a block takes two points), each
+# with a net also on its own draws against the host Philox. "Default" with
+# a net over more outputs than PIS_ONE_PASS_OUTPUTS (the 64-point nx = 512
+# case's) takes phase 24's check against the plain version in f64
+# (_one_pass_vs_f64) in place of PIS_REL_TOL, whose reading is printed
+# beside it. At B = 140, M = 200, nx = 512 the kernel lay 1.329e-3 from the
+# plain version (relative, a gradient column; 0.713 absolute), as did the
+# build before it, where the plain version with its hidden units permuted
+# lay 0.150 from itself; against the plain version in f64 the kernel's
+# one pass and the plain one are equally far (RMS 0.5836 / 0.5830, max
+# 9.306 / 9.259; H100 80GB HBM3 700 W, PERF.md §6)
 PIS_HIGHD_CASES = ((64, 128, 512, True), (64, 128, 512, False),
-                   (33, 100, 500, True), (8, 64, 136, True))
+                   (33, 100, 500, True), (8, 64, 136, True),
+                   (140, 100, 129, True), (8, 70, 300, True),
+                   (8, 100, 511, True), (140, 100, 300, False),
+                   (140, 200, 512, True))
+PIS_ONE_PASS_OUTPUTS = 64 * 513
 # Paths U, V, W, X: the merged kernel at the nets of the JAX package's
 # dispatcher matrix (scripts/bench_dispatcher_matrix.py,
 # bench_results/dispatcher_matrix_r5.jsonl: B = 4096, M = 4096, bf16x3,
@@ -1053,7 +1078,8 @@ def _same_mode(label, mode, out, ref, plain_as=None, m=None,
 
 
 def _one_pass_vs_f64(label, out, eq, sol, tx, m, noise, anti) -> float:
-    """Phase 24's and V's "default" check (DEEP_ONE_PASS_RATIO): the
+    """Phase 24's, V's and phase 11's widest PIS case's "default" check
+    (DEEP_ONE_PASS_RATIO): the
     kernel's one pass ``out`` and the plain version's, on the same inputs
     (external ``noise``), each against the plain version in f64, with the
     plain bf16x3 as the control; the distances from the plain one pass,
@@ -1595,13 +1621,23 @@ def _check_highd(max_err: dict, dev) -> None:
         tag = f"nx={nx}, {'4x512 PISGradNet' if net else 'zero'}, B={b} M={m}"
         for mode in PIS_MODES:
             key = _err_key("generate_pis", mode) + " highd"
-            max_err[key] = max(max_err.get(key, 0.0), _pis_same(
-                f"generate_pis {mode}, {tag}",
-                kernels.generate_pis_cuda(0, eq, sol, tx, m, *noise,
-                                          precision=mode),
-                kernels.generate_with_gradients_plain(
-                    0, eq, sol, tx, m, *noise, precision=mode), mode))
-        if nx == 512:
+            label = f"generate_pis {mode}, {tag}"
+            out = kernels.generate_pis_cuda(0, eq, sol, tx, m, *noise,
+                                            precision=mode)
+            ref = kernels.generate_with_gradients_plain(
+                0, eq, sol, tx, m, *noise, precision=mode)
+            wide = b * (1 + nx) > PIS_ONE_PASS_OUTPUTS
+            if mode == "default" and net and wide:
+                ev, eg = _pis_rel(out, ref)
+                print(f"kernel vs plain ({label}; measured, not gated): "
+                      f"relative value {ev:.3e}, gradient {eg:.3e}")
+                err = _one_pass_vs_f64(label, out, eq, sol, tx, m, noise,
+                                       False)
+            else:
+                err = _pis_same(label, out, ref, mode)
+            max_err[key] = max(max_err.get(key, 0.0), err)
+            del out, ref
+        if net or nx == 512:
             pts = [0, 1, b - 2, b - 1]
             draws = _host_draws(EXACT_SEED, pts, m, nx, dev)
             for mode in PIS_MODES:
@@ -1921,7 +1957,7 @@ def _merged_work(b, m, nx, anti, neurons, n_weights, precision="highest",
     return tuple(w)
 
 
-def _pis_work(b, m, nx, hidden, ncomp, n_weights, precision):
+def _pis_work(b, m, nx, hidden, ncomp, n_weights, precision, own=None):
     """(FP32, INT32, SFU, bytes, bf16 tensor) of one generate_pis call.
     Terminal chain: the normals, X_T (2 FP32 per dimension), the mixture's
     terms per component (3 FP32 and a reciprocal per dimension), the
@@ -1932,31 +1968,55 @@ def _pis_work(b, m, nx, hidden, ncomp, n_weights, precision):
     FP32 each, the precise functions on the FP32 pipe) and an exp per
     hidden unit of the gate, the encoder and the net (ELU); the products
     (``generate_pis_macs_per_sample``) on the tensor pipe, 3 passes or 1.
-    t, x, g0, f0, the packed weights and the mixture in, (B, 1 + nx) out."""
+    t, x, g0, f0, the packed weights and the mixture in, (B, 1 + nx) out.
+    ``own``: the kernel's own loops per normal (``_per_normal`` of
+    ``probe_roofline.generate_pis_draw_mix``'s "terminal" and "integral")
+    in place of the terminal kernel's draw and of what those loops hold: the
+    terminal chain's per-dimension work whole, the integral chain's X_s and
+    the responsibilities' terms."""
     from deeppicarditeration_torch.ops.kernels import (
         generate_pis_macs_per_sample,
     )
 
     n, s = b * m * nx, b * m
-    fp32 = FP32_PER_NORMAL * n + n * (4 + 3 * ncomp) + s * (2 * ncomp + 4)
-    int_ops = INT_PER_NORMAL * n
-    other = OTHER_PER_NORMAL * n
-    sfu = SFU_PER_NORMAL * n + n * ncomp + s * (ncomp + 1)
+    if own:
+        fp32, int_ops, sfu, other = (v * n for v in own["terminal"])
+        fp32 += s * (2 * ncomp + 4)
+        sfu += s * (ncomp + 1)
+    else:
+        fp32 = (FP32_PER_NORMAL * n + n * (4 + 3 * ncomp)
+                + s * (2 * ncomp + 4))
+        int_ops = INT_PER_NORMAL * n
+        other = OTHER_PER_NORMAL * n
+        sfu = SFU_PER_NORMAL * n + n * ncomp + s * (ncomp + 1)
     tensor, w_bytes = 0, 0
     if hidden:
         c = 64
-        fp32 += (FP32_PER_NORMAL * n + n * (10 + 6 * ncomp)
-                 + s * (40 * c + 2 * ncomp + 10))
-        int_ops += INT_PER_NORMAL * n + INT_PER_WORD * s
-        other += OTHER_PER_NORMAL * n
-        sfu += (SFU_PER_NORMAL * n + 2 * n * ncomp
-                + s * (c * (len(hidden) + 2) + sum(hidden) + ncomp + 1))
+        fp32 += s * (40 * c + 2 * ncomp + 10)
+        int_ops += INT_PER_WORD * s
+        sfu += s * (c * (len(hidden) + 2) + sum(hidden) + ncomp + 1)
+        if own:
+            i_fp32, i_int, i_sfu, i_other = own["integral"]
+            fp32 += i_fp32 * n + n * (8 + 3 * ncomp)
+            int_ops += i_int * n
+            other += i_other * n
+            sfu += i_sfu * n + n * ncomp
+        else:
+            fp32 += FP32_PER_NORMAL * n + n * (10 + 6 * ncomp)
+            int_ops += INT_PER_NORMAL * n
+            other += OTHER_PER_NORMAL * n
+            sfu += SFU_PER_NORMAL * n + 2 * n * ncomp
         passes = 3 if precision == "bf16x3" else 1
         tensor = passes * 2 * s * generate_pis_macs_per_sample(nx, hidden)
         w_bytes = n_weights * (4 if precision == "bf16x3" else 2)
     return (fp32, int_ops, sfu,
             4 * (b * (4 + nx) + b * (1 + nx) + 2 * ncomp * (nx + 1))
             + w_bytes, tensor, other)
+
+
+def _pis_own(mix: dict) -> dict:
+    """``_pis_work``'s ``own`` from ``generate_pis_draw_mix``'s reading."""
+    return {k: _per_normal(mix[k]) for k in ("terminal", "integral")}
 
 
 def _normals_work(n):
@@ -2975,8 +3035,8 @@ SPILLS_MAX = {"generate_tc_kernel<bf16x3, 128>": (12, 15),
               "generate_tc_kernel<default, wide>": (9, 10),
               "generate_pis_kernel<default>": (113, 137),
               "generate_pis_kernel<bf16x3>": (114, 138),
-              "generate_pis_kernel<default, nx > 128>": (205, 261),
-              "generate_pis_kernel<bf16x3, nx > 128>": (255, 405),
+              "generate_pis_kernel<default, nx > 128>": (106, 152),
+              "generate_pis_kernel<bf16x3, nx > 128>": (122, 195),
               "integral_tc_kernel<bf16x3>": (7, 11),
               "integral_tc_kernel<default>": (1, 1),
               "integral_tc_kernel<highest>": (28, 32)}
@@ -3220,6 +3280,15 @@ def main(argv=None) -> int:
         probe_roofline.library_sass(kernels.GENERATE))
     print("merged kernel's own SASS per normal at S's instance "
           f"({probe_roofline.GENERATE_256}): " + json.dumps(generate_sass))
+    # the HJB kernel's own draw and mixture loops at T's and H's instances
+    # and nx (512, 100)
+    pis_lib_sass = probe_roofline.library_sass(kernels.GENERATE_PIS)
+    pis_sass = {inst: probe_roofline.generate_pis_draw_mix(pis_lib_sass, nx,
+                                                           inst)
+                for inst, nx in ((probe_roofline.GENERATE_PIS_WIDE, 512),
+                                 (probe_roofline.GENERATE_PIS_NARROW, 100))}
+    print("HJB kernel's own SASS per normal (terminal and integral loops): "
+          + json.dumps(pis_sass))
     max_err = {f"{lib.source.stem}{sfx}": 0.0 for lib in kernels.ALL
                for sfx in ("", " bf16x3", " default")}
 
@@ -3771,15 +3840,23 @@ def main(argv=None) -> int:
     pis_ms = _in_turns({mode: (lambda mode=mode: kernels.generate_pis_cuda(
         5, eq_h, sol_h, tx_h, mm_h, precision=mode)) for mode in PIS_MODES},
         2)
+    own_h = _pis_own(pis_sass[probe_roofline.GENERATE_PIS_NARROW])
     for mode, (path, runner, launches) in zip(PIS_MODES, (
             ("H", runner_h, launches_h), ("J", runner_j, launches_j))):
+        bd_own = _bound(_pis_work(nb_h, mm_h, nx, hidden_h, ncomp, n_w_h,
+                                  mode, own_h))
+        print(f"generate_pis {mode} at path {path}'s shapes: bound with "
+              f"generate_pis.cu's own loops {bd_own[0]:.2f} ms "
+              f"({bd_own[2]}), beside {pis_ms[mode]:.2f} ms")
         row("generate_pis", "generate_pis", f"{src}:869", path,
             launches["generate_pis"], runner.generate_calls, pis_ms[mode],
             _time_ms(lambda: kernels.generate_with_gradients_plain(
                 5, eq_h, sol_h, tx_h, mm_h, precision=mode), 1),
             _pis_work(nb_h, mm_h, nx, hidden_h, ncomp, n_w_h, mode),
             shape=f"B={nb_h} M={mm_h} nx={nx}, 4x512 PISGradNet",
-            mode=mode, extra={"instance": "OU + PISGradNet (HJB)"})
+            mode=mode, extra={"instance": "OU + PISGradNet (HJB)",
+                              "bound_ms_own_sass": bd_own[0],
+                              "bound_pipe_own_sass": bd_own[2]})
     # the merged kernels' high-dimension instances at paths R, S and T's
     # shapes, and the matrix's nets at U, V, W and X's, each with its
     # path's trained iterate in its path's mode, checked there
@@ -3790,11 +3867,33 @@ def main(argv=None) -> int:
             _highd_at_own_shape(path, runner_p, max_err, dev)
         nx_p = eq_p.nx
         n_w_p = sum(v.numel() for v in sol_p.module.parameters())
+        own_bound = {}
         if path == "T":
             stem, lib_name = "generate_pis", "generate_pis"
-            work = _pis_work(nb_p, mm_p, nx_p, sol_p.module.hidden_shapes,
-                             int(eq_p.gmm_means.shape[0]), n_w_p, mode_p)
+            hidden_p = sol_p.module.hidden_shapes
+            ncomp_p = int(eq_p.gmm_means.shape[0])
+            work = _pis_work(nb_p, mm_p, nx_p, hidden_p, ncomp_p, n_w_p,
+                             mode_p)
             net = "4x512 PISGradNet"
+            bd_own = _bound(_pis_work(
+                nb_p, mm_p, nx_p, hidden_p, ncomp_p, n_w_p, mode_p,
+                _pis_own(pis_sass[probe_roofline.GENERATE_PIS_WIDE])))
+            own_bound = {"bound_ms_own_sass": bd_own[0],
+                         "bound_pipe_own_sass": bd_own[2]}
+            plan_p = kernels.library_pis_plan(nx_p, len(hidden_p), mode_p,
+                                              ncomp_p)
+            v = kernels.generate_pis_l2_bytes(nb_p, mm_p, nx_p,
+                                              len(hidden_p), mode_p, plan_p)
+            print(f"generate_pis {mode_p} at path T's shapes: {ms_p:.2f} ms "
+                  f"a call; bound {_bound(work)[0]:.2f} ms "
+                  f"({_bound(work)[2]}), with generate_pis.cu's own loops "
+                  f"{bd_own[0]:.2f} ms ({bd_own[2]}); L2 bytes per launch by "
+                  f"the plan {plan_p} (counted, not measured): "
+                  f"{v['total'] / 1e12:.3f} TB (weight stages "
+                  f"{v['weights'] / 1e12:.3f}, scratch "
+                  f"{v['scratch'] / 1e12:.3f}), "
+                  f"{v['total'] / (ms_p * 1e-3) / 1e12:.2f} TB/s over the "
+                  f"measured time")
         else:
             stem, lib_name = "generate", "generate_with_gradients"
             neurons_p = sol_p.module.neurons
@@ -3810,7 +3909,6 @@ def main(argv=None) -> int:
                   f"{plan_p}: {v['total'] / 1e9:.2f} GB (weight slabs "
                   f"{v['weights'] / 1e9:.2f}, scratch "
                   f"{v['scratch'] / 1e9:.2f})")
-        own_bound = {}
         if path == "S":
             # the bound with the merged kernel's own draw loops (phase 1)
             # in place of the terminal kernel's, printed beside the row's

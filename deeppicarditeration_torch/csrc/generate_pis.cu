@@ -75,29 +75,42 @@
 //   * the backward pass needs each hidden layer's ELU'(z): kept in a global
 //     scratch of each block's own (64 x 512 f32 a layer), written and read
 //     by the same thread, as is the head's output;
-//   * the terminal chain takes 4 lanes a draw (each lane a quarter of the
-//     draw's quads, its mixture terms summed in registers; lane l is left
-//     with the warp's sums of quad l): on the three terminal warps in two
-//     passes over the draw (its logits, then its gradient terms), or, for
-//     the zero iterate, on the 256 consumers in one (the quads shifted into
-//     registers, a transposing shuffle sum);
+//   * the narrow instance's terminal chain takes 4 lanes a draw (each lane
+//     a quarter of the draw's quads, its mixture terms summed in registers;
+//     lane l is left with the warp's sums of quad l): on the three terminal
+//     warps in two passes over the draw (its logits, then its gradient
+//     terms), or, for the zero iterate, on the 256 consumers in one (the
+//     quads shifted into registers, a transposing shuffle sum);
 //   * the consumers' CUDA-core phases run as short rolled loops over all
 //     256 threads: the responsibilities and the f rows take 4 lanes a row
 //     (the head's output and the x columns of h0's gradient staged in
 //     shared memory); the mixture's variances are inverted once per block;
 //   * sums over draws and rows run in a fixed order (deterministic);
 //   * nx up to 512 in a wide instance of its own (W, nx > 128; the narrow
-//     instance keeps its code): the head and the x columns of N_0^T are
-//     512 rows (m64n256 per warpgroup, as the hidden layers); h0 = [T_enc,
-//     X_s] takes 64 + nx <= 576 columns of the activation buffer (72 KB
-//     an image), written once the gate has read its columns; the tile's
-//     integral normals (128 KB at nx = 512) go to the block's global
-//     scratch where the activations and the ring leave no room; the
-//     terminal chain's lane holds one draw's mixture sums, and the warp's
-//     sums over its draws sit in shared memory (term_draw_wide: at nx = 512
-//     the narrow layout's quads would take 128 registers a lane); w and f
-//     per row are summed in registers in the accumulators' layout and then
-//     across the 4 lanes of a row and the two warpgroups.
+//     instance keeps its code), shaped by its trace at path T (nx = 512;
+//     PERF.md, utils/pis_bench.py --stamps), where the earlier layout's
+//     consumers spent ~680 k of ~880 k cycles a tile in CUDA-core phases
+//     whose scratch loads and spills ran at L2 latency, one at a time, and
+//     bf16x3 waited ~780 k on its 2-stage ring:
+//     - the head and the x columns of N_0^T are 512 rows (m64n256 per
+//       warpgroup, as the hidden layers); h0 = [T_enc, X_s] takes 64 + nx
+//       <= 576 columns of the activation buffer, written once the gate has
+//       read its columns;
+//     - the tile's integral normals and, per row, w's mixture term (1 -
+//       sigma) e^{-lambda/2} grad g go to the block's scratch, drawn and
+//       summed 4 lanes a row with the responsibilities in one pass; every
+//       pass that reads them back keeps 8 quads' loads in flight, and the
+//       epilogues load before they write. The accumulators of N_0x^T's
+//       products start at w0 = sigma N(h0) + the mixture term (written by
+//       the head's epilogue), so no per-element work runs beside 128 live
+//       accumulators; the base pointers are made opaque at every phase, so
+//       that no address is hoisted into a register that would spill;
+//     - the terminal chain runs one warp a draw (each lane 4 quads, the
+//       logits' terms summed over the warp, each normal drawn again for the
+//       gradient sums in few registers), its sums in a strip of scratch a
+//       warp: the shared memory goes to a 4th ring stage under "default"
+//       (3 under bf16x3);
+//     - registers 56 / 224 (producer warpgroup / consumers).
 // Draws: Philox4x32-10 keyed by (seed, point), counters (sample, quad,
 // chain) as in generate.cu (philox.cuh), so the host reference
 // ops/philox.py gives the same numbers.
@@ -129,13 +142,13 @@ constexpr int CH = 64;                   // the time net's channels
 constexpr int HW = 512;                  // the hidden width covered
 constexpr int MAX_NX = 512;              // the nx covered
 // Up to NARROW_NX the narrow instance: the head and the x columns of
-// N_0^T 128 rows (HALF); beyond it the wide instance (W): those 512 rows
-// (WIDE), h0 = [T_enc, X_s] up to 64 + MAX_NX columns of the activation
-// buffer, the integral normals in global scratch where shared memory has
-// no room, and the terminal chain's sums in shared memory. Both stay: the
-// wide instance forced at path H's nx = 100 (B = M = 4096) took 535.21 ms
-// in "default" and 1315.86 in bf16x3, in turns with the narrow one's
-// 303.31 and 562.40 (utils/pis_bench.py, H100 80GB HBM3 700 W).
+// N_0^T 128 rows (HALF); beyond it the wide instance (W, wide_body): those
+// 512 rows (WIDE), h0 = [T_enc, X_s] up to 64 + MAX_NX columns of the
+// activation buffer, the integral normals and the terminal chain's sums in
+// global scratch. Both stay: the wide instance forced at path H's nx = 100
+// (B = M = 4096; NARROW_NX = 64 in a copy, utils/pis_bench.py --narrow-nx)
+// took 489.44 ms in "default" and 803.68 in bf16x3, in turns with the
+// narrow one's 299.96 and 557.11 (H100 80GB HBM3 700 W).
 constexpr int NARROW_NX = 128;
 // columns of the activation buffer, and one bf16 image of it (64 or 72 KB)
 __host__ __device__ constexpr int act_cols(bool w) { return w ? 576 : 512; }
@@ -267,16 +280,27 @@ __host__ __device__ inline VecLayout vec_layout(int L, int nx) {
   return v;
 }
 
-// Byte offsets of the dynamic shared memory; the tile's integral normals
-// (dw) in global scratch where dw_smem is 0.
+// nx padded to 4: the wide instance's stride of the mixture, of X's row and
+// of the tile's normals (a quad of them one 16-byte access)
+__host__ __device__ inline int wide_nx(int nx) { return (nx + 3) / 4 * 4; }
+
+// Byte offsets of the dynamic shared memory. The narrow instance keeps the
+// tile's integral normals (dw) in shared memory and, with a net, the
+// terminal warps' sums in tred. The wide instance keeps the normals in the
+// block's global scratch (dw_smem 0) and the mixture and X's row at the
+// stride wide_nx; each warp of its terminal chain sums into a strip of
+// wide_nx floats, which the zero iterate's 8 consumer warps keep here (and
+// their sums in tred) and the three terminal warps beside a net in
+// scratch.
 struct Plan {
   int stages, dw_smem;
-  size_t act, ring, dw, xrow, gmm, rows, resp, tacc, tred, bars, total;
+  size_t act, ring, dw, xrow, gmm, rows, resp, strip, tred, bars, total;
 };
 
+// w: the instance (nx > NARROW_NX), a constant in each kernel body
 __host__ __device__ inline Plan make_plan(int nx, int ncomp, int has_net,
-                                          bool x3, int stages, int dw_smem) {
-  const bool w = nx > NARROW_NX;
+                                          bool x3, int stages, bool w) {
+  const int sx = w ? wide_nx(nx) : nx, dw_smem = !w;
   Plan p;
   p.stages = stages;
   p.dw_smem = dw_smem;
@@ -288,46 +312,53 @@ __host__ __device__ inline Plan make_plan(int nx, int ncomp, int has_net,
   p.dw = o;
   if (dw_smem) o += align16((size_t)TILE * nx * 4);
   p.xrow = o;
-  o += align16((size_t)nx * 4);
+  o += align16((size_t)sx * 4);
   p.gmm = o;
-  o += align16((size_t)(2 * ncomp * nx + 2 * ncomp) * 4);
+  o += align16((size_t)(2 * ncomp * sx + 2 * ncomp) * 4);
   p.rows = o;
   o += (size_t)NROWS * TILE * 4;
   p.resp = o;
   o += (size_t)TILE * GMM_MAX_COMPONENTS * 4;
-  // the wide instance's terminal warps: each its sums over the point
-  p.tacc = o;
-  if (w && has_net) o += (size_t)TERM_WARPS * align16((size_t)nx * 4);
+  // the terminal chain's strips and sums: the narrow instance's net keeps
+  // its sums here (tred), the wide zero iterate its strips and sums, the
+  // wide instance with a net both in scratch (shared memory goes to the
+  // ring); the narrow zero iterate sums in dw's space
+  const int chain_warps = has_net ? TERM_WARPS : CONSUMERS / 32;
+  p.strip = o;
+  if (w && !has_net) o += (size_t)chain_warps * sx * 4;
   p.tred = o;
-  o += has_net ? align16((size_t)TERM_WARPS * (1 + nx) * 4) : 0;
+  if (has_net != (int)w) o += align16((size_t)chain_warps * (1 + nx) * 4);
   p.bars = o;
   o += (size_t)2 * MAX_STAGES * 8;
   p.total = o;
   return p;
 }
 
-// the largest ring of MIN_STAGES..MAX_STAGES stages that fits with the
-// tile's normals in shared memory, else (the wide instance with a net: the
-// narrow one and the zero iterate keep them on chip) the largest with them
-// in global scratch; stages = -1 if none
+// the largest ring of MIN_STAGES..MAX_STAGES stages that fits, the tile's
+// normals in shared memory (narrow) or in global scratch (wide); stages =
+// -1 if none
 inline Plan choose_plan(int nx, int ncomp, int has_net, bool x3) {
-  for (int dw = 1; dw >= (has_net && nx > NARROW_NX ? 0 : 1); --dw)
-    for (int st = MAX_STAGES; st >= MIN_STAGES; --st) {
-      const Plan p = make_plan(nx, ncomp, has_net, x3, st, dw);
-      if (p.total <= SMEM_LIMIT) return p;
-    }
-  Plan bad = make_plan(nx, ncomp, has_net, x3, 0, 0);
+  const bool w = nx > NARROW_NX;
+  for (int st = MAX_STAGES; st >= MIN_STAGES; --st) {
+    const Plan p = make_plan(nx, ncomp, has_net, x3, st, w);
+    if (p.total <= SMEM_LIMIT) return p;
+  }
+  Plan bad = make_plan(nx, ncomp, has_net, x3, 0, w);
   bad.stages = -1;
   return bad;
 }
 
-// floats of global scratch a block keeps: the head's output, L layers'
-// ELU'(z), then the tile's integral normals where the plan keeps them
-// there
+// floats of global scratch a block keeps: the head's output (the wide
+// instance: w's first terms, w0), L layers' ELU'(z); in the wide instance
+// then the tile's integral normals and the mixture's term of w (each TILE
+// x wide_nx), the terminal warps' sums of a point (TERM_WARPS x (1 + nx),
+// padded to 4) and their strips (TERM_WARPS x wide_nx)
 __host__ __device__ inline size_t scratch_floats_per_block(int L, int nx,
-                                                           int dw_smem) {
-  return (size_t)TILE * head_rows(nx) + (size_t)L * TILE * HW +
-         (dw_smem ? 0 : (size_t)TILE * nx);
+                                                           bool w) {
+  const size_t net = (size_t)TILE * head_rows(nx) + (size_t)L * TILE * HW;
+  if (!w) return net;
+  return net + (size_t)(2 * TILE + TERM_WARPS) * wide_nx(nx) +
+         (size_t)(TERM_WARPS * (1 + nx) + 3) / 4 * 4;
 }
 
 struct Params {
@@ -343,7 +374,7 @@ struct Params {
   const float* noise_i;  // (B, M, nx) or null
   float* scratch;        // gridDim.x x scratch_floats_per_block(L, ..)
   float* out;            // (B, 1 + nx)
-  int B, M, nx, L, has_net, ncomp, stages, dw_smem;
+  int B, M, nx, L, has_net, ncomp, stages;
   uint32_t seed_lo, seed_hi;
   float T, alpha_sqrt, theta, mu, half_alpha, nx_theta, sigma0;
 };
@@ -635,7 +666,8 @@ __device__ __forceinline__ void stage_mma(float (&a0)[NACC],
 // (warpgroup 1 on the GATE layers) only passes them on. One wgmma group
 // per stage, one in flight while the next is issued; what a group issues
 // is fixed at compile time, so ptxas keeps the wgmma asynchronous.
-template <bool X3, int KIND, bool USE, bool W, bool SYNC = true>
+template <bool X3, int KIND, bool USE, bool W, bool SYNC = true,
+          bool ZERO = true>
 __device__ __forceinline__ void layer_mma(float (&a0)[NACC],
                                           float (&a1)[NACC], uint32_t act,
                                           int in_col, int K, int wg,
@@ -654,11 +686,13 @@ __device__ __forceinline__ void layer_mma(float (&a0)[NACC],
     consumers_sync();
     return;
   }
+  if (ZERO) {
 #pragma unroll
-  for (int i = 0; i < NV; ++i) a0[i] = 0.0f;
-  if (KIND == WIDE) {
+    for (int i = 0; i < NV; ++i) a0[i] = 0.0f;
+    if (KIND == WIDE) {
 #pragma unroll
-    for (int i = 0; i < NACC; ++i) a1[i] = 0.0f;
+      for (int i = 0; i < NACC; ++i) a1[i] = 0.0f;
+    }
   }
   const uint32_t rows =
       (uint32_t)((KIND == WIDE ? 32 * wg : KIND == HALF ? 8 * wg : 0) * 256);
@@ -878,83 +912,16 @@ __device__ __forceinline__ void bar_sync(int id) {
                : "memory");
 }
 
-// One draw of the wide instance's terminal chain, on 4 lanes (r4 = lane &
-// 3; the quads r4 + 4 m of the draw): pass 1 its mixture logits, pass 2
-// diff x its normals, summed over the warp's 8 draws by shuffles and added
-// by lanes 0..3 to the warp's sums in shared memory (wsum, nx floats):
-// at nx = 512 a lane's quads would take 128 registers. Returns diff (0 for
-// a draw that is not live); every lane of the warp takes part.
-__device__ __forceinline__ float term_draw_wide(const Params& p,
-                                                const Gmm& gmix,
-                                                const float* x,
-                                                const float* row, bool live,
-                                                int k, uint2 key, float cT,
-                                                float g0, int lane,
-                                                float* wsum) {
-  const int nx = p.nx, Q = (nx + 3) / 4, nm = (Q + 3) / 4, r4 = lane & 3;
-  float part[GMM_MAX_COMPONENTS], lp[GMM_MAX_COMPONENTS];
-#pragma unroll
-  for (int c = 0; c < GMM_MAX_COMPONENTS; ++c) part[c] = 0.0f;
-#pragma unroll 1
-  for (int m = 0; m < nm; ++m) {
-    const int q = r4 + 4 * m;
-    if (!live || q >= Q) continue;
-    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (row) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (4 * q + e < nx) v[e] = row[4 * q + e];
-    } else {
-      normals4(k, q, STREAM_TERMINAL, p.seed_hi, key, v);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (4 * q + e < nx)
-        gmm_add(gmix, 4 * q + e, __fadd_rn(x[4 * q + e], __fmul_rn(cT, v[e])),
-                part);
-  }
-  group_logits(gmix, part, lp);
-  const float diff = live ? gmm_neg_log_prob(gmix, lp) - g0 : 0.0f;
-#pragma unroll 1
-  for (int m = 0; m < nm; ++m) {
-    const int q = r4 + 4 * m;
-    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (live && q < Q) {
-      if (row) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (4 * q + e < nx) v[e] = row[4 * q + e];
-      } else {
-        normals4(k, q, STREAM_TERMINAL, p.seed_hi, key, v);
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (4 * q + e >= nx) v[e] = 0.0f;
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float w = diff * v[e];
-      w += __shfl_xor_sync(0xffffffffu, w, 4);
-      w += __shfl_xor_sync(0xffffffffu, w, 8);
-      w += __shfl_xor_sync(0xffffffffu, w, 16);
-      if (lane < 4 && 4 * q + e < nx) wsum[4 * q + e] += w;
-    }
-  }
-  return diff;
-}
-
 // The terminal chain of the points of this block, on the producer
-// warpgroup's three warps, beside the consumers' products (with a net;
-// the zero iterate's consumers run it themselves). 4 lanes a draw, 24
-// draws a round, 3 rounds a tile; two passes over a draw's quads: its
-// mixture logits, then diff x its normals, summed over the warp's 8
-// draws per quad (narrow: lane l keeps quad l; wide: term_draw_wide, the
-// warp's sums in tacc). At a point's end the three warps' sums go to tred
-// for the consumers, in a fixed order.
-template <bool W>
+// warpgroup's three warps, beside the consumers' products (the narrow
+// instance with a net; its zero iterate's consumers run it themselves). 4
+// lanes a draw, 24 draws a round, 3 rounds a tile; two passes over a draw's
+// quads: its mixture logits, then diff x its normals, summed over the
+// warp's 8 draws per quad (lane l keeps quad l). At a point's end the three
+// warps' sums go to tred for the consumers, in a fixed order.
 __device__ __forceinline__ void terminal_warps(const Params& p,
                                                const Gmm& gmix, float* tred,
-                                               float* tacc, int wt) {
+                                               int wt) {
   const int nx = p.nx, Q = (nx + 3) / 4, r4 = wt & 3, lane = wt & 31;
   const int tw = wt >> 5, ntile = (p.M + TILE - 1) / TILE;
   bool first = true;
@@ -964,24 +931,12 @@ __device__ __forceinline__ void terminal_warps(const Params& p,
     const uint2 key = make_uint2(p.seed_lo, (uint32_t)b);
     const float* x = p.x + (size_t)b * nx;
     float acc_t[4] = {0.0f, 0.0f, 0.0f, 0.0f}, acc_tv = 0.0f;
-    float* wsum = tacc + (size_t)tw * (align16((size_t)nx * 4) / 4);
-    if (W) {
-      for (int j = lane; j < nx; j += 32) wsum[j] = 0.0f;
-      __syncwarp();
-    }
     for (int kb = 0; kb < ntile; ++kb)
       for (int d0 = 0; d0 < TILE; d0 += TERM_THREADS / 4) {
         const int dl = d0 + (wt >> 2), k = kb * TILE + dl;
         const bool live = dl < TILE && k < p.M;
         const float* row = p.noise_t ? p.noise_t + ((size_t)b * p.M + k) * nx
                                      : nullptr;
-        if constexpr (W) {
-          const float diff = term_draw_wide(p, gmix, x, live ? row : nullptr,
-                                            live, k, key, cT, g0, lane,
-                                            wsum);
-          if (r4 == 0) acc_tv += diff;
-          continue;
-        }
         // pass 1: the draw's logits
         float part[GMM_MAX_COMPONENTS], lp[GMM_MAX_COMPONENTS];
 #pragma unroll
@@ -1041,27 +996,20 @@ __device__ __forceinline__ void terminal_warps(const Params& p,
     acc_tv = warp_sum(acc_tv);
     float* out = tred + tw * (1 + nx);
     if (lane == 0) out[0] = acc_tv;
-    if (W) {
-      __syncwarp();
-      for (int j = lane; j < nx; j += 32) out[1 + j] = wsum[j];
-    } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (4 * lane + e < nx) out[1 + 4 * lane + e] = acc_t[e];
-    }
+    for (int e = 0; e < 4; ++e)
+      if (4 * lane + e < nx) out[1 + 4 * lane + e] = acc_t[e];
     bar_arrive(BAR_TERM_FULL);
   }
 }
 
-// X3: bf16x3 (else one bf16 pass); W: the wide instance (nx > NARROW_NX)
-template <bool X3, bool W>
-__global__ void __launch_bounds__(THREADS, 1)
-generate_pis_kernel(const Params p) {
+// The narrow instance (nx <= NARROW_NX)
+template <bool X3>
+__device__ __forceinline__ void narrow_body(const Params& p) {
+  constexpr bool W = false;
   extern __shared__ __align__(128) unsigned char smem[];
   const int nx = p.nx, L = p.has_net ? p.L : 0;
-  // (the narrow instance keeps the tile's normals in shared memory)
-  const Plan pl =
-      make_plan(nx, p.ncomp, p.has_net, X3, p.stages, W ? p.dw_smem : 1);
+  const Plan pl = make_plan(nx, p.ncomp, p.has_net, X3, p.stages, false);
   unsigned char* act = smem + pl.act;
   float* xrow = reinterpret_cast<float*>(smem + pl.xrow);
   float* gm = reinterpret_cast<float*>(smem + pl.gmm);
@@ -1091,29 +1039,22 @@ generate_pis_kernel(const Params p) {
     if (L > 0 && threadIdx.x == CONSUMERS)
       produce(p, X3, smem_u32(smem + pl.ring), full, empty);
     else if (L > 0 && threadIdx.x >= CONSUMERS + 32)
-      terminal_warps<W>(p, gmix, tred,
-                        reinterpret_cast<float*>(smem + pl.tacc),
-                        threadIdx.x - CONSUMERS - 32);
+      terminal_warps(p, gmix, tred, threadIdx.x - CONSUMERS - 32);
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
                ::"n"(CONSUMER_REGS));
 
   // this block's scratch: the head's output (pairs x 256 threads), then L
-  // x 2 chunks x 32 pairs x 256 threads of ELU', then (dw_smem 0) the
-  // tile's integral normals
+  // x 2 chunks x 32 pairs x 256 threads of ELU'
   float* const scr_block =
-      p.scratch +
-      (size_t)blockIdx.x * scratch_floats_per_block(L, nx, pl.dw_smem);
-  float* dw = pl.dw_smem ? reinterpret_cast<float*>(smem + pl.dw)
-                         : scr_block + (size_t)TILE * head_rows(nx) +
-                               (size_t)L * TILE * HW;
+      p.scratch + (size_t)blockIdx.x * scratch_floats_per_block(L, nx, false);
+  float* dw = reinterpret_cast<float*>(smem + pl.dw);
   float* red = dw;  // after the last tile: the warps' terminal sums
   const int ctid = threadIdx.x, warp = ctid >> 5, lane = ctid & 31;
   const int wg = ctid >> 7, w = warp & 3, g = lane >> 2, t = lane & 3;
   const int quad4 = ctid >> 2, r4 = ctid & 3;  // 4 lanes per draw or row
-  // output columns a consumer sums: one below NARROW_NX
-  constexpr int NSLOTS = W ? OUT_SLOTS : 1;
+  constexpr int NSLOTS = 1;  // output columns a consumer sums
   Ring ring{smem_u32(smem + pl.ring), full, empty, p.stages, 0,
             stage_bytes(X3)};
   const uint32_t act_u = smem_u32(act);
@@ -1142,27 +1083,12 @@ generate_pis_kernel(const Params p) {
     float acc_t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
     for (int r = 0; r < NSLOTS; ++r) acc_i[r] = 0.0f;
-    // the wide zero iterate: each consumer warp's terminal sums in red
-    float* wsum = red + (size_t)warp * (1 + nx) + 1;
-    if (W && L == 0) {
-      for (int j = lane; j < nx; j += 32) wsum[j] = 0.0f;
-      __syncwarp();
-    }
     consumers_sync();
 
     for (int kb = 0; kb < ntile; ++kb) {
       // ---- the zero iterate's terminal chain: draw kb TILE + ctid / 4,
       // 4 lanes each (with a net, the producer warpgroup's three warps)
-      if (W && L == 0) {
-        const int k = kb * TILE + quad4;
-        const bool live = k < p.M;
-        const float* row =
-            p.noise_t && live ? p.noise_t + ((size_t)b * p.M + k) * nx
-                              : nullptr;
-        const float diff = term_draw_wide(p, gmix, xrow, row, live, k, key,
-                                          cT, g0, lane, wsum);
-        if (r4 == 0) acc_tv += diff;
-      } else if (L == 0) {
+      if (L == 0) {
         const int k = kb * TILE + quad4;
         const bool live = k < p.M;
         // the draw's quads r4 + 4 m, m < LANE_QUADS, shifted in one at a
@@ -1339,10 +1265,8 @@ generate_pis_kernel(const Params p) {
                                           p.vec + vl.t_bias + CH + 2 * t, 0,
                                           w, g, t, nullptr);
             const int half = (z_h0 - CH) / 2;
-            // (the wide instance: below, once the gate has read columns
-            // 384..)
-            for (int e = W ? TILE * half : ctid - WG_THREADS;
-                 e < TILE * half; e += WG_THREADS) {
+            for (int e = ctid - WG_THREADS; e < TILE * half;
+                 e += WG_THREADS) {
               const int row = e / half, j = 2 * (e - row * half);
               const float v0 =
                   j < nx ? xs_of(xrow, rw, dw, nx, row, j) : 0.0f;
@@ -1357,18 +1281,6 @@ generate_pis_kernel(const Params p) {
       }
       fence_async_smem();
       consumers_sync();
-      if (W) {  // h0's X_s columns 64 .. z_h0, over the gate's and T_0's
-        const int half = (z_h0 - CH) / 2;
-        for (int e = ctid; e < TILE * half; e += CONSUMERS) {
-          const int row = e / half, j = 2 * (e - row * half);
-          const float v0 = j < nx ? xs_of(xrow, rw, dw, nx, row, j) : 0.0f;
-          const float v1 =
-              j + 1 < nx ? xs_of(xrow, rw, dw, nx, row, j + 1) : 0.0f;
-          put_pair<X3, W>(act, row, CH + j, v0, v1);
-        }
-        fence_async_smem();
-        consumers_sync();
-      }
 
       // ---- N forward: L layers of 512 with ELU (ELU' saved), the head ---
       for (int l = 0; l < L; ++l) {
@@ -1382,23 +1294,9 @@ generate_pis_kernel(const Params p) {
         fence_async_smem();
         consumers_sync();
       }
-      // the head: N(h0), kept for w; narrow: columns 64 wg .. of each
-      // warpgroup (m64n64), wide: 256 wg .. (m64n256, a0 then a1)
-      if constexpr (W) {
-        layer_mma<X3, WIDE, true, W>(a0, a1, act_u, 0, HW, wg, ring);
-#pragma unroll
-        for (int q = 0; q < NACC; ++q) {
-          const int i = 2 * (q & 31);
-          const int col = 256 * wg + 128 * (q >> 5) + acc_col(i, t);
-          // (q is a constant here: the arrays stay in registers)
-          const float x0 = q < 32 ? a0[i] : a1[i];
-          const float x1 = q < 32 ? a0[i + 1] : a1[i + 1];
-          float2 v = make_float2(0.0f, 0.0f);
-          if (col < nx) v.x = x0 + __ldg(p.vec + vl.h_bias + col);
-          if (col + 1 < nx) v.y = x1 + __ldg(p.vec + vl.h_bias + col + 1);
-          scr_head[(size_t)q * CONSUMERS] = v;
-        }
-      } else {
+      // the head: N(h0), kept for w: columns 64 wg .. of each warpgroup
+      // (m64n64)
+      {
         layer_mma<X3, HALF, true, W>(a0, a1, act_u, 0, HW, wg, ring);
 #pragma unroll
         for (int q = 0; q < NACC / 4; ++q) {
@@ -1433,70 +1331,7 @@ generate_pis_kernel(const Params p) {
         fence_async_smem();
         consumers_sync();
       }
-      if constexpr (W) {
-        // the x columns of h0's gradient (m64n256: columns 256 wg .., a0
-        // then a1), and w and f's sums per row in registers: this thread's
-        // rows r0 = 16 w + g and r0 + 8, its columns; the partial sums of
-        // the 4 lanes of a row, then of the two warpgroups (in shared
-        // memory, the activations read), in a fixed order
-        layer_mma<X3, WIDE, true, W>(a0, a1, act_u, 0, HW, wg, ring);
-        const int r0 = 16 * w + g;
-        float rk[2][GMM_MAX_COMPONENTS], sg[2], dc[2];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          sg[h] = rw.sigma[r0 + 8 * h];
-          dc[h] = rw.decay[r0 + 8 * h];
-#pragma unroll
-          for (int k = 0; k < GMM_MAX_COMPONENTS; ++k)
-            rk[h][k] = k < p.ncomp
-                           ? resp[(r0 + 8 * h) * GMM_MAX_COMPONENTS + k]
-                           : 0.0f;
-        }
-        float dr[2] = {0.0f, 0.0f}, qr[2] = {0.0f, 0.0f};
-#pragma unroll
-        for (int q = 0; q < NACC; ++q) {
-          const float2 no = scr_head[(size_t)q * CONSUMERS];
-          const int h = q & 1;  // the pair's row: r0 + 8 h
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int i = 2 * (q & 31) + e;
-            const int col = 256 * wg + 128 * (q >> 5) + acc_col(i, t);
-            if (col < nx) {
-              const float xs = xs_of(xrow, rw, dw, nx, r0 + 8 * h, col);
-              const float gres = gmm_grad(gmix, rk[h], dc[h] * xs, col);
-              const float gx = q < 32 ? a0[i] : a1[i];
-              const float wv = sg[h] * (e ? no.y : no.x) + gx +
-                               (1.0f - sg[h]) * (dc[h] * gres);
-              dr[h] += (p.theta * (p.mu - xs)) * wv;
-              qr[h] += wv * wv;
-            }
-          }
-        }
-        float* part = reinterpret_cast<float*>(act);  // [wg][row][dr, qr]
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-#pragma unroll
-          for (int o = 1; o <= 2; o <<= 1) {
-            dr[h] += __shfl_xor_sync(0xffffffffu, dr[h], o);
-            qr[h] += __shfl_xor_sync(0xffffffffu, qr[h], o);
-          }
-          if (t == 0) {
-            part[2 * (wg * TILE + r0 + 8 * h)] = dr[h];
-            part[2 * (wg * TILE + r0 + 8 * h) + 1] = qr[h];
-          }
-        }
-        consumers_sync();
-        if (ctid < TILE) {
-          const int row = ctid;
-          const float drs = part[2 * row] + part[2 * (TILE + row)];
-          const float qrs = part[2 * row + 1] + part[2 * (TILE + row) + 1];
-          const bool valid = kb * TILE + row < p.M;
-          const float f = -drs - p.half_alpha * qrs - p.nx_theta;
-          const float di = valid ? Tt * (f - f0) : 0.0f;
-          rw.c_i[row] = di;
-          rw.c_iy[row] = di * rw.iys[row];
-        }
-      } else {
+      {
         // the x columns of h0's gradient, columns 64 wg .. of each
         // warpgroup; they and the head's output N(h0) into shared memory
         // (the activations are read), [row][col] f32 with stride nx
@@ -1572,9 +1407,8 @@ generate_pis_kernel(const Params p) {
     if (L == 0) {
       acc_tv = warp_sum(acc_tv);
       if (lane == 0) red[warp * (1 + nx)] = acc_tv;
-      if (!W)  // (wide: the warps' sums are in red already)
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+      for (int r = 0; r < 4; ++r)
           if (4 * lane + r < nx)
             red[warp * (1 + nx) + 1 + 4 * lane + r] = acc_t[r];
       consumers_sync();
@@ -1599,7 +1433,827 @@ generate_pis_kernel(const Params p) {
   }
 }
 
+// ---- the wide instance (nx > NARROW_NX) ----------------------------------
+
+// the per-row arrays of a tile (carve_rows' order) as offsets from one base
+constexpr int R_SIG = 0, R_IYS = 1, R_LAM = 2, R_DECAY = 3, R_SIGMA = 4,
+              R_CI = 5, R_CIY = 6;
+// registers per thread after setmaxnreg: the terminal warps keep a draw's
+// mixture sums and their lane's 16 output sums, the consumers at most two
+// accumulators and 64 loads in flight; 128 (168 - 56) = 256 (224 - 168)
+constexpr int W_PRODUCER_REGS = 56, W_CONSUMER_REGS = 224;
+
+// loads of the block's scratch, which other threads of the block wrote and
+// which is read once: cached in L2 only
+__device__ __forceinline__ float4 scr4(const float* a) {
+  return __ldcg(reinterpret_cast<const float4*>(a));
+}
+__device__ __forceinline__ float2 scr2(const float* a) {
+  return __ldcg(reinterpret_cast<const float2*>(a));
+}
+
+// the L2 lines of [a, a + bytes) of the block's scratch, spread over the
+// 256 consumers: issued a phase before the loads that read them
+__device__ __forceinline__ void prefetch_l2(const void* a, size_t bytes,
+                                            int ctid) {
+  const char* c = static_cast<const char*>(a);
+  for (size_t o = (size_t)ctid * 128; o < bytes; o += (size_t)CONSUMERS * 128)
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(c + o));
+}
+
+// the mixture's terms of a quad of coordinates 4 q .. 4 q + 3 at y (zero
+// past nx, where the padded means and inverse variances are zero) into the
+// partial sums of its logits: the quad's means and inverse variances as
+// 16-byte loads (the wide instance's stride is a multiple of 4)
+__device__ __forceinline__ void gmm_add4(const Gmm& g, int q,
+                                         const float (&y)[4],
+                                         float (&part)[GMM_MAX_COMPONENTS]) {
+#pragma unroll
+  for (int k = 0; k < GMM_MAX_COMPONENTS; ++k) {
+    if (k >= g.K) break;
+    const float4 m = reinterpret_cast<const float4*>(g.means + k * g.nx)[q];
+    const float4 iv = reinterpret_cast<const float4*>(g.ivars + k * g.nx)[q];
+    const float d0 = y[0] - m.x, d1 = y[1] - m.y, d2 = y[2] - m.z,
+                d3 = y[3] - m.w;
+    part[k] = fmaf(d0 * d0, iv.x, part[k]);
+    part[k] = fmaf(d1 * d1, iv.y, part[k]);
+    part[k] = fmaf(d2 * d2, iv.z, part[k]);
+    part[k] = fmaf(d3 * d3, iv.w, part[k]);
+  }
+}
+
+// d/dy g of a quad of coordinates at y (gmm_grad's four, its sums in the
+// same order), from 16-byte loads
+__device__ __forceinline__ void gmm_grad4(const Gmm& g,
+                                          const float (&r)[GMM_MAX_COMPONENTS],
+                                          const float (&y)[4], int q,
+                                          float (&out)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) out[e] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < GMM_MAX_COMPONENTS; ++k) {
+    if (k >= g.K) break;
+    const float4 m = reinterpret_cast<const float4*>(g.means + k * g.nx)[q];
+    const float4 iv = reinterpret_cast<const float4*>(g.ivars + k * g.nx)[q];
+    out[0] += r[k] * ((y[0] - m.x) * iv.x);
+    out[1] += r[k] * ((y[1] - m.y) * iv.y);
+    out[2] += r[k] * ((y[2] - m.z) * iv.z);
+    out[3] += r[k] * ((y[3] - m.w) * iv.w);
+  }
+}
+
+// the terminal chain's normals of quad q of draw k (external noise_t, or
+// drawn), zero past nx
+__device__ __forceinline__ void term_quad(const Params& p, int b, int k,
+                                          int q, uint2 key, float (&v)[4]) {
+  const int nx = p.nx;
+  if (p.noise_t) {
+    const float* row = p.noise_t + ((size_t)b * p.M + k) * nx;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = 4 * q + e < nx ? row[4 * q + e] : 0.0f;
+  } else {
+    normals4(k, q, STREAM_TERMINAL, p.seed_hi, key, v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (4 * q + e >= nx) v[e] = 0.0f;
+  }
+}
+
+// The terminal chain of point b, one warp a draw: the draws k = first,
+// first + step, .. < M. Lane l takes the draw's quads l, l + 32, .. < Q
+// (nx / 4): it adds their mixture terms, the terms are summed over the
+// warp (the same logits on every lane), and diff x the quads' normals
+// (drawn again: a quad at a time keeps the chain in the producer
+// warpgroup's few registers) is added to the lane's sums, which it keeps
+// in the warp's strip (of shared memory, or of scratch) at the quads'
+// places. Every sum runs in a fixed order. Returns the sum of diff.
+__device__ __forceinline__ float term_point_wide(const Params& p,
+                                                 const Gmm& gmix,
+                                                 float* strip, int b,
+                                                 int first, int step,
+                                                 int lane) {
+  const int nx = p.nx, Q = (nx + 3) / 4;
+  const float t0 = p.t[b], g0 = p.g0[b];
+  const float cT = sqrtf(fmaxf(p.T - t0, 1e-6f)) * p.alpha_sqrt;
+  const uint2 key = make_uint2(p.seed_lo, (uint32_t)b);
+  const float* x = p.x + (size_t)b * nx;
+  float4* s4 = reinterpret_cast<float4*>(strip);
+  for (int q = lane; q < Q; q += 32)
+    s4[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float acc_v = 0.0f;
+#pragma unroll 1
+  for (int k = first; k < p.M; k += step) {
+    float part[GMM_MAX_COMPONENTS], lp[GMM_MAX_COMPONENTS];
+#pragma unroll
+    for (int c = 0; c < GMM_MAX_COMPONENTS; ++c) part[c] = 0.0f;
+#pragma unroll 1
+    for (int q = lane; q < Q; q += 32) {
+      float v[4], y[4];
+      term_quad(p, b, k, q, key, v);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        y[e] = 4 * q + e < nx ? __fadd_rn(__ldg(x + 4 * q + e),
+                                          __fmul_rn(cT, v[e]))
+                              : 0.0f;
+      gmm_add4(gmix, q, y, part);
+    }
+#pragma unroll
+    for (int c = 0; c < GMM_MAX_COMPONENTS; ++c) {
+      if (c >= gmix.K) break;
+      lp[c] = gmix.lw[c] - 0.5f * (warp_sum(part[c]) + gmix.norm[c]);
+    }
+    const float diff = gmm_neg_log_prob(gmix, lp) - g0;
+    acc_v += diff;
+#pragma unroll 1
+    for (int q = lane; q < Q; q += 32) {
+      float v[4];
+      term_quad(p, b, k, q, key, v);
+      float4 a = s4[q];
+      a.x += diff * v[0];
+      a.y += diff * v[1];
+      a.z += diff * v[2];
+      a.w += diff * v[3];
+      s4[q] = a;
+    }
+  }
+  return acc_v;
+}
+
+// a terminal warp's sums of a point (acc_v, and its lanes' in the strip) to
+// out (1 + nx floats). Each lane copies the quads it summed (q = lane, lane
+// + 32, ..), so no lane reads what another wrote and the next point's
+// zeroing of the strip needs no warp sync.
+__device__ __forceinline__ void store_term_sums(float* out,
+                                                const float* strip,
+                                                float acc_v, int lane,
+                                                int nx) {
+  if (lane == 0) out[0] = acc_v;
+  const float4* s4 = reinterpret_cast<const float4*>(strip);
+  for (int q = lane; q < (nx + 3) / 4; q += 32) {
+    const float4 a = s4[q];
+    const float v[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (4 * q + e < nx) out[1 + 4 * q + e] = v[e];
+  }
+}
+
+// The wide instance's terminal chain beside the consumers' products, on the
+// producer warpgroup's three warps (the draws of a point dealt round-robin);
+// at a point's end each warp's sums go to tsum (the block's scratch) once
+// the consumers have read the last ones.
+__device__ __forceinline__ void terminal_warps_wide(const Params& p,
+                                                    const Gmm& gmix,
+                                                    float* strips,
+                                                    float* tsum, int wt) {
+  const int nx = p.nx, lane = wt & 31, tw = wt >> 5;
+  float* strip = strips + (size_t)tw * wide_nx(nx);
+  bool first = true;
+  for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
+    const float acc_v =
+        term_point_wide(p, gmix, strip, b, tw, TERM_WARPS, lane);
+    if (!first) bar_sync(BAR_TERM_FREE);
+    first = false;
+    store_term_sums(tsum + tw * (1 + nx), strip, acc_v, lane, nx);
+    __threadfence_block();
+    bar_arrive(BAR_TERM_FULL);
+  }
+}
+
+// f(q, xs) for the quads q = r4 + 4 m < nq of this thread's row: X_s = x +
+// sig dWi from X's row (zero past nx) and the row's normals in scratch
+// (dwr; Q quads), 8 quads' loads in flight at a time
+template <class F>
+__device__ __forceinline__ void row_xs(const float* dwr, const float4* xrow4,
+                                       float sig, int nq, int Q, int r4,
+                                       F&& f) {
+  for (int m0 = r4; m0 < nq; m0 += 32) {
+    float4 d[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int q = m0 + 4 * u;
+      d[u] = q < Q ? scr4(dwr + 4 * q) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int q = m0 + 4 * u;
+      if (q < nq) {
+        const float4 x4 =
+            q < Q ? xrow4[q] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        const float xs[4] = {__fadd_rn(x4.x, __fmul_rn(sig, d[u].x)),
+                             __fadd_rn(x4.y, __fmul_rn(sig, d[u].y)),
+                             __fadd_rn(x4.z, __fmul_rn(sig, d[u].z)),
+                             __fadd_rn(x4.w, __fmul_rn(sig, d[u].w))};
+        f(q, xs);
+      }
+    }
+  }
+}
+
+// Forward epilogue of the wide instance: bias and ELU of an m64n128
+// accumulator, written to the activation images at out_col, ELU'(z) to
+// save (f32 pairs: a thread's pair of a layer and half at save[q x
+// CONSUMERS]; epilogue's arithmetic)
+template <bool X3>
+__device__ __forceinline__ void epilogue_w(float (&acc)[NACC],
+                                           unsigned char* act,
+                                           const float* bias_t, int out_col,
+                                           int w, int g, int t,
+                                           float2* save) {
+#pragma unroll
+  for (int q = 0; q < NACC / 2; ++q) {
+    const int i = 2 * q;
+    const float* b = bias_t + 8 * (q >> 1);
+    float d0, d1;
+    const float v0 = elu(acc[i] + __ldg(b), &d0);
+    const float v1 = elu(acc[i + 1] + __ldg(b + 1), &d1);
+    put_pair<X3, true>(act, acc_row(i, w, g), out_col + acc_col(i, t), v0,
+                       v1);
+    save[q * CONSUMERS] = make_float2(d0, d1);
+  }
+}
+
+// Backward epilogue of the wide instance: acc times the saved ELU'(z) (16
+// loads in flight at a time, from L2), written at col0..
+template <bool X3>
+__device__ __forceinline__ void epilogue_bwd_w(float (&acc)[NACC],
+                                               unsigned char* act, int col0,
+                                               int w, int g, int t,
+                                               const float2* save) {
+#pragma unroll
+  for (int c = 0; c < NACC / 2; c += 16) {
+    float2 d[16];
+#pragma unroll
+    for (int u = 0; u < 16; ++u)
+      d[u] = __ldcg(save + (size_t)(c + u) * CONSUMERS);
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      const int i = 2 * (c + u);
+      put_pair<X3, true>(act, acc_row(i, w, g), col0 + acc_col(i, t),
+                         acc[i] * d[u].x, acc[i + 1] * d[u].y);
+    }
+  }
+}
+
+// The wide instance. Per 64-sample tile the consumers: draw the integral
+// chain's times and normals 4 lanes a row (the normals to scratch, the
+// mixture's responsibilities at e^{-lambda/2} X_s summed as they are
+// drawn) and write e(lambda); run the gate and the encoder; write h0's X_s
+// columns and, after the forward pass and the head (its output to
+// scratch), the cotangent sigma X_s (X_s from the normals, 8 quads' loads
+// in flight); start the accumulators of N_0x^T's products at sigma N(h0) +
+// (1 - sigma) e^{-lambda/2} grad g, so that they end at w; then sum f's
+// terms per row and the integral sums. Each epilogue loads what it adds
+// before it writes (biases; ELU'(z), prefetched to L2 during the layer's
+// products). The terminal chain runs on the producer warpgroup's three
+// warps, one warp a draw (term_point_wide).
+template <bool X3>
+__device__ __forceinline__ void wide_body(const Params& p) {
+  constexpr bool W = true;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int nx = p.nx, L = p.has_net ? p.L : 0, K = p.ncomp;
+  const int Q = (nx + 3) / 4, sx = wide_nx(nx);
+  const Plan pl = make_plan(nx, K, p.has_net, X3, p.stages, true);
+  unsigned char* act = smem + pl.act;
+  float* xrow = reinterpret_cast<float*>(smem + pl.xrow);
+  float* gm = reinterpret_cast<float*>(smem + pl.gmm);
+  float* resp = reinterpret_cast<float*>(smem + pl.resp);
+  float* strips = reinterpret_cast<float*>(smem + pl.strip);
+  // the per-row arrays of a tile (carve_rows' order), from one base
+  float* rows = reinterpret_cast<float*>(smem + pl.rows);
+  const auto rv = [&](int a, int row) -> float& {
+    return rows[a * TILE + row];
+  };
+  const uint32_t full = smem_u32(smem + pl.bars);
+  const uint32_t empty = full + 8 * MAX_STAGES;
+
+  // the mixture, once per block: means and inverse variances at the stride
+  // sx (zero past nx), then the log-weights and the normalisers
+  for (int e = threadIdx.x; e < 2 * K * sx; e += THREADS) {
+    const int h = e / (K * sx), r = e - h * K * sx, k = r / sx, j = r - k * sx;
+    float v = 0.0f;
+    if (j < nx) {
+      v = p.gmm[(size_t)(h * K + k) * nx + j];
+      if (h) v = 1.0f / v;
+    }
+    gm[e] = v;
+  }
+  for (int e = threadIdx.x; e < 2 * K; e += THREADS)
+    gm[2 * K * sx + e] = p.gmm[2 * K * nx + e];
+  if (threadIdx.x == 0 && L > 0) {
+    for (int st = 0; st < p.stages; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const Gmm gmix{gm, gm + K * sx, gm + 2 * K * sx, gm + 2 * K * sx + K, K, sx};
+  // this block's scratch: w0 (pairs x 256 threads), L x 2 chunks x 32
+  // pairs x 256 threads of ELU', the tile's normals and the mixture's term
+  // of w (TILE x sx each), the terminal warps' sums of a point; the zero
+  // iterate's sums in shared memory
+  float* scr_block =
+      L > 0 ? p.scratch +
+                  (size_t)blockIdx.x * scratch_floats_per_block(L, nx, true)
+            : nullptr;
+  float* dw = L > 0 ? scr_block + (size_t)(L + 1) * TILE * HW : nullptr;
+  float* gw = L > 0 ? dw + (size_t)TILE * sx : nullptr;
+  float* const tsum = L > 0 ? gw + (size_t)TILE * sx
+                            : reinterpret_cast<float*>(smem + pl.tred);
+  if (threadIdx.x >= CONSUMERS) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 ::"n"(W_PRODUCER_REGS));
+    if (L > 0 && threadIdx.x == CONSUMERS)
+      produce(p, X3, smem_u32(smem + pl.ring), full, empty);
+    else if (L > 0 && threadIdx.x >= CONSUMERS + 32)
+      terminal_warps_wide(p, gmix,
+                          tsum + (TERM_WARPS * (1 + nx) + 3) / 4 * 4, tsum,
+                          threadIdx.x - CONSUMERS - 32);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               ::"n"(W_CONSUMER_REGS));
+  const int ctid = threadIdx.x, warp = ctid >> 5, lane = ctid & 31;
+  const int wg = ctid >> 7, w = warp & 3, g = lane >> 2, t = lane & 3;
+  const int row4 = ctid >> 2, r4 = ctid & 3;  // 4 lanes a row
+  const float inv_m = 1.0f / (float)p.M;
+
+  if (L == 0) {  // f = f0: the terminal chain alone, on the consumer warps
+    for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
+      float* const strip = strips + (size_t)warp * sx;
+      const float acc_v =
+          term_point_wide(p, gmix, strip, b, warp, CONSUMERS / 32, lane);
+      store_term_sums(tsum + warp * (1 + nx), strip, acc_v, lane, nx);
+      consumers_sync();
+      const float t0 = p.t[b], g0 = p.g0[b], f0 = p.f0[b];
+      const float Tt = fmaxf(p.T - t0, 1e-6f);
+      const float inv_yT = 1.0f / (sqrtf(Tt) * p.alpha_sqrt);
+      for (int j = ctid; j <= nx; j += CONSUMERS) {
+        float s = 0.0f;
+        for (int v = 0; v < CONSUMERS / 32; ++v) s += tsum[v * (1 + nx) + j];
+        p.out[(size_t)b * (1 + nx) + j] =
+            j == 0 ? s * inv_m + g0 + f0 * Tt : s * inv_yT * inv_m;
+      }
+      consumers_sync();
+    }
+    return;
+  }
+
+  Ring ring{smem_u32(smem + pl.ring), full, empty, p.stages, 0,
+            stage_bytes(X3)};
+  const uint32_t act_u = smem_u32(act);
+  const int ntile = (p.M + TILE - 1) / TILE;
+  // the depths of N_0 and the head^T in the packed images; their inputs'
+  // columns are zero to a multiple of 32 (a last two-slab stage)
+  const int k_h0 = pad16(CH + nx), k_cot = pad16(nx);
+  const int z_h0 = (CH + nx + 31) / 32 * 32, z_cot = (nx + 31) / 32 * 32;
+  const float4* xrow4 = reinterpret_cast<const float4*>(xrow);
+  // The base pointers, made opaque at the start of each phase: the
+  // addresses derived from them are then formed in the phase that uses
+  // them, not hoisted out of the loops over points and tiles into
+  // registers that the products' accumulators leave no room for (ptxas
+  // spilled them to local memory, which reaches L2 here, and reloaded them
+  // in every phase)
+  const float* vec = p.vec;
+  // the vector buffer's layout, formed where used (vl(): no registers
+  // held across the products)
+  const auto vl = [&]() { return vec_layout(L, nx); };
+  Gmm gx = gmix;
+  const auto launder = [&]() {
+    asm volatile(""
+                 : "+l"(act), "+l"(vec), "+l"(dw), "+l"(gw), "+l"(rows),
+                   "+l"(resp), "+l"(xrow4), "+l"(gx.means), "+l"(gx.ivars),
+                   "+l"(scr_block));
+  };
+  const size_t dw_bytes = (size_t)TILE * sx * 4;
+
+  for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
+    const float t0 = p.t[b], g0 = p.g0[b], f0 = p.f0[b];
+    const float Tt = fmaxf(p.T - t0, 1e-6f);
+    const float inv_yT = 1.0f / (sqrtf(Tt) * p.alpha_sqrt);
+    const uint2 key = make_uint2(p.seed_lo, (uint32_t)b);
+    for (int j = ctid; j < sx; j += CONSUMERS)
+      xrow[j] = j < nx ? p.x[(size_t)b * nx + j] : 0.0f;
+    float acc_i[OUT_SLOTS];
+#pragma unroll
+    for (int r = 0; r < OUT_SLOTS; ++r) acc_i[r] = 0.0f;
+    consumers_sync();
+
+    for (int kb = 0; kb < ntile; ++kb) {
+      launder();
+      // ---- the integral chain's draws, row row4 (quads r4 + 4 m): its
+      // time, its normals (to scratch), the responsibilities of the
+      // mixture at e^{-lambda/2} X_s, e(lambda) into columns 0..127 -----
+      {
+        const int row = row4, k = kb * TILE + row;
+        const bool valid = k < p.M;
+        float u = 0.0f;
+        if (valid)
+          u = p.u01 ? p.u01[(size_t)b * p.M + k]
+                    : time_uniform(k, p.seed_hi, key);
+        const float sv = __fadd_rn(t0, __fmul_rn(u, Tt));
+        const float st = sv - t0, lam = p.T - sv;
+        const float sig = sqrtf(st) * p.alpha_sqrt, dc = expf(-0.5f * lam);
+        if (r4 == 0) {
+          rv(R_SIG, row) = sig;
+          rv(R_IYS, row) =
+              1.0f / (sqrtf(fmaxf(st, PIS_ST_FLOOR)) * p.alpha_sqrt);
+          rv(R_LAM, row) = lam;
+          rv(R_DECAY, row) = dc;
+        }
+        float part[GMM_MAX_COMPONENTS], lp[GMM_MAX_COMPONENTS];
+#pragma unroll
+        for (int c = 0; c < GMM_MAX_COMPONENTS; ++c) part[c] = 0.0f;
+#pragma unroll 1
+        for (int q = r4; q < Q; q += 4) {
+          float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          if (valid) {
+            if (p.noise_i) {
+              const float* src = p.noise_i + ((size_t)b * p.M + k) * nx;
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (4 * q + e < nx) v[e] = src[4 * q + e];
+            } else {
+              normals4(k, q, STREAM_INTEGRAL, p.seed_hi, key, v);
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (4 * q + e >= nx) v[e] = 0.0f;
+            }
+          }
+          reinterpret_cast<float4*>(dw + (size_t)row4 * sx)[q] =
+              make_float4(v[0], v[1], v[2], v[3]);
+          const float4 x4 = xrow4[q];
+          const float y[4] = {dc * __fadd_rn(x4.x, __fmul_rn(sig, v[0])),
+                              dc * __fadd_rn(x4.y, __fmul_rn(sig, v[1])),
+                              dc * __fadd_rn(x4.z, __fmul_rn(sig, v[2])),
+                              dc * __fadd_rn(x4.w, __fmul_rn(sig, v[3]))};
+          gmm_add4(gx, q, y, part);
+        }
+        group_logits(gx, part, lp);
+        if (r4 == 0) gmm_resp(gx, lp, resp + row * GMM_MAX_COMPONENTS);
+#pragma unroll 1
+        for (int m = 0; m < CH / 8; ++m) {
+          const int c = 2 * (r4 + 4 * m);
+          float sn[2], cs[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float arg =
+                __fadd_rn(__fmul_rn(__ldg(vec + vl().coeff + c + h), lam),
+                          __ldg(vec + vl().phase + c + h));
+            sincosf(arg, &sn[h], &cs[h]);
+          }
+          put_pair<X3, W>(act, row, c, sn[0], sn[1]);
+          put_pair<X3, W>(act, row, CH + c, cs[0], cs[1]);
+        }
+      }
+      fence_async_smem();
+      consumers_sync();
+
+      float a0[NACC], a1[NACC];
+      // ---- the gate S (warpgroup 0) and the encoder T (warpgroup 1) ---
+      // S_0: 128 -> 64 at columns 448.., S_1 .. S_L in place, ELU, then
+      // sigma; T_0: 128 -> 64 (ELU) at columns 384.., T_1: 64 -> 64 at
+      // 0.. once S_0 has read e. Each passes the other's stages on
+      // (ring_layer's order).
+      const int s_col = 448, t_col = 384;
+      launder();
+      if (wg == 0) {
+        for (int l = 0; l <= L; ++l) {
+          const int Kl = l == 0 ? 2 * CH : CH;
+          layer_mma<X3, GATE, true, W, false>(a0, a1, act_u,
+                                              l == 0 ? 0 : s_col, Kl, wg,
+                                              ring);
+          if (l == 0) embedding_read();
+          if (l < L) {
+            epilogue<X3, true, NACC / 2, W>(a0, act,
+                                            vec + vl().s_bias + l * CH + 2 * t,
+                                            s_col, w, g, t, nullptr);
+          } else {
+            // ELU, then the head's column 0 with _split3's products
+            const float* hw = vec + vl().s_head;
+            const float* bias = vec + vl().s_bias + l * CH;
+            float sr[2] = {0.0f, 0.0f};
+#pragma unroll
+            for (int i = 0; i < NACC / 2; ++i) {
+              const int col = acc_col(i, t);
+              float dd;
+              const float h = elu(a0[i] + __ldg(bias + col), &dd);
+              const float wv = __ldg(hw + col);
+              const float wh = bf16_round(wv), hh = bf16_round(h);
+              float term = hh * wh;
+              if (X3) term += bf16_round(h - hh) * wh +
+                              hh * bf16_round(wv - wh);
+              sr[(i >> 1) & 1] += term;
+            }
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              sr[r] += __shfl_xor_sync(0xffffffffu, sr[r], 1);
+              sr[r] += __shfl_xor_sync(0xffffffffu, sr[r], 2);
+            }
+            if (t == 0) {
+              const float hb = __ldg(vec + vl().s_head_bias);
+              rv(R_SIGMA, 16 * w + g) = (sr[0] + hb) - p.sigma0;
+              rv(R_SIGMA, 16 * w + g + 8) = (sr[1] + hb) - p.sigma0;
+            }
+          }
+          fence_async_smem();
+          wg_sync(0);
+          if (l < 2)
+            pass_stages(ring, layer_stages(CH, l == 0 ? 2 * CH : CH, X3));
+        }
+      } else {
+        for (int l = 0; l < 2; ++l) {
+          const int Kl = l == 0 ? 2 * CH : CH;
+          pass_stages(ring, layer_stages(CH, Kl, X3));  // S_l
+          layer_mma<X3, GATE, true, W, false>(a0, a1, act_u,
+                                              l == 0 ? 0 : t_col, Kl, wg,
+                                              ring);
+          if (l == 0) {
+            epilogue<X3, true, NACC / 2, W>(a0, act,
+                                            vec + vl().t_bias + 2 * t, t_col,
+                                            w, g, t, nullptr);
+            fence_async_smem();
+            wg_sync(1);
+          } else {
+            embedding_free();
+            epilogue<X3, false, NACC / 2, W>(a0, act,
+                                             vec + vl().t_bias + CH + 2 * t,
+                                             0, w, g, t, nullptr);
+          }
+        }
+        for (int l = 2; l <= L; ++l)
+          pass_stages(ring, layer_stages(CH, CH, X3));
+      }
+      fence_async_smem();
+      consumers_sync();
+      // ---- h0's X_s columns CH .. z_h0 (zero past nx), over the gate's
+      // and T_0's columns; w's term (1 - sigma) e^{-lambda/2} grad
+      // g(e^{-lambda/2} X_s) of the row to scratch ------------------------
+      launder();
+      {
+        const float sig = rv(R_SIG, row4), sg = rv(R_SIGMA, row4);
+        const float dc = rv(R_DECAY, row4);
+        float rk[GMM_MAX_COMPONENTS];
+#pragma unroll
+        for (int k = 0; k < GMM_MAX_COMPONENTS; ++k)
+          rk[k] = k < K ? resp[row4 * GMM_MAX_COMPONENTS + k] : 0.0f;
+        row_xs(dw + (size_t)row4 * sx, xrow4, sig, (z_h0 - CH) / 4, Q, r4,
+               [&](int q, const float(&xs)[4]) {
+                 put_pair<X3, W>(act, row4, CH + 4 * q, xs[0], xs[1]);
+                 put_pair<X3, W>(act, row4, CH + 4 * q + 2, xs[2], xs[3]);
+                 if (q < Q) {
+                   const float y[4] = {dc * xs[0], dc * xs[1], dc * xs[2],
+                                       dc * xs[3]};
+                   float gr[4], gv[4];
+                   gmm_grad4(gx, rk, y, q, gr);
+#pragma unroll
+                   for (int e = 0; e < 4; ++e)
+                     gv[e] = 4 * q + e < nx ? (1.0f - sg) * (dc * gr[e])
+                                            : 0.0f;
+                   reinterpret_cast<float4*>(gw + (size_t)row4 * sx)[q] =
+                       make_float4(gv[0], gv[1], gv[2], gv[3]);
+                 }
+               });
+      }
+      fence_async_smem();
+      consumers_sync();
+
+      // ---- N forward: L layers of 512 with ELU (ELU' saved), the head ---
+      for (int l = 0; l < L; ++l) {
+        layer_mma<X3, WIDE, true, W>(a0, a1, act_u, 0, l == 0 ? k_h0 : HW,
+                                     wg, ring);
+        launder();
+        float2* sv =
+            reinterpret_cast<float2*>(scr_block + (size_t)TILE * HW) +
+            (size_t)(l * 2) * 32 * CONSUMERS + ctid;
+        const float* bias =
+            vec + vl().n_bias + l * HW + 256 * wg + 2 * t;
+        epilogue_w<X3>(a0, act, bias, 256 * wg, w, g, t, sv);
+        epilogue_w<X3>(a1, act, bias + 128, 256 * wg + 128, w, g, t,
+                       sv + 32 * CONSUMERS);
+        fence_async_smem();
+        consumers_sync();
+      }
+      // the head N(h0) (m64n256: columns 256 wg .., a0 then a1; this
+      // thread's rows r0 = 16 w + g and r0 + 8), its bias added: w's first
+      // and last terms w0 = sigma N(h0) + the mixture's term (from scratch,
+      // 8 pairs' loads in flight) to scratch for N_0^T's products; the
+      // tile's normals prefetched for the cotangent
+      prefetch_l2(dw, dw_bytes, ctid);
+      prefetch_l2(gw, dw_bytes, ctid);
+      layer_mma<X3, WIDE, true, W>(a0, a1, act_u, 0, HW, wg, ring);
+      launder();
+      {
+        float2* const scr_w0 = reinterpret_cast<float2*>(scr_block) + ctid;
+        const int r0 = 16 * w + g;
+        const float sg[2] = {rv(R_SIGMA, r0), rv(R_SIGMA, r0 + 8)};
+        const float* gwt = gw + (size_t)r0 * sx;
+#pragma unroll
+        for (int c = 0; c < NACC / 8; ++c) {  // 8 pairs at a time
+          float2 gd[8];
+          float hb[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const int q = 8 * c + u, i = 2 * (q & 31);
+            const int col = 256 * wg + 128 * (q >> 5) + acc_col(i, t);
+            gd[u] = col < nx ? scr2(gwt + (size_t)8 * (q & 1) * sx + col)
+                             : make_float2(0.0f, 0.0f);
+            if ((u & 1) == 0) {
+              hb[u] = col < nx ? __ldg(vec + vl().h_bias + col) : 0.0f;
+              hb[u + 1] =
+                  col + 1 < nx ? __ldg(vec + vl().h_bias + col + 1) : 0.0f;
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const int q = 8 * c + u, i = 2 * (q & 31);
+            const int col = 256 * wg + 128 * (q >> 5) + acc_col(i, t);
+            const float x0 = q < 32 ? a0[i] : a1[i];
+            const float x1 = q < 32 ? a0[i + 1] : a1[i + 1];
+            const float s = sg[q & 1];
+            float2 v = make_float2(0.0f, 0.0f);
+            if (col < nx) v.x = s * (x0 + hb[u & ~1]) + gd[u].x;
+            if (col + 1 < nx) v.y = s * (x1 + hb[(u & ~1) + 1]) + gd[u].y;
+            scr_w0[(size_t)q * CONSUMERS] = v;
+          }
+        }
+      }
+      // the cotangent sigma X_s at columns 0 .. nx, zero to z_cot
+      launder();
+      {
+        const float sig = rv(R_SIG, row4), sg = rv(R_SIGMA, row4);
+        row_xs(dw + (size_t)row4 * sx, xrow4, sig, z_cot / 4, Q, r4,
+               [&](int q, const float(&xs)[4]) {
+                 put_pair<X3, W>(act, row4, 4 * q, sg * xs[0], sg * xs[1]);
+                 put_pair<X3, W>(act, row4, 4 * q + 2, sg * xs[2],
+                                 sg * xs[3]);
+               });
+      }
+      fence_async_smem();
+      consumers_sync();
+
+      // ---- N backward: the head, then layers L-1 .. 1, times ELU' ------
+      for (int l = L - 1; l >= 0; --l) {
+        launder();
+        const float2* sv =
+            reinterpret_cast<const float2*>(scr_block + (size_t)TILE * HW) +
+            (size_t)(l * 2) * 32 * CONSUMERS;
+        prefetch_l2(sv, (size_t)64 * CONSUMERS * sizeof(float2), ctid);
+        if (l == 0) {  // for w: w0 and the tile's normals
+          prefetch_l2(scr_block, (size_t)TILE * HW * 4, ctid);
+          prefetch_l2(dw, dw_bytes, ctid);
+        }
+        layer_mma<X3, WIDE, true, W>(a0, a1, act_u, 0,
+                                     l == L - 1 ? k_cot : HW, wg, ring);
+        launder();
+        sv = reinterpret_cast<const float2*>(scr_block + (size_t)TILE * HW) +
+             (size_t)(l * 2) * 32 * CONSUMERS;
+        epilogue_bwd_w<X3>(a0, act, 256 * wg, w, g, t, sv + ctid);
+        epilogue_bwd_w<X3>(a1, act, 256 * wg + 128, w, g, t,
+                           sv + ctid + 32 * CONSUMERS);
+        fence_async_smem();
+        consumers_sync();
+      }
+      // ---- w = sigma N(h0) + J_N^T (sigma X_s) + (1 - sigma) e^{-lambda/2}
+      // grad g(e^{-lambda/2} X_s) of this thread's rows r0 = 16 w + g and
+      // r0 + 8 and columns (256 wg .., a0 then a1): the accumulators start
+      // at w0, the first and last terms, and the x columns of N_0^T's
+      // products add the middle one; then f's sums per row in registers,
+      // across the 4 lanes of a row and the two warpgroups (in shared
+      // memory, the activations read), in a fixed order
+      launder();
+      {
+        const float2* const scr_w0 =
+            reinterpret_cast<const float2*>(scr_block) + ctid;
+        const int r0 = 16 * w + g;
+        const float sig[2] = {rv(R_SIG, r0), rv(R_SIG, r0 + 8)};
+        const float* dwt = dw + (size_t)r0 * sx;
+#pragma unroll
+        for (int q = 0; q < NACC; ++q) {
+          const float2 v = __ldcg(scr_w0 + (size_t)q * CONSUMERS);
+          const int i = 2 * (q & 31);
+          if (q < 32) {
+            a0[i] = v.x;
+            a0[i + 1] = v.y;
+          } else {
+            a1[i] = v.x;
+            a1[i + 1] = v.y;
+          }
+        }
+        layer_mma<X3, WIDE, true, W, true, false>(a0, a1, act_u, 0, HW, wg,
+                                                 ring);
+        launder();
+        dwt = dw + (size_t)r0 * sx;
+        float dr[2] = {0.0f, 0.0f}, qr[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int c = 0; c < NACC / 8; ++c) {
+          float2 dd[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const int q = 8 * c + u, i = 2 * (q & 31);
+            const int col = 256 * wg + 128 * (q >> 5) + acc_col(i, t);
+            dd[u] = col < nx ? scr2(dwt + (size_t)8 * (q & 1) * sx + col)
+                             : make_float2(0.0f, 0.0f);
+          }
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const int q = 8 * c + u, h = q & 1, i = 2 * (q & 31);
+            const int col = 256 * wg + 128 * (q >> 5) + acc_col(i, t);
+            const float dv[2] = {dd[u].x, dd[u].y};
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              if (col + e < nx) {
+                const float xs =
+                    __fadd_rn(xrow[col + e], __fmul_rn(sig[h], dv[e]));
+                const float wv = q < 32 ? a0[i + e] : a1[i + e];
+                dr[h] += (p.theta * (p.mu - xs)) * wv;
+                qr[h] += wv * wv;
+              }
+            }
+          }
+        }
+        float* part = reinterpret_cast<float*>(act);  // [wg][row][dr, qr]
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int o = 1; o <= 2; o <<= 1) {
+            dr[h] += __shfl_xor_sync(0xffffffffu, dr[h], o);
+            qr[h] += __shfl_xor_sync(0xffffffffu, qr[h], o);
+          }
+          if (t == 0) {
+            part[2 * (wg * TILE + r0 + 8 * h)] = dr[h];
+            part[2 * (wg * TILE + r0 + 8 * h) + 1] = qr[h];
+          }
+        }
+        consumers_sync();
+        if (ctid < TILE) {
+          const int row = ctid;
+          const float drs = part[2 * row] + part[2 * (TILE + row)];
+          const float qrs = part[2 * row + 1] + part[2 * (TILE + row) + 1];
+          const bool valid = kb * TILE + row < p.M;
+          const float f = -drs - p.half_alpha * qrs - p.nx_theta;
+          const float di = valid ? Tt * (f - f0) : 0.0f;
+          rv(R_CI, row) = di;
+          rv(R_CIY, row) = di * rv(R_IYS, row);
+        }
+      }
+      consumers_sync();
+      launder();
+      // the integral sums, in row order (column ctid + 256 r), 16 rows'
+      // normals in flight at a time
+#pragma unroll
+      for (int r = 0; r < OUT_SLOTS; ++r) {
+        const int j = ctid + r * CONSUMERS;
+        if (j == 0) {
+          for (int row = 0; row < TILE; ++row) acc_i[r] += rv(R_CI, row);
+        } else if (j <= nx) {
+#pragma unroll 1
+          for (int rb = 0; rb < TILE; rb += 16) {
+            float d[16];
+#pragma unroll
+            for (int u = 0; u < 16; ++u)
+              d[u] = __ldcg(dw + (size_t)(rb + u) * sx + j - 1);
+#pragma unroll
+            for (int u = 0; u < 16; ++u)
+              acc_i[r] = fmaf(rv(R_CIY, rb + u), d[u], acc_i[r]);
+          }
+        }
+      }
+      consumers_sync();
+    }
+
+    // the terminal warps' sums, added in a fixed order
+    bar_sync(BAR_TERM_FULL);
+#pragma unroll
+    for (int r = 0; r < OUT_SLOTS; ++r) {
+      const int j = ctid + r * CONSUMERS;
+      if (j <= nx) {
+        float sum_t = 0.0f;
+        for (int v = 0; v < TERM_WARPS; ++v)
+          sum_t += __ldcg(tsum + v * (1 + nx) + j);
+        p.out[(size_t)b * (1 + nx) + j] =
+            j == 0 ? (sum_t + acc_i[r]) * inv_m + g0 + f0 * Tt
+                   : (sum_t * inv_yT + acc_i[r]) * inv_m;
+      }
+    }
+    if (b + (int)gridDim.x < p.B) bar_arrive(BAR_TERM_FREE);
+    consumers_sync();
+  }
+}
+
+// X3: bf16x3 (else one bf16 pass); W: the wide instance (nx > NARROW_NX)
+template <bool X3, bool W>
+__global__ void __launch_bounds__(THREADS, 1)
+generate_pis_kernel(const Params p) {
+  if constexpr (W)
+    wide_body<X3>(p);
+  else
+    narrow_body<X3>(p);
+}
+
 using Kernel = void (*)(const Params);
+
 Kernel pick(int mode, int nx) {
   if (nx > NARROW_NX)
     return mode == MODE_BF16X3 ? generate_pis_kernel<true, true>
@@ -1647,13 +2301,39 @@ int dpi_generate_pis_grid(int nx, int ncomp, int has_net, int mode, int B) {
     return -1;
   return B < sms * per_sm ? B : sms * per_sm;
 }
+// The plan of a launch at (nx, ncomp, has_net, mode) with L hidden layers:
+// out[0..10] = ring stages (-1: no plan), the tile's normals in shared
+// memory (1) or in scratch (0), shared memory bytes, global scratch floats
+// a block (with a net), the terminal chain's strips (the wide instance's,
+// one a warp) in shared memory and in scratch, its sums in shared memory
+// (1) or in scratch (0), the registers a thread of the producer warpgroup
+// and of the consumers keeps after setmaxnreg, the passes that read a
+// tile's normals back from scratch (the wide instance: h0, the cotangent,
+// w's terms, the sums), and whether w's mixture term goes through scratch
+// (written once a tile, read once)
+void dpi_generate_pis_plan(int nx, int ncomp, int has_net, int mode, int L,
+                           long long* out) {
+  const Plan pl = choose_plan(nx, ncomp, has_net, mode == MODE_BF16X3);
+  const bool w = nx > NARROW_NX, wn = w && has_net;
+  out[0] = pl.stages;
+  out[1] = pl.dw_smem;
+  out[2] = pl.stages < 0 ? -1 : (long long)pl.total;
+  out[3] = has_net ? (long long)scratch_floats_per_block(L, nx, w) : 0;
+  out[4] = (long long)((pl.tred - pl.strip) / (4 * (w ? wide_nx(nx) : 1)));
+  out[5] = wn ? TERM_WARPS : 0;
+  out[6] = !wn;
+  out[7] = w ? W_PRODUCER_REGS : PRODUCER_REGS;
+  out[8] = w ? W_CONSUMER_REGS : CONSUMER_REGS;
+  out[9] = wn ? 4 : 0;
+  out[10] = wn;
+}
 // floats of global scratch per block of the grid at (L, nx) in a mode's
 // plan (-1: no plan)
 long long dpi_generate_pis_scratch_floats_nx(int L, int nx, int ncomp,
                                              int mode) {
   const Plan pl = choose_plan(nx, ncomp, 1, mode == MODE_BF16X3);
   if (pl.stages < 0) return -1;
-  return (long long)scratch_floats_per_block(L, nx, pl.dw_smem);
+  return (long long)scratch_floats_per_block(L, nx, nx > NARROW_NX);
 }
 
 // Launches on `stream` with `grid` blocks (dpi_generate_pis_grid); returns
@@ -1683,7 +2363,7 @@ int dpi_generate_pis(const float* t, const float* x, const float* g0,
   p.u01 = u01; p.noise_t = noise_t; p.noise_i = noise_i;
   p.scratch = scratch; p.out = out;
   p.B = B; p.M = M; p.nx = nx; p.L = has_net ? L : 0; p.has_net = has_net;
-  p.ncomp = ncomp; p.stages = pl.stages; p.dw_smem = pl.dw_smem;
+  p.ncomp = ncomp; p.stages = pl.stages;
   p.seed_lo = (uint32_t)(seed & 0xFFFFFFFFull);
   p.seed_hi = (uint32_t)(seed >> 32);
   p.T = T; p.alpha_sqrt = alpha_sqrt; p.theta = theta; p.mu = mu;

@@ -277,6 +277,9 @@ def _declare_generate_pis(lib: ctypes.CDLL) -> None:
     lib.dpi_generate_pis_grid.restype = _I
     lib.dpi_generate_pis_scratch_floats_nx.argtypes = [_I] * 4
     lib.dpi_generate_pis_scratch_floats_nx.restype = _I64
+    if hasattr(lib, "dpi_generate_pis_plan"):
+        lib.dpi_generate_pis_plan.argtypes = [_I] * 5 + [_P]
+        lib.dpi_generate_pis_plan.restype = None
 
 
 GENERATE = CudaLibrary("generate.cu", _declare_generate)
@@ -1106,6 +1109,80 @@ def pis_covers(eq, sol: Solution, precision: str, antithetic: bool):
     if sol.kind != "zero" and check_precision(precision) == "highest":
         return "it has no FP32 ('highest') net pass"
     return None
+
+
+# the keys of ``library_pis_plan``'s dict, in generate_pis.cu's order
+PIS_PLAN_KEYS = ("stages", "dw_smem", "smem_bytes", "scratch_floats",
+                 "term_strips", "scratch_strips", "term_sums_smem",
+                 "producer_regs", "consumer_regs", "normals_reads",
+                 "w_term_scratch")
+
+
+def library_pis_plan(nx: int, n_hidden: int, precision: str,
+                     ncomp: int = 5, has_net: bool = True,
+                     lib: Optional[CudaLibrary] = None) -> Optional[dict]:
+    """The plan the built ``generate_pis.cu`` (``lib``, default
+    ``GENERATE_PIS``) takes at (nx, hidden layers, precision, mixture
+    components): the ring's stages, whether the tile's normals stay in
+    shared memory, the block's shared memory and the global scratch floats
+    it keeps, the terminal chain's strips (one a warp of the wide
+    instance's chain) in shared memory and in scratch and whether its sums
+    stay in shared memory, the registers a producer-warpgroup and a
+    consumer thread keep after setmaxnreg, the passes that read a tile's
+    normals back from scratch, and whether w's mixture term goes through
+    scratch. None where nothing fits."""
+    out = (ctypes.c_longlong * len(PIS_PLAN_KEYS))()
+    (lib or GENERATE_PIS).lib().dpi_generate_pis_plan(
+        nx, ncomp, int(has_net), _TC_MODES[check_precision(precision)],
+        n_hidden, out)
+    if out[0] < 0:
+        return None
+    plan = dict(zip(PIS_PLAN_KEYS, out))
+    for key in ("dw_smem", "term_sums_smem", "w_term_scratch"):
+        plan[key] = bool(plan[key])
+    return plan
+
+
+def generate_pis_l2_bytes(b: int, m: int, nx: int, n_hidden: int,
+                          precision: str, plan: dict) -> dict:
+    """Bytes one launch of the PIS kernel moves through L2 by ``plan``
+    (``library_pis_plan``'s): the weight stages the producer copies, each
+    tile of 64 samples (a ring pass serves one tile: both warpgroups take
+    its rows), ``generate_pis.cu:produce``'s copies per layer (a stage's
+    slabs of the layer's ``layer_rows``, hi and lo images under bf16x3, a
+    last "default" stage of two 512-row slabs whole); and the global
+    scratch: the head's output (or w's first terms) and the L layers'
+    ELU'(z) (f32) written and read once a tile;
+    where the plan keeps them in scratch, the tile's normals (64 x nx
+    padded to 4) written once and read the plan's "normals_reads" times,
+    w's mixture term (as many) written and read once, the terminal sums of each point (3 x (1 + nx))
+    written and read once, and the terminal strips (nx padded to 4) read
+    and written once a draw (the warp's sums over the draws). A count of
+    the plan, not a measurement."""
+    x3 = check_precision(precision) == "bf16x3"
+    hw, c, head = PIS_WIDTH, PIS_CHANNELS, pis_head_rows(nx)
+    per_tile = 0
+    for i, (n, k) in enumerate(pis_layer_shapes(n_hidden, nx)):
+        rows = c if i <= n_hidden + 2 else n
+        img = rows * 32
+        spc = (1 if x3 else 2) if rows == hw else (2 if x3 and rows == 128
+                                                   else 4)
+        if x3 and rows == hw:
+            per_tile += 2 * (k // 16) * img
+        else:
+            per_tile += -(-(k // 16) // spc) * spc * img * (2 if x3 else 1)
+    tiles = b * -(-m // 64)
+    tile = 64 * -(-nx // 4) * 4 * 4  # a tile's normals, bytes
+    normals = 0 if plan["dw_smem"] else tile * (1 + plan["normals_reads"])
+    normals += 2 * tile if plan["w_term_scratch"] else 0
+    net = 64 * (head + n_hidden * hw) * 4
+    scratch = (tiles * (net * 2 + normals)
+               + (0 if plan["term_sums_smem"] else b * 3 * (1 + nx) * 4 * 2)
+               + (b * m * -(-nx // 4) * 4 * 4 * 2 if plan["scratch_strips"]
+                  else 0))
+    weights = tiles * per_tile
+    return {"weights": weights, "scratch": scratch,
+            "total": weights + scratch}
 
 
 def pis_sigma0(mod: PISGradNet, precision: str) -> float:

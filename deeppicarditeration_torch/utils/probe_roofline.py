@@ -195,6 +195,82 @@ def generate_draw_mix(sass: str, instance: str = GENERATE_256) -> dict:
     return {"quads_per_iteration": quads, "draw_loop": _mix(ops, 4 * quads)}
 
 
+# generate_pis.cu's instances (T's and H's, "default": <X3, W>)
+GENERATE_PIS_WIDE = "generate_pis_kernelILb0ELb1E"
+GENERATE_PIS_NARROW = "generate_pis_kernelILb0ELb0E"
+# the least FP32 instructions of a loop that holds a Box-Muller
+DRAW_FP32_MIN = 20
+
+
+def generate_pis_draw_mix(sass: str, nx: int,
+                          instance: str = GENERATE_PIS_WIDE) -> dict:
+    """Instructions per normal of the HJB kernel's own draw and mixture
+    loops at ``instance`` (mangled-name part; T's by default) and nx, from
+    ``cuobjdump -sass`` output of ``csrc/generate_pis.cu``, in all and by
+    group. Static counts of each loop's body without its inner loops (both
+    sides of a branch; the fast-path walk of ``fast_path`` skips these
+    loops' Box-Mullers, whose sqrtf has a slow path). A quad loop holds a
+    quad's Philox and Box-Mullers (at least DRAW_IMAD_PER_QUAD IMAD,
+    DRAW_MUFU_PER_QUAD MUFU, DRAW_FP32_MIN FP32), no product anywhere in
+    its span and no other such loop inside it (backward branches out of
+    spin-waits make spans that hold them). "terminal": the loop over a
+    point's draws, the least span without products holding two quad
+    loops (its logits' terms, then its gradient sums; of the kernel's such
+    nests, the zero
+    iterate's and the net's, the one with the most instructions); a lane
+    takes Q / lanes of a draw's Q = ceil(nx / 4) quads (32 lanes a draw in the
+    wide instance, 4 in the narrow), so a normal costs (the nest's body +
+    that many passes of each quad loop) over 4 x that many normals.
+    "integral": the quad loop outside those nests that stores (the
+    integral chain's normals), with the most FP32 instructions, one quad
+    an iteration. Raises unless both are found."""
+    ins = function_sass(sass, lambda name: instance in name)
+    loops = sass_loops(ins)
+
+    def inside(a, b):
+        return b[0] <= a[0] and a[1] <= b[1] and a != b
+
+    def body(se):
+        inner = [o for o in loops if inside(o, se)]
+        return collections.Counter(
+            ins[k].op for k in range(se[0], se[1] + 1)
+            if not any(o[0] <= k <= o[1] for o in inner))
+
+    def fp32(ops):
+        return sum(ops[op] for op in SASS_PIPES["fp32"])
+
+    def products(se):
+        return any(i.op == "HGMMA" for i in ins[se[0]:se[1] + 1])
+
+    draws = [se for se in loops
+             if (ops := body(se))["MUFU"] >= DRAW_MUFU_PER_QUAD
+             and ops["IMAD"] >= DRAW_IMAD_PER_QUAD
+             and fp32(ops) >= DRAW_FP32_MIN and not products(se)]
+    quads = [se for se in draws if not any(inside(o, se) for o in draws)]
+
+    def held(se):
+        return [q for q in quads if inside(q, se)]
+
+    nests = [se for se in loops if len(held(se)) == 2 and not products(se)
+             and not any(inside(o, se) and len(held(o)) == 2
+                         for o in loops)]
+    stores = [q for q in quads if not any(inside(q, n) for n in nests)
+              and (body(q)["STG"] or body(q)["ST"] or body(q)["STS"])]
+    if not nests or not stores:
+        raise RuntimeError(f"no integral or terminal draw loop in "
+                           f"{instance}'s SASS")
+    nest = max(nests, key=lambda se: sum(body(se).values()) + sum(
+        sum(body(q).values()) for q in held(se)))
+    per_lane = -(-nx // 4) / (32 if instance == GENERATE_PIS_WIDE else 4)
+    terminal = body(nest)
+    for q in held(nest):
+        for op, n in body(q).items():
+            terminal[op] += per_lane * n
+    return {"integral": _mix(body(max(stores, key=lambda q: fp32(body(q)))),
+                             4),
+            "terminal": _mix(terminal, 4 * per_lane)}
+
+
 def library_sass(lib: kernels.CudaLibrary) -> str:
     """``cuobjdump -sass`` of ``lib``'s built library."""
     tool = (shutil.which("cuobjdump")

@@ -52,6 +52,40 @@ PATH_S_WIDE_PLAN = {"stages": 4, "save_smem": False, "dw_smem": False,
                                        + 2 * 2 * 128 * 128),
                     "on_chip": False}
 
+# The HJB kernel's plans (csrc/generate_pis.cu, ``library_pis_plan``): path
+# H's (nx = 100, the narrow instance, either mode: the tile's normals in
+# shared memory, a ring of 4 stages, the terminal sums in shared memory)
+# and path T's (nx = 512, the wide instance: the tile's normals read back
+# from scratch 4 times, w's mixture term, the terminal sums and the
+# terminal warps' three strips through scratch, 56 / 224 registers; 4 ring
+# stages under "default", 3 under bf16x3). PATH_T_PIS_EARLIER_PLAN: T's
+# plan in the wide instance's earlier layout (the terminal chain 4 lanes a
+# draw with its sums in shared memory, the normals read back 5 times, 40 /
+# 232 registers; 3 and 2 ring stages), whose count the new one is held
+# against (tests/test_torch_highd.py counts their L2 traffic;
+# tests/test_torch_gpu.py holds H's and T's to the built kernel)
+_PIS_PLAN = {"dw_smem": False, "term_strips": 0, "scratch_strips": 0,
+             "term_sums_smem": True, "producer_regs": 40,
+             "consumer_regs": 232, "normals_reads": 0,
+             "w_term_scratch": False}
+PATH_H_PIS_PLAN = {**_PIS_PLAN, "stages": 4, "dw_smem": True,
+                   "smem_bytes": 231840,
+                   "scratch_floats": 64 * 128 + 4 * 64 * 512}
+_T_SCRATCH = 64 * 512 + 4 * 64 * 512
+PATH_T_PIS_PLAN = {
+    mode: {**_PIS_PLAN, "stages": stages, "smem_bytes": smem,
+           "scratch_floats": _T_SCRATCH + (2 * 64 + 3) * 512 + 3 * 513 + 1,
+           "scratch_strips": 3, "term_sums_smem": False,
+           "producer_regs": 56, "consumer_regs": 224, "normals_reads": 4,
+           "w_term_scratch": True}
+    for mode, stages, smem in (("default", 4, 231344),
+                               ("bf16x3", 3, 223152))}
+PATH_T_PIS_EARLIER_PLAN = {
+    mode: {**_PIS_PLAN, "stages": stages, "smem_bytes": smem,
+           "scratch_floats": _T_SCRATCH + 64 * 512, "normals_reads": 5}
+    for mode, stages, smem in (("default", 3, 210880),
+                               ("bf16x3", 2, 219072))}
+
 
 def _plan(save_smem, dw_smem):
     return {**PATH_A_PLAN, "save_smem": save_smem, "dw_smem": dw_smem}

@@ -963,12 +963,14 @@ def test_pis_kernel_matches_plain_at_its_boundaries(cuda, precision, net, b,
 
 
 @pytest.mark.parametrize("precision", ["default", "bf16x3"])
-def test_pis_kernel_is_deterministic(cuda, precision):
+@pytest.mark.parametrize("nx", [100, 129, 300, 511, 512])
+def test_pis_kernel_is_deterministic(cuda, precision, nx):
     """Two launches on its own draws are bit-equal, with two and three
-    points on a block and a ragged last tile: every sum over draws, rows
-    and warps runs in a fixed order."""
+    points on a block and a ragged last tile, in the narrow instance (nx =
+    100) and the wide one (nx past 128, off and on multiples of 4): every
+    sum over draws, rows and warps runs in a fixed order."""
     b, m = 300, 200
-    eq, sol, tx, *_ = _pis_problem(cuda, b, m)
+    eq, sol, tx, *_ = _pis_problem(cuda, b, m, nx)
     seed = (3 << 32) | 11
     first = kernels.generate_pis_cuda(seed, eq, sol, tx, m,
                                       precision=precision)
@@ -1321,7 +1323,8 @@ def test_merged_kernel_has_a_plan_at_every_nx(cuda, n_hidden):
     if n_hidden == 4:
         assert kernels.library_tc_plan(100, 4) == {
             "stages": 4, "save_smem": False, "dw_smem": True,
-            "smem_bytes": 189152, "scratch_floats": 2 * 3 * 64 * 128}
+            "smem_bytes": 189152, "scratch_floats": 2 * 3 * 64 * 128,
+            "on_chip": False}
 
 
 # ---- the PINN baseline and RESUME on the card ---------------------------
@@ -1454,6 +1457,35 @@ def test_merged_plans_at_the_high_dimension_paths(cuda):
             assert plan is not None and 2 <= plan["stages"] <= 4, (nx, width)
 
 
+# the PIS kernel's plans at paths H's and T's shapes, as
+# tests/test_torch_generate_plan.py pins them (PATH_H_PIS_PLAN,
+# PATH_T_PIS_PLAN): the narrow instance's at H in either mode; the wide
+# instance's at T, 4 ring stages under "default" and 3 under bf16x3
+_PIS_H = {"stages": 4, "dw_smem": True, "smem_bytes": 231840,
+          "scratch_floats": 64 * 128 + 4 * 64 * 512, "term_strips": 0,
+          "scratch_strips": 0, "term_sums_smem": True, "producer_regs": 40,
+          "consumer_regs": 232, "normals_reads": 0, "w_term_scratch": False}
+_PIS_T = {"dw_smem": False,
+          "scratch_floats": (64 + 4 * 64 + 2 * 64 + 3) * 512 + 3 * 513 + 1,
+          "term_strips": 0, "scratch_strips": 3, "term_sums_smem": False,
+          "producer_regs": 56, "consumer_regs": 224, "normals_reads": 4,
+          "w_term_scratch": True}
+
+
+@pytest.mark.parametrize("precision,stages,smem", [
+    ("default", 4, 231344), ("bf16x3", 3, 223152)])
+def test_pis_plans_at_paths_h_and_t(cuda, precision, stages, smem):
+    """The built PIS kernel's plans at paths H's and T's shapes are the
+    ones whose L2 traffic the CPU tests count; every nx up to 512 has one
+    in either mode."""
+    assert kernels.library_pis_plan(100, 4, precision) == _PIS_H
+    assert kernels.library_pis_plan(512, 4, precision) == {
+        **_PIS_T, "stages": stages, "smem_bytes": smem}
+    for nx in range(1, kernels.PIS_MAX_NX + 1, 7):
+        plan = kernels.library_pis_plan(nx, 4, precision)
+        assert plan is not None and plan["stages"] >= 2, nx
+
+
 @pytest.mark.parametrize("precision", ["bf16x3", "default"])
 @pytest.mark.parametrize("anti", [False, True])
 @pytest.mark.parametrize("nx,width,n_hidden,m", [
@@ -1524,16 +1556,26 @@ def test_merged_kernel_draws_equal_the_host_philox_at_1024(cuda, width):
     torch.testing.assert_close(out, ref, rtol=RTOL, atol=RTOL)
 
 
+# points of the wide instance's cases by M: 140 at M = 200, off the grid of
+# 132 blocks (eight blocks take two points), else 8
+PIS_HIGHD_B = {200: 140}
+
+
 @pytest.mark.parametrize("precision", ["default", "bf16x3"])
 @pytest.mark.parametrize("net,m,nx", [(True, 100, 512), (True, 64, 136),
-                                      (False, 64, 512), (True, 70, 301)])
+                                      (False, 64, 512), (True, 70, 301),
+                                      (True, 100, 129), (True, 70, 300),
+                                      (True, 100, 511), (True, 200, 512),
+                                      (False, 200, 300)])
 def test_pis_kernel_at_high_dimension_matches_plain(cuda, precision, net, m,
                                                     nx):
     """The PIS kernel's wide instance (nx > 128: the head and the x columns
-    of N_0^T 512 rows, the tile's normals in global scratch, the terminal
-    sums in shared memory) against the plain version; the zero iterate's
-    terminal chain on the consumers at nx = 512."""
-    eq, sol, tx, u01, nt, ni = _pis_problem(cuda, 8, m, nx, net)
+    of N_0^T 512 rows, the tile's normals and the terminal sums in global
+    scratch, the terminal chain one warp a draw) against the plain version
+    at nx 129-512, M off the 64-sample tiles and B off the grid
+    (PIS_HIGHD_B); the zero iterate's terminal chain on the consumers."""
+    eq, sol, tx, u01, nt, ni = _pis_problem(cuda, PIS_HIGHD_B.get(m, 8), m,
+                                            nx, net)
     out = kernels.generate_pis_cuda(0, eq, sol, tx, m, u01, nt, ni,
                                     precision=precision)
     ref = kernels.generate_with_gradients_plain(0, eq, sol, tx, m, u01, nt,

@@ -51,9 +51,12 @@ from deeppicarditeration_torch.models.solution import Solution
 from deeppicarditeration_torch.ops import estimators as est
 from deeppicarditeration_torch.ops import kernels
 from tests.test_torch_generate_plan import (
+    PATH_H_PIS_PLAN,
     PATH_R_PLAN,
     PATH_S_PLAN,
     PATH_S_WIDE_PLAN,
+    PATH_T_PIS_EARLIER_PLAN,
+    PATH_T_PIS_PLAN,
 )
 
 torch.set_num_threads(1)
@@ -308,6 +311,95 @@ def test_l2_bytes_of_a_path_s_call_against_the_wide_plan(precision, weights,
     assert old["weights"] == (2_817_498_546_176 if precision == "bf16x3"
                               else 1_408_749_273_088)
     assert v["total"] < 0.7 * old["total"]
+
+
+def _pis_stage_bytes(nx, precision):
+    """The bytes generate_pis.cu's producer copies for one tile, layer by
+    layer from pis_layer_shapes: the gate's and the encoder's 64 rows of
+    each k16 slab (4 slabs a stage; hi and lo), a 512-row layer's slabs
+    whole (two a stage under "default", a last stage of an odd count
+    whole; hi and lo in a stage each under bf16x3), a 128-row head's 4
+    slabs a stage ("default") or 2 (bf16x3), hi and lo."""
+    x3 = precision == "bf16x3"
+    total = 0
+    for i, (n, k) in enumerate(kernels.pis_layer_shapes(4, nx)):
+        rows, slabs = (64 if i <= 6 else n), k // 16
+        per = (1 if x3 else 2) if rows == 512 else (2 if x3 and rows == 128
+                                                    else 4)
+        stages = 2 * slabs if x3 and rows == 512 else -(-slabs // per)
+        total += stages * (1 if x3 and rows == 512 else per) * rows * 32 * (
+            2 if x3 and rows != 512 else 1)
+    return total
+
+
+@pytest.mark.parametrize("precision", ["default", "bf16x3"])
+def test_pis_l2_bytes_at_path_h(precision):
+    """H (nx = 100, B = M = 4096): a tile's weight stages, the head's
+    output and 4 layers' ELU' written and read, the normals and the
+    terminal sums on chip; 3.81 MB of weights a tile under "default"."""
+    b, m, nx = 4096, 4096, 100
+    v = kernels.generate_pis_l2_bytes(b, m, nx, 4, precision,
+                                      PATH_H_PIS_PLAN)
+    tiles = b * m // 64
+    assert v["weights"] == tiles * _pis_stage_bytes(nx, precision)
+    assert v["weights"] == {"default": 998_579_896_320,
+                            "bf16x3": 1_979_979_923_456}[precision]
+    assert v["scratch"] == tiles * (64 * 128 + 4 * 64 * 512) * 4 * 2
+    assert v["total"] == v["weights"] + v["scratch"]
+
+
+@pytest.mark.parametrize("precision,weights", [
+    ("default", 5_643_587_026_944), ("bf16x3", 11_287_174_053_888)])
+def test_pis_l2_bytes_at_path_t(precision, weights):
+    """T (nx = 512, B = M = 8192), one tile of 64 samples a ring pass: 5.38
+    MB of weights a tile under "default", twice under bf16x3, in both
+    layouts; the scratch of the earlier one (the normals written once and
+    read 5 times) and of the new one (read 4 times, w's mixture term
+    written and read, the terminal sums of each point written and read,
+    each draw's terminal strip read and written; ELU'(z) in f32 in both,
+    as the JAX reference keeps it)."""
+    b, m, nx = 8192, 8192, 512
+    tiles = b * m // 64
+    tile = 64 * nx * 4
+    net = (64 * 512 + 4 * 64 * 512) * 4 * 2
+    old = kernels.generate_pis_l2_bytes(b, m, nx, 4, precision,
+                                        PATH_T_PIS_EARLIER_PLAN[precision])
+    new = kernels.generate_pis_l2_bytes(b, m, nx, 4, precision,
+                                        PATH_T_PIS_PLAN[precision])
+    assert old["weights"] == new["weights"] == weights
+    assert weights == tiles * _pis_stage_bytes(nx, precision)
+    assert old["scratch"] == tiles * (net + 6 * tile) == 2_199_023_255_552
+    assert new["scratch"] == (tiles * (net + 7 * tile) + b * 3 * 513 * 8
+                              + b * m * nx * 4 * 2)
+    assert new["total"] == new["weights"] + new["scratch"]
+
+
+@pytest.mark.parametrize("precision,bound_ms", [("default", 365.22),
+                                              ("bf16x3", 1095.65)])
+def test_pis_work_with_the_kernels_own_loops(precision, bound_ms):
+    """chip_smoke's work model of a generate_pis call at T's shape: its
+    TENSOR bound (365.22 ms "default", three passes under bf16x3); given
+    the kernel's own loops (``own``: per normal, holding the terminal
+    chain's per-dimension work and the integral chain's X_s and
+    responsibilities), counts equal to the terminal kernel's draw plus
+    the terms they hold give the same work, and larger ones more."""
+    import chip_smoke
+
+    b, m, nx, hidden, ncomp, n_w = 8192, 8192, 512, (512,) * 4, 5, 10 ** 6
+    work = chip_smoke._pis_work(b, m, nx, hidden, ncomp, n_w, precision)
+    ms, by, pipe = chip_smoke._bound(work)
+    assert (by, pipe) == ("operations", "TENSOR")
+    assert ms == pytest.approx(bound_ms, abs=0.01)
+    fp32, i32, sfu, other = chip_smoke.PER_NORMAL
+    own = {"terminal": (fp32 + 4 + 3 * ncomp, i32, sfu + ncomp, other),
+           "integral": (fp32 + 2 + 3 * ncomp, i32, sfu + ncomp, other)}
+    same = chip_smoke._pis_work(b, m, nx, hidden, ncomp, n_w, precision, own)
+    assert same == pytest.approx(work)
+    more = {k: (v[0] + 8, *v[1:]) for k, v in own.items()}
+    bigger = chip_smoke._pis_work(b, m, nx, hidden, ncomp, n_w, precision,
+                                  more)
+    assert bigger[0] == pytest.approx(work[0] + 2 * 8 * b * m * nx)
+    assert bigger[1:] == pytest.approx(work[1:])
 
 
 @pytest.mark.parametrize("path,width,instance", [

@@ -144,3 +144,71 @@ def test_generate_draw_mix_reads_the_own_draw_loop():
         14 / 4, 4 / 4, 2 / 4, 1 / 4)
     with pytest.raises(RuntimeError, match="not a Philox per quad"):
         probe_roofline.generate_draw_mix(_generate_sass(13))
+
+
+def _pis_sass(instance: str, nest_imad: int) -> str:
+    """An HJB kernel's SASS: the mixture's set-up loop (an integer
+    division: IMAD, MUFU, a store, few FP32), a tile loop with a product
+    around the integral chain's draw loop (one quad: 14 IMAD, 2 MUFU, 40
+    FP32, a 128-bit store), and the terminal chain's loop over draws
+    (``nest_imad`` IMAD, 8 MUFU, 25 SHFL) around its two quad loops (14
+    IMAD, 2 MUFU and 60 FP32 with 10 LDS; 14 IMAD, 2 MUFU, 30 FP32 and a
+    store)."""
+    lines = [f"\t\tFunction : _ZN4_GLOBAL_19{instance}EvN12_GLOBAL__N_16ParamsE"]
+    ops = []
+
+    def loop(body):
+        start = len(ops)
+        body()
+        ops.append(f"@P1 BRA 0x{16 * start:x}")
+
+    def quad(fp32, extra):
+        ops.extend(["IMAD.WIDE.U32 R6, R4, 0x3, RZ"] * 14
+                   + ["MUFU.RSQ R5, R4"] * 2 + ["FFMA R10, R8, R5, R10"] * fp32
+                   + extra)
+
+    loop(lambda: ops.extend(["IMAD.HI.U32 R6, R4, R5, RZ"] * 16
+                            + ["MUFU.RCP R5, R4"] * 3 + ["STS [R8], R7"]))
+    loop(lambda: (ops.append("HGMMA.64x256x16.F32.BF16 R24, gdesc[UR4], R24"),
+                  loop(lambda: quad(40, ["STG.E.128 [R2], R8"]))))
+
+    def nest():
+        ops.extend(["IMAD R6, R4, 0x3, RZ"] * nest_imad
+                   + ["MUFU.EX2 R3, R2"] * 8
+                   + ["SHFL.BFLY PT, R3, R2, 0x1, 0x1f"] * 25)
+        loop(lambda: quad(60, ["LDS.128 R8, [R9]"] * 10))
+        loop(lambda: quad(30, ["ST.E.128 [R2], R8"]))
+    loop(nest)
+    ops += ["EXIT", "BRA 0x0"]
+    for k, op in enumerate(ops):
+        lines.append(f"        /*{16 * k:04x}*/                   {op} ;")
+    return "\n".join(lines) + "\n"
+
+
+def test_generate_pis_draw_mix_reads_the_own_loops():
+    """``generate_pis_draw_mix``: the integral chain's draw loop is the
+    storing quad loop outside the terminal nest (not the set-up loop, nor
+    the tile loop with its product), a quad an iteration; the terminal
+    chain's per normal is its nest's body plus Q / 32 passes of each quad
+    loop (nx = 512: 4) over 16 normals in the wide instance, Q / 4 over 4
+    Q / 4 in the narrow one (nx = 100: 6.25); without the nest it
+    raises."""
+    wide = probe_roofline.GENERATE_PIS_WIDE
+    got = probe_roofline.generate_pis_draw_mix(_pis_sass(wide, 20), 512,
+                                               wide)
+    integral, terminal = got["integral"], got["terminal"]
+    assert integral["all"] == (14 + 2 + 40 + 1 + 1) / 4
+    assert (integral["int"], integral["fp32"], integral["sfu"]) == (
+        14 / 4, 40 / 4, 2 / 4)
+    p1, p2 = 14 + 2 + 60 + 10 + 1, 14 + 2 + 30 + 1 + 1
+    assert terminal["all"] == (20 + 8 + 25 + 1 + 4 * (p1 + p2)) / 16
+    assert terminal["int"] == (20 + 4 * 28) / 16
+    assert (terminal["shfl"], terminal["lds"]) == (25 / 16, 40 / 16)
+    narrow = probe_roofline.GENERATE_PIS_NARROW
+    got = probe_roofline.generate_pis_draw_mix(_pis_sass(narrow, 20), 100,
+                                               narrow)
+    assert got["terminal"]["int"] == (20 + 6.25 * 28) / 25
+    no_nest = _pis_sass(wide, 20).replace("MUFU.RSQ R5, R4",
+                                          "FMUL R5, R4, R4")
+    with pytest.raises(RuntimeError, match="no integral or terminal"):
+        probe_roofline.generate_pis_draw_mix(no_nest, 512, wide)
