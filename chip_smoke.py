@@ -252,14 +252,16 @@ only when every phase passed):
      under 1.5x the record's (``HIGHD_PATHS``), generate and fit ms, the
      second iteration traced (device busy ms, idle share), peak device
      memory;
- 24. the merged kernel at widths 64, 512 and 1024, depths 2 and 6
-     (``WIDTH_CASES``: random nets, B = 64, M = 256, bf16x3 and
-     "default", with and without antithetic pairing; bf16x3 at phase 2's
-     5e-5, "default" against the plain version in f64 beside the plain
-     one pass, ``DEEP_ONE_PASS_RATIO``) and at the
-     matrix's ragged B = 4000 (``WIDTH_RAGGED``:
-     W's 2x1024 net at nx 512, bf16x3, every point) against its plain
-     version on the same noise;
+ 24. the merged kernel at widths 64, 512, 640, 768 and 1024, depths 2 to 6
+     (``WIDTH_CASES``: random nets, B = 64 (one case 140, off the grid of
+     132 blocks), M = 256 (one case 136: three tiles, the last ragged),
+     nx up to 1024, bf16x3 and "default", with and without antithetic
+     pairing; bf16x3 at phase 2's 5e-5, "default" against the plain
+     version in f64 beside the plain one pass, ``DEEP_ONE_PASS_RATIO``)
+     and at the matrix's ragged B = 4000 (``WIDTH_RAGGED``: W's 2x1024 net
+     at nx 512, bf16x3, every point) against its plain version on the
+     same noise; the wide pass launched twice on the same inputs gives the
+     same output bit for bit;
  25. paths U, V, W, X, 3 iterations each: every generation call merged,
      one ``generate.cu`` launch an iteration, rRMSE at iterations 1-3
      under 1.5x the split route's at the same seed (``WIDTH_PATHS``),
@@ -767,11 +769,18 @@ WIDTH_DEFAULT_POINTS = 512
 # one pass's) must fall below the window, or the check fails as blind.
 DEEP_ONE_PASS_RATIO = 1.5
 # phase 24's cases: (B, M, nx, width, hidden layers), at widths 64, 512
-# and 1024, depths 2 and 6; and the matrix's ragged B = 4000 at W's net
+# and 1024, depths 2 and 6; the wide pass also at widths 640 and 768 (5
+# and 6 column blocks), at width 512 with nx 1024 (its ring's stages
+# fewest), at M = 136 (three tiles of a point, the last ragged, the second
+# warpgroup's last one empty) and at B = 140 (off the grid of 132 blocks:
+# eight take two points); and the matrix's ragged B = 4000 at W's net
 # (bf16x3)
 WIDTH_CASES = ((64, 256, 100, 64, 2), (64, 256, 256, 64, 6),
                (64, 256, 100, 512, 2), (64, 256, 256, 512, 6),
-               (64, 256, 512, 1024, 2), (64, 128, 100, 1024, 6))
+               (64, 256, 512, 1024, 2), (64, 128, 100, 1024, 6),
+               (64, 256, 100, 640, 3), (64, 256, 300, 768, 2),
+               (64, 128, 1024, 512, 2), (64, 136, 256, 512, 4),
+               (140, 128, 100, 1024, 2))
 WIDTH_RAGGED = (4000, 256, 512, 1024, 2)
 # Phase 21: iteration 0 (the zero or g ansatz: no trained net) of the
 # 10^6-sample MC self-consistency check at (0, 0) against the JAX
@@ -1683,10 +1692,14 @@ def _check_highd(max_err: dict, dev) -> None:
 
 def _check_widths(max_err: dict, dev) -> None:
     """Phase 24: the merged kernel's width-64 pass and wide pass at random
-    nets of widths 64, 512 and 1024 and depths 2 and 6 (WIDTH_CASES), in
-    bf16x3 and "default", with and without antithetic pairing, and at the
+    nets of widths 64 to 1024 and depths 2 to 6 (WIDTH_CASES), in bf16x3
+    and "default", with and without antithetic pairing, and at the
     matrix's ragged B = 4000 (WIDTH_RAGGED, bf16x3, every point), against
-    the plain version on the same noise (max_err[... " widths"])."""
+    the plain version on the same noise (max_err[... " widths"]); each
+    wide case's first launch against a second on the same inputs, bit for
+    bit."""
+    import torch
+
     from deeppicarditeration_torch.ops import kernels
 
     for b, m, nx, width, n_hidden in WIDTH_CASES + (WIDTH_RAGGED,):
@@ -1704,6 +1717,13 @@ def _check_widths(max_err: dict, dev) -> None:
                 out = kernels.generate_with_gradients_cuda(
                     0, eq, sol, tx, m, *noise, **kw)
                 label = f"merged {mode}, {tag}"
+                if (kernels.generate_tc_instance(width) == "wide"
+                        and not torch.equal(out, kernels.
+                                            generate_with_gradients_cuda(
+                                                0, eq, sol, tx, m, *noise,
+                                                **kw))):
+                    _fail(f"{label}: two launches on the same inputs "
+                          f"differ")
                 err = (_one_pass_vs_f64(label, out, eq, sol, tx, m, noise,
                                         anti) if mode == "default" else
                        _same(label, out, kernels.generate_with_gradients_plain(
@@ -3024,15 +3044,18 @@ def _expect_launches(path, runner, launches, seen, want):
 # STL and LDL (local-memory stores and loads: spills) in the SASS of each
 # tensor-core kernel's instance as the tree stands (H100, CUDA 12.8;
 # PERF.md §6): a build that spills more fails phase 1. The integral
-# kernel's instances are to reach none (ROADMAP §B).
+# kernel's instances are to reach none (ROADMAP §B). The wide pass's
+# (widths 384-1024) are its producer's per-layer scratch pointers and its
+# consumers' per-point state, the draws' and the sums' loops, none in its
+# products or epilogues (nvdisasm -g by source line, PERF.md §6 PR 18).
 SPILLS_MAX = {"generate_tc_kernel<bf16x3, 128>": (12, 15),
               "generate_tc_kernel<bf16x3, 256>": (282, 399),
               "generate_tc_kernel<default, 256>": (343, 458),
               "generate_tc_kernel<default, 128>": (11, 13),
               "generate_tc_kernel<bf16x3, 64>": (10, 12),
               "generate_tc_kernel<default, 64>": (10, 12),
-              "generate_tc_kernel<bf16x3, wide>": (10, 12),
-              "generate_tc_kernel<default, wide>": (9, 10),
+              "generate_tc_kernel<bf16x3, wide>": (46, 40),
+              "generate_tc_kernel<default, wide>": (31, 17),
               "generate_pis_kernel<default>": (113, 137),
               "generate_pis_kernel<bf16x3>": (114, 138),
               "generate_pis_kernel<default, nx > 128>": (106, 152),
@@ -3901,14 +3924,20 @@ def main(argv=None) -> int:
                                 mode_p)
             net = f"{len(neurons_p)}x{neurons_p[0]} net"
             plan_p = kernels.library_tc_plan(nx_p, len(neurons_p),
-                                             width=neurons_p[0])
+                                             width=neurons_p[0],
+                                             precision=mode_p)
             v = kernels.generate_tc_l2_bytes(nb_p, mm_p, nx_p, len(neurons_p),
                                              mode_p, plan_p, neurons_p[0])
-            print(f"generate_with_gradients {mode_p} at path {path}'s shapes "
-                  f"(counted, not measured): L2 bytes per launch by the plan "
-                  f"{plan_p}: {v['total'] / 1e9:.2f} GB (weight slabs "
-                  f"{v['weights'] / 1e9:.2f}, scratch "
-                  f"{v['scratch'] / 1e9:.2f})")
+            # a count from the built kernel's plan, not a measurement:
+            # printed only, and kept out of the kernels line
+            print(f"generate_with_gradients {mode_p} at path {path}'s shapes: "
+                  f"{ms_p:.2f} ms a call; L2 bytes per launch by the plan "
+                  f"{plan_p} (counted, not measured): "
+                  f"{v['total'] / 1e12:.3f} TB (weight slabs "
+                  f"{v['weights'] / 1e12:.3f}, scratch "
+                  f"{v['scratch'] / 1e12:.3f}), "
+                  f"{v['total'] / (ms_p * 1e-3) / 1e12:.2f} TB/s over the "
+                  f"measured time")
         if path == "S":
             # the bound with the merged kernel's own draw loops (phase 1)
             # in place of the terminal kernel's, printed beside the row's

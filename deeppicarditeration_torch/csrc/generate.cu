@@ -103,24 +103,18 @@
 //         accumulators, which spill (182 k), against 126 k of products.
 //       - widths 384 to 1024 (net_pass_wide, HW = WIDE, the width a
 //         runtime value): each warpgroup keeps its own tile and takes a
-//         layer in hw / 128 column blocks of m64n128, each over all of
-//         the layer's K-slabs; a block's output goes back as the next
-//         layer's A through the warpgroup's global scratch, the saved ELU
-//         derivatives too (why, and the choice against both warpgroups on
-//         one tile: at net_pass_wide). It replaced an earlier width-256
-//         pass (two fixed halves), measured in turns with that build at
-//         B = M = 4096, nx = 1024, 4x256 (utils/generate_bench.py, H100
-//         80GB HBM3 700 W): bf16x3 538.02 against 540.65 ms, "default"
-//         483.43 against 482.46, antithetic M = 8192 1052.45 against
-//         1056.93; at path A's width 128, 46.28 / 35.84 / 84.42 against
-//         46.31 / 35.95 / 84.60 (and after the width-64 pass joined the
-//         width-128 one in net_pass_narrow, 45.98 / 35.47 / 84.08 against
-//         46.05 / 35.49 / 84.21).
+//         layer in ceil(hw / 256) column blocks of m64n256, each over all
+//         of the layer's K, with A (each layer's input, written once as
+//         bf16 images by the layer before) staged in shared memory by the
+//         producer beside the weights (why, and what it replaced: at
+//         net_pass_wide);
 //     At the JAX package's dispatcher-matrix nets, B = M = 4096, bf16x3
-//     (chip_smoke paths U, V, W, X, H100 80GB HBM3 700 W): 4x512 at
-//     nx = 100 523.86 ms, 6x512 at 256 883.60, 2x1024 at 512 1144.92
-//     (3.2, 3.2 and 4.3x the tensor pipe's bound), 3x64 at 256 81.03 (7.6x
-//     its issue bound: the draws bind there, not the net).
+//     (chip_smoke paths U, V, W, X, H100 80GB HBM3 700 W): 4x512 at nx =
+//     100 449.34 ms, 6x512 at 256 736.68, 2x1024 at 512 645.58 (2.7, 2.6
+//     and 2.4x the tensor pipe's bound; in turns with the wide pass before
+//     A was staged: 544.39, 914.56, 1148.56, utils/generate_bench.py), 3x64
+//     at 256 81.03 (7.6x its issue bound: the draws bind there, not the
+//     net).
 //   * "highest": generate_kernel, the FP32-FMA design
 //     (value_mlp.cuh), one block per point, inner blocks of S = 32
 //     samples, 8 per warp through the whole net, activations and both
@@ -359,7 +353,7 @@ constexpr int TERM_BAR_THREADS = TC_CONSUMERS + AUX_THREADS;
 // net_pass_wide (one instance: WIDE).
 constexpr int GEN_MAX_NX = 1024;
 constexpr int H64 = 64;
-constexpr int WIDE = 0;  // the instance of widths 256 .. GEN_MAX_WIDTH
+constexpr int WIDE = 0;  // the instance of widths 384 .. GEN_MAX_WIDTH
 constexpr int GEN_MAX_WIDTH = 1024;
 
 // the width-256 instance's tile images and ring stages (net_pass256)
@@ -371,6 +365,37 @@ constexpr int N256_IMAGE = N256 * 16 * 2;    // a 256-row k16 slab: 8 KB
 constexpr int STAGE256 = 2 * N256_IMAGE;     // hi and lo
 // arrivals that free a ring stage: one a consumer warp
 constexpr int EMPTY256_ARRIVALS = tc::TC_CONSUMERS / 32;
+
+// the wide pass's ring stages (net_pass_wide): WCPS k16 chunks each, of
+// the weights' 256-row slab of a column block and of both tiles' A, a
+// piece each of what the mode reads; at most 4 of them (192 KB) under
+// bf16x3, and "default" runs twice as many of half the bytes
+constexpr int WCPS = 2;                           // k16 chunks a stage
+constexpr int WB_IMG = 256 * 16 * 2 * WCPS;       // a weight piece: 16 KB
+constexpr int WA_IMG = tc::TILE * 16 * 2 * WCPS;  // a tile's A piece: 4 KB
+constexpr int WIDE_STAGE = 2 * (WB_IMG + tc::NWG * WA_IMG);  // bf16x3: 48 KB
+constexpr int WIDE_MAX_STAGES = 8;  // barriers: "default"'s stages
+
+__host__ __device__ inline int wide_stage_bytes(int pieces) {
+  return pieces * (WB_IMG + tc::NWG * WA_IMG);
+}
+// the ring's stages in a mode: the plan's (bf16x3) count, or under
+// "default" twice as many stages of half the bytes
+__host__ __device__ inline int wide_stages(int stages_x3, int pieces) {
+  const int st = pieces == 1 ? 2 * stages_x3 : stages_x3;
+  return st < WIDE_MAX_STAGES ? st : WIDE_MAX_STAGES;
+}
+
+// global scratch floats of a warpgroup of the wide pass (WideScratch): the
+// saved elu'(z) of L - 1 layers, its tile's normals, layer 1's input image
+// and two images of layer outputs (bf16 hi and lo: a float an element)
+__host__ __device__ inline size_t wide_floats_wg(int nx, int L, int hw) {
+  const size_t layers = L > 1 ? (size_t)(L + 1) * tc::TILE * hw : 0;
+  return layers + (size_t)tc::TILE * nx + (size_t)tc::TILE * tc::k1_of(nx);
+}
+__host__ __device__ inline size_t scratch_floats_wide(int nx, int L, int hw) {
+  return (size_t)tc::NWG * wide_floats_wg(nx, L, hw);
+}
 
 // layer 1's k16 chunks: 1 + nx columns
 __host__ __device__ inline int chunks1(int nx) { return (nx + 16) / 16; }
@@ -389,13 +414,11 @@ __host__ __device__ inline int instance_of(int hw) {
 // The merged kernel's shared memory beside the ring: each consumer
 // warpgroup's tile of normals (rows of nx), the terminal warps' sums, 32 KB
 // stages (hi and lo images of a 128-row slab; at width 64 of a 64-row
-// one), the saved derivatives of TILE x hw a layer; at widths past 128 two
-// buffers of layer outputs a warpgroup (hw / 2 floats a thread each,
-// global scratch). ops/kernels.py:library_tc_plan reads the plan.
+// one), the saved derivatives of TILE x hw a layer.
+// ops/kernels.py:library_tc_plan reads the plan.
 __host__ __device__ inline tc::Layout gen_layout(int nx, int hw) {
   tc::Layout k{1, 1, nx, 2 * tc::IMAGE_BYTES};
   k.save_layer = tc::TILE * hw;
-  if (hw > H) k.act = 2 * (hw / 2) * tc::CONSUMERS;
   if (instance_of(hw) == N256) k.stage_bytes = STAGE256;
   return k;
 }
@@ -454,16 +477,62 @@ __host__ __device__ inline size_t scratch_floats256(int nx, int L) {
          (saves256_floats(L) + (size_t)2 * tc::TILE * 4 * ((nx + 3) / 4));
 }
 
+// The wide pass's shared memory (net_pass_wide): the ring of stages of
+// WIDE_STAGE bytes (the bf16x3 count; "default" runs twice as many of half
+// the bytes), the point's x, the tiles' rows, the terminal warps' sums,
+// the consumers' sums past their registers, the ring's barriers and the
+// barrier of the published layer outputs (ready); the tiles' normals and
+// saved derivatives in scratch
+__host__ __device__ inline tc::GPlan gplan_wide(int nx, int stages) {
+  using namespace tc;
+  GPlan p = {};
+  size_t o = 0;
+  p.stages = stages;
+  p.ring = o;
+  o += (size_t)stages * WIDE_STAGE;
+  p.save = p.dw = p.xrow = o;
+  o += align16((size_t)nx * 4);
+  p.rows = o;
+  o += (size_t)NWG * NROWS * TILE * 4;
+  p.tacc = o;
+  o += (size_t)AUX_WARPS * align16((size_t)nx * 4);
+  p.tred = o;
+  o += align16((size_t)AUX_WARPS * (1 + nx) * 4);
+  p.red = o;
+  o += align16((size_t)(1 + nx) * 4);
+  p.isum = o;
+  o += (size_t)NWG * align16((size_t)isum_floats(nx) * 4);
+  p.sums = p.bars = o;
+  o += (size_t)(2 * WIDE_MAX_STAGES + 1) * 8;
+  p.total = o;
+  return p;
+}
+
+// the deepest ring of 2..WIDE_MAX_STAGES / 2 stages that fits; stages = -1
+// if none
+__host__ __device__ inline tc::GPlan choose_gplan_wide(int nx) {
+  for (int st = WIDE_MAX_STAGES / 2; st >= 2; --st) {
+    const tc::GPlan p = gplan_wide(nx, st);
+    if (p.total <= tc::SMEM_LIMIT) return p;
+  }
+  tc::GPlan bad = gplan_wide(nx, 0);
+  bad.stages = -1;
+  return bad;
+}
+
 // the plan of a covered width's instance
 __host__ __device__ inline tc::GPlan plan_of(int nx, int L, int hw) {
-  return instance_of(hw) == N256 ? choose_gplan256(nx)
-                                 : tc::choose_gplan(nx, L, gen_layout(nx, hw));
+  const int inst = instance_of(hw);
+  return inst == N256   ? choose_gplan256(nx)
+         : inst == WIDE ? choose_gplan_wide(nx)
+                        : tc::choose_gplan(nx, L, gen_layout(nx, hw));
 }
 __host__ __device__ inline size_t scratch_of(const tc::GPlan& pl, int nx,
                                              int L, int hw) {
-  return instance_of(hw) == N256
-             ? scratch_floats256(nx, L)
-             : tc::scratch_floats(pl, gen_layout(nx, hw), L);
+  const int inst = instance_of(hw);
+  return inst == N256   ? scratch_floats256(nx, L)
+         : inst == WIDE ? scratch_floats_wide(nx, L, hw)
+                        : tc::scratch_floats(pl, gen_layout(nx, hw), L);
 }
 
 }  // namespace
@@ -855,286 +924,6 @@ __device__ __forceinline__ void produce64(const Params& p, uint32_t ring,
       }
 }
 
-// ---- the wide pass: hidden widths 256 to 1024 ------------------------------
-// Of the two designs, both warpgroups on one tile (N = 128 each, as
-// generate_pis.cu's wide layers) or each on its own (N in column blocks),
-// the second: it keeps the block's loop, the ring's 32 KB stages of 128-row
-// slabs, the turns and every weight byte serving two tiles as at width
-// 128, and the registers of the width-128 pass; the first would stage
-// 256-row slabs (64 KB a stage under bf16x3), each byte serving one tile,
-// and hold a tile's activations in shared memory beside them.
-// Each consumer warpgroup keeps its own 64-row tile, as at width 128, and
-// takes a layer's hw output columns in nb = hw / 128 column blocks of
-// m64n128 (nb a runtime value: one instance serves every width from 256 to
-// 1024 in steps of 128), each over all of the layer's K-slabs (the ring's
-// stages are 128-row slabs as at width 128: 32 KB under bf16x3). A layer's
-// output is hw / 2 floats a thread, too many beside the accumulator and
-// the A fragments in the 208 registers a consumer has, and a tile's
-// outputs (64 x hw f32 a warpgroup, two buffers) do not fit in shared
-// memory beside the ring and the rows of normals: so each thread writes
-// its blocks to its warpgroup's buffers in global scratch ([float][thread],
-// coalesced; not L2-resident: the layer outputs alone are 1 KB x hw a
-// block, 68 MB over the grid at width 512, past the 50 MB L2 at every
-// width this pass takes, the saved derivatives beside them) and reads them
-// back, a K-slab (32 floats) at a time, as the next layer's A fragments:
-// the m64n128 accumulator's layout is the A fragments' (acc_col), so a
-// thread reads back only what it wrote. Every block of a layer reads the
-// whole input (nb times a layer); the output goes to the other buffer. The
-// saved ELU derivatives (TILE x hw a layer) go to scratch too.
-
-// Bias and ELU of column block h of layer l's accumulator (width p.hw).
-// Below the last layer elu'(z) is saved and acc is the activation; at the
-// last layer the head's partial sums go to u and acc becomes the head's
-// gradient times elu'(z).
-template <bool X3>
-__device__ __forceinline__ void layer_out_wide(const Params& p, const Tile& s,
-                                               float (&acc)[NACC], int l,
-                                               int h, int ctid,
-                                               float (&u)[2]) {
-  const int t = ctid & 3, hw = p.hw;
-  const float* bias = p.vec + (size_t)(l - 1) * hw + 128 * h;
-  if (l < p.L) {
-    float2* sv = s.save + (size_t)(l - 1) * (hw / 4) * CONSUMERS +
-                 (size_t)32 * h * CONSUMERS + ctid;
-#pragma unroll
-    for (int q = 0; q < NACC / 2; ++q) {
-      float d[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int i = 2 * q + e;
-        const float z = acc[i] + __ldg(bias + acc_col(i, t));
-        const float ez = expf(fminf(z, 0.0f));
-        acc[i] = z > 0.0f ? z : ez - 1.0f;
-        d[e] = z > 0.0f ? 1.0f : ez;
-      }
-      sv[(size_t)q * CONSUMERS] = make_float2(d[0], d[1]);
-    }
-    return;
-  }
-  const float* w_out = p.vec + (size_t)p.L * hw + 128 * h;
-#pragma unroll
-  for (int i = 0; i < NACC; ++i) {
-    const int col = acc_col(i, t);
-    const float z = acc[i] + __ldg(bias + col);
-    const float ez = expf(fminf(z, 0.0f));
-    const float a = z > 0.0f ? z : ez - 1.0f;
-    const float w = __ldg(w_out + col);
-    const float wh = bf16_round(w), ah = bf16_round(a);
-    float term = ah * wh, gw = wh;
-    if (X3) {
-      const float wl = bf16_round(w - wh);
-      term += bf16_round(a - ah) * wh + ah * wl;
-      gw += wl;
-    }
-    u[(i >> 1) & 1] += term;
-    acc[i] = gw * (z > 0.0f ? 1.0f : ez);
-  }
-}
-
-// g1 (column block h) contracted with W1's column sums over x, _split3's
-// products
-template <bool X3>
-__device__ __forceinline__ void colsum_wide(const Params& p,
-                                            const float (&acc)[NACC], int h,
-                                            int t, float (&sx)[2]) {
-  const float* wc_hi = p.vec + (size_t)(p.L + 1) * p.hw + 128 * h;
-  const float* wc_lo = p.vec + (size_t)(p.L + 2) * p.hw + 128 * h;
-#pragma unroll
-  for (int i = 0; i < NACC; ++i) {
-    const int col = acc_col(i, t);
-    const float gh = bf16_round(acc[i]), ch = __ldg(wc_hi + col);
-    float term = gh * ch;
-    if (X3) term += gh * __ldg(wc_lo + col) + bf16_round(acc[i] - gh) * ch;
-    sx[(i >> 1) & 1] += term;
-  }
-}
-
-// column block h of a layer's output into a buffer: float 64 h + i of this
-// thread
-__device__ __forceinline__ void store_block(const float (&acc)[NACC],
-                                            float* buf, int h, int ctid) {
-#pragma unroll
-  for (int i = 0; i < NACC; ++i)
-    buf[(size_t)(64 * h + i) * CONSUMERS + ctid] = acc[i];
-}
-
-// K-slab sb of a layer's input (floats 32 sb .. of this thread: its block
-// sb / 2, k-chunks 4 (sb & 1) ..) as A fragments
-__device__ __forceinline__ void load_slab(const float* buf, int sb, int ctid,
-                                          uint32_t (&ah)[4][4],
-                                          uint32_t (&al)[4][4]) {
-  float x[32];
-#pragma unroll
-  for (int q = 0; q < 32; ++q)
-    x[q] = buf[(size_t)(32 * sb + q) * CONSUMERS + ctid];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      split_hi_lo(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1], ah[kk][r],
-                  al[kk][r]);
-}
-
-// u and sum_j u_x_j of a net of width p.hw (256 .. 1024) at (s, X_s) for
-// the tile's rows (written to s.u, s.sux); act: the warpgroup's two output
-// buffers.
-template <bool X3, class Turn>
-__device__ __forceinline__ void net_pass_wide(const Params& p, const Tile& s,
-                                              Ring& ring, int ctid,
-                                              const Turn& turn, float* act) {
-  const int warp = ctid >> 5, lane = ctid & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = 16 * warp + g, r1 = r0 + 8;
-  const int L = p.L, nx = p.nx, n1 = k1_of(nx) / SLAB_K;
-  const int hw = p.hw, nb = hw / 128, ks = hw / SLAB_K;
-  float* in = act;
-  float* out = act + (size_t)(hw / 2) * CONSUMERS;
-  float u[2] = {0.0f, 0.0f}, sx[2] = {0.0f, 0.0f};
-  float acc[NACC];
-
-  // layer 1: [X_s, s] W1p^T, each column block over all K-slabs
-  for (int h = 0; h < nb; ++h) {
-    zero(acc);
-    for (int sb = 0; sb < n1; ++sb) {
-      uint32_t ah[4][4], al[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int row = (r & 1) ? r1 : r0;
-          const int col = SLAB_K * sb + 16 * kk + 2 * t + 8 * (r >> 1);
-          split_hi_lo(s.a1(row, col, nx), s.a1(row, col + 1, nx), ah[kk][r],
-                      al[kk][r]);
-        }
-      slab_turn<0, X3>(acc, ah, al, ring, turn);
-    }
-    layer_out_wide<X3>(p, s, acc, 1, h, ctid, u);
-    if (L == 1)
-      colsum_wide<X3>(p, acc, h, t, sx);
-    else
-      store_block(acc, out, h, ctid);
-  }
-
-  // hidden layers 2..L forward
-  for (int l = 2; l <= L; ++l) {
-    float* tmp = in;
-    in = out;
-    out = tmp;
-    for (int h = 0; h < nb; ++h) {
-      zero(acc);
-      for (int sb = 0; sb < ks; ++sb) {
-        uint32_t ah[4][4], al[4][4];
-        load_slab(in, sb, ctid, ah, al);
-        slab_turn<0, X3>(acc, ah, al, ring, turn);
-      }
-      layer_out_wide<X3>(p, s, acc, l, h, ctid, u);
-      store_block(acc, out, h, ctid);
-    }
-  }
-
-  // backward through hidden layers L..2: g_{l-1} = (g_l W_l) elu'(z_{l-1})
-  for (int l = L; l >= 2; --l) {
-    float* tmp = in;
-    in = out;
-    out = tmp;
-    for (int h = 0; h < nb; ++h) {
-      zero(acc);
-      for (int sb = 0; sb < ks; ++sb) {
-        uint32_t ah[4][4], al[4][4];
-        load_slab(in, sb, ctid, ah, al);
-        slab_turn<1, X3>(acc, ah, al, ring, turn);
-      }
-      const float2* sv = s.save + (size_t)(l - 2) * (hw / 4) * CONSUMERS +
-                         (size_t)32 * h * CONSUMERS + ctid;
-#pragma unroll
-      for (int q = 0; q < NACC / 2; ++q) {
-        const float2 d = sv[(size_t)q * CONSUMERS];
-        acc[2 * q] *= d.x;
-        acc[2 * q + 1] *= d.y;
-      }
-      if (l == 2)
-        colsum_wide<X3>(p, acc, h, t, sx);
-      else
-        store_block(acc, out, h, ctid);
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-#pragma unroll
-    for (int o = 1; o <= 2; o <<= 1) {
-      u[r] += __shfl_xor_sync(0xffffffffu, u[r], o);
-      sx[r] += __shfl_xor_sync(0xffffffffu, sx[r], o);
-    }
-  }
-  if (t == 0) {
-    const float b_out = __ldg(p.vec + (size_t)(L + 3) * hw);
-    s.u[r0] = u[0] + b_out;
-    s.u[r1] = u[1] + b_out;
-    s.sux[r0] = sx[0];
-    s.sux[r1] = sx[1];
-  }
-}
-
-// The producer warp of the wide pass: every slab in the consumers' order,
-// per tile pair: layer 1's K-slabs for column block 0, then 1, ..; each
-// hidden layer's hw / 64 K-slabs per block forward (W's rows 128 h ..,
-// K-major as at width 128), then backward (W's columns 128 h .. of each
-// 64-row slab, MN-major: 8 core rows of 16 cores, as at width 128).
-__device__ __forceinline__ void produce_wide(const Params& p, uint32_t ring,
-                                             uint32_t full, uint32_t empty,
-                                             int lane, int stages,
-                                             int stage_bytes, int copies,
-                                             int nimg) {
-  const int L = p.L, K1 = k1_of(p.nx), hw = p.hw;
-  const int nb = hw / 128, ks = hw / SLAB_K, per_layer = nb * ks;
-  const int n1 = K1 / SLAB_K, nf = nb * n1 + per_layer * (L - 1);
-  const int nslab = nf + per_layer * (L - 1);
-  const int ntile = (p.M + TILE - 1) / TILE;
-  const __nv_bfloat16* hidden = p.img + (size_t)nimg * hw * K1;
-  int it = 0;
-  for (int b = blockIdx.x; b < p.B; b += gridDim.x)
-    for (int kb = 0; kb < ntile; kb += NWG)
-      for (int sl = 0; sl < nslab; ++sl, ++it) {
-        const int st = it % stages, round = it / stages;
-        if (round > 0) mbar_wait(empty + 8 * st, (uint32_t)((round - 1) & 1));
-        const __nv_bfloat16* src;
-        size_t img_off, row_stride;
-        int rows = 16, row_bytes = 1024;
-        if (sl < nb * n1) {  // W1: rows 128 h .., input columns 64 sb ..
-          const int h = sl / n1, sb = sl - h * n1;
-          src = p.img + ((size_t)16 * h * (K1 / 8) + 8 * sb) * 64;
-          img_off = (size_t)hw * K1;
-          row_stride = (size_t)K1 * 8;
-        } else {
-          const bool fwd = sl < nf;
-          const int f = fwd ? sl - nb * n1 : sl - nf;
-          const int l = fwd ? 2 + f / per_layer : L - f / per_layer;
-          const int r = f % per_layer, h = r / ks, sb = r - h * ks;
-          const __nv_bfloat16* w = hidden + (size_t)(l - 2) * nimg * hw * hw;
-          img_off = (size_t)hw * hw;
-          row_stride = (size_t)hw * 8;
-          if (fwd) {
-            src = w + ((size_t)16 * h * (hw / 8) + 8 * sb) * 64;
-          } else {
-            src = w + ((size_t)8 * sb * (hw / 8) + 16 * h) * 64;
-            rows = 8;
-            row_bytes = 2048;
-          }
-        }
-        const uint32_t bar = full + 8 * st;
-        if (lane == 0)
-          mbar_expect_tx(bar, (uint32_t)(rows * row_bytes * copies));
-        __syncwarp();
-        for (int c = lane; c < rows * copies; c += 32) {
-          const int im = c / rows, r = c - im * rows;
-          bulk_copy(ring + (uint32_t)(st * stage_bytes + im * IMAGE_BYTES +
-                                      r * row_bytes),
-                    src + im * img_off + r * row_stride, (uint32_t)row_bytes,
-                    bar);
-        }
-      }
-}
-
 // ---- width 256: the layer chain on chip (generate_tc_kernel<P, N256>) -----
 // At width 256 a tile's layer output, kept as the bf16 images (hi, and lo
 // under bf16x3) that the next product reads, is 32 KB an image: each
@@ -1489,7 +1278,7 @@ __device__ __forceinline__ float4* save256(const Tile& s, int j, int ctid) {
                                                  CONSUMERS + ctid;
 }
 
-// Bias and ELU of layer l's accumulator, as layer_out_wide's (exp on
+// Bias and ELU of layer l's accumulator, as epi_fwd_wide's (exp on
 // MUFU.EX2, as value_mlp_tc.cuh's fwd_epilogue): below the last layer the
 // activation goes to the tile image and elu'(z) to scratch;
 // at the last layer the head's partial sums go to u and the head's
@@ -1790,6 +1579,569 @@ __device__ __forceinline__ void produce256(const Params& p, uint32_t ring,
       }
 }
 
+// ---- the wide pass: hidden widths 384 to 1024 -----------------------------
+// Each consumer warpgroup keeps its own 64-row tile, as at width 128, and
+// takes a layer's hw output columns in nb = ceil(hw / 256) column blocks of
+// m64n256 (nb a runtime value: one instance serves every width from 384 to
+// 1024 in steps of 128; at 384, 640 and 896 the last block holds 128
+// columns, its products m64n128), each over all of the layer's K. A layer's output
+// (64 x hw a tile) fits neither in the registers beside the accumulator nor
+// in shared memory beside the ring, so it goes to global scratch, and every
+// column block of the next layer reads the whole of it. The design before this
+// one kept it there in f32 and read it back a K-slab at a time into A
+// fragments right before the products that took them (32 loads and 16
+// hi/lo splits a thread a slab, in 128-column blocks; layer 1's A likewise
+// from the tiles' normals), so each consumer waited on global loads
+// between its products: at path W (2x1024, nx = 512, B = M = 4096, bf16x3)
+// it took 1144.92 ms, 4.3x its bound, the loads 50-70 % of a tile's time
+// at W, V and U (PERF.md §6 has its stamp trace). Here the products take A
+// from shared memory, staged by the producer warp beside the weights:
+//   - each epilogue writes its column block once, as the bf16 pieces (hi,
+//     and lo under bf16x3) that the next layer's products read, in wgmma's
+//     core-matrix layout (2 KB a k16 chunk of 64 rows: img_off), into the
+//     warpgroup's buffers in global scratch; the draws write layer 1's input
+//     [X_s, s] so, beside the normals the sums read (draw_wide);
+//   - a ring stage is two k16 chunks: the weights' slab of the block's 256
+//     rows of each piece (8 KB a chunk: pack_mlp_tc's chunk_major images
+//     forward, the core layout's rows backward) and both tiles' A chunks of
+//     each piece (4 KB a tile), 48 KB under bf16x3, 24 KB under "default"
+//     (twice as many stages in the same bytes); the producer fills stages
+//     ahead of use, so no consumer waits on a global load. A last block of
+//     128 columns stages its 128 weight rows in the first half of each
+//     slot and runs m64n128 products into the accumulator's first half;
+//   - a layer's input is complete once both warpgroups have written their
+//     last column block of the layer before (or drawn the tile): each
+//     consumer fences its global writes for the async proxy and arrives on
+//     a barrier (ready) that the producer waits on before staging the
+//     layer's first chunk;
+//   - the products run with one group in flight while the next is issued,
+//     without turns.
+// What binds it then (PERF.md §6): the epilogues, which both warpgroups
+// run at once while the tensor pipe idles (taken out, the kernel ran at
+// 1.1-1.3x the tensor bound; staging every A or weight chunk twice cost 1-3
+// %). 128-column blocks ran slower (their ring at 42 bytes a tensor cycle
+// against 31 here ran dry; their products alone 1.6x the bound), and so did
+// an epilogue beside the next block's products in a second accumulator
+// (ptxas serialised every wgmma, C7515). Each epilogue is one copy of each
+// step (bias and ELU, the head, the backward product; then the image or
+// the column sums: epilogue_wide), its image stores at a per-thread base
+// plus constants. The pieces and the sums' order are the design before's
+// (hi = bf16(a), lo = bf16(a - hi), the chunks in order, the head's and the
+// column sums' terms in column order), so its output is that design's bit
+// for bit. The saved ELU derivatives (f32, TILE x hw a layer) and the
+// tiles' normals (f32) stay in scratch; a backward block prefetches its
+// derivatives to L2 as its products start. A layer's fixed costs (its last
+// epilogue, the ring's refill after ready) weigh most where its products
+// are shortest: at width 384, the narrowest this pass takes, bf16x3 runs
+// slower than the design before and "default" faster (PERF.md §6 PR 18).
+
+// A piece's byte offset of element (row, col) of a tile image: k16 chunk
+// col / 16 at 2 KB each, in it core (row / 8, col / 8 mod 2) at ((col / 8
+// mod 2) x 8 + row / 8) x 128 B (LBO 1024 B along K, SBO 128 B along M:
+// desc_a256)
+__device__ __forceinline__ uint32_t img_off(int row, int col) {
+  return (uint32_t)(((col >> 4) << 11) +
+                    (((((col >> 3) & 1) << 3) + (row >> 3)) << 7) +
+                    ((row & 7) << 4) + ((col & 7) << 1));
+}
+
+// columns (col, col + 1) of row into a tile image in global memory: hi at
+// img, lo (under bf16x3) a piece later, split_hi_lo's pieces
+template <bool X3>
+__device__ __forceinline__ void put_pair_g(unsigned char* img, size_t piece,
+                                           int row, int col, float a,
+                                           float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const uint32_t o = img_off(row, col);
+  *reinterpret_cast<__nv_bfloat162*>(img + o) = h;
+  if (X3)
+    *reinterpret_cast<__nv_bfloat162*>(img + piece + o) =
+        __floats2bfloat162_rn(a - __low2float(h), b - __high2float(h));
+}
+
+// this thread's pair q of column block h in a tile image (img_off(r0 + 8
+// (q & 1), 256 h + 8 (q >> 1) + 2 t)): a base of the thread's and the
+// block's, and a constant
+__device__ __forceinline__ uint32_t pair_base(int h, int ctid) {
+  const int warp = ctid >> 5, lane = ctid & 31;
+  return (uint32_t)(h * 32768 + warp * 256 + (lane >> 2) * 16 +
+                    (lane & 3) * 4);
+}
+__host__ __device__ constexpr uint32_t pair_off(int q) {
+  return ((q >> 2) << 11) + (((q >> 1) & 1) << 10) + ((q & 1) << 7);
+}
+
+// this thread's accumulator (column block h of a layer, its first NQ
+// pairs) into a tile image: a warp's store of pair q is one 128-byte core
+// matrix
+template <bool X3, int NQ>
+__device__ __forceinline__ void store_image(const float (&acc)[2 * NACC],
+                                            unsigned char* img, size_t piece,
+                                            int h, int ctid) {
+  unsigned char* hi = img + pair_base(h, ctid);
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(acc[2 * q], acc[2 * q + 1]);
+    *reinterpret_cast<__nv_bfloat162*>(hi + pair_off(q)) = v;
+    if (X3)
+      *reinterpret_cast<__nv_bfloat162*>(hi + piece + pair_off(q)) =
+          __floats2bfloat162_rn(acc[2 * q] - __low2float(v),
+                                acc[2 * q + 1] - __high2float(v));
+  }
+}
+
+// A warpgroup's global scratch in the wide pass (wide_floats_wg): its saved
+// elu'(z) ((L - 1) x TILE x hw f32), its tile's normals (TILE x nx f32),
+// layer 1's input image (TILE x k1 bf16, hi and lo) and two images of
+// layer outputs (TILE x hw bf16, hi and lo)
+struct WideScratch {
+  float* save;
+  float* dw;
+  unsigned char* x;
+  unsigned char* act[2];
+};
+__device__ __forceinline__ WideScratch wide_scratch(const Params& p, int wg) {
+  const int L = p.L, hw = p.hw;
+  float* f = p.scratch + blockIdx.x * scratch_floats_wide(p.nx, L, hw) +
+             wg * wide_floats_wg(p.nx, L, hw);
+  WideScratch w;
+  w.save = f;
+  if (L > 1) f += (size_t)(L - 1) * TILE * hw;
+  w.dw = f;
+  f += (size_t)TILE * p.nx;
+  w.x = reinterpret_cast<unsigned char*>(f);
+  f += (size_t)TILE * k1_of(p.nx);
+  w.act[0] = reinterpret_cast<unsigned char*>(f);
+  w.act[1] = reinterpret_cast<unsigned char*>(f + (size_t)TILE * hw);
+  return w;
+}
+
+// make this thread's global writes visible to the producer's bulk copies,
+// and count it in at the barrier the producer waits on
+__device__ __forceinline__ void publish_wide(uint32_t ready) {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  mbar_arrive(ready);
+}
+
+// The tile's integral normals (the odd sample of an antithetic pair
+// mirrored) into its rows of scratch (s.dw), as draw_normals draws them,
+// and layer 1's input [X_s, s] (zero to k1) as a tile image: quads 4 m +
+// ctid mod 4 of rows ctid / 4 and ctid / 4 + 32 (a warp's writes of a k16
+// chunk are two 128-byte core matrices)
+template <bool X3>
+__device__ __forceinline__ void draw_wide(const Params& p, const Tile& s,
+                                          int b, int kb, uint2 key, int ctid,
+                                          unsigned char* x) {
+  const int nx = p.nx, K1 = k1_of(nx), Md = p.anti ? p.M / 2 : p.M;
+  const size_t piece = (size_t)TILE * K1 * 2;
+#pragma unroll 1
+  for (int h = 0; h < 2; ++h) {
+    const int row = (ctid >> 2) + 32 * h, k = kb * TILE + row;
+    const bool live = k < p.M;
+    const int kd = p.anti ? k >> 1 : k;
+    const float sg = (p.anti && (k & 1)) ? -1.0f : 1.0f;
+    const float sig = s.sig[row], sv = s.s_val[row];
+#pragma unroll 1
+    for (int m = 0; m < K1 / 16; ++m) {
+      const int q = 4 * m + (ctid & 3);
+      float n[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (live && 4 * q < nx) {
+        if (p.noise_i) {
+          const float* src = p.noise_i + ((size_t)b * Md + kd) * nx;
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            if (4 * q + r < nx) n[r] = sg * src[4 * q + r];
+        } else {
+          normals4(kd, q, STREAM_INTEGRAL, p.seed_hi, key, n);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) n[r] *= sg;
+        }
+      }
+      float xs[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int j = 4 * q + r;
+        if (j < nx) s.dw[row * s.ld + j] = n[r];
+        xs[r] = j < nx ? s.xrow[j] + sig * n[r] : (j == nx ? sv : 0.0f);
+      }
+      put_pair_g<X3>(x, piece, row, 4 * q, xs[0], xs[1]);
+      put_pair_g<X3>(x, piece, row, 4 * q + 2, xs[2], xs[3]);
+    }
+  }
+}
+
+// d (64 x 128, f32) += A (64 x 16 bf16, shared memory at da) B (16 x 128
+// bf16, shared memory at db; TRANS_B = 1: read MN-major): a last block of
+// 128 columns; at 256 columns wgmma256
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[NACC], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
+}
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[2 * NACC], uint64_t da,
+                                         uint64_t db) {
+  wgmma256<TRANS_B>(d, da, db);
+}
+
+// One column block's products over ns stages: hi*hi (+ lo*hi + hi*lo under
+// bf16x3) a chunk, m64nN' (N accumulator floats: 2 N columns; A and B from
+// the stage, B's chunk kk at 8 KB kk, a last block of 128 columns in the
+// first half of each slot, read by desc_b256's strides), as one wgmma
+// group a stage, one group in flight while the next is
+// issued; each stage freed by the consumer warps' lane 0
+// (EMPTY256_ARRIVALS) once its group has landed.
+template <int TRANS_B, bool X3, int N>
+__device__ __forceinline__ void block_products(float (&acc)[N], Ring& ring,
+                                               int wg, int ns) {
+  constexpr int PCS = X3 ? 2 : 1;
+  const uint32_t aoff = PCS * WB_IMG + wg * PCS * WA_IMG;
+  zero(acc);
+  int freed = ring.it;
+  for (int s = 0; s < ns; ++s) {
+    const uint32_t st = ring.acquire();
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WCPS; ++kk) {
+      const uint32_t b = st + kk * 8192, a = st + aoff + kk * 2048;
+      const uint64_t bh = desc_b256<TRANS_B>(b), ah = desc_a256(a);
+      wgmma_ss<TRANS_B>(acc, ah, bh);
+      if (X3) {
+        wgmma_ss<TRANS_B>(acc, desc_a256(a + WA_IMG), bh);
+        wgmma_ss<TRANS_B>(acc, ah, desc_b256<TRANS_B>(b + WB_IMG));
+      }
+    }
+    wgmma_commit();
+    if (s > 0) {
+      wgmma_wait<1>();
+      fence_acc(acc);
+      release256(ring, freed++);
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  release256(ring, freed++);
+}
+
+// g1 (column block h, its first NQ pairs) contracted with W1's column sums
+// over x, _split3's products
+template <bool X3, int NQ>
+__device__ __forceinline__ void colsum_wide(const Params& p,
+                                            const float (&acc)[2 * NACC],
+                                            int h, int t, float (&sx)[2]) {
+  const float* wc_hi = p.vec + (size_t)(p.L + 1) * p.hw + 256 * h;
+  const float* wc_lo = p.vec + (size_t)(p.L + 2) * p.hw + 256 * h;
+#pragma unroll
+  for (int i = 0; i < 2 * NQ; ++i) {
+    const int col = acc_col(i, t);
+    const float gh = bf16_round(acc[i]), ch = __ldg(wc_hi + col);
+    float term = gh * ch;
+    if (X3) term += gh * __ldg(wc_lo + col) + bf16_round(acc[i] - gh) * ch;
+    sx[(i >> 1) & 1] += term;
+  }
+}
+
+// this thread's saved elu'(z) of column block h of layer j (a float2 a
+// pair of columns, CONSUMERS apart)
+__device__ __forceinline__ float2* saves_wide(const Params& p, const Tile& s,
+                                              int j, int h, int ctid) {
+  return s.save + (size_t)(j - 1) * (p.hw / 4) * CONSUMERS +
+         (size_t)64 * h * CONSUMERS + ctid;
+}
+
+// Bias and ELU of column block h (its first NQ pairs) of hidden layer l <
+// L, in place, elu'(z) saved
+template <int NQ>
+__device__ __forceinline__ void elu_wide(const Params& p, const Tile& s,
+                                         float (&acc)[2 * NACC], int l, int h,
+                                         int ctid) {
+  const int t = ctid & 3;
+  const float* bias = p.vec + (size_t)(l - 1) * p.hw + 256 * h;
+  float2* sv = saves_wide(p, s, l, h, ctid);
+#pragma unroll
+  for (int q0 = 0; q0 < NQ; q0 += 16) {
+    float2 bv[8];  // columns 8 m + 2 t, + 1 of the chunk's 16 pairs
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+      bv[m] = __ldg(reinterpret_cast<const float2*>(bias + 4 * q0 + 8 * m +
+                                                    2 * t));
+    float2 dv[16];
+#pragma unroll
+    for (int q = q0; q < q0 + 16; ++q) {
+      float d[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 2 * q + e;
+        const float2 bq = bv[(q - q0) >> 1];
+        const float z = acc[i] + (e ? bq.y : bq.x);
+        const float ez = expf(fminf(z, 0.0f));
+        acc[i] = z > 0.0f ? z : ez - 1.0f;
+        d[e] = z > 0.0f ? 1.0f : ez;
+      }
+      dv[q - q0] = make_float2(d[0], d[1]);
+    }
+#pragma unroll
+    for (int q = q0; q < q0 + 16; ++q) sv[(size_t)q * CONSUMERS] = dv[q - q0];
+  }
+}
+
+// The head at column block h (its first NQ pairs) of the last layer: bias
+// and ELU, the head's partial sums to u, and in place the head's gradient
+// times elu'(z)
+template <bool X3, int NQ>
+__device__ __forceinline__ void head_wide(const Params& p,
+                                          float (&acc)[2 * NACC], int h, int t,
+                                          float (&u)[2]) {
+  const int hw = p.hw;
+  const float* bias = p.vec + (size_t)(p.L - 1) * hw + 256 * h;
+  const float* w_out = p.vec + (size_t)p.L * hw + 256 * h;
+  float2 bv[8], wv[8];  // columns 8 m + 2 t, + 1 of a chunk of 32
+#pragma unroll
+  for (int i = 0; i < 2 * NQ; ++i) {
+    if ((i & 31) == 0)
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        bv[m] = __ldg(reinterpret_cast<const float2*>(bias + 2 * i + 8 * m +
+                                                      2 * t));
+        wv[m] = __ldg(reinterpret_cast<const float2*>(w_out + 2 * i + 8 * m +
+                                                      2 * t));
+      }
+    const int m = (i & 31) >> 2;
+    const float z = acc[i] + ((i & 1) ? bv[m].y : bv[m].x);
+    const float ez = expf(fminf(z, 0.0f));
+    const float a = z > 0.0f ? z : ez - 1.0f;
+    const float w = (i & 1) ? wv[m].y : wv[m].x;
+    const float wh = bf16_round(w), ah = bf16_round(a);
+    float term = ah * wh, gw = wh;
+    if (X3) {
+      const float wl = bf16_round(w - wh);
+      term += bf16_round(a - ah) * wh + ah * wl;
+      gw += wl;
+    }
+    u[(i >> 1) & 1] += term;
+    acc[i] = gw * (z > 0.0f ? 1.0f : ez);
+  }
+}
+
+// The backward product at column block h (its first NQ pairs) of layer l:
+// the gradient times the saved elu'(z_{l-1}), loaded 16 pairs at a time,
+// each batch before any of it is used
+template <int NQ>
+__device__ __forceinline__ void bwd_wide(const Params& p, const Tile& s,
+                                         float (&acc)[2 * NACC], int l, int h,
+                                         int ctid) {
+  const float2* sv = saves_wide(p, s, l - 1, h, ctid);
+#pragma unroll
+  for (int q0 = 0; q0 < NQ; q0 += 16) {
+    float2 d[16];
+#pragma unroll
+    for (int q = 0; q < 16; ++q) d[q] = sv[(size_t)(q0 + q) * CONSUMERS];
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      acc[2 * (q0 + q)] *= d[q].x;
+      acc[2 * (q0 + q) + 1] *= d[q].y;
+    }
+  }
+}
+
+// The epilogue of column block h (its first NQ pairs: NACC, or NACC / 2
+// for a last block of 128 columns) of phase ph (layer l; bwd: a backward
+// phase; last: the pass's last phase): one step (bias and ELU, the head,
+// or the backward product), then the block to the image out or, at the
+// last phase, contracted with W1's column sums
+template <bool X3, int NQ>
+__device__ __forceinline__ void epilogue_wide(const Params& p, const Tile& s,
+                                              float (&acc)[2 * NACC],
+                                              bool bwd, bool last, int l,
+                                              int h, int ctid, float (&u)[2],
+                                              float (&sx)[2],
+                                              unsigned char* out,
+                                              size_t piece) {
+  const int t = ctid & 3;
+  if (bwd)
+    bwd_wide<NQ>(p, s, acc, l, h, ctid);
+  else if (l < p.L)
+    elu_wide<NQ>(p, s, acc, l, h, ctid);
+  else
+    head_wide<X3, NQ>(p, acc, h, t, u);
+  if (last)
+    colsum_wide<X3, NQ>(p, acc, h, t, sx);
+  else
+    store_image<X3, NQ>(acc, out, piece, h, ctid);
+}
+
+// u and sum_j u_x_j of a net of width p.hw (384 .. 1024) at (s, X_s) for
+// the tile's rows (written to s.u, s.sux). Phase 0 is layer 1 (its input
+// the draws' image), phases 1 .. L - 1 layers 2 .. L forward, phases L ..
+// 2 L - 2 layers L .. 2 backward; phase ph writes its output to buffer ph
+// mod 2 and reads the other, the last phase contracts its output with W1's
+// column sums instead. After each phase but the last the consumers publish
+// its output (ready).
+template <bool X3>
+__device__ __forceinline__ void net_pass_wide(const Params& p, const Tile& s,
+                                              Ring& ring, int ctid, int wg,
+                                              const WideScratch& w,
+                                              uint32_t ready) {
+  const int warp = ctid >> 5, lane = ctid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + g, r1 = r0 + 8;
+  const int L = p.L, hw = p.hw, nb = (hw + 255) / 256;
+  const int nph = L > 1 ? 2 * L - 1 : 1;
+  const size_t piece = (size_t)TILE * hw * 2;
+  float u[2] = {0.0f, 0.0f}, sx[2] = {0.0f, 0.0f};
+  float acc[2 * NACC];
+  for (int ph = 0; ph < nph; ++ph) {
+    const bool bwd = ph >= L, last = ph + 1 == nph;
+    const int l = bwd ? 2 * L - ph : ph + 1;
+    const int ns = (ph == 0 ? k1_of(p.nx) : hw) / (16 * WCPS);
+    unsigned char* out = w.act[ph & 1];
+    for (int h = 0; h < nb; ++h) {
+      const int nq = (hw - 256 * h < 256 ? hw - 256 * h : 256) / 4;
+      if (bwd) {
+        // this block's saved derivatives of layer l - 1 to L2 while the
+        // products run (a 128-byte line a half-warp and pair)
+        const float2* sv = saves_wide(p, s, l - 1, h, ctid);
+        if ((lane & 15) == 0)
+#pragma unroll 4
+          for (int q = 0; q < nq; ++q)
+            asm volatile("prefetch.global.L2 [%0];" ::"l"(sv + q * CONSUMERS));
+      }
+      if (nq == NACC) {
+        if (bwd)
+          block_products<1, X3>(acc, ring, wg, ns);
+        else
+          block_products<0, X3>(acc, ring, wg, ns);
+        epilogue_wide<X3, NACC>(p, s, acc, bwd, last, l, h, ctid, u, sx, out,
+                                piece);
+      } else {  // a last block of 128 columns: the accumulator's first half
+        float(&half)[NACC] = reinterpret_cast<float(&)[NACC]>(acc);
+        if (bwd)
+          block_products<1, X3>(half, ring, wg, ns);
+        else
+          block_products<0, X3>(half, ring, wg, ns);
+        epilogue_wide<X3, NACC / 2>(p, s, acc, bwd, last, l, h, ctid, u, sx,
+                                    out, piece);
+      }
+    }
+    if (!last) publish_wide(ready);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      u[r] += __shfl_xor_sync(0xffffffffu, u[r], o);
+      sx[r] += __shfl_xor_sync(0xffffffffu, sx[r], o);
+    }
+  }
+  if (t == 0) {
+    const float b_out = __ldg(p.vec + (size_t)(L + 3) * hw);
+    s.u[r0] = u[0] + b_out;
+    s.u[r1] = u[1] + b_out;
+    s.sux[r0] = sx[0];
+    s.sux[r1] = sx[1];
+  }
+}
+
+// The producer warp of the wide pass: per tile pair and phase, once the
+// phase's input is published (ready), every stage in the consumers' order:
+// column block h = 0 .. nb - 1, each over the phase's K in stages of WCPS
+// chunks; a stage holds each staged piece's weight chunks (layer 1 and
+// forward: pack_mlp_tc's chunk_major images, rows 128 h .. of chunks 2 s,
+// 2 s + 1, 4 KB each; backward: core rows 4 s .. 4 s + 3 of W's core
+// image, columns 128 h .., 2 KB each), then each warpgroup's A chunks of
+// each piece (4 KB).
+__device__ __forceinline__ void produce_wide(const Params& p, uint32_t ring,
+                                             uint32_t full, uint32_t empty,
+                                             uint32_t ready, int lane,
+                                             int stages, int pcs, int nimg) {
+  const int L = p.L, nx = p.nx, hw = p.hw, K1 = k1_of(nx);
+  const int nb = (hw + 255) / 256, nph = L > 1 ? 2 * L - 1 : 1;
+  const int ntile = (p.M + TILE - 1) / TILE;
+  const uint32_t stage_bytes = (uint32_t)wide_stage_bytes(pcs);
+  const __nv_bfloat16* hidden = p.img + (size_t)nimg * hw * K1;
+  const WideScratch w0 = wide_scratch(p, 0), w1 = wide_scratch(p, 1);
+  int it = 0, nready = 0;
+  for (int b = blockIdx.x; b < p.B; b += gridDim.x)
+    for (int kb = 0; kb < ntile; kb += NWG)
+      for (int ph = 0; ph < nph; ++ph, ++nready) {
+        mbar_wait(ready, (uint32_t)(nready & 1));
+        const bool bwd = ph >= L;
+        const int l = bwd ? 2 * L - ph : ph + 1;
+        const int K = ph == 0 ? K1 : hw, ns = K / (16 * WCPS);
+        const __nv_bfloat16* wimg =
+            ph == 0 ? p.img
+                    : hidden + (size_t)(l - 2) * 2 * nimg * hw * hw +
+                          (bwd ? (size_t)nimg * hw * hw : 0);
+        const size_t wpiece = (size_t)hw * K;
+        const unsigned char* a0 = ph == 0 ? w0.x : w0.act[(ph - 1) & 1];
+        const unsigned char* a1 = ph == 0 ? w1.x : w1.act[(ph - 1) & 1];
+        const size_t apiece = (size_t)TILE * K * 2;
+        const int nbc = bwd ? 2 * WCPS : WCPS;  // weight copies a piece
+        const uint32_t slot = (uint32_t)(WB_IMG / nbc);
+        for (int h = 0; h < nb; ++h) {
+          // a weight copy's bytes: the block's columns (256, or 128 in a
+          // last block), and the stage's
+          const int nc = hw - 256 * h < 256 ? hw - 256 * h : 256;
+          const uint32_t bbytes = (uint32_t)(nc * 32 * WCPS / nbc);
+          const uint32_t tx = (uint32_t)(pcs * (nc * 32 * WCPS + NWG * WA_IMG));
+          for (int s = 0; s < ns; ++s, ++it) {
+            const int st = it % stages, round = it / stages;
+            if (round > 0)
+              mbar_wait(empty + 8 * st, (uint32_t)((round - 1) & 1));
+            const uint32_t bar = full + 8 * st, dst = ring + st * stage_bytes;
+            if (lane == 0) mbar_expect_tx(bar, tx);
+            __syncwarp();
+            for (int c = lane; c < pcs * (nbc + NWG); c += 32) {
+              if (c < pcs * nbc) {
+                const int pc = c / nbc, j = c - pc * nbc;
+                const __nv_bfloat16* src =
+                    wimg + pc * wpiece +
+                    (bwd ? (size_t)(nbc * s + j) * (hw / 8) * 64 +
+                               (size_t)32 * h * 64
+                         : (size_t)(WCPS * s + j) * hw * 16 +
+                               (size_t)h * 256 * 16);
+                bulk_copy(dst + pc * WB_IMG + j * slot, src, bbytes, bar);
+              } else {
+                const int e = c - pcs * nbc, wg = e / pcs, pc = e - wg * pcs;
+                const unsigned char* src =
+                    (wg ? a1 : a0) + pc * apiece + (size_t)s * WA_IMG;
+                bulk_copy(dst + pcs * WB_IMG + (wg * pcs + pc) * WA_IMG, src,
+                          WA_IMG, bar);
+              }
+            }
+          }
+        }
+      }
+}
+
 }  // namespace tc
 }  // namespace dpi
 
@@ -1963,6 +2315,30 @@ __device__ __forceinline__ tc::Tile tile256(float* rows, float* xrow,
   return s;
 }
 
+// the wide pass's tile: its rows and the point's x in shared memory, its
+// normals and saved derivatives in the warpgroup's scratch
+__device__ __forceinline__ tc::Tile tile_wide(unsigned char* smem,
+                                              const tc::GPlan& pl, int nx,
+                                              int wg,
+                                              const tc::WideScratch& w) {
+  using namespace tc;
+  float* rows =
+      reinterpret_cast<float*>(smem + pl.rows) + (size_t)wg * NROWS * TILE;
+  Tile s;
+  s.s_val = rows;
+  s.sig = rows + TILE;
+  s.iys = rows + 2 * TILE;
+  s.c_i = rows + 3 * TILE;
+  s.c_iy = rows + 4 * TILE;
+  s.u = rows + 5 * TILE;
+  s.sux = rows + 6 * TILE;
+  s.xrow = reinterpret_cast<float*>(smem + pl.xrow);
+  s.dw = w.dw;
+  s.ld = nx;
+  s.save = reinterpret_cast<float2*>(w.save);
+  return s;
+}
+
 // The consumers of generate_tc_kernel<P, N256>: per point, each warpgroup's
 // tiles, both chains on the consumers (the layer chain in the tile image
 // act; the terminal chain's two passes beside the integral chain's
@@ -2049,15 +2425,15 @@ __device__ __forceinline__ void consumers256(const tc::Params& p,
   }
 }
 
-// P: the net's passes (3: bf16x3, 1: one bf16 pass); HW: the instance of
-// the hidden width (H64, H: net_pass_narrow; WIDE: widths 256 to 1024,
-// net_pass_wide, the width read from p.hw). A block: two consumer warpgroups, each
-// on its own 64-row tile (tiles 2 i and 2 i + 1 of a point; the second
-// warpgroup takes an empty tile past the last when a point's tiles are
-// odd, to keep the ring's pace), both reading every weight stage; the
-// producer warpgroup: one warp streaming the stages, three running the
-// terminal chain. The output columns from MAXJ x 128 on (nx >= 512) are
-// summed in shared memory (isum), each warpgroup its own row.
+// P: the net's passes (3: bf16x3, 1: one bf16 pass); HW: the instance of the
+// hidden width (H64, H: net_pass_narrow; WIDE: widths 384 to 1024,
+// net_pass_wide, the width read from p.hw). A block: two consumer
+// warpgroups, each on its own 64-row tile (tiles 2 i and 2 i + 1 of a point;
+// the second warpgroup takes an empty tile past the last when a point's tiles
+// are odd, to keep the ring's pace), both reading every stage; the producer
+// warpgroup: one warp streaming the stages, three running the terminal chain.
+// The output columns from MAXJ x 128 on (nx >= 512) are summed in shared memory
+// (isum), each warpgroup its own row.
 template <int P, int HW>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 generate_tc_kernel(const tc::Params p) {
@@ -2068,9 +2444,15 @@ generate_tc_kernel(const tc::Params p) {
   const Layout& lay = p.lay;
   const GPlan& pl = p.plan;
   const uint32_t full = smem_u32(smem + pl.bars);
-  const uint32_t empty = full + 8 * MAX_STAGES;
-  init_ring(full, empty, pl.stages,
-            HW == N256 ? EMPTY256_ARRIVALS : TC_CONSUMERS);
+  // the wide pass: its own count of stages and barriers, and the barrier
+  // of its published layer outputs
+  constexpr int NBARS = HW == WIDE ? WIDE_MAX_STAGES : MAX_STAGES;
+  const uint32_t empty = full + 8 * NBARS, ready = empty + 8 * NBARS;
+  const int stages =
+      HW == WIDE ? wide_stages(pl.stages, pieces(P)) : pl.stages;
+  if (HW == WIDE && threadIdx.x == 0) mbar_init(ready, TC_CONSUMERS);
+  init_ring(full, empty, stages,
+            HW == N256 || HW == WIDE ? EMPTY256_ARRIVALS : TC_CONSUMERS);
   float* tred = reinterpret_cast<float*>(smem + pl.tred);
   // registers after setmaxnreg: the width-256 instance runs no terminal
   // warps, so its producer warpgroup keeps 40 and its consumers take 232
@@ -2086,8 +2468,8 @@ generate_tc_kernel(const tc::Params p) {
         produce256(p, smem_u32(smem + pl.ring), full, empty, lane, pl.stages,
                    pieces(P), packed(P));
       else if (L > 0 && HW == WIDE)
-        produce_wide(p, smem_u32(smem + pl.ring), full, empty, lane,
-                     pl.stages, lay.stage_bytes, pieces(P), packed(P));
+        produce_wide(p, smem_u32(smem + pl.ring), full, empty, ready, lane,
+                     stages, pieces(P), packed(P));
       else if (L > 0 && HW == H64)
         produce64(p, smem_u32(smem + pl.ring), full, empty, lane, pl.stages,
                   lay.stage_bytes, pieces(P), packed(P));
@@ -2107,26 +2489,23 @@ generate_tc_kernel(const tc::Params p) {
     consumers256<P>(p, smem, wg, wtid);
     return;
   }
-  // this warpgroup's tile: its rows, normals and saved derivatives
-  const Tile s = tile_of(smem, pl, lay, p, 0, wg);
+  // this warpgroup's tile: its rows, normals and saved derivatives (the
+  // wide pass: also its images of layer inputs, in scratch)
+  WideScratch w{};
+  if constexpr (HW == WIDE) w = wide_scratch(p, wg);
+  const Tile s = HW == WIDE ? tile_wide(smem, pl, nx, wg, w)
+                            : tile_of(smem, pl, lay, p, 0, wg);
   float* red = reinterpret_cast<float*>(smem + pl.red);
   const int n_isum = isum_floats(nx);
   const size_t isum_bytes = align16((size_t)n_isum * 4);
   float* isum0 = reinterpret_cast<float*>(smem + pl.isum);
   float* isum = reinterpret_cast<float*>(smem + pl.isum + wg * isum_bytes);
   float* isum1 = reinterpret_cast<float*>(smem + pl.isum + isum_bytes);
-  // the wide pass: this warpgroup's buffers of layer outputs, at the end of
-  // the block's scratch
-  float* act = nullptr;
-  if (HW == WIDE && L > 1) {
-    const size_t per_block = scratch_floats(pl, lay, L);
-    act = p.scratch + blockIdx.x * per_block + per_block -
-          (size_t)NWG * lay.act + (size_t)wg * lay.act;
-  }
-  Ring ring{smem_u32(smem + pl.ring), full, empty, pl.stages,
-            lay.stage_bytes, 0};
+  Ring ring{smem_u32(smem + pl.ring), full, empty, stages,
+            HW == WIDE ? wide_stage_bytes(pieces(P)) : lay.stage_bytes, 0};
+  // the narrow passes issue their products in turns (the wide pass: no)
   const PingPong turn{wg};
-  if (wg == 1 && L > 0) turn.pass();  // warpgroup 0 takes the first turn
+  if (HW != WIDE && wg == 1 && L > 0) turn.pass();  // warpgroup 0 first
   const int ntile = (p.M + TILE - 1) / TILE;
   const int ntile2 = ntile + (ntile & 1);
   const float inv_m = 1.0f / (float)p.M;
@@ -2143,16 +2522,21 @@ generate_tc_kernel(const tc::Params p) {
 
     for (int kb = wg; kb < ntile2; kb += NWG) {
       draw_times(p, s, b, kb, t, Tt, key, wtid);
-      draw_normals(p, s, b, kb, key, wtid);
-      named_sync(BAR_WG + wg, WG);
-      if (L > 0) {
-        if constexpr (HW == WIDE)
-          net_pass_wide<P == 3>(p, s, ring, wtid, turn, act);
-        else if constexpr (HW == H || HW == H64)
-          net_pass_narrow<P == 3, HW>(p, s, ring, wtid, turn);
-      } else if (wtid < TILE) {
-        s.u[wtid] = 0.0f;
-        s.sux[wtid] = 0.0f;
+      if constexpr (HW == WIDE) {
+        named_sync(BAR_WG + wg, WG);
+        draw_wide<P == 3>(p, s, b, kb, key, wtid, w.x);
+        publish_wide(ready);
+        net_pass_wide<P == 3>(p, s, ring, wtid, wg, w, ready);
+      } else {
+        draw_normals(p, s, b, kb, key, wtid);
+        named_sync(BAR_WG + wg, WG);
+        if (L > 0) {
+          if constexpr (HW == H || HW == H64)
+            net_pass_narrow<P == 3, HW>(p, s, ring, wtid, turn);
+        } else if (wtid < TILE) {
+          s.u[wtid] = 0.0f;
+          s.sux[wtid] = 0.0f;
+        }
       }
       named_sync(BAR_WG + wg, WG);
       sample_weights(p, s, kb, Tt, f0, wtid);
@@ -2196,7 +2580,8 @@ generate_tc_kernel(const tc::Params p) {
     if (b + (int)gridDim.x < p.B) named_arrive(BAR_TERM_FREE, TERM_BAR_THREADS);
     named_sync(BAR_CONSUMERS, TC_CONSUMERS);
   }
-  if (wg == 0 && L > 0) turn.wait();  // the second warpgroup's last pass
+  // the second warpgroup's last pass
+  if (HW != WIDE && wg == 0 && L > 0) turn.wait();
 }
 
 // the tensor-core kernel for a mode and a hidden width
@@ -2260,8 +2645,8 @@ int dpi_generate_tc_widths(int* out) {
 
 // global scratch (bytes) the tensor-core kernel needs at any B and mode
 // for a net of hidden width hw: the saved derivatives and tiles' normals
-// its plan keeps out of shared memory, and past width 128 the layer
-// outputs (0: none; -1: no plan)
+// its plan keeps out of shared memory, and past width 256 the images of
+// layer inputs (0: none; -1: no plan)
 long long dpi_generate_tc_scratch_bytes_w(int nx, int L, int hw) {
   if (!covered_width(hw) || nx < 1 || nx > GEN_MAX_NX) return -1;
   const tc::GPlan pl = plan_of(nx, L, hw);
@@ -2279,19 +2664,31 @@ long long dpi_generate_tc_scratch_bytes_w(int nx, int L, int hw) {
   return most;
 }
 
-// the plan at (nx, L, width hw) into out[6]: stages (-1: none), saved
-// derivatives in shared memory, tiles' normals in shared memory, shared
-// memory bytes, global scratch floats per block, and 1 where the instance
-// keeps the layer chain on chip and draws the normals where it uses them
-// (width 256), else 0 (ops/kernels.py:library_tc_plan)
+// the plan at (nx, L, width hw) into out[10]: stages (-1: none) under
+// bf16x3, saved derivatives in shared memory, tiles' normals in shared
+// memory, shared memory bytes, global scratch floats per block, 1 where the
+// instance keeps the layer chain on chip and draws the normals where it
+// uses them (width 256), 1 where the producer stages the products' A
+// beside the weights (the wide pass), a ring stage's bytes under bf16x3,
+// then the ring's stages and a stage's bytes under "default" (the wide
+// pass: wide_stages of half the bytes; the others: as under bf16x3)
+// (ops/kernels.py:library_tc_plan)
 void dpi_generate_tc_plan_w(int nx, int L, int hw, long long* out) {
   const tc::GPlan pl = plan_of(nx, L, hw);
+  const int inst = instance_of(hw);
   out[0] = pl.stages;
   out[1] = pl.save_smem;
   out[2] = pl.dw_smem;
   out[3] = (long long)pl.total;
   out[4] = (long long)scratch_of(pl, nx, L, hw);
-  out[5] = instance_of(hw) == N256;
+  out[5] = inst == N256;
+  out[6] = inst == WIDE;
+  out[7] = inst == WIDE   ? WIDE_STAGE
+           : inst == N256 ? STAGE256
+                          : gen_layout(nx, hw).stage_bytes;
+  const bool wide = inst == WIDE && pl.stages > 0;
+  out[8] = wide ? wide_stages(pl.stages, 1) : out[0];
+  out[9] = wide ? wide_stage_bytes(1) : out[7];
 }
 
 // The tensor-core kernel (mode 1: bf16x3, 2: one bf16 pass) for a net of

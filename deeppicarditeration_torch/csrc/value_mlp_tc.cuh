@@ -134,12 +134,10 @@ __host__ __device__ inline size_t align16(size_t v) {
 // while the consumers read the other; term = 0). ld: a tile row's floats
 // of normals; stage_bytes: a ring stage (one image per piece of W staged);
 // save_layer: floats of one layer's saved elu'(z) of a tile (TILE x the
-// hidden width); act: global scratch floats a warpgroup keeps for its
-// layers' outputs (generate.cu's wide pass; 0: none).
+// hidden width).
 struct Layout {
   int bufs, term, ld, stage_bytes;
   int save_layer = SAVE_LAYER_FLOATS;
-  int act = 0;
 };
 
 // output columns a consumer keeps in registers (MAXJ slots); generate.cu
@@ -225,14 +223,13 @@ __host__ __device__ inline GPlan choose_gplan(int nx, int L,
 
 // floats of global scratch a block keeps: the consumers' saved derivatives
 // (each warpgroup's L - 1 layers), then their tiles' normals, where they
-// are not in shared memory, then (k.act) the warpgroups' layer outputs
+// are not in shared memory
 __host__ __device__ inline size_t scratch_floats(const GPlan& pl,
                                                  const Layout& k, int L) {
   size_t f = 0;
   if (!pl.save_smem && L > 1)
     f += (size_t)NWG * (L - 1) * k.save_layer;
   if (!pl.dw_smem) f += (size_t)k.bufs * NWG * TILE * k.ld;
-  if (L > 1) f += (size_t)NWG * k.act;
   return f;
 }
 
@@ -531,7 +528,7 @@ __device__ __forceinline__ Tile tile_of(unsigned char* smem, const GPlan& pl,
   s.xrow = reinterpret_cast<float*>(smem + pl.xrow +
                                     buf * align16((size_t)nx * 4));
   const size_t n_save = (size_t)(L > 1 ? L - 1 : 0) * k.save_layer;
-  float* scr = pl.save_smem && pl.dw_smem && !(L > 1 && k.act)
+  float* scr = pl.save_smem && pl.dw_smem
                    ? nullptr
                    : p.scratch + blockIdx.x * scratch_floats(pl, k, L);
   s.save = reinterpret_cast<float2*>(

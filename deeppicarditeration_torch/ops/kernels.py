@@ -786,21 +786,31 @@ def generate_tc_instance(width: int):
 
 def library_tc_plan(nx: int, n_hidden: int,
                     lib: Optional[CudaLibrary] = None,
-                    width: int = KERNEL_WIDTH) -> Optional[dict]:
+                    width: int = KERNEL_WIDTH,
+                    precision: str = "bf16x3") -> Optional[dict]:
     """The plan the built ``generate.cu`` (``lib``, default ``GENERATE``)
-    takes at (nx, hidden layers, hidden width) (its choose_gplan): the
-    ring's stages, whether the saved ELU derivatives and the tiles' normals
-    stay in shared memory, the block's shared memory and the global scratch
-    floats it keeps, and whether the instance keeps the layer chain on chip
-    and draws the normals where it uses them ("on_chip"; False from a build
-    before that instance). None where nothing fits."""
-    out = (ctypes.c_longlong * 6)()
+    takes at (nx, hidden layers, hidden width) (its plan_of): the ring's
+    stages in ``precision``'s mode (the wide pass runs twice as many of
+    half the bytes under "default" as under bf16x3, at most 8), whether
+    the saved ELU derivatives and the tiles' normals stay in shared memory,
+    the block's shared memory and the global scratch floats it keeps,
+    whether the instance keeps the layer chain on chip and draws the
+    normals where it uses them ("on_chip"), whether its producer stages the
+    products' A (the layer inputs' bf16 images) beside the weights
+    ("a_staged": the wide pass of widths 384 to 1024), and a ring stage's
+    bytes in that mode ("stage_bytes"; a build before a key reports False
+    or 0). None where nothing fits."""
+    out = (ctypes.c_longlong * 10)()
     (lib or GENERATE).lib().dpi_generate_tc_plan_w(nx, n_hidden, width, out)
     if out[0] < 0:
         return None
-    return {"stages": out[0], "save_smem": bool(out[1]),
+    one_pass = precision == "default"
+    return {"stages": out[8] if one_pass else out[0],
+            "save_smem": bool(out[1]),
             "dw_smem": bool(out[2]), "smem_bytes": out[3],
-            "scratch_floats": out[4], "on_chip": bool(out[5])}
+            "scratch_floats": out[4], "on_chip": bool(out[5]),
+            "a_staged": bool(out[6]),
+            "stage_bytes": out[9] if one_pass else out[7]}
 
 
 def generate_tc_l2_bytes(b: int, m: int, nx: int, n_hidden: int,
@@ -823,8 +833,31 @@ def generate_tc_l2_bytes(b: int, m: int, nx: int, n_hidden: int,
     layer 1's ceil((1 + nx) / 16) once, keeps the layer outputs on chip,
     and in scratch the saved derivatives and each tile's normals of both
     chains (quads of nx padded to 4: written where drawn, read once by the
-    sums). A count of the plan, not a measurement."""
+    sums). A plan "a_staged" (widths 384 to 1024) stages the same weight
+    slabs and, beside them, each block's A: the tiles' layer inputs as bf16
+    images (hi and lo under bf16x3, hi alone under "default"), layer 1's
+    [X_s, s] of tc_k1(nx) columns and each hidden product's input, read
+    once for each of the ceil(width / 256) column blocks; in scratch those
+    images written once (each product's input: layer 1's by the draws,
+    the others by the layer before), the saved
+    derivatives written and read once a tile, and the tiles' normals
+    written once and read once (the sums). A count of the plan, not a
+    measurement."""
     passes = -(-(-(-m // TC_TILE)) // TC_NWG)
+    if plan.get("a_staged"):
+        pieces = 2 if precision == "bf16x3" else 1
+        blocks = -(-width // 256)
+        ks = ([tc_k1(nx)] + [width] * (2 * n_hidden - 2)) if n_hidden else []
+        tiles = b * passes * TC_NWG
+        weights = b * passes * sum(width * k * 2 * pieces for k in ks)
+        reads = tiles * sum(blocks * TC_TILE * k * 2 * pieces for k in ks)
+        writes = tiles * TC_TILE * 2 * pieces * sum(ks)
+        saves = (0 if n_hidden < 2 else tiles * (n_hidden - 1)
+                 * TC_SAVE_LAYER_FLOATS[width] * 4 * 2)
+        normals = tiles * TC_TILE * nx * 4 * 2
+        scratch = reads + writes + saves + normals
+        return {"weights": weights, "scratch": scratch,
+                "total": weights + scratch}
     if plan.get("on_chip"):
         chunks = (-(-(1 + nx) // 16) + 2 * (width // 16) * (n_hidden - 1)
                   if n_hidden else 0)
@@ -968,11 +1001,12 @@ def generate_with_gradients_cuda(seed: int, eq, sol: Solution,
             _ptr(t), _ptr(x), _ptr(g0), _ptr(f0), _ptr(w), _ptr(u01),
             _ptr(noise_t), _ptr(noise_i), _ptr(out), *shape, *scalars)
     else:
-        # the instance that keeps the layer chain on chip stages contiguous
-        # chunks (a build from before it reports no such plan)
+        # the instances that keep the layer chain on chip or stage A stage
+        # contiguous chunks (a build from before them reports neither)
         plan = library_tc_plan(nx, n_hidden, lib, width)
         img, vec, buf = _tc_net(mod, nx, scratch, tx.device,
-                                chunk_major=plan["on_chip"])
+                                chunk_major=plan["on_chip"]
+                                or plan["a_staged"])
         rc = dll.dpi_generate_tc_w(
             _ptr(t), _ptr(x), _ptr(g0), _ptr(f0), _ptr(img), _ptr(vec),
             _ptr(u01), _ptr(noise_t), _ptr(noise_i), _ptr(buf), _ptr(out),

@@ -2,7 +2,7 @@
 the integral kernel (``csrc/integral.cu``) in turns.
 
     python -m deeppicarditeration_torch.utils.generate_bench [--kernel integral] [--source PATH ...]
-        [--nx NX] [--width W] [--b B] [--m M]
+        [--nx NX] [--width W] [--depth L] [--b B] [--m M]
 
 Each ``--source`` (default: the package's ``csrc/generate.cu``, or
 ``csrc/integral.cu`` under ``--kernel integral``; another build, such as
@@ -24,10 +24,13 @@ WARPGROUP.DEPBAR, STL and LDL (local-memory stores and loads: spills) in
 the SASS of each instantiation of its tensor-core kernel, and the card's
 name and power limit. Needs a CUDA card: there is no CPU mode.
 
-``--nx``, ``--width``, ``--b``, ``--m``: another instance of the merged
-kernel (path R's: ``--nx 512 --m 16384``; path S's: ``--nx 1024 --width
-256 --b 8192 --m 32768``); the net stays 4 ELU layers, D's pairing at 2 M.
-A build from before a width or an nx took the kernel raises there.
+``--nx``, ``--width``, ``--depth``, ``--b``, ``--m``: another instance of
+the merged kernel (path R's: ``--nx 512 --m 16384``; path S's: ``--nx 1024
+--width 256 --b 8192 --m 32768``; the dispatcher matrix's nets of paths U,
+V and W: ``--nx 100 --width 512``, ``--nx 256 --width 512 --depth 6``,
+``--nx 512 --width 1024 --depth 2``); ``--depth``: the net's hidden ELU
+layers (default 4); D's pairing at 2 M. A build from before a width or an
+nx took the kernel raises there.
 
 ``--cases``: the precision cases to run, of ``bf16x3``, ``default`` and
 ``antithetic`` (bf16x3 at 2 M; default: all three).
@@ -48,7 +51,22 @@ through adapters of its own symbols under the new names
 ``dpi_integral_tc_stamps``; a variant with ``clock64()`` stamps, kept out
 of the repository), one launch per case and the cycles of each stamped
 phase per 64-sample tile, summed over the grid's blocks (the symbol's
-``_names`` names them).
+``_names`` names them). The two consumer warpgroups run their tiles side
+by side, so a phase's cycles a tile are its cycles a tile pair of the
+block. The wide pass's stamps (PERF.md §6 PR 18), by the consumers' first
+thread: ``draw_times``, ``draws`` (the normals and layer 1's input image,
+published), ``ring_wait`` (waiting for a staged chunk), ``mma`` (issuing
+a stage's products and waiting for the one before), ``epi_fwd``,
+``epi_bwd`` (the column blocks' epilogues), ``publish``, ``net_end``
+(the whole pass), ``sample_weights``, ``accumulate``; by the producer's
+lane 0: ``p_ready`` (waiting for a layer's input), ``p_empty`` (waiting
+for a free stage), ``p_issue`` (issuing copies), ``p_stages``; by the
+terminal warps' lane 0 (summed over the three, a point at a time):
+``term_work``, ``term_wait``, ``term_points``. The stamps of the design
+before it (the A fragments loaded from f32 scratch by the consumers):
+``l1_build``, ``h_load``, ``b_load`` (layer 1's A from the normals, the
+forward and backward layers' A), ``*_turn``, ``*_ring``, ``*_mma`` (the
+products' turn, ring and wgmma waits), ``*_epi`` beside those names.
 """
 
 from __future__ import annotations
@@ -70,7 +88,7 @@ from deeppicarditeration_torch.utils.bench_turns import (
 )
 from deeppicarditeration_torch.utils.pis_bench import function_counts
 
-B, M, NX, REPS, SEED = 4096, 4096, 100, 3, (7 << 32) | 5
+B, M, NX, DEPTH, REPS, SEED = 4096, 4096, 100, 4, 3, (7 << 32) | 5
 
 
 def _declare_generate(lib: ctypes.CDLL) -> None:
@@ -179,6 +197,7 @@ def main(argv=None):
                     help="do not hold the builds to the first's output")
     ap.add_argument("--nx", type=int, default=NX)
     ap.add_argument("--width", type=int, default=kernels.KERNEL_WIDTH)
+    ap.add_argument("--depth", type=int, default=DEPTH)
     ap.add_argument("--b", type=int, default=B)
     ap.add_argument("--m", type=int, default=M)
     ap.add_argument("--cases", nargs="*", default=None,
@@ -196,7 +215,8 @@ def main(argv=None):
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(4)
     eq = make_equation("Cha", nx=nx, alpha=1.0, k=5.0, T=1.0)
-    mod = MLP(1 + nx, (args.width,) * 4, ("ELU",) * 4, 1, generator=g)
+    mod = MLP(1 + nx, (args.width,) * args.depth, ("ELU",) * args.depth, 1,
+              generator=g)
     sol = Solution.from_net(mod.to(dev), "Value", nx)
     t = torch.rand((b, 1), generator=g) * 0.99 + 0.005
     x = torch.randn((b, nx), generator=g) * t.sqrt()
@@ -213,7 +233,7 @@ def main(argv=None):
                      lib=lib) for lib in libs]
         case = {"kernel": args.kernel, "precision": mode,
                 "antithetic": anti, "B": b, "M": m, "nx": nx,
-                "width": args.width}
+                "width": args.width, "depth": args.depth}
         if args.stamps:
             for name, lib, call in zip(sources, libs, calls):
                 stamps(symbol, name, case, lib, call)

@@ -102,15 +102,17 @@ def sass_counts(lib: kernels.CudaLibrary) -> dict:
 
 
 def function_counts(lib: kernels.CudaLibrary, name: str) -> dict:
-    """HGMMA, WARPGROUP.DEPBAR, STL and LDL instructions in the SASS of each
-    function of ``lib`` whose mangled name holds ``name`` (each
-    instantiation of a kernel template apart), by mangled name."""
+    """HGMMA, WARPGROUP.DEPBAR, STL and LDL instructions and all
+    instructions ("SASS": its size) in the SASS of each function of ``lib``
+    whose mangled name holds ``name`` (each instantiation of a kernel
+    template apart), by mangled name."""
     out = {}
     for body in library_sass(lib).split("Function : ")[1:]:
         fn = body.split("\n", 1)[0].strip()
         if name in fn:
             out[fn] = {op: len(re.findall(rf"\b{re.escape(op)}\b", body))
                        for op in ("HGMMA", "WARPGROUP.DEPBAR", "STL", "LDL")}
+            out[fn]["SASS"] = len(re.findall(r"/\*[0-9a-f]{4,}\*/", body))
     return out
 
 

@@ -24,7 +24,7 @@ torch.set_num_threads(1)
 # global scratch
 PATH_A_PLAN = {"stages": 4, "save_smem": False, "dw_smem": True,
                "smem_bytes": 189152, "scratch_floats": 2 * 3 * 64 * 128,
-               "on_chip": False}
+               "on_chip": False, "a_staged": False, "stage_bytes": 32768}
 
 
 # path R (nx = 512, 4x128): the tiles' normals and the saved derivatives
@@ -38,11 +38,11 @@ PATH_A_PLAN = {"stages": 4, "save_smem": False, "dw_smem": True,
 PATH_R_PLAN = {"stages": 4, "save_smem": False, "dw_smem": False,
                "smem_bytes": 151168,
                "scratch_floats": 2 * 3 * 64 * 128 + 2 * 64 * 512,
-               "on_chip": False}
+               "on_chip": False, "a_staged": False, "stage_bytes": 32768}
 PATH_S_PLAN = {"stages": 4, "save_smem": False, "dw_smem": False,
                "smem_bytes": 221840,
                "scratch_floats": 2 * (3 * 64 * 256 + 2 * 64 * 1024),
-               "on_chip": True}
+               "on_chip": True, "a_staged": False, "stage_bytes": 16384}
 # ... and S's plan under the wide pass before it (the tiles' normals, the
 # saved derivatives and two buffers of layer outputs a warpgroup in
 # scratch), whose count the new one is held against
@@ -51,6 +51,40 @@ PATH_S_WIDE_PLAN = {"stages": 4, "save_smem": False, "dw_smem": False,
                     "scratch_floats": (2 * 3 * 64 * 256 + 2 * 64 * 1024
                                        + 2 * 2 * 128 * 128),
                     "on_chip": False}
+
+# Paths U (4x512, nx 100), V (6x512, nx 256) and W (2x1024, nx 512): the
+# wide pass's plan, its producer staging the products' A (the layer
+# inputs' bf16 images) beside the weights in stages of 48 KB under bf16x3
+# (two k16 chunks of a 256-row weight slab and of both tiles' A, hi and
+# lo), 4 of them; in shared memory beside the ring the point's x, the
+# tiles' rows, the terminal warps' sums and the barriers (generate.cu:
+# gplan_wide); in global scratch each warpgroup's saved derivatives
+# (L - 1 layers), two images of layer outputs, its tile's normals and
+# layer 1's input image (64 x tc_k1(nx)) (tests/test_torch_gpu.py holds
+# them to the built kernel)
+def _wide_plan(nx, n_hidden, width, smem):
+    return {"stages": 4, "save_smem": False, "dw_smem": False,
+            "smem_bytes": smem,
+            "scratch_floats": 2 * ((n_hidden + 1) * 64 * width + 64 * nx
+                                   + 64 * kernels.tc_k1(nx)),
+            "on_chip": False, "a_staged": True, "stage_bytes": 49152}
+
+
+# (nx, hidden layers, width) of paths U, V, W, and the new plan's shared
+# memory: 4 stages of 49152 bytes and the rest
+WIDTH_PATH_NETS = {"U": (100, 4, 512), "V": (256, 6, 512),
+                   "W": (512, 2, 1024)}
+PATH_WIDE_PLANS = {
+    "U": _wide_plan(100, 4, 512, 4 * 49152 + 6952),
+    "V": _wide_plan(256, 6, 512, 4 * 49152 + 11944),
+    "W": _wide_plan(512, 2, 1024, 4 * 49152 + 20168)}
+# ... and the parent design's plans there (A split from f32 layer outputs
+# read back by the consumers, 4 stages): only U's tile of normals fits in
+# shared memory; L2 counts 2.10, 3.62 and 3.13 TB a launch under bf16x3
+PATH_WIDE_PARENT_PLANS = {
+    path: {"stages": 4, "save_smem": False, "dw_smem": path == "U",
+           "on_chip": False}
+    for path in "UVW"}
 
 # The HJB kernel's plans (csrc/generate_pis.cu, ``library_pis_plan``): path
 # H's (nx = 100, the narrow instance, either mode: the tile's normals in
@@ -130,6 +164,66 @@ def test_l2_bytes_leave_out_what_the_plan_keeps_on_chip(save_smem, dw_smem,
     normals = 0 if dw_smem else 64 * 511 * 4 * 3
     assert v["scratch"] == 8 * 2 * (saves + normals)
     assert v["total"] == v["weights"] + v["scratch"]
+
+
+@pytest.mark.parametrize("path,total_tb", [("U", 2.10), ("V", 3.62),
+                                           ("W", 3.13)])
+def test_l2_bytes_of_the_parent_wide_plan_at_the_matrix_paths(path,
+                                                              total_tb):
+    """B = M = 4096, bf16x3, the design before the staged A: each ring pass
+    stages nb = width / 128 column blocks of layer 1's K-slabs and nb x
+    width / 64 K-slabs each way of every hidden layer (32 KB each); in
+    scratch the layer outputs (f32: written once a layer, read nb times by
+    each hidden product), the saved derivatives and, past U, the tiles'
+    normals (written once, read by the sums and nb times by layer 1)."""
+    nx, n_hidden, width = WIDTH_PATH_NETS[path]
+    plan = PATH_WIDE_PARENT_PLANS[path]
+    v = kernels.generate_tc_l2_bytes(4096, 4096, nx, n_hidden, "bf16x3",
+                                     plan, width)
+    nb, tiles, layer = width // 128, 4096 * 64, 64 * width * 4
+    slabs = nb * kernels.tc_k1(nx) // 64 + 2 * nb * (width // 64) * (
+        n_hidden - 1)
+    assert v["weights"] == 4096 * 32 * slabs * 32768
+    normals = 0 if plan["dw_smem"] else 64 * nx * 4 * (2 + nb)
+    assert v["scratch"] == tiles * (
+        (n_hidden - 1) * layer * 2 + normals
+        + layer * (2 * n_hidden - 2 + nb * 2 * (n_hidden - 1)))
+    assert round(v["total"] / 1e12, 2) == total_tb
+
+
+@pytest.mark.parametrize("precision,pieces", [("bf16x3", 2),
+                                              ("default", 1)])
+@pytest.mark.parametrize("path", ["U", "V", "W"])
+def test_l2_bytes_of_the_staged_a_plan_at_the_matrix_paths(path, precision,
+                                                           pieces):
+    """B = M = 4096: the same weight slabs as the parent's plan, and
+    beside them each block's A: every product's input image (layer 1's
+    tc_k1(nx) columns, then 2 (L - 1) inputs of width columns, a bf16 piece
+    a mode's pass reads) staged once for each of the width / 256 column
+    blocks and written once; the saved derivatives written and read once a
+    tile (f32 in both modes), the tiles' normals written and read once.
+    Under bf16x3 the count is 80-82 % of the parent's (the layer inputs
+    read half as often), under "default" 43-46 %."""
+    nx, n_hidden, width = WIDTH_PATH_NETS[path]
+    plan = PATH_WIDE_PLANS[path]
+    v = kernels.generate_tc_l2_bytes(4096, 4096, nx, n_hidden, precision,
+                                     plan, width)
+    nb, tiles = width // 256, 4096 * 64
+    ks = kernels.tc_k1(nx) + 2 * (n_hidden - 1) * width
+    assert v["weights"] == 4096 * 32 * width * ks * 2 * pieces
+    assert v["scratch"] == tiles * (
+        64 * ks * 2 * pieces * (nb + 1)
+        + (n_hidden - 1) * 64 * width * 4 * 2 + 64 * nx * 4 * 2)
+    parent = kernels.generate_tc_l2_bytes(
+        4096, 4096, nx, n_hidden, "bf16x3", PATH_WIDE_PARENT_PLANS[path],
+        width)["total"]
+    if precision == "bf16x3":
+        assert 0.79 < v["total"] / parent < 0.83
+        assert v["weights"] == kernels.generate_tc_l2_bytes(
+            4096, 4096, nx, n_hidden, precision,
+            PATH_WIDE_PARENT_PLANS[path], width)["weights"]
+    else:
+        assert 0.42 < v["total"] / parent < 0.47
 
 
 def test_wrappers_take_another_build_only_on_the_card():

@@ -1324,7 +1324,7 @@ def test_merged_kernel_has_a_plan_at_every_nx(cuda, n_hidden):
         assert kernels.library_tc_plan(100, 4) == {
             "stages": 4, "save_smem": False, "dw_smem": True,
             "smem_bytes": 189152, "scratch_floats": 2 * 3 * 64 * 128,
-            "on_chip": False}
+            "on_chip": False, "a_staged": False, "stage_bytes": 32768}
 
 
 # ---- the PINN baseline and RESUME on the card ---------------------------
@@ -1445,16 +1445,38 @@ def test_merged_plans_at_the_high_dimension_paths(cuda):
         "stages": 4, "save_smem": False, "dw_smem": False,
         "smem_bytes": 151168,
         "scratch_floats": 2 * 3 * 64 * 128 + 2 * 64 * 512,
-        "on_chip": False}
+        "on_chip": False, "a_staged": False, "stage_bytes": 32768}
     assert kernels.library_tc_plan(1024, 4, width=256) == {
         "stages": 4, "save_smem": False, "dw_smem": False,
         "smem_bytes": 221840,
         "scratch_floats": 2 * (3 * 64 * 256 + 2 * 64 * 1024),
-        "on_chip": True}
+        "on_chip": True, "a_staged": False, "stage_bytes": 16384}
     for width in kernels.GENERATE_TC_WIDTHS:
         for nx in range(1, kernels.GENERATE_TC_MAX_NX + 1, 7):
             plan = kernels.library_tc_plan(nx, 4, width=width)
             assert plan is not None and 2 <= plan["stages"] <= 4, (nx, width)
+
+
+# The wide pass's plans at paths U, V and W, as
+# tests/test_torch_generate_plan.py pins them (PATH_WIDE_PLANS): 4 stages
+# of 48 KB under bf16x3, 8 of 24 KB under "default" (the producer staging
+# both tiles' A beside the weights), the rest of shared memory the point's
+# x, the tiles' rows, the terminal warps' sums and the barriers; in
+# scratch each warpgroup's saved derivatives, two images of layer outputs,
+# its tile's normals and layer 1's input image
+@pytest.mark.parametrize("precision,stages,stage_bytes", [
+    ("bf16x3", 4, 49152), ("default", 8, 24576)])
+@pytest.mark.parametrize("nx,n_hidden,width,rest", [
+    (100, 4, 512, 6952), (256, 6, 512, 11944), (512, 2, 1024, 20168)])
+def test_merged_plans_at_the_matrix_paths(cuda, nx, n_hidden, width, rest,
+                                          precision, stages, stage_bytes):
+    assert kernels.library_tc_plan(nx, n_hidden, width=width,
+                                   precision=precision) == {
+        "stages": stages, "save_smem": False, "dw_smem": False,
+        "smem_bytes": 4 * 49152 + rest,
+        "scratch_floats": 2 * ((n_hidden + 1) * 64 * width + 64 * nx
+                               + 64 * kernels.tc_k1(nx)),
+        "on_chip": False, "a_staged": True, "stage_bytes": stage_bytes}
 
 
 # the PIS kernel's plans at paths H's and T's shapes, as
@@ -1511,21 +1533,31 @@ def test_merged_kernel_at_high_dimension_matches_plain(cuda, precision, anti,
     torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
 
 
+# points of the matrix widths' cases by M: 140 at M = 130, off the grid of
+# 132 blocks (eight blocks take two points), else 8
+MATRIX_B = {130: 140}
+
+
 @pytest.mark.parametrize("precision", ["bf16x3", "default"])
 @pytest.mark.parametrize("anti", [False, True])
 @pytest.mark.parametrize("nx,width,n_hidden,m", [
     (256, 64, 3, 128), (33, 64, 1, 70), (100, 64, 6, 64),
     (100, 512, 4, 128), (256, 512, 6, 64), (512, 1024, 2, 128),
-    (7, 1024, 1, 64), (100, 384, 3, 70), (1024, 896, 2, 64)])
+    (7, 1024, 1, 64), (100, 384, 3, 70), (1024, 896, 2, 64),
+    (100, 640, 3, 128), (300, 768, 2, 70), (1024, 512, 2, 64),
+    (256, 512, 4, 136), (100, 1024, 2, 130)])
 def test_merged_kernel_at_the_matrix_widths_matches_plain(cuda, precision,
                                                           anti, nx, width,
                                                           n_hidden, m):
     """The tensor-core kernel at the JAX package's dispatcher-matrix nets
     (3x64, 4x512, 6x512, 2x1024: the width-64 pass and the wide pass's
     column blocks) and at other depths and widths of both passes (one
-    hidden layer, 384 and 896: an odd count of column blocks), against the
+    hidden layer, 384, 640 and 896: a last block of 128 columns, 768),
+    width 512 at nx 1024 (the wide pass's ring at its fewest stages), M
+    off the 64-sample tiles with an odd count of them (136: the second
+    warpgroup's last tile empty) and B off the grid (MATRIX_B), against the
     plain version in the same mode on the same noise."""
-    b, rows = 8, m // 2 if anti else m
+    b, rows = MATRIX_B.get(m, 8), m // 2 if anti else m
     eq, _, tx, u01, nt, ni = _problem(cuda, b, rows, nx, net=False)
     sol = _deep(cuda, nx, (width,) * n_hidden)
     assert kernels.merged_covers(eq, sol, precision) is None
@@ -1554,6 +1586,29 @@ def test_merged_kernel_draws_equal_the_host_philox_at_1024(cuda, width):
     ref = kernels.generate_with_gradients_plain(0, eq, sol, tx[pts], m,
                                                 *draws, precision="bf16x3")
     torch.testing.assert_close(out, ref, rtol=RTOL, atol=RTOL)
+
+
+@pytest.mark.parametrize("precision", ["bf16x3", "default"])
+@pytest.mark.parametrize("anti", [False, True])
+@pytest.mark.parametrize("nx,width,n_hidden", [
+    (512, 1024, 2), (100, 512, 4), (37, 640, 1), (100, 384, 3)])
+def test_merged_wide_pass_is_deterministic(cuda, precision, anti, nx, width,
+                                           n_hidden):
+    """The wide pass launched twice on its own draws gives the same output
+    bit for bit, with two points on some blocks (B = 140) and a ragged
+    last tile (M = 200): every sum runs in a fixed order, and each layer's
+    input is complete before the producer stages it (a last block of 128
+    columns at 640 and 384)."""
+    b, m = 140, 200
+    eq, _, tx, *_ = _problem(cuda, b, 1, nx, net=False)
+    sol = _deep(cuda, nx, (width,) * n_hidden)
+    kw = dict(antithetic=anti, precision=precision)
+    seed = (5 << 32) | 9
+    first = kernels.generate_with_gradients_cuda(seed, eq, sol, tx, m, **kw)
+    second = kernels.generate_with_gradients_cuda(seed, eq, sol, tx, m, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(first).all()
+    assert torch.equal(first, second)
 
 
 # points of the wide instance's cases by M: 140 at M = 200, off the grid of
