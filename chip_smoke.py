@@ -2034,6 +2034,13 @@ def _pis_work(b, m, nx, hidden, ncomp, n_weights, precision, own=None):
             + w_bytes, tensor, other)
 
 
+def _narrow_own(mix: dict) -> dict:
+    """``_merged_work``'s ``per_normal`` from
+    ``generate_narrow_draw_mix``'s reading (the terminal warps' loop and
+    layer 1's draws)."""
+    return {k: _per_normal(mix[k]) for k in ("terminal", "integral")}
+
+
 def _pis_own(mix: dict) -> dict:
     """``_pis_work``'s ``own`` from ``generate_pis_draw_mix``'s reading."""
     return {k: _per_normal(mix[k]) for k in ("terminal", "integral")}
@@ -3048,14 +3055,20 @@ def _expect_launches(path, runner, launches, seen, want):
 # (widths 384-1024) are its producer's per-layer scratch pointers and its
 # consumers' per-point state, the draws' and the sums' loops, none in its
 # products or epilogues (nvdisasm -g by source line, PERF.md §6 PR 18).
-SPILLS_MAX = {"generate_tc_kernel<bf16x3, 128>": (12, 15),
+# The merged kernel's terminal warps (88 registers) hold each draw's
+# normals in registers across the draw's warp sum (term_point: 16 or 32 a
+# lane at nx 257-1024), which adds to every instance that runs them (64,
+# 128, wide); the narrow instances' layer-1 draws and the zero iterate's
+# library Box-Muller (sincosf's reduction array) add the rest (PERF.md
+# §6).
+SPILLS_MAX = {"generate_tc_kernel<bf16x3, 128>": (35, 40),
               "generate_tc_kernel<bf16x3, 256>": (282, 399),
               "generate_tc_kernel<default, 256>": (343, 458),
-              "generate_tc_kernel<default, 128>": (11, 13),
-              "generate_tc_kernel<bf16x3, 64>": (10, 12),
-              "generate_tc_kernel<default, 64>": (10, 12),
-              "generate_tc_kernel<bf16x3, wide>": (46, 40),
-              "generate_tc_kernel<default, wide>": (31, 17),
+              "generate_tc_kernel<default, 128>": (34, 38),
+              "generate_tc_kernel<bf16x3, 64>": (17, 23),
+              "generate_tc_kernel<default, 64>": (17, 23),
+              "generate_tc_kernel<bf16x3, wide>": (60, 63),
+              "generate_tc_kernel<default, wide>": (45, 40),
               "generate_pis_kernel<default>": (113, 137),
               "generate_pis_kernel<bf16x3>": (114, 138),
               "generate_pis_kernel<default, nx > 128>": (106, 152),
@@ -3299,10 +3312,25 @@ def main(argv=None) -> int:
           "fast path): " + json.dumps(terminal_sass))
     # the merged kernel's own draw loops at S's instance, for its bound
     # beside the terminal kernel's counts (phase 11, path S)
-    generate_sass = probe_roofline.generate_draw_mix(
-        probe_roofline.library_sass(kernels.GENERATE))
+    gen_lib_sass = probe_roofline.library_sass(kernels.GENERATE)
+    generate_sass = probe_roofline.generate_draw_mix(gen_lib_sass)
     print("merged kernel's own SASS per normal at S's instance "
           f"({probe_roofline.GENERATE_256}): " + json.dumps(generate_sass))
+    # ... and at the narrow instances (the terminal warps' loop and layer
+    # 1's draws) at R's, A's (D's) and X's nx, for their bounds printed
+    # beside the rows' (phase 11); a loop the reader does not find leaves
+    # that path's bound on its own loops out, said here
+    narrow_sass = {}
+    for path, nx_p, inst in (("R", 512, probe_roofline.GENERATE_128),
+                             ("A", 100, probe_roofline.GENERATE_128),
+                             ("X", 256, probe_roofline.GENERATE_64)):
+        try:
+            narrow_sass[path] = probe_roofline.generate_narrow_draw_mix(
+                gen_lib_sass, nx_p, inst)
+        except RuntimeError as e:
+            print(f"path {path}'s own draw loops not read: {e}")
+    print("merged kernel's own SASS per normal at the narrow instances "
+          "(terminal warps, layer 1), by path: " + json.dumps(narrow_sass))
     # the HJB kernel's own draw and mixture loops at T's and H's instances
     # and nx (512, 100)
     pis_lib_sass = probe_roofline.library_sass(kernels.GENERATE_PIS)
@@ -3743,6 +3771,15 @@ def main(argv=None) -> int:
           f"{gen_ms['default'] / bd_def[0]:.1f}x the bound")
     default_row = {"ms": gen_ms["default"], "bound_ms": bd_def[0],
                    "bound_pipe": bd_def[2]}
+    # A's and D's bounds with the width-128 instance's own draw loops
+    # (phase 1) in place of the terminal kernel's
+    own_a = _narrow_own(narrow_sass["A"]) if "A" in narrow_sass else None
+    bd_own_a = (_bound(_merged_work(nb, mm, nx, False, neurons, n_weights,
+                                    "bf16x3", own_a)) if own_a
+                else (None, None, None))
+    if own_a:
+        print(f"path A's bound with generate.cu's own SASS per normal "
+              f"{json.dumps(own_a)}: {bd_own_a[0]:.2f} ms ({bd_own_a[2]})")
     for mode, (path, runner, launches) in zip(MODES, (
             ("A", runner_a, launches_a), ("F", runner_f, launches_f))):
         row("generate_with_gradients", "generate", f"{src}:869", path,
@@ -3751,7 +3788,10 @@ def main(argv=None) -> int:
                 5, eq, sol, tx, mm, precision=mode), 2),
             _merged_work(nb, mm, nx, False, neurons, n_weights, mode),
             shape=shape, mode=mode,
-            extra=({"default": default_row} if mode == "bf16x3" else None))
+            extra=({"default": default_row,
+                    "bound_ms_own_sass": bd_own_a[0],
+                    "bound_pipe_own_sass": bd_own_a[2]}
+                   if mode == "bf16x3" else None))
     ms_d = _in_turns({mode: (lambda mode=mode: kernels.
                              generate_with_gradients_cuda(
                                  5, eq, sol, tx, 2 * mm, antithetic=True,
@@ -3761,9 +3801,13 @@ def main(argv=None) -> int:
                                  mode))
         _not_below(f"generate_with_gradients {mode} antithetic", ms_d[mode],
                    bd[0])
+        own_d = "" if mode != "bf16x3" or not own_a else (
+            "; with generate.cu's own SASS per normal {:.3f} ms ({})".format(
+                *_bound(_merged_work(nb, 2 * mm, nx, True, neurons,
+                                     n_weights, mode, own_a))[::2]))
         print(f"generate_with_gradients {mode} antithetic (path D's shapes, "
               f"M={2 * mm}): {ms_d[mode]:.3f} ms per call, bound "
-              f"{bd[0]:.3f} ms ({bd[2]})")
+              f"{bd[0]:.3f} ms ({bd[2]}){own_d}")
     # the terminal kernel with antithetic pairing at the same M (path D's
     # pairing on the split route), against its own bound
     ms_ta = _time_ms(lambda: kernels.terminal_with_gradients_cuda(
@@ -3938,20 +3982,20 @@ def main(argv=None) -> int:
                   f"{v['scratch'] / 1e12:.3f}), "
                   f"{v['total'] / (ms_p * 1e-3) / 1e12:.2f} TB/s over the "
                   f"measured time")
-        if path == "S":
+        if path == "S" or path in narrow_sass:
             # the bound with the merged kernel's own draw loops (phase 1)
             # in place of the terminal kernel's, printed beside the row's
-            own = dict.fromkeys(("terminal", "integral"),
-                                _per_normal(generate_sass["draw_loop"]))
+            own = (_narrow_own(narrow_sass[path]) if path != "S" else
+                   dict.fromkeys(("terminal", "integral"),
+                                 _per_normal(generate_sass["draw_loop"])))
             bd_own = _bound(_merged_work(nb_p, mm_p, nx_p, False, neurons_p,
                                          n_w_p, mode_p, own))
             own_bound = {"bound_ms_own_sass": bd_own[0],
                          "bound_pipe_own_sass": bd_own[2]}
-            print(f"path S's bound with generate.cu's own SASS per normal "
-                  f"{json.dumps(own)}: {bd_own[0]:.2f} ms ({bd_own[2]}), "
-                  f"beside {_bound(work)[0]:.2f} ms ({_bound(work)[2]}) with "
-                  f"the terminal kernel's (533.84 ms TENSOR under the "
-                  f"wide pass)")
+            print(f"path {path}'s bound with generate.cu's own SASS per "
+                  f"normal {json.dumps(own)}: {bd_own[0]:.2f} ms "
+                  f"({bd_own[2]}), beside {_bound(work)[0]:.2f} ms "
+                  f"({_bound(work)[2]}) with the terminal kernel's")
         row(lib_name, stem, f"{src}:869", path, launches_p[stem],
             runner_p.generate_calls, ms_p, plain_p, work,
             shape=f"B={nb_p} M={mm_p} nx={nx_p}, {net}", mode=mode_p,

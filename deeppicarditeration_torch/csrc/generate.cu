@@ -36,13 +36,13 @@
 //       - the terminal chain ran on the consumers between the products, a
 //         draw at a time across a warp (a shuffle sum and a sigmoid a draw,
 //         25 of 32 lanes busy at nx = 100): it runs on three warps of the
-//         producer warpgroup beside the products, lane = draw as in
-//         terminal.cu (draws.cuh's counter and Box-Muller, the draw's sum
-//         in registers, one sigmoid a draw), in two passes over a draw's
-//         quads (its sum, then its weighted normals, summed over the warp's
-//         32 draws by a transposing shuffle), so that it needs no shared
-//         tile of normals at any nx; its sums join the integral chain's at
-//         a point's end, in a fixed order;
+//         producer warpgroup beside the products (terminal_warps), a warp a
+//         draw, D draws a turn, each lane QPL quads of a draw (term_point),
+//         so that each normal is drawn once and kept in registers while a
+//         warp sum gives the draw's weight (one sigmoid a draw), then added
+//         times that weight to the sums of the lane's own quads in shared
+//         memory; its sums join the integral chain's at a point's end, in a
+//         fixed order;
 //       - each weight byte staged from L2 served one 64-row tile: two
 //         consumer warpgroups take tiles 2i and 2i + 1 of a point and read
 //         every ring stage, so a byte serves 128 samples;
@@ -50,32 +50,39 @@
 //         up to 4 stages;
 //       - the two warpgroups' products issued in turns (PingPong), so that
 //         one's epilogue can run while the other's products do.
-//     What binds after it is each warpgroup's own chain of products,
-//     waits and epilogues: with the epilogues, draws and terminal chain
-//     taken out, the products alone run at ~40 % of the tensor peak
-//     (PERF.md); halving the L2 traffic did not move the time.
-//     The integral normals stay the library's Box-Muller (philox.cuh,
-//     value_mlp_tc.cuh's draw_normals): draws.cuh's guard-free one,
-//     inlined in the consumers, made ptxas spill ~1.3 KB a thread across
-//     their whole pass, and the kernel took a quarter longer.
+//     Layer 1 draws its own input: W1's columns stand in quad order in its
+//     images (ops/kernels.py:pack_mlp_tc, quad_frags), so that a
+//     consumer's A fragments of a k16 chunk are one Philox quad of each of
+//     its two rows, which it draws there (layer1_slab: draws.cuh's
+//     guard-free Box-Muller; no branch between a slab's quads where the
+//     slab lies in nx and the tile in M, so their draws interleave; with
+//     antithetic pairing a pair's rows lie in partner lanes, each draw made
+//     once and shuffled across) and keeps, a float4 a quad, in the tile's
+//     rows (shared memory where the plan fits them, as at nx = 100; else
+//     the block's global scratch), which the integral sums read once, a
+//     quad a thread over the tile's rows in row order, 8 rows' loads in
+//     flight (accumulate_quads). Why (utils/generate_bench.py --stamps at
+//     path R's shape, B = 4096, M = 16384, nx = 512, 4x128; H100 80GB HBM3
+//     700 W; PERF.md §6): the design before it drew the integral
+//     normals to scratch in a phase of their own, read them back to build
+//     layer 1's A and again for the sums, a scalar a thread (247 k of
+//     ~336 k cycles a tile pair under bf16x3), and its terminal warps, a
+//     lane a draw, drew each normal twice (279 k cycles of work a warp).
+//     In turns with that design at B = 4096: R 699.99 -> 418.87 ms bf16x3,
+//     641.27 -> 315.82 "default"; path A (nx = 100, M = 4096) 46.16 ->
+//     44.40, 36.12 -> 31.04, antithetic (M = 8192) 84.27 -> 82.72; the
+//     width-64 instance at path X (3x64, nx = 256) 72.83 -> 45.27. The
+//     integral draws first ran each in a branch of its own (external
+//     noise, bounds): no two interleaved, ~1.8 k cycles a quad at A.
 //     Each layer is one wgmma m64n128 product per k16 chunk with A split
 //     into bf16 hi and lo in registers, the producer warp staging the
 //     weights in 32 KB slabs with cp.async.bulk and mbarriers; the saved
-//     ELU derivatives and the tiles' normals stay in shared memory where
-//     the plan fits them, else in a global scratch of the block's own
-//     (at nx = 100 and 4x128: the normals in shared memory, the
-//     derivatives in scratch, 4 stages; at nx = 512 and 1024, 128 KB and
-//     256 KB of a tile's normals: both in scratch, 4 stages); the integral
-//     sums are reduced in row order by the thread that owns each output
-//     (4 a consumer in registers; from nx = 512 the columns past them in
-//     a row of shared memory a warpgroup, whose loops run no iteration
-//     below 512: one instance a width and mode serves every nx, measured
-//     in turns with the width-128 kernel of nx <= 511 it replaced at path
-//     A's B = M = 4096, nx = 100 (utils/generate_bench.py, H100 80GB
-//     HBM3 700 W): bf16x3 47.00 against 46.22 ms, "default" 35.93
-//     against 35.67, antithetic M = 8192 86.74 against 84.30, all within
-//     3 % of the build before nx 512 (46.30, 35.21, 84.69)); a persistent
-//     grid.
+//     ELU derivatives stay in shared memory where the plan fits them, else
+//     in the block's global scratch (at nx = 100 and 4x128: the normals in
+//     shared memory, the derivatives in scratch, 4 stages; at nx = 512 and
+//     1024, 128 KB and 256 KB of a tile's normals: both in scratch, 4
+//     stages); a consumer keeps its quads' sums in registers, a point's
+//     1 + nx outputs at any nx up to 1024; a persistent grid.
 //     Four passes, one instance each a mode (generate_tc_kernel<P, HW>):
 //       - width 128 (net_pass_narrow<X3, 128>, above);
 //       - width 64 (net_pass_narrow<X3, 64>): a layer is one wgmma m64n64
@@ -113,8 +120,8 @@
 //     100 449.34 ms, 6x512 at 256 736.68, 2x1024 at 512 645.58 (2.7, 2.6
 //     and 2.4x the tensor pipe's bound; in turns with the wide pass before
 //     A was staged: 544.39, 914.56, 1148.56, utils/generate_bench.py), 3x64
-//     at 256 81.03 (7.6x its issue bound: the draws bind there, not the
-//     net).
+//     at 256 45.27 (72.83 before the narrow instances' terminal chain and
+//     layer-1 draws were redesigned; the draws bind there, not the net).
 //   * "highest": generate_kernel, the FP32-FMA design
 //     (value_mlp.cuh), one block per point, inner blocks of S = 32
 //     samples, 8 per warp through the whole net, activations and both
@@ -412,12 +419,12 @@ __host__ __device__ inline int instance_of(int hw) {
 }
 
 // The merged kernel's shared memory beside the ring: each consumer
-// warpgroup's tile of normals (rows of nx), the terminal warps' sums, 32 KB
-// stages (hi and lo images of a 128-row slab; at width 64 of a 64-row
-// one), the saved derivatives of TILE x hw a layer.
-// ops/kernels.py:library_tc_plan reads the plan.
+// warpgroup's tile of normals (rows of nx padded to whole quads, a float4
+// a quad), the terminal warps' sums, 32 KB stages (hi and lo images of a
+// 128-row slab; at width 64 of a 64-row one), the saved derivatives of
+// TILE x hw a layer. ops/kernels.py:library_tc_plan reads the plan.
 __host__ __device__ inline tc::Layout gen_layout(int nx, int hw) {
-  tc::Layout k{1, 1, nx, 2 * tc::IMAGE_BYTES};
+  tc::Layout k{1, 1, 4 * ((nx + 3) / 4), 2 * tc::IMAGE_BYTES};
   k.save_layer = tc::TILE * hw;
   if (instance_of(hw) == N256) k.stage_bytes = STAGE256;
   return k;
@@ -475,6 +482,14 @@ __host__ __device__ inline size_t saves256_floats(int L) {
 __host__ __device__ inline size_t scratch_floats256(int nx, int L) {
   return (size_t)tc::NWG *
          (saves256_floats(L) + (size_t)2 * tc::TILE * 4 * ((nx + 3) / 4));
+}
+
+// output columns a consumer of the wide pass keeps in registers (MAXJ
+// slots); the columns past them in shared memory, a row of each
+// warpgroup's (isum)
+__host__ __device__ inline int isum_floats(int nx) {
+  return 1 + nx > tc::MAXJ * tc::CONSUMERS ? 1 + nx - tc::MAXJ * tc::CONSUMERS
+                                           : 0;
 }
 
 // The wide pass's shared memory (net_pass_wide): the ring of stages of
@@ -754,7 +769,7 @@ __device__ __forceinline__ void layer_out(const Params& p, const Tile& s,
       for (int e = 0; e < 2; ++e) {
         const int i = 2 * q + e;
         const float z = acc[i] + __ldg(bias + acc_col(i, t));
-        const float ez = expf(fminf(z, 0.0f));
+        const float ez = __expf(fminf(z, 0.0f));
         acc[i] = z > 0.0f ? z : ez - 1.0f;
         d[e] = z > 0.0f ? 1.0f : ez;
       }
@@ -768,7 +783,7 @@ __device__ __forceinline__ void layer_out(const Params& p, const Tile& s,
   for (int i = 0; i < NA; ++i) {
     const int col = acc_col(i, t);
     const float z = acc[i] + __ldg(bias + col);
-    const float ez = expf(fminf(z, 0.0f));
+    const float ez = __expf(fminf(z, 0.0f));
     const float h = z > 0.0f ? z : ez - 1.0f;
     const float w = __ldg(w_out + col);
     const float wh = bf16_round(w), hh = bf16_round(h);
@@ -793,32 +808,138 @@ __device__ __forceinline__ void layer_out(const Params& p, const Tile& s,
   }
 }
 
+// The integral normals of quad q (input columns 4 q .. 4 q + 3) of tile
+// kb's row (the odd sample of an antithetic pair mirrors its draw; EXT:
+// from the external noise). FULL: the quad lies in nx and the row in M, so
+// the draw needs no branch (the k16 chunks' draws then interleave); else
+// none past nx or M (zero).
+template <bool EXT, bool FULL>
+__device__ __forceinline__ float4 layer1_normals(const Params& p, int b,
+                                                 int kb, uint2 key, int row,
+                                                 int q) {
+  const int nx = p.nx, k = kb * TILE + row;
+  float n[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (FULL || (4 * q < nx && k < p.M)) {
+    const int kd = p.anti ? k >> 1 : k;
+    const float sg = p.anti && (k & 1) ? -1.0f : 1.0f;
+    if (EXT) {
+      const int Md = p.anti ? p.M / 2 : p.M;
+      const float* src = p.noise_i + ((size_t)b * Md + kd) * nx + 4 * q;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        n[r] = FULL || 4 * q + r < nx ? sg * src[r] : 0.0f;
+    } else {
+      const float4 v = unit_normals4(philox4x32_10(
+          make_uint4((uint32_t)kd, (uint32_t)q, STREAM_INTEGRAL, p.seed_hi),
+          key));
+      n[0] = sg * v.x;
+      n[1] = FULL || 4 * q + 1 < nx ? sg * v.y : 0.0f;
+      n[2] = FULL || 4 * q + 2 < nx ? sg * v.z : 0.0f;
+      n[3] = FULL || 4 * q + 3 < nx ? sg * v.w : 0.0f;
+    }
+  }
+  return make_float4(n[0], n[1], n[2], n[3]);
+}
+
+// Layer 1's input at quad q of tile kb's row (x at X_s, then s, then zero
+// padding) from the row's normals n, which go to the tile's rows of
+// normals (s.dw, a float4 a quad) for the sums
+template <bool FULL>
+__device__ __forceinline__ float4 layer1_input(const Params& p, const Tile& s,
+                                               int kb, int row, int q,
+                                               float4 n) {
+  const int nx = p.nx;
+  if (FULL || (4 * q < nx && kb * TILE + row < p.M))
+    reinterpret_cast<float4*>(s.dw)[row * (s.ld / 4) + q] = n;
+  const float e[4] = {n.x, n.y, n.z, n.w};
+  float a[4];
+  const float sig = s.sig[row];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int j = 4 * q + r;
+    a[r] = FULL || j < nx ? s.xrow[j] + sig * e[r]
+                          : (j == nx ? s.s_val[row] : 0.0f);
+  }
+  return make_float4(a[0], a[1], a[2], a[3]);
+}
+
+// Layer 1's A fragments of K-slab sb (W1's columns in quad order,
+// pack_mlp_tc's quad_frags): k16 chunk c = 4 sb + kk holds, in registers h
+// and h + 2 of row h (r0, r1), quad 4 c + t of that row, drawn here. ANTI
+// (FULL, own draws, antithetic pairing): the rows of a pair, 2 p and
+// 2 p + 1, lie in lanes 4 g + t and its partner lane ^ 4 (g even, g + 1),
+// so each lane draws one pair's quad (an even lane its row r0's, an odd
+// one its row r1's) and takes the other's from its partner: each draw is
+// made once.
+template <bool EXT, bool FULL, bool ANTI>
+__device__ __forceinline__ void layer1_slab(const Params& p, const Tile& s,
+                                            int b, int kb, uint2 key, int r0,
+                                            int r1, int t, int sb,
+                                            uint32_t (&ah)[4][4],
+                                            uint32_t (&al)[4][4]) {
+  const bool odd = r0 & 1;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int q = 4 * (4 * sb + kk) + t;
+    float4 n[2];
+    if constexpr (ANTI) {
+      // the even row of this lane's pair: its draw, unmirrored
+      const float4 v = layer1_normals<false, true>(p, b, kb, key,
+                                                   odd ? r1 - 1 : r0, q);
+      float4 w;
+      w.x = __shfl_xor_sync(0xffffffffu, v.x, 4);
+      w.y = __shfl_xor_sync(0xffffffffu, v.y, 4);
+      w.z = __shfl_xor_sync(0xffffffffu, v.z, 4);
+      w.w = __shfl_xor_sync(0xffffffffu, v.w, 4);
+      n[0] = odd ? make_float4(-w.x, -w.y, -w.z, -w.w) : v;
+      n[1] = odd ? make_float4(-v.x, -v.y, -v.z, -v.w) : w;
+    } else {
+      n[0] = layer1_normals<EXT, FULL>(p, b, kb, key, r0, q);
+      n[1] = layer1_normals<EXT, FULL>(p, b, kb, key, r1, q);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 v = layer1_input<FULL>(p, s, kb, h ? r1 : r0, q, n[h]);
+      split_hi_lo(v.x, v.y, ah[kk][h], al[kk][h]);
+      split_hi_lo(v.z, v.w, ah[kk][h + 2], al[kk][h + 2]);
+    }
+  }
+}
+
 // u and sum_j u_x_j of the frozen net (hidden width W: 128 or 64) at
 // (s, X_s) for the tile's rows (written to s.u, s.sux). All consumers,
 // warp-uniformly; each group of products issued in its turn.
 template <bool X3, int W, class Turn>
 __device__ __forceinline__ void net_pass_narrow(const Params& p,
                                                 const Tile& s, Ring& ring,
-                                                int ctid, const Turn& turn) {
+                                                int ctid, const Turn& turn,
+                                                int b, int kb, uint2 key) {
   constexpr int NA = W / 2;
   const int warp = ctid >> 5, lane = ctid & 31, g = lane >> 2, t = lane & 3;
   const int r0 = 16 * warp + g, r1 = r0 + 8;
   const int L = p.L, nx = p.nx, n1 = k1_of(nx) / SLAB_K;
   float acc[NA];
 
-  // layer 1: [X_s, s] W1p^T in K-slabs, A split from the tile's normals
+  // layer 1: [X_s, s] W1p^T in K-slabs, each slab's A drawn in registers
+  // (layer1_slab: without a branch where the slab lies in nx and the tile
+  // in M) and the normals kept in the tile's rows for the sums
   zero(acc);
+  const bool ext = p.noise_i != nullptr;
+  const bool rows = (kb + 1) * TILE <= p.M;
   for (int sb = 0; sb < n1; ++sb) {
     uint32_t ah[4][4], al[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = (r & 1) ? r1 : r0;
-        const int col = SLAB_K * sb + 16 * kk + 2 * t + 8 * (r >> 1);
-        split_hi_lo(s.a1(row, col, nx), s.a1(row, col + 1, nx), ah[kk][r],
-                   al[kk][r]);
-      }
+    const bool full = rows && SLAB_K * (sb + 1) <= nx;
+    if (ext)
+      layer1_slab<true, false, false>(p, s, b, kb, key, r0, r1, t, sb, ah,
+                                      al);
+    else if (full && p.anti)
+      layer1_slab<false, true, true>(p, s, b, kb, key, r0, r1, t, sb, ah, al);
+    else if (full)
+      layer1_slab<false, true, false>(p, s, b, kb, key, r0, r1, t, sb, ah,
+                                      al);
+    else
+      layer1_slab<false, false, false>(p, s, b, kb, key, r0, r1, t, sb, ah,
+                                       al);
     slab_turn<0, X3>(acc, ah, al, ring, turn);
   }
   layer_out<X3>(p, s, acc, 1, ctid);
@@ -2168,127 +2289,144 @@ __device__ __forceinline__ float quad_sum(float4 v) {
   return (v.x + v.y) + (v.z + v.w);
 }
 
-// quad q of a terminal draw, zero past nx: its row of external noise (null
-// for a draw past the last), or its own normals
-__device__ __forceinline__ float4 term_quad(const float* row, bool ext,
-                                            const DrawCounter& dc, int q,
-                                            int nx) {
-  float e[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  if (ext) {
-    if (row)
+// The terminal chain of one point on warp tw of the three terminal warps:
+// the warp takes D draws at a time (the warps' turns interleaved over the
+// point's draws), a lane QPL quads of each (quads lane, lane + 32, ..:
+// QPL = ceil(Q / 32)), so that each normal is drawn once and kept in
+// registers while the draw's sum over its dimensions (a warp sum; g needs
+// only sum X_T = sum x + cT sum dW) gives its weight (one sigmoid a draw,
+// two with antithetic pairing); the weighted normals are then added to the
+// sums of the lane's own quads (sums, in shared memory: no lane touches
+// another's). D draws a turn keep four to eight quads' draws in flight:
+// QPL 1, 2, 4, 8 take D = 4, 2, 2, 1 (term_point_at).
+template <int QPL, int D, bool EXT>
+__device__ __forceinline__ void term_point(const tc::Params& p, float* sums,
+                                           int b, int tw, int lane,
+                                           float cT, float sx, float g0,
+                                           uint2 key, float& acc_v) {
+  const int nx = p.nx, Q = (nx + 3) / 4;
+  const int Md = p.anti ? p.M / 2 : p.M;
+  float4* s4 = reinterpret_cast<float4*>(sums);
+#pragma unroll 1
+  for (int kd0 = D * tw; kd0 < Md; kd0 += D * AUX_WARPS) {
+    float4 n[D][QPL];
+    float part[D];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-        if (4 * q + r < nx) e[r] = row[4 * q + r];
-  } else {
-    const float4 v = quad_normals(dc, (uint32_t)q);
-    e[0] = v.x;
-    e[1] = 4 * q + 1 < nx ? v.y : 0.0f;
-    e[2] = 4 * q + 2 < nx ? v.z : 0.0f;
-    e[3] = 4 * q + 3 < nx ? v.w : 0.0f;
+    for (int d = 0; d < D; ++d) {
+      const int kd = kd0 + d;
+      part[d] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < QPL; ++i) {
+        // every lane draws (a quad past Q is zeroed, a draw past Md has
+        // finite normals that its zero weight cancels), so the quads'
+        // draws interleave
+        const int q = lane + 32 * i;
+        float e[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (EXT) {
+          const float* row = p.noise_t + ((size_t)b * Md + kd) * nx;
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            if (kd < Md && 4 * q + r < nx) e[r] = row[4 * q + r];
+        } else {
+          const float4 v = unit_normals4(philox4x32_10(
+              make_uint4((uint32_t)kd, (uint32_t)q, STREAM_TERMINAL,
+                         p.seed_hi),
+              key));
+          e[0] = q < Q ? v.x : 0.0f;
+          e[1] = 4 * q + 1 < nx ? v.y : 0.0f;
+          e[2] = 4 * q + 2 < nx ? v.z : 0.0f;
+          e[3] = 4 * q + 3 < nx ? v.w : 0.0f;
+        }
+        n[d][i] = make_float4(e[0], e[1], e[2], e[3]);
+        part[d] += quad_sum(n[d][i]);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < D; ++d) part[d] = warp_sum(part[d]);
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const bool live = kd0 + d < Md;
+      const float d_p = g_cha(p.T, p.k, fmaf(cT, part[d], sx)) - g0;
+      float w = d_p, dv = d_p;
+      if (p.anti) {
+        const float d_m = g_cha(p.T, p.k, fmaf(-cT, part[d], sx)) - g0;
+        dv = d_p + d_m;
+        w = d_p - d_m;
+      }
+      acc_v += live ? dv : 0.0f;
+      w = live ? w : 0.0f;
+#pragma unroll
+      for (int i = 0; i < QPL; ++i) {
+        const int q = lane + 32 * i;
+        if (q < Q) {
+          float4 a = s4[q];
+          a.x = fmaf(w, n[d][i].x, a.x);
+          a.y = fmaf(w, n[d][i].y, a.y);
+          a.z = fmaf(w, n[d][i].z, a.z);
+          a.w = fmaf(w, n[d][i].w, a.w);
+          s4[q] = a;
+        }
+      }
+    }
   }
-  return make_float4(e[0], e[1], e[2], e[3]);
 }
 
-// v (32 values a lane) summed over the warp's lanes, transposed: lane l is
-// left with the sum of every lane's v[l]. Fixed order: deterministic.
-__device__ __forceinline__ float transpose_sum32(const float (&v)[32],
-                                                 int lane) {
-  float s16[16], s8[8], s4[4], s2[2];
-  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4, b1 = lane & 2,
-             b0 = lane & 1;
-#pragma unroll
-  for (int i = 0; i < 16; ++i)
-    s16[i] = (b4 ? v[16 + i] : v[i]) +
-             __shfl_xor_sync(0xffffffffu, b4 ? v[i] : v[16 + i], 16);
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    s8[i] = (b3 ? s16[8 + i] : s16[i]) +
-            __shfl_xor_sync(0xffffffffu, b3 ? s16[i] : s16[8 + i], 8);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    s4[i] = (b2 ? s8[4 + i] : s8[i]) +
-            __shfl_xor_sync(0xffffffffu, b2 ? s8[i] : s8[4 + i], 4);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    s2[i] = (b1 ? s4[2 + i] : s4[i]) +
-            __shfl_xor_sync(0xffffffffu, b1 ? s4[i] : s4[2 + i], 2);
-  return (b0 ? s2[1] : s2[0]) +
-         __shfl_xor_sync(0xffffffffu, b0 ? s2[0] : s2[1], 1);
+// term_point at nx's turn (QPL quads a lane of D draws: QPL 1, 2, 4, 8
+// with D = 4, 2, 2, 1; at QPL 4 two draws a turn ran 5.6 % faster than one
+// under "default" at R's shape, the same under bf16x3)
+template <bool EXT>
+__device__ __forceinline__ void term_point_at(const tc::Params& p,
+                                              float* sums, int b, int tw,
+                                              int lane, float cT, float sx,
+                                              float g0, uint2 key,
+                                              float& acc_v, int qpl) {
+  if (qpl <= 1)
+    term_point<1, 4, EXT>(p, sums, b, tw, lane, cT, sx, g0, key, acc_v);
+  else if (qpl <= 2)
+    term_point<2, 2, EXT>(p, sums, b, tw, lane, cT, sx, g0, key, acc_v);
+  else if (qpl <= 4)
+    term_point<4, 2, EXT>(p, sums, b, tw, lane, cT, sx, g0, key, acc_v);
+  else
+    term_point<8, 1, EXT>(p, sums, b, tw, lane, cT, sx, g0, key, acc_v);
 }
 
 // The terminal chain of this block's points on warp tw of the three
-// terminal warps, beside the consumers' products: lane = draw, 32 draws a
-// round, the warps' rounds interleaved over the point's draws. A lane
-// sums its draw's normals (pass 1: g needs only sum X_T = sum x + cT sum
-// dW), takes its draw's one sigmoid (two with antithetic pairing), then
-// draws the normals again and times them by the draw's weight (pass 2),
-// 8 quads at a time, summed over the warp's 32 draws by a transposing
-// shuffle sum: lane l keeps dimension 32 G + l of group G in `sums` (its
-// own elements, in shared memory). At a point's end the warp's sums go to
+// terminal warps, beside the consumers' products (term_point, a point at
+// a time). At a point's end the warp's sums (its lanes' own quads) go to
 // tred once the consumers have read the last ones.
 __device__ __forceinline__ void terminal_warps(const tc::Params& p,
                                                float* tacc, float* tred,
                                                int tw, int lane) {
-  const int nx = p.nx, Q = (nx + 3) / 4, Qfull = nx / 4;
-  const int Md = p.anti ? p.M / 2 : p.M;
-  const bool ext = p.noise_t != nullptr;
+  const int nx = p.nx, Q = (nx + 3) / 4, qpl = (Q + 31) / 32;
   float* sums = tacc + (size_t)tw * (tc::align16((size_t)nx * 4) / 4);
+  float4* s4 = reinterpret_cast<float4*>(sums);
   bool first = true;
   for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
     const float t = p.t[b], g0 = p.g0[b];
     const float cT = sqrtf(fmaxf(p.T - t, 1e-6f)) * p.alpha_sqrt;
     const uint2 key = make_uint2(p.seed_lo, (uint32_t)b);
     float sx = 0.0f;
-    for (int j = lane; j < nx; j += 32) {
-      sx += p.x[(size_t)b * nx + j];
-      sums[j] = 0.0f;
-    }
+    for (int j = lane; j < nx; j += 32) sx += p.x[(size_t)b * nx + j];
+    for (int q = lane; q < Q; q += 32)
+      s4[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     sx = warp_sum(sx);
     float acc_v = 0.0f;
-    for (int kd0 = 32 * tw; kd0 < Md; kd0 += AUX_THREADS) {
-      const int kd = kd0 + lane;
-      const bool live = kd < Md;
-      const float* row =
-          ext && live ? p.noise_t + ((size_t)b * Md + kd) * nx : nullptr;
-      // a lane past Md draws finite normals that its zero weight cancels
-      const DrawCounter dc((uint32_t)kd, p.seed_hi, key);
-      float sn = 0.0f;
-#pragma unroll 2
-      for (int q = 0; q < Qfull; ++q)
-        sn += quad_sum(term_quad(row, ext, dc, q, nx));
-      if (Qfull < Q) sn += quad_sum(term_quad(row, ext, dc, Qfull, nx));
-      const float d_p = g_cha(p.T, p.k, fmaf(cT, sn, sx)) - g0;
-      float w = d_p, dv = d_p;
-      if (p.anti) {
-        const float d_m = g_cha(p.T, p.k, fmaf(-cT, sn, sx)) - g0;
-        dv = d_p + d_m;
-        w = d_p - d_m;
-      }
-      acc_v += live ? dv : 0.0f;
-      w = live ? w : 0.0f;
-      for (int g = 0; g < (Q + 7) / 8; ++g) {
-        float v[32];
-#pragma unroll
-        for (int qq = 0; qq < 8; ++qq) {
-          const int q = 8 * g + qq;
-          const float4 n = q < Q ? term_quad(row, ext, dc, q, nx)
-                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-          v[4 * qq] = w * n.x;
-          v[4 * qq + 1] = w * n.y;
-          v[4 * qq + 2] = w * n.z;
-          v[4 * qq + 3] = w * n.w;
-        }
-        const float sv = transpose_sum32(v, lane);
-        const int j = 32 * g + lane;
-        if (j < nx) sums[j] += sv;
-      }
-    }
-    acc_v = warp_sum(acc_v);
+    if (p.noise_t)
+      term_point_at<true>(p, sums, b, tw, lane, cT, sx, g0, key, acc_v, qpl);
+    else
+      term_point_at<false>(p, sums, b, tw, lane, cT, sx, g0, key, acc_v,
+                           qpl);
     if (!first) tc::named_sync(BAR_TERM_FREE, TERM_BAR_THREADS);
     first = false;
     float* out = tred + tw * (1 + nx);
     if (lane == 0) out[0] = acc_v;
-    for (int j = lane; j < nx; j += 32) out[1 + j] = sums[j];
+    for (int q = lane; q < Q; q += 32) {
+      const float4 v = s4[q];
+      const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        if (4 * q + r < nx) out[1 + 4 * q + r] = e[r];
+    }
     tc::named_arrive(BAR_TERM_FULL, TERM_BAR_THREADS);
   }
 }
@@ -2425,6 +2563,239 @@ __device__ __forceinline__ void consumers256(const tc::Params& p,
   }
 }
 
+// The point's integral sums over tile kb's rows, in row order, from the
+// normals layer 1 kept in the tile's rows (s.dw, a float4 a quad): the
+// value (thread 0: the rows' Tt (f - f0)) and the columns 4 q + 1 ..
+// 4 q + 4 of this thread's quads q = ctid, ctid + CONSUMERS (iq), 8 rows'
+// loads in flight
+__device__ __forceinline__ void accumulate_quads(const tc::Params& p,
+                                                 const tc::Tile& s, int kb,
+                                                 int ctid, float4 (&iq)[2],
+                                                 float& iv) {
+  using namespace tc;
+  const int Q = (p.nx + 3) / 4, ld4 = s.ld / 4;
+  const int rows = p.M - kb * TILE < TILE ? p.M - kb * TILE : TILE;
+  if (ctid == 0)
+#pragma unroll 4
+    for (int row = 0; row < TILE; ++row) iv += s.c_i[row];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int q = ctid + CONSUMERS * h;
+    if (q >= Q) continue;
+    const float4* d = reinterpret_cast<const float4*>(s.dw) + q;
+    float4 a = iq[h];
+    for (int r0 = 0; r0 < rows; r0 += 8) {
+      float4 v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (r0 + e < rows) v[e] = d[(r0 + e) * ld4];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (r0 + e >= rows) break;
+        const float c = s.c_iy[r0 + e];
+        a.x = fmaf(c, v[e].x, a.x);
+        a.y = fmaf(c, v[e].y, a.y);
+        a.z = fmaf(c, v[e].z, a.z);
+        a.w = fmaf(c, v[e].w, a.w);
+      }
+    }
+    iq[h] = a;
+  }
+}
+
+// The consumers of the narrow instances, generate_tc_kernel<P, H> and
+// <P, H64>: per point, each warpgroup's tiles (the time draws; the net
+// pass, whose layer 1 draws the tile's integral normals and keeps them in
+// the tile's rows; the rows' weights; the sums over the rows, a quad a
+// thread, accumulate_quads), then the point's sums: the second
+// warpgroup's through red and the terminal warps' through tred, added by
+// the first in a fixed order. The zero iterate (no net) draws its normals
+// in a phase of their own (draw_normals). The products are issued in
+// turns (PingPong).
+template <int P, int HW>
+__device__ __forceinline__ void consumers_narrow(const tc::Params& p,
+                                                 unsigned char* smem, int wg,
+                                                 int wtid) {
+  using namespace tc;
+  const GPlan& pl = p.plan;
+  const int nx = p.nx, L = p.has_net ? p.L : 0, Q = (nx + 3) / 4;
+  const uint32_t full = smem_u32(smem + pl.bars);
+  const Tile s = tile_of(smem, pl, p.lay, p, 0, wg);
+  float* red = reinterpret_cast<float*>(smem + pl.red);
+  const float* tred = reinterpret_cast<const float*>(smem + pl.tred);
+  Ring ring{smem_u32(smem + pl.ring), full, full + 8 * MAX_STAGES, pl.stages,
+            p.lay.stage_bytes, 0};
+  const PingPong turn{wg};
+  if (wg == 1 && L > 0) turn.pass();  // warpgroup 0 first
+  const int ntile = (p.M + TILE - 1) / TILE;
+  const int ntile2 = ntile + (ntile & 1);
+  const float inv_m = 1.0f / (float)p.M;
+  for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
+    const float t = p.t[b], g0 = p.g0[b], f0 = p.f0[b];
+    const float Tt = fmaxf(p.T - t, 1e-6f);
+    const float inv_yT = 1.0f / (sqrtf(Tt) * p.alpha_sqrt);
+    const uint2 key = make_uint2(p.seed_lo, (uint32_t)b);
+    for (int j = threadIdx.x; j < nx; j += TC_CONSUMERS)
+      s.xrow[j] = p.x[(size_t)b * nx + j];
+    float4 iq[2];
+    iq[0] = iq[1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float iv = 0.0f;
+    named_sync(BAR_CONSUMERS, TC_CONSUMERS);
+
+    for (int kb = wg; kb < ntile2; kb += NWG) {
+      draw_times(p, s, b, kb, t, Tt, key, wtid);
+      if (L == 0) draw_normals(p, s, b, kb, key, wtid);
+      named_sync(BAR_WG + wg, WG);
+      if (L > 0) {
+        net_pass_narrow<P == 3, HW>(p, s, ring, wtid, turn, b, kb, key);
+      } else if (wtid < TILE) {
+        s.u[wtid] = 0.0f;
+        s.sux[wtid] = 0.0f;
+      }
+      named_sync(BAR_WG + wg, WG);
+      sample_weights(p, s, kb, Tt, f0, wtid);
+      named_sync(BAR_WG + wg, WG);
+      accumulate_quads(p, s, kb, wtid, iq, iv);
+      named_sync(BAR_WG + wg, WG);
+    }
+
+    if (wg == 1) {
+      if (wtid == 0) red[0] = iv;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = wtid + WG * h;
+        const float e[4] = {iq[h].x, iq[h].y, iq[h].z, iq[h].w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          if (q < Q && 4 * q + r < nx) red[1 + 4 * q + r] = e[r];
+      }
+    }
+    named_sync(BAR_TERM_FULL, TERM_BAR_THREADS);
+    if (wg == 0) {
+      float* out = p.out + (size_t)b * (1 + nx);
+      if (wtid == 0) {
+        float sum_t = 0.0f;
+#pragma unroll
+        for (int w = 0; w < AUX_WARPS; ++w) sum_t += tred[w * (1 + nx)];
+        out[0] = (sum_t + (iv + red[0])) * inv_m + g0 + f0 * Tt;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = wtid + WG * h;
+        const float e[4] = {iq[h].x, iq[h].y, iq[h].z, iq[h].w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int j = 1 + 4 * q + r;
+          if (q < Q && j <= nx) {
+            float sum_t = 0.0f;
+#pragma unroll
+            for (int w = 0; w < AUX_WARPS; ++w)
+              sum_t += tred[w * (1 + nx) + j];
+            out[j] = (sum_t * inv_yT + (e[r] + red[j])) * inv_m;
+          }
+        }
+      }
+    }
+    if (b + (int)gridDim.x < p.B) named_arrive(BAR_TERM_FREE, TERM_BAR_THREADS);
+    named_sync(BAR_CONSUMERS, TC_CONSUMERS);
+  }
+  // the second warpgroup's last pass
+  if (wg == 0 && L > 0) turn.wait();
+}
+
+// The consumers of the wide pass, generate_tc_kernel<P, WIDE>: per point,
+// each warpgroup's tiles (the draws and layer 1's input image, published
+// to the producer; net_pass_wide; the rows' weights; the sums), then the
+// point's sums: the second warpgroup's through red and the terminal warps'
+// through tred, added by the first in a fixed order (the columns past a
+// consumer's MAXJ registers in shared memory, isum)
+template <int P>
+__device__ __forceinline__ void consumers_wide(const tc::Params& p,
+                                               unsigned char* smem, int wg,
+                                               int wtid, int stages,
+                                               uint32_t empty,
+                                               uint32_t ready) {
+  using namespace tc;
+  const GPlan& pl = p.plan;
+  const int nx = p.nx;
+  const uint32_t full = smem_u32(smem + pl.bars);
+  const float* tred = reinterpret_cast<const float*>(smem + pl.tred);
+  // this warpgroup's tile, its rows, normals, saved derivatives and
+  // images of layer inputs (in scratch)
+  const WideScratch w = wide_scratch(p, wg);
+  const Tile s = tile_wide(smem, pl, nx, wg, w);
+  float* red = reinterpret_cast<float*>(smem + pl.red);
+  const int n_isum = isum_floats(nx);
+  const size_t isum_bytes = align16((size_t)n_isum * 4);
+  float* isum0 = reinterpret_cast<float*>(smem + pl.isum);
+  float* isum = reinterpret_cast<float*>(smem + pl.isum + wg * isum_bytes);
+  float* isum1 = reinterpret_cast<float*>(smem + pl.isum + isum_bytes);
+  Ring ring{smem_u32(smem + pl.ring), full, empty, stages,
+            wide_stage_bytes(pieces(P)), 0};
+  const int ntile = (p.M + TILE - 1) / TILE;
+  const int ntile2 = ntile + (ntile & 1);
+  const float inv_m = 1.0f / (float)p.M;
+  for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
+    const float t = p.t[b], g0 = p.g0[b], f0 = p.f0[b];
+    const float Tt = fmaxf(p.T - t, 1e-6f);
+    const float inv_yT = 1.0f / (sqrtf(Tt) * p.alpha_sqrt);
+    const uint2 key = make_uint2(p.seed_lo, (uint32_t)b);
+    for (int j = threadIdx.x; j < nx; j += TC_CONSUMERS)
+      s.xrow[j] = p.x[(size_t)b * nx + j];
+    for (int j = wtid; j < n_isum; j += WG) isum[j] = 0.0f;
+    float acc[MAXJ] = {0.0f, 0.0f, 0.0f, 0.0f};
+    named_sync(BAR_CONSUMERS, TC_CONSUMERS);
+
+    for (int kb = wg; kb < ntile2; kb += NWG) {
+      draw_times(p, s, b, kb, t, Tt, key, wtid);
+      named_sync(BAR_WG + wg, WG);
+      draw_wide<P == 3>(p, s, b, kb, key, wtid, w.x);
+      publish_wide(ready);
+      net_pass_wide<P == 3>(p, s, ring, wtid, wg, w, ready);
+      named_sync(BAR_WG + wg, WG);
+      sample_weights(p, s, kb, Tt, f0, wtid);
+      named_sync(BAR_WG + wg, WG);
+      accumulate(s, nx, wtid, acc);
+      accumulate_wide(s, nx, wtid, isum);
+      named_sync(BAR_WG + wg, WG);
+    }
+
+    // the second warpgroup's integral sums to red, the terminal warps'
+    // sums from tred; the first adds them in a fixed order and stores
+    if (wg == 1)
+#pragma unroll
+      for (int r = 0; r < MAXJ; ++r) {
+        const int j = wtid + r * WG;
+        if (j <= nx) red[j] = acc[r];
+      }
+    named_sync(BAR_TERM_FULL, TERM_BAR_THREADS);
+    if (wg == 0) {
+      float* out = p.out + (size_t)b * (1 + nx);
+#pragma unroll
+      for (int r = 0; r < MAXJ; ++r) {
+        const int j = wtid + r * WG;
+        if (j <= nx) {
+          float sum_t = 0.0f;
+#pragma unroll
+          for (int w = 0; w < AUX_WARPS; ++w) sum_t += tred[w * (1 + nx) + j];
+          const float a = acc[r] + red[j];
+          out[j] = j == 0 ? (sum_t + a) * inv_m + g0 + f0 * Tt
+                          : (sum_t * inv_yT + a) * inv_m;
+        }
+      }
+      for (int j = MAXJ * WG + wtid; j <= nx; j += WG) {
+        float sum_t = 0.0f;
+#pragma unroll
+        for (int w = 0; w < AUX_WARPS; ++w) sum_t += tred[w * (1 + nx) + j];
+        const int i = j - MAXJ * WG;
+        out[j] = (sum_t * inv_yT + (isum0[i] + isum1[i])) * inv_m;
+      }
+    }
+    if (b + (int)gridDim.x < p.B) named_arrive(BAR_TERM_FREE, TERM_BAR_THREADS);
+    named_sync(BAR_CONSUMERS, TC_CONSUMERS);
+  }
+}
+
 // P: the net's passes (3: bf16x3, 1: one bf16 pass); HW: the instance of the
 // hidden width (H64, H: net_pass_narrow; WIDE: widths 384 to 1024,
 // net_pass_wide, the width read from p.hw). A block: two consumer
@@ -2440,7 +2811,7 @@ generate_tc_kernel(const tc::Params p) {
   using namespace tc;
   extern __shared__ __align__(128) unsigned char smem_tc[];
   unsigned char* smem = smem_tc;
-  const int nx = p.nx, L = p.has_net ? p.L : 0;
+  const int L = p.has_net ? p.L : 0;
   const Layout& lay = p.lay;
   const GPlan& pl = p.plan;
   const uint32_t full = smem_u32(smem + pl.bars);
@@ -2487,101 +2858,11 @@ generate_tc_kernel(const tc::Params p) {
   const int wg = threadIdx.x / WG, wtid = threadIdx.x % WG;
   if constexpr (HW == N256) {
     consumers256<P>(p, smem, wg, wtid);
-    return;
+  } else if constexpr (HW != WIDE) {
+    consumers_narrow<P, HW>(p, smem, wg, wtid);
+  } else {
+    consumers_wide<P>(p, smem, wg, wtid, stages, empty, ready);
   }
-  // this warpgroup's tile: its rows, normals and saved derivatives (the
-  // wide pass: also its images of layer inputs, in scratch)
-  WideScratch w{};
-  if constexpr (HW == WIDE) w = wide_scratch(p, wg);
-  const Tile s = HW == WIDE ? tile_wide(smem, pl, nx, wg, w)
-                            : tile_of(smem, pl, lay, p, 0, wg);
-  float* red = reinterpret_cast<float*>(smem + pl.red);
-  const int n_isum = isum_floats(nx);
-  const size_t isum_bytes = align16((size_t)n_isum * 4);
-  float* isum0 = reinterpret_cast<float*>(smem + pl.isum);
-  float* isum = reinterpret_cast<float*>(smem + pl.isum + wg * isum_bytes);
-  float* isum1 = reinterpret_cast<float*>(smem + pl.isum + isum_bytes);
-  Ring ring{smem_u32(smem + pl.ring), full, empty, stages,
-            HW == WIDE ? wide_stage_bytes(pieces(P)) : lay.stage_bytes, 0};
-  // the narrow passes issue their products in turns (the wide pass: no)
-  const PingPong turn{wg};
-  if (HW != WIDE && wg == 1 && L > 0) turn.pass();  // warpgroup 0 first
-  const int ntile = (p.M + TILE - 1) / TILE;
-  const int ntile2 = ntile + (ntile & 1);
-  const float inv_m = 1.0f / (float)p.M;
-  for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
-    const float t = p.t[b], g0 = p.g0[b], f0 = p.f0[b];
-    const float Tt = fmaxf(p.T - t, 1e-6f);
-    const float inv_yT = 1.0f / (sqrtf(Tt) * p.alpha_sqrt);
-    const uint2 key = make_uint2(p.seed_lo, (uint32_t)b);
-    for (int j = threadIdx.x; j < nx; j += TC_CONSUMERS)
-      s.xrow[j] = p.x[(size_t)b * nx + j];
-    for (int j = wtid; j < n_isum; j += WG) isum[j] = 0.0f;
-    float acc[MAXJ] = {0.0f, 0.0f, 0.0f, 0.0f};
-    named_sync(BAR_CONSUMERS, TC_CONSUMERS);
-
-    for (int kb = wg; kb < ntile2; kb += NWG) {
-      draw_times(p, s, b, kb, t, Tt, key, wtid);
-      if constexpr (HW == WIDE) {
-        named_sync(BAR_WG + wg, WG);
-        draw_wide<P == 3>(p, s, b, kb, key, wtid, w.x);
-        publish_wide(ready);
-        net_pass_wide<P == 3>(p, s, ring, wtid, wg, w, ready);
-      } else {
-        draw_normals(p, s, b, kb, key, wtid);
-        named_sync(BAR_WG + wg, WG);
-        if (L > 0) {
-          if constexpr (HW == H || HW == H64)
-            net_pass_narrow<P == 3, HW>(p, s, ring, wtid, turn);
-        } else if (wtid < TILE) {
-          s.u[wtid] = 0.0f;
-          s.sux[wtid] = 0.0f;
-        }
-      }
-      named_sync(BAR_WG + wg, WG);
-      sample_weights(p, s, kb, Tt, f0, wtid);
-      named_sync(BAR_WG + wg, WG);
-      accumulate(s, nx, wtid, acc);
-      accumulate_wide(s, nx, wtid, isum);
-      named_sync(BAR_WG + wg, WG);
-    }
-
-    // the second warpgroup's integral sums to red, the terminal warps'
-    // sums from tred; the first adds them in a fixed order and stores
-    if (wg == 1)
-#pragma unroll
-      for (int r = 0; r < MAXJ; ++r) {
-        const int j = wtid + r * WG;
-        if (j <= nx) red[j] = acc[r];
-      }
-    named_sync(BAR_TERM_FULL, TERM_BAR_THREADS);
-    if (wg == 0) {
-      float* out = p.out + (size_t)b * (1 + nx);
-#pragma unroll
-      for (int r = 0; r < MAXJ; ++r) {
-        const int j = wtid + r * WG;
-        if (j <= nx) {
-          float sum_t = 0.0f;
-#pragma unroll
-          for (int w = 0; w < AUX_WARPS; ++w) sum_t += tred[w * (1 + nx) + j];
-          const float a = acc[r] + red[j];
-          out[j] = j == 0 ? (sum_t + a) * inv_m + g0 + f0 * Tt
-                          : (sum_t * inv_yT + a) * inv_m;
-        }
-      }
-      for (int j = MAXJ * WG + wtid; j <= nx; j += WG) {
-        float sum_t = 0.0f;
-#pragma unroll
-        for (int w = 0; w < AUX_WARPS; ++w) sum_t += tred[w * (1 + nx) + j];
-        const int i = j - MAXJ * WG;
-        out[j] = (sum_t * inv_yT + (isum0[i] + isum1[i])) * inv_m;
-      }
-    }
-    if (b + (int)gridDim.x < p.B) named_arrive(BAR_TERM_FREE, TERM_BAR_THREADS);
-    named_sync(BAR_CONSUMERS, TC_CONSUMERS);
-  }
-  // the second warpgroup's last pass
-  if (HW != WIDE && wg == 0 && L > 0) turn.wait();
 }
 
 // the tensor-core kernel for a mode and a hidden width
@@ -2664,15 +2945,17 @@ long long dpi_generate_tc_scratch_bytes_w(int nx, int L, int hw) {
   return most;
 }
 
-// the plan at (nx, L, width hw) into out[10]: stages (-1: none) under
+// the plan at (nx, L, width hw) into out[11]: stages (-1: none) under
 // bf16x3, saved derivatives in shared memory, tiles' normals in shared
 // memory, shared memory bytes, global scratch floats per block, 1 where the
 // instance keeps the layer chain on chip and draws the normals where it
 // uses them (width 256), 1 where the producer stages the products' A
 // beside the weights (the wide pass), a ring stage's bytes under bf16x3,
 // then the ring's stages and a stage's bytes under "default" (the wide
-// pass: wide_stages of half the bytes; the others: as under bf16x3)
-// (ops/kernels.py:library_tc_plan)
+// pass: wide_stages of half the bytes; the others: as under bf16x3), and 1
+// where layer 1 draws the integral normals into its A fragments, W1's
+// columns in quad order (the narrow instances, widths 64 and 128:
+// pack_mlp_tc's quad_frags) (ops/kernels.py:library_tc_plan)
 void dpi_generate_tc_plan_w(int nx, int L, int hw, long long* out) {
   const tc::GPlan pl = plan_of(nx, L, hw);
   const int inst = instance_of(hw);
@@ -2689,6 +2972,7 @@ void dpi_generate_tc_plan_w(int nx, int L, int hw, long long* out) {
   const bool wide = inst == WIDE && pl.stages > 0;
   out[8] = wide ? wide_stages(pl.stages, 1) : out[0];
   out[9] = wide ? wide_stage_bytes(1) : out[7];
+  out[10] = inst == H || inst == H64;
 }
 
 // The tensor-core kernel (mode 1: bf16x3, 2: one bf16 pass) for a net of

@@ -140,12 +140,6 @@ struct Layout {
   int save_layer = SAVE_LAYER_FLOATS;
 };
 
-// output columns a consumer keeps in registers (MAXJ slots); generate.cu
-// keeps the columns past them in shared memory, a row of each warpgroup's
-__host__ __device__ inline int isum_floats(int nx) {
-  return 1 + nx > MAXJ * CONSUMERS ? 1 + nx - MAXJ * CONSUMERS : 0;
-}
-
 __host__ __device__ inline size_t dw_bytes(int ld) {
   return align16((size_t)TILE * ld * 4);
 }
@@ -184,9 +178,6 @@ __host__ __device__ inline GPlan gplan(int nx, int L, const Layout& k,
   if (k.term) o += align16((size_t)AUX_WARPS * (1 + nx) * 4);
   p.red = o;
   o += align16((size_t)(1 + nx) * 4);
-  // term = 1: each consumer warpgroup's integral sums past its registers'
-  p.isum = o;
-  if (k.term) o += (size_t)NWG * align16((size_t)isum_floats(nx) * 4);
   // term = 0: the consumers' integral sums (MAXJ a thread) between tiles
   p.sums = o;
   if (!k.term) o += (size_t)TC_CONSUMERS * MAXJ * 4;

@@ -653,8 +653,19 @@ def _chunk_tiles(w: torch.Tensor) -> torch.Tensor:
         .reshape(-1)
 
 
+def quad_frag_columns(k1: int, device=None) -> torch.Tensor:
+    """Where each of layer 1's ``k1`` input columns goes in W1's images
+    under ``pack_mlp_tc``'s ``quad_frags``: within each k16 chunk c, the
+    quad 4 c + t (input columns 16 c + 4 t .. + 3) to the columns of
+    thread t's A fragments, 16 c + 2 t, + 1, + 8, + 9 (wgmma's register
+    layout of A), so that a thread draws whole quads of its rows."""
+    i = torch.arange(k1, device=device)
+    o = i % 16
+    return 16 * (i // 16) + 2 * (o // 4) + (o % 2) + 8 * ((o % 4) // 2)
+
+
 def pack_mlp_tc(mod: MLP, nx: int, pieces: int = 2,
-                chunk_major: bool = False):
+                chunk_major: bool = False, quad_frags: bool = False):
     """The tensor-core kernels' net: (bf16 images, f32 vectors).
 
     Images, in ``_core_tiles`` layout, the ``pieces`` bf16 pieces of W
@@ -670,12 +681,19 @@ def pack_mlp_tc(mod: MLP, nx: int, pieces: int = 2,
     are k16 slabs of all the rows): W1's pieces and each hidden W's in
     ``_chunk_tiles`` order, each hidden W's pieces also in core order after
     them (its backward pass's chunks, rows 16 c .., are contiguous there),
-    so that every stage is one copy."""
+    so that every stage is one copy. ``quad_frags`` (generate.cu's narrow
+    instances, widths 64 and 128, whose layer 1 draws its input in
+    registers): W1's columns within each k16 chunk in quad order
+    (``quad_frag_columns``); the column sums are over the same columns."""
     lin = list(mod.layers)
     w1 = lin[0].weight.detach()
-    w1p = bf16_pieces(torch.cat(
-        [w1[:, 1:], w1[:, :1],
-         w1.new_zeros((w1.shape[0], tc_k1(nx) - 1 - nx))], dim=1), pieces)
+    w1c = torch.cat([w1[:, 1:], w1[:, :1],
+                     w1.new_zeros((w1.shape[0], tc_k1(nx) - 1 - nx))], dim=1)
+    if quad_frags:
+        w1q = torch.empty_like(w1c)
+        w1q[:, quad_frag_columns(w1c.shape[1], w1c.device)] = w1c
+        w1c = w1q
+    w1p = bf16_pieces(w1c, pieces)
     fwd = _chunk_tiles if chunk_major else _core_tiles
     images = [fwd(w.to(torch.bfloat16)) for w in w1p]
     for layer in lin[1:-1]:
@@ -686,7 +704,9 @@ def pack_mlp_tc(mod: MLP, nx: int, pieces: int = 2,
             images += [_core_tiles(w) for w in ws]
     vec = [layer.bias.detach() for layer in lin[:-1]]
     vec += [lin[-1].weight.detach().reshape(-1)]
-    vec += [w[:, :nx].sum(dim=1) for w in w1p]
+    cols = (quad_frag_columns(w1c.shape[1], w1c.device)[:nx] if quad_frags
+            else slice(0, nx))
+    vec += [w[:, cols].sum(dim=1) for w in w1p]
     vec += [lin[-1].bias.detach().reshape(-1)]
     return (torch.cat(images).contiguous(),
             torch.cat([v.float() for v in vec]).contiguous())
@@ -749,12 +769,13 @@ def _tc_net_for_launch(dll: ctypes.CDLL, sol: Solution, tx: torch.Tensor,
 
 
 def _tc_net(mod: Optional[MLP], nx: int, scratch: int, device,
-            pieces: int = 2, chunk_major: bool = False):
+            pieces: int = 2, chunk_major: bool = False,
+            quad_frags: bool = False):
     """The tensor-core launch's net buffers and scratch (None where
     unused)."""
     img = vec = None
     if mod is not None:
-        img, vec = pack_mlp_tc(mod, nx, pieces, chunk_major)
+        img, vec = pack_mlp_tc(mod, nx, pieces, chunk_major, quad_frags)
     buf = (torch.empty(scratch // 4, dtype=torch.float32, device=device)
            if scratch > 0 else None)
     return img, vec, buf
@@ -797,10 +818,12 @@ def library_tc_plan(nx: int, n_hidden: int,
     whether the instance keeps the layer chain on chip and draws the
     normals where it uses them ("on_chip"), whether its producer stages the
     products' A (the layer inputs' bf16 images) beside the weights
-    ("a_staged": the wide pass of widths 384 to 1024), and a ring stage's
-    bytes in that mode ("stage_bytes"; a build before a key reports False
-    or 0). None where nothing fits."""
-    out = (ctypes.c_longlong * 10)()
+    ("a_staged": the wide pass of widths 384 to 1024), a ring stage's
+    bytes in that mode ("stage_bytes"), and whether layer 1 draws the
+    integral normals into its A fragments, W1's columns in quad order
+    ("quad_frags": the narrow instances, widths 64 and 128; a build before
+    a key reports False or 0). None where nothing fits."""
+    out = (ctypes.c_longlong * 11)()
     (lib or GENERATE).lib().dpi_generate_tc_plan_w(nx, n_hidden, width, out)
     if out[0] < 0:
         return None
@@ -810,7 +833,8 @@ def library_tc_plan(nx: int, n_hidden: int,
             "dw_smem": bool(out[2]), "smem_bytes": out[3],
             "scratch_floats": out[4], "on_chip": bool(out[5]),
             "a_staged": bool(out[6]),
-            "stage_bytes": out[9] if one_pass else out[7]}
+            "stage_bytes": out[9] if one_pass else out[7],
+            "quad_frags": bool(out[10])}
 
 
 def generate_tc_l2_bytes(b: int, m: int, nx: int, n_hidden: int,
@@ -841,8 +865,10 @@ def generate_tc_l2_bytes(b: int, m: int, nx: int, n_hidden: int,
     images written once (each product's input: layer 1's by the draws,
     the others by the layer before), the saved
     derivatives written and read once a tile, and the tiles' normals
-    written once and read once (the sums). A count of the plan, not a
-    measurement."""
+    written once and read once (the sums). A plan "quad_frags" (widths 64
+    and 128) keeps the tiles' normals (rows of whole quads) where layer 1
+    draws them, written once and read once by the sums. A count of the
+    plan, not a measurement."""
     passes = -(-(-(-m // TC_TILE)) // TC_NWG)
     if plan.get("a_staged"):
         pieces = 2 if precision == "bf16x3" else 1
@@ -880,6 +906,8 @@ def generate_tc_l2_bytes(b: int, m: int, nx: int, n_hidden: int,
              tiles * (n_hidden - 1) * TC_SAVE_LAYER_FLOATS[width] * 4 * 2)
     reads = 2 + (blocks if n_hidden else 1)
     normals = 0 if plan["dw_smem"] else tiles * TC_TILE * nx * 4 * reads
+    if plan.get("quad_frags") and not plan["dw_smem"]:
+        normals = tiles * TC_TILE * 4 * -(-nx // 4) * 4 * 2
     acts = 0
     if blocks > 1 and n_hidden > 1:
         layer = TC_TILE * width * 4
@@ -1006,7 +1034,8 @@ def generate_with_gradients_cuda(seed: int, eq, sol: Solution,
         plan = library_tc_plan(nx, n_hidden, lib, width)
         img, vec, buf = _tc_net(mod, nx, scratch, tx.device,
                                 chunk_major=plan["on_chip"]
-                                or plan["a_staged"])
+                                or plan["a_staged"],
+                                quad_frags=plan["quad_frags"])
         rc = dll.dpi_generate_tc_w(
             _ptr(t), _ptr(x), _ptr(g0), _ptr(f0), _ptr(img), _ptr(vec),
             _ptr(u01), _ptr(noise_t), _ptr(noise_i), _ptr(buf), _ptr(out),

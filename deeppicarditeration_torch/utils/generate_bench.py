@@ -67,6 +67,17 @@ before it (the A fragments loaded from f32 scratch by the consumers):
 ``l1_build``, ``h_load``, ``b_load`` (layer 1's A from the normals, the
 forward and backward layers' A), ``*_turn``, ``*_ring``, ``*_mma`` (the
 products' turn, ring and wgmma waits), ``*_epi`` beside those names.
+The width-128 instance's (PERF.md §6), by each consumer
+warpgroup's first thread: ``draw_times``, ``l1_draws`` (layer 1's draws
+into its A fragments), ``turn``, ``ring``, ``mma``, ``epi_fwd``,
+``split`` (a hidden layer's A fragments), ``epi_bwd``, ``net_sync``,
+``sample_weights``, ``accumulate``, ``term_sync`` (a point's end, waiting
+for the terminal warps), ``point_end``; by the terminal warps' lane 0:
+``term_work``, ``term_wait``. Its design before (the normals drawn to
+scratch, layer 1's A read back from them, the terminal chain in two
+passes): ``draws``, ``draw_sync``, ``l1_build``, ``term_p1``,
+``term_p2`` beside the same names. Phases sum over both warpgroups (and
+the three terminal warps) and are divided by the tiles.
 """
 
 from __future__ import annotations

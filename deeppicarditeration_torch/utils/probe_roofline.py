@@ -124,6 +124,41 @@ def fast_path(ins: list, first: int, last: int) -> list:
     return out
 
 
+def branch_paths(ins: list, first: int, last: int, fork_min: int = 64,
+                 most: int = 256) -> list:
+    """Like ``fast_path``, the instructions of one pass through
+    ``ins[first:last + 1]``, but forking at each predicated forward branch
+    that skips at least ``fork_min`` instructions and no loop or CALL (the
+    runtime choice between whole variants of a loop's body): one path
+    falls through, the other takes it. At most ``most`` paths, the
+    fall-through first."""
+    index = {i.addr: k for k, i in enumerate(ins)}
+    loops = [(s, e) for s, e in sass_loops(ins)
+             if first <= s and e <= last and (s, e) != (first, last)]
+    starts = {s: e for s, e in loops}
+    done, todo = [], [(first, [])]
+    while todo and len(done) < most:
+        k, out = todo.pop()
+        while k <= last:
+            if k in starts:
+                k = starts[k] + 1
+                continue
+            i = ins[k]
+            out.append(k)
+            if i.target is not None and i.target > i.addr:
+                j = index.get(i.target, last + 1)
+                slow = any(k < s and e < j for s, e in loops) or any(
+                    ins[n].op == "CALL" for n in range(k + 1, min(j, last + 1)))
+                if not i.predicated or slow:
+                    k = j
+                    continue
+                if j - k >= fork_min:
+                    todo.append((j, list(out)))
+            k += 1
+        done.append(out)
+    return done
+
+
 def sass_mix(sass: str) -> dict:
     """Instructions per normal that the terminal kernel's draw loop issues,
     from ``cuobjdump -sass`` output, in all and by group (``SASS_GROUPS``,
@@ -193,6 +228,72 @@ def generate_draw_mix(sass: str, instance: str = GENERATE_256) -> dict:
         raise RuntimeError(f"{instance}'s draw loop holds {ops['IMAD']} IMAD "
                            f"for {quads} quads: not a Philox per quad")
     return {"quads_per_iteration": quads, "draw_loop": _mix(ops, 4 * quads)}
+
+
+# generate.cu's narrow instances, bf16x3: width 128 (paths A, D, R) and
+# width 64 (path X)
+GENERATE_128 = "generate_tc_kernelILi3ELi128EE"
+GENERATE_64 = "generate_tc_kernelILi3ELi64EE"
+# SHFL of one warp sum (five butterfly steps)
+WARP_SUM_SHFL = 5
+
+
+def terminal_turn(nx: int) -> tuple:
+    """(QPL, D) of generate.cu's terminal warps at nx (term_point_at): QPL
+    = ceil(ceil(nx / 4) / 32), rounded up to 1, 2, 4 or 8, quads a lane of
+    each of D = 4, 2, 2, 1 draws a turn."""
+    qpl = -(-(-(-nx // 4)) // 32)
+    qpl = 1 << (qpl - 1).bit_length()
+    return qpl, {1: 4, 2: 2, 4: 2, 8: 1}[qpl]
+
+
+def generate_narrow_draw_mix(sass: str, nx: int,
+                             instance: str = GENERATE_128) -> dict:
+    """Instructions per normal of a narrow instance's own draws (width 128
+    by default; ``GENERATE_64``) at nx, from ``cuobjdump -sass`` output of
+    ``csrc/generate.cu``, in all and by group: static counts of each loop's
+    span (both sides of its branches). "terminal": the terminal warps' loop
+    over a point's draws at nx (term_point<QPL, D>, ``terminal_turn``), a
+    loop without products holding D warp sums (5 D SHFL) and a Philox and
+    a Box-Muller for each of its QPL D quads, the fewest MUFU of those (the
+    next QPL's loop holds more quads), over the 4 QPL D normals a lane takes
+    a turn. "integral": layer 1's K-slab loop, the path through its body
+    (``branch_paths``: its variants, one a kind of slab) that holds
+    products, no shuffle and 8 quads' Philox and Box-Mullers with the
+    fewest instructions: a slab that lies in nx drawn without antithetic
+    pairing and without a branch (layer1_slab<false, true, false>), without
+    the products, their fences and waits (HGMMA, WARPGROUP.*, BAR,
+    SYNCS.*), over 4 normals per DRAW_MUFU_PER_QUAD MUFU. Raises unless
+    both are found."""
+    ins = function_sass(sass, lambda name: instance in name)
+    qpl, d = terminal_turn(nx)
+    quads = qpl * d
+    loops = sass_loops(ins)
+    spans = [collections.Counter(i.op for i in ins[s:e + 1])
+             for s, e in loops]
+    fast = [collections.Counter(ins[k].op for k in path)
+            for se in loops for path in branch_paths(ins, *se)]
+
+    def draws(ops, n):
+        return (ops["MUFU"] >= DRAW_MUFU_PER_QUAD * n
+                and ops["IMAD"] >= DRAW_IMAD_PER_QUAD * n)
+
+    term = [ops for ops in spans if not ops["HGMMA"]
+            and ops["SHFL"] == WARP_SUM_SHFL * d and draws(ops, quads)]
+    layer1 = [ops for ops in fast if ops["HGMMA"] and not ops["SHFL"]
+              and draws(ops, 8)]
+    if not term or not layer1:
+        raise RuntimeError(f"no terminal or layer-1 draw loop in "
+                           f"{instance}'s SASS at nx={nx}")
+    t_ops = min(term, key=lambda ops: ops["MUFU"])
+    i_ops = min(layer1, key=lambda ops: sum(ops.values()))
+    i_ops = collections.Counter({
+        op: n for op, n in i_ops.items()
+        if not op.startswith(("HGMMA", "WARPGROUP", "BAR", "SYNCS"))})
+    i_quads = i_ops["MUFU"] // DRAW_MUFU_PER_QUAD
+    return {"terminal_quads": quads, "integral_quads": i_quads,
+            "terminal": _mix(t_ops, 4 * quads),
+            "integral": _mix(i_ops, 4 * i_quads)}
 
 
 # generate_pis.cu's instances (T's and H's, "default": <X3, W>)

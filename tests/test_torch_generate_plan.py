@@ -20,15 +20,19 @@ from deeppicarditeration_torch.ops import kernels
 torch.set_num_threads(1)
 
 # path A's plan (nx = 100, 4x128) as generate.cu takes it: the tiles'
-# normals in shared memory, a ring of 4 stages, the saved derivatives in
-# global scratch
+# normals in shared memory (drawn by layer 1 into its A fragments, W1's
+# columns in quad order: "quad_frags"), a ring of 4 stages, the saved
+# derivatives in global scratch
 PATH_A_PLAN = {"stages": 4, "save_smem": False, "dw_smem": True,
                "smem_bytes": 189152, "scratch_floats": 2 * 3 * 64 * 128,
-               "on_chip": False, "a_staged": False, "stage_bytes": 32768}
+               "on_chip": False, "a_staged": False, "stage_bytes": 32768,
+               "quad_frags": True}
 
 
-# path R (nx = 512, 4x128): the tiles' normals and the saved derivatives
-# in global scratch, a ring of 4 stages. Path S (nx = 1024, 4x256): the
+# path R (nx = 512, 4x128): the tiles' normals (drawn by layer 1, kept for
+# the sums) and the saved derivatives in global scratch, a ring of 4
+# stages; no row of shared memory for output columns past the consumers'
+# registers (they keep every column's sums). Path S (nx = 1024, 4x256): the
 # width-256 instance, its layer chain on chip (each warpgroup's tile image,
 # 64 KB), a ring of 4 stages of 16 KB; in global scratch the saved
 # derivatives of 3 layers and each warpgroup's tile of normals of both
@@ -36,13 +40,19 @@ PATH_A_PLAN = {"stages": 4, "save_smem": False, "dw_smem": True,
 # (tests/test_torch_highd.py counts their L2 traffic;
 # tests/test_torch_gpu.py holds them to the built kernel)
 PATH_R_PLAN = {"stages": 4, "save_smem": False, "dw_smem": False,
-               "smem_bytes": 151168,
+               "smem_bytes": 151136,
                "scratch_floats": 2 * 3 * 64 * 128 + 2 * 64 * 512,
-               "on_chip": False, "a_staged": False, "stage_bytes": 32768}
+               "on_chip": False, "a_staged": False, "stage_bytes": 32768,
+               "quad_frags": True}
+# ... and R's plan before layer 1 drew its normals (the normals drawn to
+# scratch, read back by layer 1 and by the sums), whose count the new one
+# is held against
+PATH_R_PARENT_PLAN = {**PATH_R_PLAN, "quad_frags": False}
 PATH_S_PLAN = {"stages": 4, "save_smem": False, "dw_smem": False,
                "smem_bytes": 221840,
                "scratch_floats": 2 * (3 * 64 * 256 + 2 * 64 * 1024),
-               "on_chip": True, "a_staged": False, "stage_bytes": 16384}
+               "on_chip": True, "a_staged": False, "stage_bytes": 16384,
+               "quad_frags": False}
 # ... and S's plan under the wide pass before it (the tiles' normals, the
 # saved derivatives and two buffers of layer outputs a warpgroup in
 # scratch), whose count the new one is held against
@@ -67,7 +77,8 @@ def _wide_plan(nx, n_hidden, width, smem):
             "smem_bytes": smem,
             "scratch_floats": 2 * ((n_hidden + 1) * 64 * width + 64 * nx
                                    + 64 * kernels.tc_k1(nx)),
-            "on_chip": False, "a_staged": True, "stage_bytes": 49152}
+            "on_chip": False, "a_staged": True, "stage_bytes": 49152,
+            "quad_frags": False}
 
 
 # (nx, hidden layers, width) of paths U, V, W, and the new plan's shared
@@ -155,13 +166,14 @@ def test_l2_bytes_leave_out_what_the_plan_keeps_on_chip(save_smem, dw_smem,
                                                         n_hidden):
     """nx = 511, one 64-sample point: the scratch traffic holds the saved
     derivatives (written and read once a tile) unless the plan keeps them
-    in shared memory, and the tiles' normals (written once, read twice)
-    unless it keeps those there; a single hidden layer saves none."""
+    in shared memory, and the tiles' normals (rows of whole quads: written
+    once by layer 1, read once by the sums) unless it keeps those there; a
+    single hidden layer saves none."""
     v = kernels.generate_tc_l2_bytes(8, 64, 511, n_hidden, "bf16x3",
                                      _plan(save_smem, dw_smem))
     assert v["weights"] == 8 * 1 * (512 // 64 + 4 * (n_hidden - 1)) * 32768
     saves = 0 if save_smem else (n_hidden - 1) * 64 * 128 * 4 * 2
-    normals = 0 if dw_smem else 64 * 511 * 4 * 3
+    normals = 0 if dw_smem else 64 * 512 * 4 * 2
     assert v["scratch"] == 8 * 2 * (saves + normals)
     assert v["total"] == v["weights"] + v["scratch"]
 
@@ -224,6 +236,40 @@ def test_l2_bytes_of_the_staged_a_plan_at_the_matrix_paths(path, precision,
             PATH_WIDE_PARENT_PLANS[path], width)["weights"]
     else:
         assert 0.42 < v["total"] / parent < 0.47
+
+
+@pytest.mark.parametrize("nx,width", [(100, 128), (512, 128), (7, 64),
+                                      (513, 64)])
+def test_quad_frags_pack_w1_in_quad_order(nx, width):
+    """``pack_mlp_tc(quad_frags=True)`` (generate.cu's narrow instances):
+    W1's image is the plain one with its columns moved within each k16
+    chunk so that thread t's A-fragment columns 2 t, 2 t + 1, 2 t + 8,
+    2 t + 9 of chunk c hold input columns 16 c + 4 t .. + 3 (one Philox
+    quad); the hidden layers' images and the vectors (the column sums over
+    x included) are the plain ones."""
+    g = torch.Generator().manual_seed(nx)
+    mod = MLP(1 + nx, (width,) * 3, ("ELU",) * 3, 1, generator=g)
+    img, vec = kernels.pack_mlp_tc(mod, nx)
+    qimg, qvec = kernels.pack_mlp_tc(mod, nx, quad_frags=True)
+    k1 = kernels.tc_k1(nx)
+    pos = kernels.quad_frag_columns(k1)
+    assert sorted(pos.tolist()) == list(range(k1))
+    for c in range(k1 // 16):
+        for t in range(4):
+            cols = [16 * c + 2 * t + e for e in (0, 1, 8, 9)]
+            assert pos[16 * c + 4 * t:16 * c + 4 * t + 4].tolist() == cols
+
+    def untile(flat, k):  # the _core_tiles layout of a (width, k) image
+        return flat.reshape(width // 8, k // 8, 8, 8).permute(
+            0, 2, 1, 3).reshape(width, k)
+
+    n1 = width * k1
+    for piece in range(2):
+        plain = untile(img[piece * n1:(piece + 1) * n1], k1)
+        moved = untile(qimg[piece * n1:(piece + 1) * n1], k1)
+        assert torch.equal(moved[:, pos], plain)
+    assert torch.equal(qimg[2 * n1:], img[2 * n1:])
+    assert torch.equal(qvec, vec)
 
 
 def test_wrappers_take_another_build_only_on_the_card():

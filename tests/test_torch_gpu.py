@@ -1324,7 +1324,8 @@ def test_merged_kernel_has_a_plan_at_every_nx(cuda, n_hidden):
         assert kernels.library_tc_plan(100, 4) == {
             "stages": 4, "save_smem": False, "dw_smem": True,
             "smem_bytes": 189152, "scratch_floats": 2 * 3 * 64 * 128,
-            "on_chip": False, "a_staged": False, "stage_bytes": 32768}
+            "on_chip": False, "a_staged": False, "stage_bytes": 32768,
+            "quad_frags": True}
 
 
 # ---- the PINN baseline and RESUME on the card ---------------------------
@@ -1443,14 +1444,16 @@ def test_merged_plans_at_the_high_dimension_paths(cuda):
     1024 has one at every width."""
     assert kernels.library_tc_plan(512, 4) == {
         "stages": 4, "save_smem": False, "dw_smem": False,
-        "smem_bytes": 151168,
+        "smem_bytes": 151136,
         "scratch_floats": 2 * 3 * 64 * 128 + 2 * 64 * 512,
-        "on_chip": False, "a_staged": False, "stage_bytes": 32768}
+        "on_chip": False, "a_staged": False, "stage_bytes": 32768,
+        "quad_frags": True}
     assert kernels.library_tc_plan(1024, 4, width=256) == {
         "stages": 4, "save_smem": False, "dw_smem": False,
         "smem_bytes": 221840,
         "scratch_floats": 2 * (3 * 64 * 256 + 2 * 64 * 1024),
-        "on_chip": True, "a_staged": False, "stage_bytes": 16384}
+        "on_chip": True, "a_staged": False, "stage_bytes": 16384,
+        "quad_frags": False}
     for width in kernels.GENERATE_TC_WIDTHS:
         for nx in range(1, kernels.GENERATE_TC_MAX_NX + 1, 7):
             plan = kernels.library_tc_plan(nx, 4, width=width)
@@ -1476,7 +1479,8 @@ def test_merged_plans_at_the_matrix_paths(cuda, nx, n_hidden, width, rest,
         "smem_bytes": 4 * 49152 + rest,
         "scratch_floats": 2 * ((n_hidden + 1) * 64 * width + 64 * nx
                                + 64 * kernels.tc_k1(nx)),
-        "on_chip": False, "a_staged": True, "stage_bytes": stage_bytes}
+        "on_chip": False, "a_staged": True, "stage_bytes": stage_bytes,
+        "quad_frags": False}
 
 
 # the PIS kernel's plans at paths H's and T's shapes, as
@@ -1516,10 +1520,9 @@ def test_pis_plans_at_paths_h_and_t(cuda, precision, stages, smem):
 def test_merged_kernel_at_high_dimension_matches_plain(cuda, precision, anti,
                                                        nx, width, n_hidden,
                                                        m):
-    """The tensor-core kernel at nx 512-1024 (its output columns past 512
-    in shared memory), widths 128 and 256 (the width-256 pass), against
-    the plain version in the same mode on the same noise; a ragged last
-    tile and nx off the 64-column slabs."""
+    """The tensor-core kernel at nx 512-1024, widths 128 and 256 (the
+    width-256 pass), against the plain version in the same mode on the
+    same noise; a ragged last tile and nx off the 64-column slabs."""
     b, rows = 8, m // 2 if anti else m
     eq, _, tx, u01, nt, ni = _problem(cuda, b, rows, nx, net=False)
     sol = _deep(cuda, nx, (width,) * n_hidden)
@@ -1602,6 +1605,76 @@ def test_merged_wide_pass_is_deterministic(cuda, precision, anti, nx, width,
     b, m = 140, 200
     eq, _, tx, *_ = _problem(cuda, b, 1, nx, net=False)
     sol = _deep(cuda, nx, (width,) * n_hidden)
+    kw = dict(antithetic=anti, precision=precision)
+    seed = (5 << 32) | 9
+    first = kernels.generate_with_gradients_cuda(seed, eq, sol, tx, m, **kw)
+    second = kernels.generate_with_gradients_cuda(seed, eq, sol, tx, m, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(first).all()
+    assert torch.equal(first, second)
+
+
+# the width-128 instance at high nx (layer 1 drawing its normals into its A
+# fragments, the terminal chain one warp a draw): nx off and on the 64-
+# and 4-column grids, 1024 its last; B = 140, off the grid of 132 blocks
+# (eight blocks take two points); M = 136, three tiles (the second
+# warpgroup's last one empty) and the last one ragged
+WIDTH128_NX = [511, 512, 513, 1000, 1024]
+WIDTH128_B, WIDTH128_M = 140, 136
+
+
+@pytest.mark.parametrize("precision", ["bf16x3", "default"])
+@pytest.mark.parametrize("anti", [False, True])
+@pytest.mark.parametrize("nx", WIDTH128_NX)
+def test_merged_width128_matches_plain_at_high_nx(cuda, precision, anti, nx):
+    """The width-128 instance on external noise against the plain version
+    in the same mode (4x128 ELU net)."""
+    b, m = WIDTH128_B, WIDTH128_M
+    rows = m // 2 if anti else m
+    eq, sol, tx, u01, nt, ni = _problem(cuda, b, rows, nx)
+    kw = dict(antithetic=anti, precision=precision)
+    out = kernels.generate_with_gradients_cuda(0, eq, sol, tx, m, u01, nt,
+                                               ni, **kw)
+    ref = kernels.generate_with_gradients_plain(0, eq, sol, tx, m, u01, nt,
+                                                ni, **kw)
+    torch.cuda.synchronize()
+    tol = RTOL if precision == "bf16x3" else ONE_PASS_TOL
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("anti", [False, True])
+@pytest.mark.parametrize("nx", WIDTH128_NX)
+def test_merged_width128_draws_equal_the_host_philox_at_high_nx(cuda, anti,
+                                                                nx):
+    """The width-128 instance's own draws at the first and last points
+    (keyed by their rows in the launch) equal the host Philox's fed to the
+    plain version, bf16x3."""
+    b, m, seed = WIDTH128_B, WIDTH128_M, (7 << 32) | 5
+    eq, sol, tx, *_ = _problem(cuda, b, 1, nx)
+    rows = m // 2 if anti else m
+    pts = [0, 1, b - 2, b - 1]
+    draws = [torch.from_numpy(a).to(cuda) for a in (
+        philox.estimator_times(seed, pts, rows),
+        philox.estimator_normals(seed, pts, rows, nx, philox.STREAM_TERMINAL),
+        philox.estimator_normals(seed, pts, rows, nx,
+                                 philox.STREAM_INTEGRAL))]
+    kw = dict(antithetic=anti, precision="bf16x3")
+    out = kernels.generate_with_gradients_cuda(seed, eq, sol, tx, m, **kw)
+    ref = kernels.generate_with_gradients_plain(0, eq, sol, tx[pts], m,
+                                                *draws, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out[pts], ref, rtol=RTOL, atol=RTOL)
+
+
+@pytest.mark.parametrize("precision", ["bf16x3", "default"])
+@pytest.mark.parametrize("anti", [False, True])
+@pytest.mark.parametrize("nx", WIDTH128_NX)
+def test_merged_width128_is_deterministic(cuda, precision, anti, nx):
+    """The width-128 instance launched twice on its own draws gives the
+    same output bit for bit: every sum (the terminal warps' and the
+    consumers') runs in a fixed order."""
+    b, m = WIDTH128_B, WIDTH128_M
+    eq, sol, tx, *_ = _problem(cuda, b, 1, nx)
     kw = dict(antithetic=anti, precision=precision)
     seed = (5 << 32) | 9
     first = kernels.generate_with_gradients_cuda(seed, eq, sol, tx, m, **kw)

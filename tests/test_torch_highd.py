@@ -52,6 +52,7 @@ from deeppicarditeration_torch.ops import estimators as est
 from deeppicarditeration_torch.ops import kernels
 from tests.test_torch_generate_plan import (
     PATH_H_PIS_PLAN,
+    PATH_R_PARENT_PLAN,
     PATH_R_PLAN,
     PATH_S_PLAN,
     PATH_S_WIDE_PLAN,
@@ -261,14 +262,31 @@ def test_hjb_route_at_the_pis_cap(nx, want, monkeypatch):
 def test_l2_bytes_at_path_r(precision, slab):
     """R: a ring pass (two tiles of 64) stages layer 1's 9 K-slabs (K =
     576) and 4 of each of the 3 hidden layers; the derivatives of 3 layers
-    written and read, the normals written once and read twice, a tile."""
+    written and read, the normals written once (by layer 1, which draws
+    them) and read once (by the sums), a tile."""
     b, m, nx = 4096, 16384, 512
     v = kernels.generate_tc_l2_bytes(b, m, nx, 4, precision, PATH_R_PLAN)
     passes = m // 128
     assert v["weights"] == b * passes * (9 + 12) * slab
     tiles = b * passes * 2
-    assert v["scratch"] == tiles * (3 * 64 * 128 * 4 * 2 + 64 * nx * 4 * 3)
+    assert v["scratch"] == tiles * (3 * 64 * 128 * 4 * 2 + 64 * nx * 4 * 2)
     assert v["total"] == v["weights"] + v["scratch"]
+
+
+@pytest.mark.parametrize("precision", ["bf16x3", "default"])
+def test_l2_bytes_of_a_path_r_call_against_the_parent_plan(precision):
+    """One generation call at R's shape (B = 4096, M = 16384): the new
+    plan's scratch (0.48 TB: the normals written and read once, the
+    derivatives) against the plan before it (0.62 TB: the normals read back
+    by layer 1 as well); the weight slabs alike."""
+    b, m, nx = 4096, 16384, 512
+    v = kernels.generate_tc_l2_bytes(b, m, nx, 4, precision, PATH_R_PLAN)
+    old = kernels.generate_tc_l2_bytes(b, m, nx, 4, precision,
+                                       PATH_R_PARENT_PLAN)
+    assert v["weights"] == old["weights"]
+    assert v["scratch"] == 481_036_337_152
+    assert old["scratch"] == 618_475_290_624
+    assert old["scratch"] - v["scratch"] == 4096 * 256 * 64 * nx * 4
 
 
 @pytest.mark.parametrize("precision,slab", [("bf16x3", 32768),
@@ -400,6 +418,41 @@ def test_pis_work_with_the_kernels_own_loops(precision, bound_ms):
                                   more)
     assert bigger[0] == pytest.approx(work[0] + 2 * 8 * b * m * nx)
     assert bigger[1:] == pytest.approx(work[1:])
+
+
+@pytest.mark.parametrize("precision,bound_ms", [("bf16x3", 86.58),
+                                              ("default", 85.04)])
+def test_merged_work_with_the_kernels_own_loops(precision, bound_ms):
+    """chip_smoke's work model of a merged call at R's shape (B = 4096, M =
+    16384, nx = 512, 4x128): its ISSUE bound (86.58 ms bf16x3, the tensor
+    pipe's 66.76 under it); given the width-128 instance's own draw loops
+    (``own``: per normal, the terminal warps' loop and layer 1's draws),
+    counts equal to the terminal kernel's draw give the same work, and
+    larger ones on a chain add that chain's normals' worth."""
+    import chip_smoke
+
+    b, m, nx, neurons = 4096, 16384, 512, (128,) * 4
+    n_w = 513 * 128 + 128 + 3 * (128 * 128 + 128) + 128 + 1
+    work = chip_smoke._merged_work(b, m, nx, False, neurons, n_w, precision)
+    ms, by, pipe = chip_smoke._bound(work)
+    assert (by, pipe) == ("operations", "ISSUE")
+    assert ms == pytest.approx(bound_ms, abs=0.01)
+    assert work[4] / chip_smoke.PEAK_BF16_TENSOR * 1e3 == pytest.approx(
+        66.76 if precision == "bf16x3" else 66.76 / 3, abs=0.01)
+    own = dict.fromkeys(("terminal", "integral"), chip_smoke.PER_NORMAL)
+    same = chip_smoke._merged_work(b, m, nx, False, neurons, n_w, precision,
+                                   own)
+    assert same == pytest.approx(work)
+    fp32, i32, sfu, other = chip_smoke.PER_NORMAL
+    more = {**own, "terminal": (fp32, i32 + 8, sfu, other)}
+    bigger = chip_smoke._merged_work(b, m, nx, False, neurons, n_w,
+                                     precision, more)
+    assert bigger[1] == pytest.approx(work[1] + 8 * b * m * nx)
+    assert bigger[0] == pytest.approx(work[0])
+    assert chip_smoke._narrow_own({
+        k: {"all": 40.0, "fp32": 20.0, "int": 12.0, "sfu": 0.5}
+        for k in ("terminal", "integral")}) == dict.fromkeys(
+            ("terminal", "integral"), (40.0, 12.0, 0.5, 7.5))
 
 
 @pytest.mark.parametrize("path,width,instance", [

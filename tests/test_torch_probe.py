@@ -146,6 +146,121 @@ def test_generate_draw_mix_reads_the_own_draw_loop():
         probe_roofline.generate_draw_mix(_generate_sass(13))
 
 
+def _narrow_sass(slab_imad: int, with_terminal: bool = True) -> str:
+    """A width-128 merged kernel's SASS: layer 1's K-slab loop (its
+    products, their fence and turn, and its variants of a slab: loads;
+    shuffles; 8 quads drawn, ``slab_imad`` IMAD, 2 MUFU, 10 FFMA and a
+    128-bit store each; those quads each behind a branch), a hidden
+    layer's loop
+    (products and its epilogue's 16 MUFU.EX2), and the terminal warps'
+    loops over a point's draws (quads of 14 IMAD, 2 MUFU and 10 FFMA, and
+    their sums' shared-memory updates, LDS and STS): 4 quads with the warp
+    sums of 4 draws (20 SHFL), 4 with 2 (10), 8 with 2 (10), 8 with one
+    (5), each with a sigmoid (2 MUFU)."""
+    lines = ["\t\tFunction : _ZN4_GLOBAL_18generate_tc_kernelILi3ELi128EEEvN3dpi2tc6ParamsE"]
+    ops = []
+
+    def loop(body):
+        start = len(ops)
+        body()
+        ops.append(f"@P1 BRA 0x{16 * start:x}")
+
+    def quad(imad, extra):
+        ops.extend(["IMAD.WIDE.U32 R6, R4, 0x3, RZ"] * imad
+                   + ["MUFU.RSQ R5, R4"] * 2 + ["FFMA R10, R8, R5, R10"] * 10
+                   + extra)
+
+    def slab():
+        # the variants of a slab, as generate.cu picks them at run time:
+        # external noise (loads), antithetic pairs (shuffles), a full slab
+        # (8 quads' draws, no branch), the ragged one (each quad behind its
+        # own short branch); then the products
+        forks, jumps = [], []
+
+        def variant(body, last=False):
+            if not last:
+                forks.append(len(ops))
+                ops.append("@P0 BRA 0x0")
+            body()
+            jumps.append(len(ops))
+            ops.append("BRA 0x0")
+            if not last:
+                ops[forks[-1]] = f"@P0 BRA 0x{16 * len(ops):x}"
+
+        variant(lambda: ops.extend(["LDG.E.128 R8, [R2]"] * 8
+                                   + ["FADD R1, R2, R3"] * 60))
+        variant(lambda: [quad(slab_imad, ["STG.E.128 [R2], R8",
+                                          "SHFL.BFLY PT, R3, R2, 0x4, 0x1f"])
+                         for _ in range(4)])
+        variant(lambda: [quad(slab_imad, ["STG.E.128 [R2], R8"])
+                         for _ in range(8)])
+
+        def ragged():
+            for _ in range(8):
+                ops.extend(["ISETP.GE.AND P3, PT, R1, R2, PT",
+                            f"@P3 BRA 0x{16 * (len(ops) + 2 + slab_imad + 13):x}"])
+                quad(slab_imad, ["STG.E.128 [R2], R8"])
+        variant(ragged, last=True)
+        for k in jumps:
+            ops[k] = f"BRA 0x{16 * len(ops):x}"
+        ops.extend(["BAR.SYNC.DEFER_BLOCKING R0, R1", "WARPGROUP.ARRIVE"]
+                   + ["HGMMA.64x128x16.F32.BF16 R24, R0, gdesc[UR4], R24"]
+                   * 12 + ["WARPGROUP.DEPBAR.LE gsb0, 0x0"])
+
+    def terminal(quads, shfl):
+        for _ in range(quads):
+            quad(14, ["LDS.128 R8, [R9]", "STS.128 [R9], R8"])
+        ops.extend(["SHFL.BFLY PT, R3, R2, 0x1, 0x1f"] * shfl
+                   + ["MUFU.EX2 R3, R2", "MUFU.RCP R3, R2"])
+    loop(slab)
+    loop(lambda: ops.extend(
+        ["HGMMA.64x128x16.F32.BF16 R24, R0, gdesc[UR4], R24"] * 24
+        + ["MUFU.EX2 R3, R2"] * 16 + ["IMAD R6, R4, 0x3, RZ"] * 4))
+    if with_terminal:
+        for quads, shfl in ((4, 20), (4, 10), (8, 10), (8, 5)):
+            loop(lambda quads=quads, shfl=shfl: terminal(quads, shfl))
+    ops += ["EXIT", "BRA 0x0"]
+    for k, op in enumerate(ops):
+        lines.append(f"        /*{16 * k:04x}*/                   {op} ;")
+    return "\n".join(lines) + "\n"
+
+
+def test_generate_narrow_draw_mix_reads_the_own_loops():
+    """``generate_narrow_draw_mix``: the terminal chain's loop at nx (QPL
+    quads a lane of D draws a turn: nx = 512 takes two warp sums and 8
+    quads; nx = 256 two warp sums and 4 quads, not the loop of 8 that also
+    holds two; nx = 100 four warp sums of a quad each) over its normals a
+    lane (the loop's static span); layer 1's K-slab loop on the path of
+    its full-slab variant (8 quads' draws without branches: not the loads,
+    the shuffles, nor the ragged variant's longer path) without its
+    products, fence and turn, over 4 normals per 2 MUFU. Without the
+    terminal loops, or with too few IMAD a quad in layer 1, it raises."""
+    got = probe_roofline.generate_narrow_draw_mix(_narrow_sass(14), 512)
+    term, integral = got["terminal"], got["integral"]
+    assert (got["terminal_quads"], got["integral_quads"]) == (8, 8)
+    per_quad = 14 + 2 + 10
+    assert term["all"] == (8 * (per_quad + 2) + 10 + 2 + 1) / 32
+    assert (term["shfl"], term["sfu"], term["lds"]) == (10 / 32, 18 / 32,
+                                                         8 / 32)
+    # the full slab's path: 8 quads, the three variant branches it passes
+    # (its own to the ragged variant too), its jump to the products and the
+    # loop's own branch
+    assert integral["all"] == (8 * (per_quad + 1) + 3 + 1 + 1) / 32
+    assert (integral["int"], integral["fp32"], integral["sfu"]) == (
+        8 * 14 / 32, 8 * 10 / 32, 16 / 32)
+    at_x = probe_roofline.generate_narrow_draw_mix(_narrow_sass(14), 256)
+    assert at_x["terminal_quads"] == 4
+    assert at_x["terminal"]["shfl"] == 10 / 16
+    at_a = probe_roofline.generate_narrow_draw_mix(_narrow_sass(14), 100)
+    assert at_a["terminal"]["shfl"] == 20 / 16
+    assert probe_roofline.terminal_turn(1000) == (8, 1)
+    with pytest.raises(RuntimeError, match="no terminal or layer-1"):
+        probe_roofline.generate_narrow_draw_mix(
+            _narrow_sass(14, with_terminal=False), 512)
+    with pytest.raises(RuntimeError, match="no terminal or layer-1"):
+        probe_roofline.generate_narrow_draw_mix(_narrow_sass(13), 512)
+
+
 def _pis_sass(instance: str, nest_imad: int) -> str:
     """An HJB kernel's SASS: the mixture's set-up loop (an integer
     division: IMAD, MUFU, a store, few FP32), a tile loop with a product
